@@ -5,21 +5,38 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
-  2. build: compile every hand-written kernel from the sources in the checkout;
-  3. kernel check: the fused SPADE unit (hrviton_tpu_torch/ops/spade_block.py,
-     csrc/spade_block.cu) against its plain PyTorch version at the six unit
-     shapes of the main path (up_3 and up_4 x norm_s/norm_0/norm_1, batch 4),
-     in bf16 and f32, with times beside the bound;
-  4. main path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
-     ngf=64 'most' at 1024x768, bf16, random seeded weights) answers 3
-     requests of batch 4; the unit kernel must launch exactly 6 times per
-     request, the rgb must be finite in [-1, 1], and one request is compared
-     with the same pipeline with the fused gate off (plain units on the card).
+  2. build: compile every hand-written kernel from the sources in the checkout
+     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3}.cu: four
+     kernels), one nvcc process each, all started together;
+  3. kernel check: each kernel's wrapper against its plain PyTorch version at
+     every shape its main path gives it, batch 4, in bf16 and f32, with times
+     beside the bound:
+       - the fused SPADE unit (ops/spade_block.py) at the six unit shapes of
+         the first path (up_3, up_4 x norm_s/norm_0/norm_1);
+       - the fused modulation (ops/spade_fused.py) at the nine norms of the
+         second path (up_2, up_3, up_4);
+       - the wide 3x3 conv (ops/conv3x3.py:conv3x3_wide) at its eight sites
+         (up_1's gamma/beta convs and conv_1, up_2's conv_1);
+       - the small-channel 3x3 conv (conv3x3_small) at its four sites
+         (conv_6, conv_7, up_4.conv_1, conv_img);
+  4. first path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
+     ngf=64 'most' at 1024x768, bf16, random seeded weights) with its default
+     configuration answers 3 requests of batch 4; the unit kernel must launch
+     exactly 6 times per request and no other kernel at all, the rgb must be
+     finite in [-1, 1], and one request is compared with the same pipeline
+     with the fused gate off (plain units on the card);
+  5. second path: the same pipeline under SPADEGenConfig(fused_block=False,
+     fast_spade=True, fast_conv=True) with the small-channel switch on
+     answers 3 requests of batch 4; per request the modulation kernel must
+     launch exactly 9 times, the wide conv 8 times, the small conv 4 times
+     and the fused unit never; one request is compared with the same pipeline
+     with the knobs off, and both are timed in turns.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -30,14 +47,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 B = 4                       # batch of the kernel check and of each request
-N_REQUESTS = 3
+N_REQUESTS = 3              # per path
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,    # dense bf16 tensor-core FLOP/s
             torch.float32: 67e12}      # f32 outside the tensor cores
-SOURCE = "hrviton_tpu_torch/csrc/spade_block.cu"
-REPLACES = "hrviton_tpu/ops/spade_block.py:337"   # pl.pallas_call of _kernel
+CSRC = "hrviton_tpu_torch/csrc/"
 
 # (name, h, w, c, cout, ksize, pre_act, residual): the units of up_3 / up_4
 # at 1024x768, ngf=64 (spade.py: norm_s->conv_s, norm_0->conv_0,
@@ -50,10 +67,46 @@ UNITS = [
     ("up_4.norm_0", 1024, 768, 80, 32, 3, "leaky0.2", False),
     ("up_4.norm_1", 1024, 768, 32, 32, 3, "leaky0.2", True),
 ]
+# (name, h, w, c, launches per request): the norms fast_spade admits
+MODULATE_SITES = [
+    ("up_2.norm_s/norm_0", 256, 192, 272, 2), ("up_2.norm_1", 256, 192, 128, 1),
+    ("up_3.norm_s/norm_0", 512, 384, 144, 2), ("up_3.norm_1", 512, 384, 64, 1),
+    ("up_4.norm_s/norm_0", 1024, 768, 80, 2), ("up_4.norm_1", 1024, 768, 32, 1),
+]
+# (name, h, w, cin, cout, pre_act, launches per request)
+WIDE_SITES = [
+    ("up_1.norm_s/norm_0 gamma, beta", 128, 96, 128, 528, "relu", 4),
+    ("up_1.norm_1 gamma, beta", 128, 96, 128, 256, "relu", 2),
+    ("up_1.conv_1", 128, 96, 256, 256, "leaky0.2", 1),
+    ("up_2.conv_1", 256, 192, 128, 128, "leaky0.2", 1),
+]
+SMALL_SITES = [
+    ("conv_6", 512, 384, 9, 16, None, 1),
+    ("conv_7", 1024, 768, 9, 16, None, 1),
+    ("up_4.conv_1", 1024, 768, 32, 32, "leaky0.2", 1),
+    ("conv_img", 1024, 768, 32, 3, "leaky0.2", 1),
+]
+# launches per request on each path
+FIRST_PATH = {"spade_unit": 6, "spade_modulate": 0, "conv3x3_wide": 0,
+              "conv3x3_small": 0}
+SECOND_PATH = {"spade_unit": 0,
+               "spade_modulate": sum(s[-1] for s in MODULATE_SITES),   # 9
+               "conv3x3_wide": sum(s[-1] for s in WIDE_SITES),         # 8
+               "conv3x3_small": sum(s[-1] for s in SMALL_SITES)}       # 4
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _wrappers():
+    """name -> the kernel wrapper that carries the launch count."""
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    from hrviton_tpu_torch.ops import spade_block as sb
+    from hrviton_tpu_torch.ops import spade_fused as sf
+    return {"spade_unit": sb.spade_conv_unit,
+            "spade_modulate": sf.fused_spade_modulate,
+            "conv3x3_wide": c3.conv3x3_wide, "conv3x3_small": c3.conv3x3_small}
 
 
 def device_phase():
@@ -72,10 +125,11 @@ def device_phase():
 
 
 def build_phase():
-    from hrviton_tpu_torch.ops import spade_block as sb
+    from hrviton_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    lib = sb.build(verbose=True)
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build_all(verbose=True)
+    log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _events_ms(fn, iters):
@@ -91,9 +145,28 @@ def _events_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
+def _device_ms(fn, kernel_name, iters=2):
+    """Device time of the kernels named ``kernel_name`` in one call of fn,
+    from torch.profiler (the wrapper's own packing and stats left out), or
+    None if the profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel_name in e.name]
+    return sum(us) / 1e3 / iters if us else None
+
+
+def _randn(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+
 def _unit_inputs(gen, dtype, h, w, c, cout, ks, residual):
-    def r(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device="cuda") * scale
+    r = lambda *shape, scale=1.0: _randn(gen, *shape, scale=scale)
     args = [r(B, h, w, c).to(dtype), r(B, h, w, 1), r(c, scale=0.1),
             r(B, h, w, 128).to(dtype),
             r(c, 128, 3, 3, scale=0.03), r(c, scale=0.1),
@@ -104,62 +177,130 @@ def _unit_inputs(gen, dtype, h, w, c, cout, ks, residual):
     return args, res
 
 
+def _check_site(tot, label, dtype, n, kernel, plain, library, kernel_name,
+                flops, nbytes):
+    """One shape of one kernel: run the wrapper, hold it against its plain
+    version, time wrapper, plain and library call, and add ``n`` launches'
+    worth to the totals. Raises if the kernel disagrees."""
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{label} {dtype}: non-finite kernel output")
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else 2 * 2 ** -7) * scale
+    iters = 3 if dtype == torch.bfloat16 else 2
+    ms = _events_ms(kernel, iters)
+    plain_ms = _events_ms(plain, iters)
+    lib_ms = _events_ms(library, iters) if library is not None else None
+    dev_ms = (_device_ms(kernel, kernel_name)
+              if dtype == torch.bfloat16 else None)
+    t_ops = flops / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+    log(f"{label} {str(dtype)[6:]} x{n}: max_abs {err:.3e} (tol {tol:.3e}, rel "
+        f"{err / scale:.2e}) {'ok' if err <= tol else 'FAIL'} | wrapper "
+        f"{ms:.3f} ms, kernel alone {fmt(dev_ms)}, plain {plain_ms:.3f} ms, "
+        f"library {fmt(lib_ms)}, bound {bound:.4f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s")
+    if err > tol:
+        raise RuntimeError(f"{label} {dtype}: kernel disagrees with its plain "
+                           f"version ({err} > {tol})")
+    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                   ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                   ("library_ms", lib_ms), ("kernel_alone_ms", dev_ms)):
+        if v is None:
+            tot[key] = None
+        elif tot.get(key, 0.0) is not None:
+            tot[key] = tot.get(key, 0.0) + n * v
+    tot["max_abs"] = max(tot.get("max_abs", 0.0), err)
+
+
 def kernel_phase():
-    """Kernel vs plain at each main-path unit shape. Tolerances: f32 (TF32
-    off in the plain version) 1e-4 x max|ref|, for f32 sums of 9*128 products
-    in another order; bf16 2 ulps of max|ref| (2 * 2^-7 * max|ref|), since the
-    plain version rounds gamma, beta, mod and out to bf16 and a sum in another
-    order flips single roundings."""
+    """Every kernel vs its plain version at each main-path shape. Tolerances:
+    f32 (TF32 off in the plain version) 1e-4 x max|ref|, for f32 sums of
+    9*128 or more products in another order; bf16 2 ulps of max|ref| (2 *
+    2^-7 * max|ref|), since each plain version rounds the same intermediates
+    to bf16 as its kernel and a sum in another order flips single roundings.
+    Returns {kernel name: {dtype: totals over one request's launches}}."""
+    from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.ops import spade_block as sb
+    from hrviton_tpu_torch.ops import spade_fused as sf
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    totals = {}
+    totals = {name: {} for name in FIRST_PATH}
     for dtype in (torch.bfloat16, torch.float32):
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs=0.0,
-                   ops_ms=0.0, bytes_ms=0.0)
+        elem = torch.empty(0, dtype=dtype).element_size()
+
+        tot = totals["spade_unit"][dtype] = {}
         for name, h, w, c, cout, ks, act, residual in UNITS:
             args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual)
-            out = sb.spade_conv_unit(act, *args, res)
-            torch.cuda.synchronize()
-            ref = sb.spade_conv_ref(*args, pre_act=act, residual=res)
-            if not torch.isfinite(out).all():
-                raise RuntimeError(f"{name} {dtype}: non-finite kernel output")
-            scale = ref.float().abs().max().item()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = (1e-4 if dtype == torch.float32 else 2 * 2 ** -7) * scale
-            ok = err <= tol
-            ms = _events_ms(lambda: sb.spade_conv_unit(act, *args, res), 3)
-            plain_ms = _events_ms(
-                lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res), 3)
-            flops = sb.unit_flops(B, h, w, c, cout, ks)
-            nbytes = sb.unit_bytes(B, h, w, c, cout, ks,
-                                   elem=args[0].element_size(),
-                                   residual=residual)
-            t_ops = flops / PEAK_OPS[dtype] * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            bound = max(t_ops, t_bytes)
-            log(f"unit {name} {str(dtype)[6:]}: max_abs {err:.3e} "
-                f"(tol {tol:.3e}, rel {err / scale:.2e}) "
-                f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bound:.4f} ms "
-                f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
-            if not ok:
-                raise RuntimeError(f"{name} {dtype}: kernel disagrees with "
-                                   f"its plain version ({err} > {tol})")
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bound_ms"] += bound
-            tot["max_abs"] = max(tot["max_abs"], err)
-            tot["ops_ms"] += t_ops
-            tot["bytes_ms"] += t_bytes
-            del args, res, out, ref
-        totals[dtype] = tot
-        log(f"six units, batch {B}, {str(dtype)[6:]}: kernel "
-            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
-            f"{tot['bound_ms']:.4f} ms")
-    torch.cuda.empty_cache()
+            _check_site(
+                tot, f"unit {name}", dtype, 1,
+                lambda: sb.spade_conv_unit(act, *args, res),
+                lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
+                None, "spade_unit",
+                sb.unit_flops(B, h, w, c, cout, ks),
+                sb.unit_bytes(B, h, w, c, cout, ks, elem=elem,
+                              residual=residual))
+            del args, res
+
+        tot = totals["spade_modulate"][dtype] = {}
+        for name, h, w, c, n in MODULATE_SITES:
+            args, _ = _unit_inputs(gen, dtype, h, w, c, 8, 1, False)
+            args = args[:8]
+            if dtype == torch.bfloat16:
+                # the wrapper's plain-torch part beside the kernel: the stats
+                stats_ms = _events_ms(lambda: sf.instance_stats(*args[:3]), 3)
+                tot["stats_ms"] = tot.get("stats_ms", 0.0) + n * stats_ms
+                log(f"modulate {name}: instance_stats alone {stats_ms:.3f} ms")
+            _check_site(
+                tot, f"modulate {name}", dtype, n,
+                lambda: sf.fused_spade_modulate(*args),
+                lambda: sf.modulate_ref(*args), None, "spade_modulate",
+                sf.modulate_flops(B, h, w, c),
+                sf.modulate_bytes(B, h, w, c, elem=elem))
+            del args
+
+        for key, sites, run, fused_bias, kname in (
+                ("conv3x3_wide", WIDE_SITES, c3.conv3x3_wide, True,
+                 "conv3x3_tc_kernel"),
+                ("conv3x3_small", SMALL_SITES, c3.conv3x3_small, False,
+                 "conv3x3_small_tc_kernel")):
+            tot = totals[key][dtype] = {}
+            for name, h, w, cin, cout, act, n in sites:
+                x = _randn(gen, B, h, w, cin).to(dtype)
+                wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
+                bias = _randn(gen, cout, scale=0.1)
+                # the library call: one F.conv2d on the activated input with
+                # the bias, channels_last, in the working dtype
+                xa = c3.activation(x, act).permute(0, 3, 1, 2)
+                wl = wt.to(dtype).contiguous(memory_format=torch.channels_last)
+                bl = bias.to(dtype)
+                _check_site(
+                    tot, f"{key} {name} {cin}->{cout} {h}x{w}", dtype, n,
+                    lambda: run(x, wt, bias, act),
+                    lambda: c3.conv3x3_ref(x, wt, bias, act,
+                                           fused_bias=fused_bias),
+                    lambda: F.conv2d(xa, wl, bl, 1, 1),
+                    kname if dtype == torch.bfloat16 else "conv3x3_f32_kernel",
+                    c3.conv_flops(B, h, w, cin, cout),
+                    c3.conv_bytes(B, h, w, cin, cout, elem=elem))
+                del x, xa
+        for key in totals:
+            t = totals[key][dtype]
+            fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+            log(f"{key}, one request's launches, batch {B}, {str(dtype)[6:]}: "
+                f"wrapper {t['ms']:.3f} ms, kernel alone "
+                f"{fmt(t['kernel_alone_ms'])}, plain {t['plain_ms']:.3f} ms, "
+                f"library {fmt(t['library_ms'])}, bound {t['bound_ms']:.4f} ms"
+                + (f", of the wrapper: instance_stats {t['stats_ms']:.3f} ms"
+                   if "stats_ms" in t else ""))
+        torch.cuda.empty_cache()
     return totals
 
 
@@ -174,6 +315,10 @@ def _synthetic_batch(h, w, seed):
 def _kernel_group(name):
     if "spade_unit" in name:
         return "fused unit (spade_unit kernels)"
+    if "spade_modulate" in name:
+        return "fused modulation (spade_modulate kernels)"
+    if "conv3x3_tc" in name or "conv3x3_small" in name or "conv3x3_f32" in name:
+        return "3x3 conv kernels (conv3x3.cu)"
     low = name.lower()
     if any(k in low for k in ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass")):
         return "convolutions (cuDNN)"
@@ -184,7 +329,7 @@ def _kernel_group(name):
     return "other elementwise / copies"
 
 
-def profile_phase(pipe, batch):
+def profile_phase(tag, pipe, batch):
     """One steady request under torch.profiler: device time by kernel group
     and the device's busy share of the request's wall time. Informational:
     if the profiler sees no device activity, it says so."""
@@ -198,7 +343,7 @@ def profile_phase(pipe, batch):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"{tag} profile: the profiler recorded no device time (not measured)")
         return
     groups = {}
     for e in kernels:
@@ -214,21 +359,20 @@ def profile_phase(pipe, batch):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     total = sum(groups.values())
-    log(f"profile: one request {wall_us / 1e3:.1f} ms wall, device busy "
+    log(f"{tag} profile: one request {wall_us / 1e3:.1f} ms wall, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), {len(kernels)} "
         f"kernel launches")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"profile:   {g}: {us / 1e3:.2f} ms ({100 * us / total:.1f}% of "
-            f"device time)")
+        log(f"{tag} profile:   {g}: {us / 1e3:.2f} ms ({100 * us / total:.1f}% "
+            f"of device time)")
 
 
-def main_path_phase(card):
+def _build_pipeline(tag, gen_cfg=None):
     from hrviton_tpu_torch import TryOnPipeline
     from hrviton_tpu_torch.models.spade import SPADENorm
-    from hrviton_tpu_torch.ops import spade_block as sb
-    torch.backends.cudnn.benchmark = True
     t0 = time.perf_counter()
-    pipe = TryOnPipeline(device="cuda", dtype=torch.bfloat16, seed=0)
+    pipe = TryOnPipeline(gen_cfg=gen_cfg, device="cuda", dtype=torch.bfloat16,
+                         seed=0)
     # noise_scale initialises to zero; random values make the noise path count
     g = torch.Generator().manual_seed(7)
     with torch.no_grad():
@@ -236,89 +380,178 @@ def main_path_phase(card):
             if isinstance(m, SPADENorm):
                 m.noise_scale.copy_(torch.randn(m.noise_scale.shape,
                                                 generator=g) * 0.1)
-    log(f"main path: TryOnPipeline built in {time.perf_counter() - t0:.2f} s "
+    log(f"{tag}: TryOnPipeline built in {time.perf_counter() - t0:.2f} s "
         f"({sum(p.numel() for p in pipe.generator.parameters()) / 1e6:.1f}M "
         f"generator, {sum(p.numel() for p in pipe.tocg.parameters()) / 1e6:.1f}M "
         f"tocg parameters)")
-    fh, fw = pipe.cfg.fine_height, pipe.cfg.fine_width
-    batches = [_synthetic_batch(fh, fw, seed) for seed in range(N_REQUESTS)]
+    return pipe
 
-    sb.spade_conv_unit.launches = 0
+
+def _request(pipe, batch):
+    """One timed request: (seconds, rgb, launches of each kernel in it)."""
+    wrappers = _wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rgb, _ = pipe(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return seconds, rgb, {k: w.launches - before[k] for k, w in wrappers.items()}
+
+
+def _serve(tag, pipe, batches, expect):
+    """Answer the requests; each must launch exactly ``expect`` and give a
+    finite rgb of the right shape in [-1, 1]. The launch counts are set to 0
+    just before and read just after. Returns (times, outputs, counts)."""
+    fh, fw = pipe.cfg.fine_height, pipe.cfg.fine_width
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     times, outs = [], []
     for i, batch in enumerate(batches):
-        before = sb.spade_conv_unit.launches
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        rgb, cond = pipe(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        n = sb.spade_conv_unit.launches - before
-        if n != 6:
-            raise RuntimeError(f"request {i}: {n} unit launches, expected 6")
+        seconds, rgb, n = _request(pipe, batch)
+        if n != expect:
+            raise RuntimeError(f"{tag} request {i}: launches {n}, expected {expect}")
         if tuple(rgb.shape) != (B, fh, fw, 3):
             raise RuntimeError(f"rgb shape {tuple(rgb.shape)}")
         if not torch.isfinite(rgb).all() or rgb.abs().max().item() > 1.0:
             raise RuntimeError("rgb not finite or outside [-1, 1]")
+        times.append(seconds)
         outs.append(rgb)
-        log(f"request {i}: {times[-1] * 1e3:.1f} ms, 6 unit launches, rgb "
-            f"mean {rgb.float().mean().item():.4f} std "
-            f"{rgb.float().std().item():.4f}")
-    launches = sb.spade_conv_unit.launches
+        log(f"{tag} request {i}: {seconds * 1e3:.1f} ms, launches {n}, rgb mean "
+            f"{rgb.float().mean().item():.4f} std {rgb.float().std().item():.4f}")
+    return times, outs, {k: w.launches for k, w in wrappers.items()}
+
+
+def _compare(tag, got, want):
+    """The kernel pipeline's rgb against the same pipeline on the library
+    path, bf16: both round the same intermediates to bf16 (relative step
+    2^-8); sums in another order flip single roundings, which conv_img and
+    tanh carry to the rgb. Limits: max 5% of max|rgb|, mean 1% of mean|rgb|
+    of the library path's output."""
+    d = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    lim_max, lim_mean = 0.05 * ref.max().item(), 0.01 * ref.mean().item()
+    log(f"{tag} (bf16): max_abs {d.max().item():.4e} mean_abs "
+        f"{d.mean().item():.4e} (limits {lim_max:.3e} / {lim_mean:.3e})")
+    if d.max().item() > lim_max or d.mean().item() > lim_mean:
+        raise RuntimeError(f"{tag}: the two pipelines disagree")
+
+
+def first_path_phase(card):
+    """The default configuration: the fused unit at up_3 and up_4."""
+    torch.backends.cudnn.benchmark = True
+    pipe = _build_pipeline("first path")
+    fh, fw = pipe.cfg.fine_height, pipe.cfg.fine_width
+    batches = [_synthetic_batch(fh, fw, seed) for seed in range(N_REQUESTS)]
+    times, outs, counts = _serve("first path", pipe, batches, FIRST_PATH)
 
     # the first request against the same pipeline with the fused gate off;
     # the second gate-off run is timed (the first one tunes cuDNN's convs)
     pipe.generator.set_fused(False)
-    before = sb.spade_conv_unit.launches
-    rgb_plain, _ = pipe(batches[0])
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    pipe(batches[1])
-    torch.cuda.synchronize()
-    unfused_s = time.perf_counter() - t
+    _, rgb_plain, n = _request(pipe, batches[0])
+    unfused_s, _, n2 = _request(pipe, batches[1])
     pipe.generator.set_fused(True)
-    if sb.spade_conv_unit.launches != before:
-        raise RuntimeError("the unfused pipeline launched the fused kernel")
-    d = (outs[0].float() - rgb_plain.float()).abs()
-    ref = rgb_plain.float().abs()
-    # bf16: both versions round gamma, beta, mod and out to bf16 (relative
-    # step 2^-8); sums in another order flip single roundings, which conv_img
-    # and tanh carry to the rgb. Limits: max 5% of max|rgb|, mean 1% of
-    # mean|rgb| of the unfused output.
-    lim_max, lim_mean = 0.05 * ref.max().item(), 0.01 * ref.mean().item()
-    log(f"fused vs unfused pipeline (bf16): max_abs {d.max().item():.4e} "
-        f"mean_abs {d.mean().item():.4e} (limits {lim_max:.3e} / "
-        f"{lim_mean:.3e})")
-    if d.max().item() > lim_max or d.mean().item() > lim_mean:
-        raise RuntimeError("fused pipeline disagrees with the unfused one")
-    profile_phase(pipe, batches[2])
+    if any(n.values()) or any(n2.values()):
+        raise RuntimeError("the unfused pipeline launched a kernel")
+    _compare("first path, fused vs unfused pipeline", outs[0], rgb_plain)
+    profile_phase("first path", pipe, batches[2])
     steady = sum(times[1:]) / len(times[1:])
-    log(f"main path: {steady * 1e3:.1f} ms/request (batch {B}, steady, "
+    log(f"first path: {steady * 1e3:.1f} ms/request (batch {B}, steady, "
         f"requests 2-{N_REQUESTS}), {B / steady:.2f} img/s, first request "
         f"{times[0] * 1e3:.1f} ms; fused gate off: {unfused_s * 1e3:.1f} "
         f"ms/request | {card}")
-    return launches
+    return counts
+
+
+def second_path_phase(card):
+    """The generator's dispatch knobs on: fused modulation, wide and
+    small-channel 3x3 conv kernels; the fused unit off."""
+    from hrviton_tpu_torch import SPADEGenConfig
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    from hrviton_tpu_torch.ops import spade_fused as sf
+    on_cfg = SPADEGenConfig(ngf=64, num_upsampling_layers="most",
+                            fused_block=False, fast_spade=True, fast_conv=True)
+    off_cfg = dataclasses.replace(on_cfg, fast_spade=False, fast_conv=False)
+    pipe = _build_pipeline("second path", on_cfg)
+    fh, fw = pipe.cfg.fine_height, pipe.cfg.fine_width
+    batches = [_synthetic_batch(fh, fw, seed) for seed in range(N_REQUESTS)]
+    no_launch = dict.fromkeys(SECOND_PATH, 0)
+
+    def knobs(on):
+        pipe.generator.cfg = on_cfg if on else off_cfg
+        c3._VIEWS = on
+
+    views_before = c3._VIEWS
+    try:
+        knobs(True)
+        times, outs, counts = _serve("second path", pipe, batches, SECOND_PATH)
+        if c3.fast_conv_enabled() or sf.fast_spade_enabled():
+            raise RuntimeError("a generator left its dispatch switch on")
+        # knobs off: the same pipeline on the library path. The first run
+        # tunes cuDNN's convs; then off, on, on, off are timed in turns.
+        knobs(False)
+        _, rgb_plain, n = _request(pipe, batches[0])
+        if n != no_launch:
+            raise RuntimeError(f"the knobs-off pipeline launched a kernel: {n}")
+        _compare("second path, knobs on vs off", outs[0], rgb_plain)
+        turns = {True: [], False: []}
+        for on in (False, True, True, False):
+            knobs(on)
+            seconds, _, n = _request(pipe, batches[1])
+            if n != (SECOND_PATH if on else no_launch):
+                raise RuntimeError(f"knobs {'on' if on else 'off'}: launches {n}")
+            turns[on].append(seconds * 1e3)
+        knobs(True)
+        profile_phase("second path", pipe, batches[2])
+    finally:
+        c3._VIEWS = views_before
+    steady = sum(times[1:]) / len(times[1:])
+    log(f"second path: {steady * 1e3:.1f} ms/request (batch {B}, steady, "
+        f"requests 2-{N_REQUESTS}), {B / steady:.2f} img/s, first request "
+        f"{times[0] * 1e3:.1f} ms; in turns, knobs on "
+        f"{', '.join(f'{t:.1f}' for t in turns[True])} ms, knobs off "
+        f"{', '.join(f'{t:.1f}' for t in turns[False])} ms | {card}")
+    return counts
+
+
+KERNELS = [
+    # (key, name, source, file:line of the TPU kernel's pl.pallas_call)
+    ("spade_unit", "spade_unit (six units of one batch-4 request: up_3, up_4 x "
+     "norm_s/norm_0/norm_1, bf16)", "spade_block.cu",
+     "hrviton_tpu/ops/spade_block.py:337"),
+    ("spade_modulate", "spade_modulate (nine norms of one batch-4 request: "
+     "up_2, up_3, up_4 x norm_s/norm_0/norm_1, bf16)", "spade_fused.cu",
+     "hrviton_tpu/ops/spade_fused.py:249"),
+    ("conv3x3_wide", "conv3x3_wide (eight convs of one batch-4 request: up_1 "
+     "gamma/beta x3 and conv_1, up_2 conv_1, bf16)", "conv3x3.cu",
+     "hrviton_tpu/ops/conv3x3.py:224"),
+    ("conv3x3_small", "conv3x3_small (four convs of one batch-4 request: "
+     "conv_6, conv_7, up_4.conv_1, conv_img, bf16)", "conv3x3.cu",
+     "hrviton_tpu/ops/conv3x3.py:426"),
+]
 
 
 def main():
     card = device_phase()
     build_phase()
     totals = kernel_phase()
-    launches = main_path_phase(card)
-    t = totals[torch.bfloat16]
-    record = {"kernels": [{
-        "name": "spade_unit (six units of one batch-4 request: up_3, up_4 x "
-                "norm_s/norm_0/norm_1, bf16)",
-        "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": t["max_abs"],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
-        "library_ms": None,
-    }]}
+    launches = first_path_phase(card)
+    torch.cuda.empty_cache()
+    second = second_path_phase(card)
+    launches.update({k: v for k, v in second.items() if SECOND_PATH[k]})
+    record = {"kernels": []}
+    for key, name, source, replaces in KERNELS:
+        t = totals[key][torch.bfloat16]
+        if launches[key] <= 0:
+            raise RuntimeError(f"{key}: no launch on its main path")
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": t["max_abs"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+            "library_ms": t["library_ms"]})
     log(card)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

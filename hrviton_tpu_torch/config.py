@@ -35,12 +35,19 @@ class SPADEGenConfig:
     norm_g: str = "spectralaliasinstance"
     fine_height: int = 1024
     fine_width: int = 768
-    s2d_tail: bool = False        # not ported yet: SPADEGenerator raises
+    s2d_tail: bool = False        # run up_3, up_4 and conv_img of 'most' in the
+                                  # space-to-depth domain (ops/s2d.py: plain
+                                  # tensor code, no kernel)
     fused_block: bool = True      # fused {norm -> act -> conv} CUDA unit at
                                   # eligible scales (ops/spade_block.py)
-    fast_conv: bool = False       # not ported yet: SPADEGenerator raises
-    fast_spade: bool = False      # not ported yet: SPADEGenerator raises
-    merge_gamma_beta: bool = False  # not ported yet: SPADEGenerator raises
+    fast_conv: bool = False       # eligible 3x3 convs (Cin % 128 == 0, h >= 128)
+                                  # go to the wide conv kernel
+                                  # (ops/conv3x3.py:conv3x3_wide)
+    fast_spade: bool = False      # eligible norms (h >= 256) go to the fused
+                                  # modulation kernel (ops/spade_fused.py)
+    merge_gamma_beta: bool = False  # conv_gamma and conv_beta of a plain norm
+                                    # run as one 3x3 conv of twice the width
+                                    # (through the same dispatch as any conv)
 
     @property
     def num_up_layers(self) -> int:

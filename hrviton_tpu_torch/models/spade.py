@@ -6,30 +6,70 @@ tree. Per-norm noise is injected in eval as well; it comes from a noise
 source (see ``noise_source``) drawn in the JAX package's order: block by
 block, and within a block norm_s, norm_0, norm_1.
 
-At eligible scales (``ops/spade_block.fused_spade_conv_eligible``: the
-up_3 and up_4 blocks on a CUDA device) each {SPADENorm -> act -> conv} pair
-runs as one fused CUDA unit; elsewhere the plain modules run.
+Dispatch inside a block follows the JAX package. With ``fused_block``, at
+eligible scales (``ops/spade_block.fused_spade_conv_eligible``: the up_3 and
+up_4 blocks on a CUDA device) each {SPADENorm -> act -> conv} pair runs as one
+fused CUDA unit. Otherwise a block in the space-to-depth domain
+(``s2d_tail``) runs the ``ops/s2d.py`` formulation; a norm that
+``fast_spade`` admits (``ops/spade_fused.fused_spade_eligible``) runs the
+fused modulation kernel; and everything else runs the plain modules, whose
+3x3 convs go to the ``ops/conv3x3.py`` kernels where ``fast_conv`` or the
+small-channel switch admits them. ``SPADEGenerator.forward`` enters
+``fast_conv``, ``fast_spade`` and ``merge_gamma_beta`` from its config for the
+length of the call and restores them after, so a knob of one generator never
+reaches another model.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+import contextlib
+from typing import Callable, Sequence, Union
 
 import torch
 import torch.nn as nn
 
 from hrviton_tpu_torch.config import SPADEGenConfig
 from hrviton_tpu_torch.device import resolve_device
-from hrviton_tpu_torch.nn.layers import Conv2d, SpectralNorm2d, instance_norm
+from hrviton_tpu_torch.nn.layers import (Conv2d, SpectralNorm2d, conv_forward,
+                                         instance_norm)
+from hrviton_tpu_torch.ops.conv3x3 import fast_conv
 from hrviton_tpu_torch.ops.parse import onehot
 from hrviton_tpu_torch.ops.resize import interpolate_nchw
+from hrviton_tpu_torch.ops.s2d import (concat_s2d, from_s2d, instance_norm_s2d,
+                                       to_s2d, upsample2x_s2d)
 from hrviton_tpu_torch.ops.spade_block import (fused_spade_conv_eligible,
                                                spade_conv_unit)
+from hrviton_tpu_torch.ops.spade_fused import (fast_spade,
+                                               fused_spade_eligible,
+                                               fused_spade_modulate)
 
-__all__ = ["SPADENorm", "SPADEResBlock", "SPADEGenerator", "noise_source"]
+__all__ = ["SPADENorm", "SPADEResBlock", "SPADEGenerator", "noise_source",
+           "enable_merge_gamma_beta", "merge_gamma_beta"]
 
 _NHIDDEN = 128
 _CL = torch.channels_last
+
+# Merged gamma+beta modulation conv: one 3x3 conv with the two kernels
+# concatenated on the output axis, split after. Exactly equivalent (each
+# output channel sees the same taps) and the same parameters either way. Off
+# by default (SPADEGenConfig.merge_gamma_beta, or this switch).
+_MERGE_GB = False
+
+
+def enable_merge_gamma_beta(on: bool = True) -> None:
+    global _MERGE_GB
+    _MERGE_GB = bool(on)
+
+
+@contextlib.contextmanager
+def merge_gamma_beta(on: bool = True):
+    global _MERGE_GB
+    prev = _MERGE_GB
+    _MERGE_GB = bool(on)
+    try:
+        yield
+    finally:
+        _MERGE_GB = prev
 
 NoiseArg = Union[torch.Generator, Callable, Sequence[torch.Tensor]]
 
@@ -63,6 +103,10 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
 
+def _nhwc_view(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
 class SPADENorm(nn.Module):
     """SPADENorm 'aliasinstance' (reference network_generator.py:75-122)."""
 
@@ -82,14 +126,45 @@ class SPADENorm(nn.Module):
         self.conv_gamma = Conv2d(_NHIDDEN, norm_nc, 3, padding=1, **kw)
         self.conv_beta = Conv2d(_NHIDDEN, norm_nc, 3, padding=1, **kw)
 
-    def forward(self, x, seg, draw):
-        b, _, h, w = x.shape
-        noise = _nchw(draw((b, h, w, 1)))
-        xn = x + (noise * self.noise_scale.view(1, -1, 1, 1)).to(x.dtype)
+    def forward(self, x, seg, draw, s2d: bool = False):
+        b, c, h, w = x.shape
+        if s2d:
+            # x and seg are space-to-depth tensors (ops/s2d.py): the same
+            # math and parameters. The noise field is drawn at the plain
+            # full-res shape, so its values match the plain path's.
+            nc = c // 4
+            noise2 = to_s2d(draw((b, 2 * h, 2 * w, 1)))
+            noise = noise2.repeat_interleave(nc, dim=-1) * self.noise_scale.repeat(4)
+            xn = x + _nchw(noise).to(x.dtype)
+            normalized = _nchw(instance_norm_s2d(_nhwc_view(xn), nc))
+            actv = self.conv_shared(seg, s2d=True)
+            gamma = self.conv_gamma(actv, pre_act="relu", s2d=True)
+            beta = self.conv_beta(actv, pre_act="relu", s2d=True)
+            return normalized * (1.0 + gamma) + beta
+
+        noise = draw((b, h, w, 1))
+        if fused_spade_eligible((b, h, w, c), _NHIDDEN, x.dtype, x.device):
+            # the fused modulation kernel (ops/spade_fused.py): same math
+            # and parameters; conv_shared's output stays pre-relu
+            actv = self.conv_shared(seg)
+            return _nchw(fused_spade_modulate(
+                _nhwc(x), noise, self.noise_scale, _nhwc(actv),
+                self.conv_gamma.weight, self.conv_gamma.bias,
+                self.conv_beta.weight, self.conv_beta.bias))
+
+        xn = x + (_nchw(noise) * self.noise_scale.view(1, -1, 1, 1)).to(x.dtype)
         normalized = instance_norm(xn)
         actv = self.conv_shared(seg)
-        gamma = self.conv_gamma(actv, pre_act="relu")
-        beta = self.conv_beta(actv, pre_act="relu")
+        if _MERGE_GB:
+            gb = conv_forward(
+                actv,
+                torch.cat([self.conv_gamma.weight, self.conv_beta.weight]).to(x.dtype),
+                torch.cat([self.conv_gamma.bias, self.conv_beta.bias]),
+                1, 1, pre_act="relu")
+            gamma, beta = gb[:, :c], gb[:, c:]
+        else:
+            gamma = self.conv_gamma(actv, pre_act="relu")
+            beta = self.conv_beta(actv, pre_act="relu")
         return normalized * (1.0 + gamma) + beta
 
 
@@ -141,10 +216,13 @@ class SPADEResBlock(nn.Module):
             None if residual is None else _nhwc(residual))
         return _nchw(out)
 
-    def forward(self, x, seg, draw):
-        """x: (B, C, H, W); seg: (B, label_nc, h, w) float; draw: noise source."""
-        seg = interpolate_nchw(seg, size=x.shape[2:], mode="nearest")
-        if self.fused and fused_spade_conv_eligible(
+    def forward(self, x, seg, draw, s2d: bool = False):
+        """x: (B, C, H, W); seg: (B, label_nc, h, w) float; draw: noise
+        source. With ``s2d`` both arrive as space-to-depth tensors on one
+        grid (the caller resizes seg)."""
+        if not s2d:
+            seg = interpolate_nchw(seg, size=x.shape[2:], mode="nearest")
+        if self.fused and not s2d and fused_spade_conv_eligible(
                 x.shape[2], x.shape[3], _NHIDDEN, x.dtype, x.device):
             xs = (self._unit(self.norm_s, self.conv_s, x, seg, draw, None)
                   if self.learned_shortcut else x)
@@ -152,11 +230,13 @@ class SPADEResBlock(nn.Module):
             return self._unit(self.norm_1, self.conv_1, dx, seg, draw,
                               "leaky0.2", residual=xs)
         if self.learned_shortcut:
-            xs = self.conv_s(self.norm_s(x, seg, draw))
+            xs = self.conv_s(self.norm_s(x, seg, draw, s2d), s2d=s2d)
         else:
             xs = x
-        dx = self.conv_0(self.norm_0(x, seg, draw), pre_act="leaky0.2")
-        dx = self.conv_1(self.norm_1(dx, seg, draw), pre_act="leaky0.2")
+        dx = self.conv_0(self.norm_0(x, seg, draw, s2d), pre_act="leaky0.2",
+                         s2d=s2d)
+        dx = self.conv_1(self.norm_1(dx, seg, draw, s2d), pre_act="leaky0.2",
+                         s2d=s2d)
         return xs + dx
 
 
@@ -168,9 +248,6 @@ class SPADEGenerator(nn.Module):
             raise ValueError(
                 "num_upsampling_layers must be 'more' or 'most' ('normal' is "
                 "unreachable in the reference)")
-        for knob in ("s2d_tail", "fast_conv", "fast_spade", "merge_gamma_beta"):
-            if getattr(cfg, knob):
-                raise NotImplementedError(f"SPADEGenConfig.{knob} is not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
         nf = cfg.ngf
@@ -206,14 +283,27 @@ class SPADEGenerator(nn.Module):
         """x: (N, H, W, input_nc) NHWC; seg: (N, H, W, 7) float one-hot or
         (N, H, W) int labels in [0, 7); noise: see ``noise_source``.
         Returns (N, H, W, 3) in [-1, 1]."""
+        # the config's dispatch knobs hold for this call and are restored
+        # after it (the ops-level switches stay available to experiments)
+        with contextlib.ExitStack() as stack:
+            if self.cfg.fast_conv:
+                stack.enter_context(fast_conv(True))
+            if self.cfg.fast_spade:
+                stack.enter_context(fast_spade(True))
+            if self.cfg.merge_gamma_beta:
+                stack.enter_context(merge_gamma_beta(True))
+            return self._forward(x, seg, noise)
+
+    def _forward(self, x, seg, noise: NoiseArg):
         cfg = self.cfg
+        nf = cfg.ngf
         draw = noise_source(noise, x.device)
         sh, sw = cfg.latent_hw
         xc = _nchw(x)
         labels = seg if seg.dim() == 3 else None
 
-        def seg_for(ref):
-            th, tw = ref.shape[2], ref.shape[3]
+        def seg_at(th, tw):
+            """seg at (th, tw), NCHW one-hot."""
             if labels is None:
                 return interpolate_nchw(_nchw(seg), size=(th, tw),
                                         mode="nearest")
@@ -225,9 +315,14 @@ class SPADEGenerator(nn.Module):
                 lab = labels[:, ::lh // th, ::lw // tw]
             return _nchw(onehot(lab, cfg.gen_semantic_nc, dtype=x.dtype))
 
+        # s2d tail (ops/s2d.py): the two full-res blocks and conv_img of
+        # 'most' run in the space-to-depth domain; same parameters
+        use_s2d = cfg.s2d_tail and cfg.num_upsampling_layers == "most"
+        n_plain = 6 if use_s2d else len(self.block_names)
+
         # one feature map per block ('more' never reads conv_7's scale)
         features = []
-        for i in range(len(self.block_names)):
+        for i in range(n_plain):
             sample = interpolate_nchw(xc, size=(sh * 2 ** i, sw * 2 ** i),
                                       mode="nearest")
             features.append(getattr(self, f"conv_{i}")(
@@ -236,10 +331,29 @@ class SPADEGenerator(nn.Module):
         def up(t):
             return interpolate_nchw(t, scale_factor=2, mode="nearest")
 
-        h = self.head_0(features[0], seg_for(features[0]), draw)
-        for i, name in enumerate(self.block_names[1:], start=1):
+        h = self.head_0(features[0], seg_at(*features[0].shape[2:]), draw)
+        for i, name in enumerate(self.block_names[1:n_plain], start=1):
             h = up(h)
             h = torch.cat([h, features[i]], dim=1).contiguous(memory_format=_CL)
-            h = getattr(self, name)(h, seg_for(features[i]), draw)
+            h = getattr(self, name)(h, seg_at(*features[i].shape[2:]), draw)
+
+        if use_s2d:
+            # the nearest downscales of the input pyramid are stride-2 slices,
+            # the nearest x2 upsample is a channel tile (upsample2x_s2d), and
+            # the seg pyramid maps the same way
+            fh, fw = x.shape[1], x.shape[2]
+            feat6 = self.conv_6(_nchw(to_s2d(x[:, ::2, ::2, :])), s2d=True)
+            feat7 = self.conv_7(_nchw(to_s2d(x)), s2d=True)
+            seg6 = _nchw(to_s2d(_nhwc_view(seg_at(fh // 2, fw // 2))))
+            seg7 = _nchw(to_s2d(_nhwc_view(seg_at(fh, fw))))
+            h = upsample2x_s2d(_nhwc_view(h))                 # up to 512x384
+            h = concat_s2d([h, _nhwc_view(feat6)], [nf * 2, 16])
+            h = self.up_3(_nchw(h), seg6, draw, s2d=True)
+            h = upsample2x_s2d(from_s2d(_nhwc_view(h), nf))   # up to 1024x768
+            h = concat_s2d([h, _nhwc_view(feat7)], [nf, 16])
+            h = self.up_4(_nchw(h), seg7, draw, s2d=True)
+            h = self.conv_img(h, pre_act="leaky0.2", s2d=True)
+            return torch.tanh(from_s2d(_nhwc_view(h), 3))
+
         h = self.conv_img(h, pre_act="leaky0.2")
         return torch.tanh(h).permute(0, 2, 3, 1)

@@ -19,19 +19,48 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hrviton_tpu_torch.device import resolve_device
+from hrviton_tpu_torch.ops import conv3x3 as c3
+from hrviton_tpu_torch.ops import s2d
+from hrviton_tpu_torch.ops.conv3x3 import activation
 
 __all__ = ["Conv2d", "BatchNorm2d", "InstanceNorm2d", "SpectralNorm2d",
-           "instance_norm", "activation", "init_weights"]
+           "instance_norm", "activation", "conv_forward", "init_weights"]
 
 
-def activation(x: torch.Tensor, kind: Optional[str]) -> torch.Tensor:
-    if kind is None:
-        return x
-    if kind == "relu":
-        return F.relu(x)
-    if kind == "leaky0.2":
-        return F.leaky_relu(x, 0.2)
-    raise ValueError(kind)
+def conv_forward(x, weight, bias, stride: int = 1, padding: int = 0,
+                 pre_act: Optional[str] = None, s2d_domain: bool = False):
+    """pre_act -> conv -> bias on an NCHW (channels_last) tensor, ``weight``
+    OIHW and already in x's dtype.
+
+    A 3x3 stride-1 pad-1 conv goes to the hand-written kernel whose gate
+    admits it (``ops/conv3x3.kernel_for``), with the pre-activation fused;
+    every other conv, and every conv no gate admits, is the library's. With
+    ``s2d_domain`` x is a space-to-depth tensor (4 * Cin channels,
+    ``ops/s2d.py``) while ``weight`` keeps the plain Cin: the same parameters
+    serve both domains."""
+    ksize = tuple(weight.shape[-2:])
+    is_3x3 = ksize == (3, 3) and stride == 1 and padding == 1
+    if s2d_domain:
+        xs = activation(x, pre_act).permute(0, 2, 3, 1)
+        if is_3x3:
+            y = s2d.conv3x3_s2d(xs, weight, bias, x.dtype)
+        elif ksize == (1, 1) and stride == 1 and padding == 0:
+            y = s2d.conv1x1_s2d(xs, weight, bias, x.dtype)
+        else:
+            raise NotImplementedError(
+                f"s2d conv only for 3x3/s1/p1 and 1x1: {ksize}")
+        return y.permute(0, 3, 1, 2)
+    if is_3x3:
+        xs = x.permute(0, 2, 3, 1)
+        run = c3.kernel_for(xs.shape, weight.shape, (1, 1), (1, 1), x.dtype,
+                            x.device)
+        if run is not None:
+            # the kernels read contiguous NHWC: a channels_last tensor is
+            # that already, anything else is copied; the result goes back as
+            # a channels_last view, so the next library conv does not copy
+            return run(xs.contiguous(), weight, bias, pre_act).permute(0, 3, 1, 2)
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv2d(activation(x, pre_act), weight, b, stride, padding)
 
 
 def _std(init: str, weight: torch.Tensor) -> float:
@@ -45,7 +74,8 @@ def _std(init: str, weight: torch.Tensor) -> float:
 
 class Conv2d(nn.Module):
     """Conv with torch padding/stride semantics and an optional pre-activation
-    ('relu' | 'leaky0.2') applied to the input."""
+    ('relu' | 'leaky0.2') applied to the input; ``s2d=True`` takes a
+    space-to-depth tensor (see ``conv_forward``)."""
 
     _jax_names = {"kernel": "weight", "bias": "bias"}
 
@@ -60,11 +90,9 @@ class Conv2d(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_ch, device=dev, dtype=dtype))
                      if bias else None)
 
-    def forward(self, x, pre_act: Optional[str] = None):
-        x = activation(x, pre_act)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
-                        self.padding)
+    def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False):
+        return conv_forward(x, self.weight.to(x.dtype), self.bias, self.stride,
+                            self.padding, pre_act, s2d)
 
 
 class BatchNorm2d(nn.Module):
@@ -136,11 +164,9 @@ class SpectralNorm2d(nn.Module):
                           w.float().reshape(w.shape[0], -1) @ self.v.float())
         return (w / sigma.to(w.dtype)).to(dtype)
 
-    def forward(self, x, pre_act: Optional[str] = None):
-        x = activation(x, pre_act)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.normalized_weight(x.dtype), b, self.stride,
-                        self.padding)
+    def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False):
+        return conv_forward(x, self.normalized_weight(x.dtype), self.bias,
+                            self.stride, self.padding, pre_act, s2d)
 
 
 @torch.no_grad()

@@ -1,0 +1,295 @@
+"""Fused [pre-activation ->] 3x3 stride-1 pad-1 conv [-> bias].
+
+PyTorch counterpart of ``hrviton_tpu/ops/conv3x3.py``. Two hand-written CUDA
+kernels for sm_90a (``csrc/conv3x3.cu``) stand where the JAX package has two
+Pallas kernels:
+
+  * ``conv3x3_wide``: wide channel counts (the JAX ``_conv3x3_pallas``). The
+    bias joins the f32 accumulator and the sum is rounded once.
+  * ``conv3x3_small``: small channel counts, 3 * Cin <= 128 and 3 * Cout <=
+    128 (the JAX ``_conv3x3_views_pallas``). The accumulator is rounded,
+    then the bias is added in the output dtype.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and takes the
+plain version ``conv3x3_ref``, with its own rounding chain, only for a CPU
+tensor. ``conv3x3`` sends a call to the kernel its gate admits, as the JAX
+``conv3x3`` does: the small-channel gate (``_views_eligible``, under the
+module switch ``_VIEWS``) is asked first, then ``conv3x3_eligible`` (under
+``fast_conv``). The layers ask the same gates through ``kernel_for`` and keep
+their library convolution where neither admits the call. The backward pieces
+of the JAX module are not ported yet.
+
+Layouts: activations NHWC (contiguous), weights OIHW (the port's module
+layout), so a gate's ``w_shape`` is (Cout, Cin, 3, 3).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from hrviton_tpu_torch.ops import _build
+from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
+                                          check_tensor, pad_to)
+
+__all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
+           "conv3x3_eligible", "kernel_for", "enable_fast_conv",
+           "fast_conv_enabled", "fast_conv", "activation", "leaky_slope",
+           "conv_flops", "conv_bytes"]
+
+_TH = 8          # the JAX kernels' rows per grid step: their gates' row rule
+_ENABLED = False
+# The small-channel kernel's switch: a module switch with no config knob and
+# off by default, as in the JAX package. Callers set it and restore it.
+_VIEWS = False
+
+
+def enable_fast_conv(on: bool = True) -> None:
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+def fast_conv_enabled() -> bool:
+    return _ENABLED
+
+
+@contextlib.contextmanager
+def fast_conv(on: bool = True):
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(on)
+    try:
+        yield
+    finally:
+        _ENABLED = prev
+
+
+@functools.lru_cache(maxsize=None)
+def leaky_slope(dtype: torch.dtype) -> float:
+    """0.2 rounded to ``dtype``. The JAX package multiplies a tensor by the
+    slope in the tensor's own dtype (bf16: 0.2001953125), so the port does
+    too; in float32 this is float32(0.2)."""
+    return float(torch.tensor(0.2, dtype=dtype))
+
+
+def activation(x: torch.Tensor, kind: Optional[str]) -> torch.Tensor:
+    if kind is None:
+        return x
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "leaky0.2":
+        return F.leaky_relu(x, leaky_slope(x.dtype))
+    raise ValueError(kind)
+
+
+def _is_3x3_s1_p1(w_shape, stride, padding) -> bool:
+    return (tuple(w_shape[-2:]) == (3, 3) and tuple(stride) == (1, 1)
+            and tuple(padding) == (1, 1))
+
+
+def _on_card(dtype, device) -> bool:
+    return torch.device(device).type == "cuda" and dtype in KERNEL_DTYPES
+
+
+def conv3x3_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
+    """Gate of the wide kernel: ``fast_conv`` on, and the JAX gate's shape
+    rules (h % 8 == 0, w % 8 == 0, h > 8, h >= 128, w >= 96, Cin % 128 == 0)
+    on a CUDA device in float32 or bfloat16. Always false on the CPU."""
+    if not _ENABLED or not _is_3x3_s1_p1(w_shape, stride, padding):
+        return False
+    _, h, w, cin = x_shape
+    if not (h % _TH == 0 and w % 8 == 0 and h > _TH):
+        return False
+    return (_on_card(dtype, device) and h >= 128 and w >= 96
+            and cin % 128 == 0)
+
+
+def _views_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
+    """Gate of the small-channel kernel: ``_VIEWS`` on, and the JAX gate's
+    shape rules (h % 8 == 0, w % 128 == 0, h > 8, h >= 512, 3 * Cin <= 128,
+    3 * Cout <= 128) on a CUDA device in float32 or bfloat16."""
+    if not _VIEWS or not _is_3x3_s1_p1(w_shape, stride, padding):
+        return False
+    _, h, w, cin = x_shape
+    if not (h % _TH == 0 and w % 128 == 0 and h > _TH):
+        return False
+    return (_on_card(dtype, device) and w_shape[0] * 3 <= 128
+            and cin * 3 <= 128 and h >= 512)
+
+
+def conv3x3_ref(x, w, bias=None, pre_act=None, fused_bias: bool = False):
+    """Plain PyTorch version (the CPU path and the gold of both kernels).
+
+    x: (N, H, W, Cin); w: (Cout, Cin, 3, 3); bias: (Cout,) or None. The conv
+    accumulates in f32. ``fused_bias=False`` (the small-channel kernel's
+    chain, and the JAX ``_conv3x3_ref``'s): round to x's dtype, then add the
+    bias in that dtype. ``fused_bias=True`` (the wide kernel's chain): add
+    the bias, rounded to x's dtype, to the f32 sum and round once. In
+    float32 the two are the same."""
+    dtype = x.dtype
+    a = activation(x, pre_act).permute(0, 3, 1, 2)
+    wd = w.to(dtype)
+    if not fused_bias or dtype == torch.float32:
+        y = F.conv2d(a, wd, None, 1, 1).permute(0, 2, 3, 1)
+        return y if bias is None else y + bias.to(dtype)
+    y = F.conv2d(a.float(), wd.float(), None, 1, 1).permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias.to(dtype).float()
+    return y.to(dtype)
+
+
+def _declare(lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_forward_bf16.argtypes = [vp] * 4 + [i] * 7 + [vp]
+    lib.conv3x3_forward_bf16.restype = ctypes.c_int
+    lib.conv3x3_small_forward_bf16.argtypes = [vp] * 4 + [i] * 8 + [vp]
+    lib.conv3x3_small_forward_bf16.restype = ctypes.c_int
+    lib.conv3x3_forward_f32.argtypes = [vp] * 4 + [i] * 8 + [vp]
+    lib.conv3x3_forward_f32.restype = ctypes.c_int
+
+
+def _taps(w, dtype, cinp: int, np_: int):
+    """(Cout, Cin, 3, 3) -> (9, cinp, np_) in ``dtype``, K x N per tap, zero
+    padded."""
+    cout, cin = w.shape[0], w.shape[1]
+    k = w.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout)
+    return F.pad(k, (0, np_ - cout, 0, cinp - cin))
+
+
+def _bias_f32(bias, dtype, np_: int, device):
+    """The bias as the kernels take it: rounded through ``dtype``, f32, zero
+    padded to ``np_`` (zeros for no bias)."""
+    if bias is None:
+        return torch.zeros(np_, dtype=torch.float32, device=device)
+    return F.pad(bias.to(dtype).float(), (0, np_ - bias.shape[0])).contiguous()
+
+
+def _launch(kind: str, x, w, bias, pre_act):
+    if pre_act not in ACT_CODES:
+        raise ValueError(pre_act)
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"conv3x3 kernels take float32/bfloat16, got {x.dtype}")
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[-1], 3, 3):
+        raise ValueError(f"conv3x3: x {tuple(x.shape)} (NHWC) does not go with "
+                         f"w {tuple(w.shape)} (Cout, Cin, 3, 3)")
+    n, h, ww, cin = x.shape
+    cout = w.shape[0]
+    dev = x.device
+    check_tensor("x", x, (n, h, ww, cin), x.dtype, dev)
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias has shape {tuple(bias.shape)}, expected ({cout},)")
+    small = kind == "small"
+    if small and (cin * 3 > 128 or cout * 3 > 128):
+        raise ValueError(f"conv3x3_small takes 3 * Cin <= 128 and 3 * Cout <= "
+                         f"128, got {cin} -> {cout}")
+    if not small and x.dtype == torch.bfloat16 and cin % 32:
+        raise ValueError(f"conv3x3_wide takes Cin % 32 == 0 in bfloat16, got {cin}")
+    lib = _build.load("conv3x3", _declare)
+    out = torch.empty((n, h, ww, cout), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    act = ACT_CODES[pre_act]
+    if x.dtype == torch.float32:
+        cinp, np_ = pad_to(cin, 32), pad_to(cout, 32)
+        wk = _taps(w, x.dtype, cinp, np_).contiguous()
+        bk = _bias_f32(bias, x.dtype, np_, dev)
+        err = lib.conv3x3_forward_f32(
+            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            n, h, ww, cin, cout, cinp, np_, act, stream)
+    elif small:
+        cinp, np_ = pad_to(cin, 16), pad_to(cout, 16)
+        wk = _taps(w, x.dtype, cinp, np_).contiguous()
+        bk = _bias_f32(bias, x.dtype, np_, dev)
+        err = lib.conv3x3_small_forward_bf16(
+            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            n, h, ww, cin, cout, cinp, np_, act, stream)
+    else:
+        np_ = pad_to(cout, 64)
+        # (9, Cin, NP) -> (Cin / 32, 9 * 32, NP): one chunk of 32 input
+        # channels of every tap after another
+        wk = _taps(w, x.dtype, cin, np_).reshape(9, cin // 32, 32, np_) \
+            .permute(1, 0, 2, 3).contiguous()
+        bk = _bias_f32(bias, x.dtype, np_, dev)
+        err = lib.conv3x3_forward_bf16(
+            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            n, h, ww, cin, cout, np_, act, stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 ({kind}) launch failed: cudaError {err}")
+    return out
+
+
+def _run(wrapper, kind: str, fused_bias: bool, x, w, bias, pre_act):
+    if x.device.type == "cpu":
+        return conv3x3_ref(x, w, bias, pre_act, fused_bias=fused_bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_{kind}: unsupported device {x.device}")
+    out = _launch(kind, x, w, bias, pre_act)
+    wrapper.launches += 1
+    return out
+
+
+def conv3x3_wide(x, w, bias=None, pre_act=None):
+    """The wide kernel: pre_act -> 3x3/s1/p1 conv -> + bias in f32 -> one
+    round. x: (N, H, W, Cin) contiguous; w: (Cout, Cin, 3, 3); bias: (Cout,)
+    or None. CUDA tensors launch the kernel (or raise; bfloat16 needs Cin %
+    32 == 0); CPU tensors take ``conv3x3_ref`` with ``fused_bias=True``.
+    ``conv3x3_wide.launches`` counts kernel launches."""
+    return _run(conv3x3_wide, "wide", True, x, w, bias, pre_act)
+
+
+def conv3x3_small(x, w, bias=None, pre_act=None):
+    """The small-channel kernel: pre_act -> 3x3/s1/p1 conv -> round -> + bias
+    in the output dtype, for 3 * Cin <= 128 and 3 * Cout <= 128. Arguments as
+    ``conv3x3_wide``. CUDA tensors launch the kernel (or raise); CPU tensors
+    take ``conv3x3_ref``. ``conv3x3_small.launches`` counts kernel launches."""
+    return _run(conv3x3_small, "small", False, x, w, bias, pre_act)
+
+
+conv3x3_wide.launches = 0
+conv3x3_small.launches = 0
+
+
+def kernel_for(x_shape, w_shape, stride, padding, dtype,
+               device) -> Optional[Callable]:
+    """The kernel wrapper whose gate admits this conv, or None. The
+    small-channel gate is asked before the ``fast_conv`` gate, as in the JAX
+    ``conv3x3``, and does not need ``fast_conv`` on."""
+    if _views_eligible(x_shape, w_shape, stride, padding, dtype, device):
+        return conv3x3_small
+    if conv3x3_eligible(x_shape, w_shape, stride, padding, dtype, device):
+        return conv3x3_wide
+    return None
+
+
+def conv3x3(x, w, bias=None, pre_act=None):
+    """Fused pre_act -> 3x3/s1/p1 conv -> bias through the kernel its gate
+    admits. x: (N, H, W, Cin); w: (Cout, Cin, 3, 3); bias: (Cout,) or None;
+    pre_act: None | 'relu' | 'leaky0.2', applied to x before the conv.
+
+    A CPU tensor takes ``conv3x3_ref`` (no gate admits it). A CUDA tensor
+    that no gate admits raises: callers with a library path of their own ask
+    ``kernel_for`` first."""
+    run = kernel_for(x.shape, w.shape, (1, 1), (1, 1), x.dtype, x.device)
+    if run is not None:
+        return run(x, w, bias, pre_act)
+    if x.device.type == "cpu":
+        return conv3x3_ref(x, w, bias, pre_act)
+    raise ValueError(
+        f"conv3x3: no kernel gate admits x {tuple(x.shape)} {x.dtype} with w "
+        f"{tuple(w.shape)} (fast_conv {'on' if _ENABLED else 'off'}, _VIEWS "
+        f"{'on' if _VIEWS else 'off'})")
+
+
+def conv_flops(b, h, w, cin, cout) -> int:
+    """Operations of one 3x3 conv (2 per multiply-add)."""
+    return 2 * b * h * w * 9 * cin * cout
+
+
+def conv_bytes(b, h, w, cin, cout, elem=2) -> int:
+    """Bytes the conv must move: x read once, out written once, weights and
+    bias read once."""
+    return (b * h * w * (cin + cout) + 9 * cin * cout + cout) * elem

@@ -13,8 +13,8 @@ of a SPADEResBlock's three {SPADENorm, conv} pairs:
 
 The kernel is CUDA C++ for sm_90a (``csrc/spade_block.cu``): bf16 inputs
 run on the tensor cores, f32 inputs on plain FMA loops. It is built with
-``nvcc`` at first use into ``build/`` at the repository root (keyed by a hash
-of the source) and loaded with ctypes. ``spade_conv_unit`` launches it for
+``nvcc`` at first use into ``build/`` at the repository root and loaded with
+ctypes (``ops/_build.py``). ``spade_conv_unit`` launches it for
 CUDA tensors and takes the plain formulation ``spade_conv_ref`` only for CPU
 tensors; a CUDA tensor never reaches the plain version through it.
 
@@ -25,85 +25,36 @@ layout). ``noise`` is (B, H, W, 1) float32, as the JAX package draws it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from hrviton_tpu_torch.nn.layers import activation
+from hrviton_tpu_torch.ops import _build
+from hrviton_tpu_torch.ops._build import ACT_CODES as _ACTS
+from hrviton_tpu_torch.ops._build import KERNEL_DTYPES as _DTYPES
+from hrviton_tpu_torch.ops._build import check_tensor as _check
+from hrviton_tpu_torch.ops._build import pad_to as _pad_to
+from hrviton_tpu_torch.ops.conv3x3 import activation
+from hrviton_tpu_torch.ops.spade_fused import instance_stats, modulate_ref
 
 __all__ = ["spade_conv_unit", "spade_conv_ref", "fused_spade_conv_eligible",
-           "build", "unit_flops", "unit_bytes"]
+           "unit_flops", "unit_bytes"]
 
-_EPS = 1e-5
 _MIN_H = 256          # the JAX gate's row floor: admits up_3 and up_4 only
-_ACTS = {None: 0, "relu": 1, "leaky0.2": 2}
-_DTYPES = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "spade_block.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-_LIB = None
-_LOCK = threading.Lock()
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "hrviton_tpu_torch/csrc/spade_block.cu")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel (once per source hash) and return the library path.
-    With ``verbose`` the compiler's resource report (-Xptxas -v) is printed."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"spade_block_{key}.so"
-    if lib.exists() and not verbose:
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib)
-    return lib
-
-
-def _library():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.spade_unit_forward.argtypes = [vp] * 12 + [i] * 10 + [vp]
-            lib.spade_unit_forward.restype = ctypes.c_int
-            lib.spade_unit_smem_bytes.argtypes = [i, i, i]
-            lib.spade_unit_smem_bytes.restype = ctypes.c_size_t
-            lib.spade_unit_forward_bf16.argtypes = [vp] * 12 + [i] * 11 + [vp]
-            lib.spade_unit_forward_bf16.restype = ctypes.c_int
-            lib.spade_unit_tc_smem_bytes.argtypes = [i] * 5
-            lib.spade_unit_tc_smem_bytes.restype = ctypes.c_size_t
-            _LIB = lib
-    return _LIB
+def _declare(lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.spade_unit_forward.argtypes = [vp] * 12 + [i] * 10 + [vp]
+    lib.spade_unit_forward.restype = ctypes.c_int
+    lib.spade_unit_smem_bytes.argtypes = [i, i, i]
+    lib.spade_unit_smem_bytes.restype = ctypes.c_size_t
+    lib.spade_unit_forward_bf16.argtypes = [vp] * 12 + [i] * 11 + [vp]
+    lib.spade_unit_forward_bf16.restype = ctypes.c_int
+    lib.spade_unit_tc_smem_bytes.argtypes = [i] * 5
+    lib.spade_unit_tc_smem_bytes.restype = ctypes.c_size_t
 
 
 def fused_spade_conv_eligible(h: int, w: int, nh: int, dtype,
@@ -117,14 +68,6 @@ def fused_spade_conv_eligible(h: int, w: int, nh: int, dtype,
             and h >= _MIN_H)
 
 
-def _stats(x, noise, nscale):
-    """f32 per-(batch, channel) instance stats of x + noise*nscale (NHWC):
-    mean and 1/sqrt(biased var + eps), in one var_mean pass."""
-    xnf = (x + (noise * nscale).to(x.dtype)).float()
-    var, mu = torch.var_mean(xnf, dim=(1, 2), correction=0)
-    return mu, torch.rsqrt(var + _EPS)
-
-
 def spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                    pre_act=None, residual=None):
     """Plain PyTorch formulation of the unit (the CPU path and the gold).
@@ -134,17 +77,8 @@ def spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     bc: (cout,) or None; residual: (B, H, W, cout) or None. NHWC out.
     """
     dtype = x.dtype
-    xn = x + (noise * nscale).to(dtype)
-    xnf = xn.float()
-    mu = xnf.mean(dim=(1, 2), keepdim=True)
-    var = (xnf - mu).square().mean(dim=(1, 2), keepdim=True)
-    normalized = ((xnf - mu) * torch.rsqrt(var + _EPS)).to(dtype)
-    a = F.relu(actv).permute(0, 3, 1, 2)
-    gamma = F.conv2d(a, wg.to(dtype), padding=1).permute(0, 2, 3, 1) \
-        + bg.to(dtype)
-    beta = F.conv2d(a, wb.to(dtype), padding=1).permute(0, 2, 3, 1) \
-        + bb.to(dtype)
-    mod = activation(normalized * (1.0 + gamma) + beta, pre_act)
+    mod = activation(modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb),
+                     pre_act)
     pad = wc.shape[-1] // 2
     y = F.conv2d(mod.permute(0, 3, 1, 2), wc.to(dtype),
                  padding=pad).permute(0, 2, 3, 1)
@@ -153,10 +87,6 @@ def spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     if residual is not None:
         y = y + residual
     return y
-
-
-def _pad_to(n: int, m: int) -> int:
-    return (n + m - 1) // m * m
 
 
 def _pack_weights(wg, bg, wb, bb, wc, bc):
@@ -211,19 +141,6 @@ def _pack_weights_tc(wg, bg, wb, bb, wc, bc):
     return wgb, bgb, wck, bck, cp, coutp
 
 
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous (NHWC)")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                 residual):
     if x.dtype not in _DTYPES:
@@ -241,7 +158,7 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     _check("noise", noise, (n, h, w), torch.float32, dev)
     if residual is not None:
         _check("residual", residual, (n, h, w, cout), x.dtype, dev)
-    lib = _library()
+    lib = _build.load("spade_block", _declare)
     tc = x.dtype == torch.bfloat16
     if tc:
         cp = _pad_to(c, 16)
@@ -253,7 +170,7 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
         raise ValueError(f"unsupported unit: c={c} cout={cout} nh={nh} k={ks} "
                          f"{x.dtype} ({smem} B of shared memory)")
 
-    mu, rsig = _stats(x, noise[..., None], nscale)
+    mu, rsig = instance_stats(x, noise[..., None], nscale)
     nsc = nscale.float().contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

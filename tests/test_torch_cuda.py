@@ -1,30 +1,41 @@
-"""On the card: the fused SPADE unit's CUDA kernel vs its plain version.
+"""On the card: each hand-written CUDA kernel vs its plain version.
 
 Imports no JAX (the machine with the card has none), so it runs with
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda.py``; here,
 without a card, each test skips.
 
 Tolerances: f32 with TF32 off, 1e-4 x max|ref| (f32 sums of up to 9*128
-products in another order); bf16, 2 bf16 ulps of max|ref| (the plain
-version rounds gamma, beta, mod and out to bf16, and a sum in another order
-flips single roundings).
+products in another order); bf16, 2 bf16 ulps of max|ref| (each plain
+version rounds the same intermediates to bf16 as its kernel, and a sum in
+another order flips single roundings).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from hrviton_tpu_torch.ops import conv3x3 as tc3
 from hrviton_tpu_torch.ops import spade_block as tsb
+from hrviton_tpu_torch.ops import spade_fused as tsf
 
 _ORDER = ("x", "noise", "nscale", "actv", "wg", "bg", "wb", "bb", "wc", "bc")
 
 
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _a(rng, shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale)
+                            .astype(np.float32)).cuda()
+
+
 def _inputs(dtype, b, h, w, c, cout, ksize, residual, nh=128):
     rng = np.random.default_rng(0)
-
-    def a(shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                .astype(np.float32)).cuda()
+    a = lambda shape, scale=1.0: _a(rng, shape, scale)
     t = dict(x=a((b, h, w, c)).to(dtype), noise=a((b, h, w, 1)),
              nscale=a((c,), 0.1), actv=a((b, h, w, nh)).to(dtype),
              wg=a((c, nh, 3, 3), 0.05), bg=a((c,), 0.1),
@@ -34,15 +45,20 @@ def _inputs(dtype, b, h, w, c, cout, ksize, residual, nh=128):
     return [t[k] for k in _ORDER], res
 
 
+def _assert_close(got, want, dtype):
+    scale = want.float().abs().max().item()
+    tol = 1e-4 * scale if dtype == torch.float32 else 2 * 2 ** -7 * scale
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= tol, (err, tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ksize,residual,pre_act", [
     (3, True, "leaky0.2"), (1, False, None), (3, False, "relu")])
 def test_kernel_matches_plain(dtype, ksize, residual, pre_act):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _need_card()
     # ragged 37x45 tiles exercise every edge mask of the 8x8 tiling
     args, res = _inputs(dtype, 2, 37, 45, 40, 24, ksize, residual)
     before = tsb.spade_conv_unit.launches
@@ -50,16 +66,109 @@ def test_kernel_matches_plain(dtype, ksize, residual, pre_act):
     torch.cuda.synchronize()
     assert tsb.spade_conv_unit.launches == before + 1
     want = tsb.spade_conv_ref(*args, pre_act=pre_act, residual=res)
-    scale = want.float().abs().max().item()
-    tol = 1e-4 * scale if dtype == torch.float32 else 2 * 2 ** -7 * scale
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol, (err, tol)
+    _assert_close(got, want, dtype)
 
 
 @pytest.mark.gpu
 def test_kernel_rejects_bad_input():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    _need_card()
     args, _ = _inputs(torch.float16, 1, 8, 8, 8, 8, 3, False)
     with pytest.raises(TypeError):
         tsb.spade_conv_unit(None, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 272])
+def test_modulate_kernel_matches_plain(dtype, c):
+    """Ragged 37x45 (every edge mask of the 16x16 and 8x8 tilings); c = 40 is
+    one ragged channel tile, c = 272 nine."""
+    _need_card()
+    args, _ = _inputs(dtype, 2, 37, 45, c, 8, 3, False)
+    before = tsf.fused_spade_modulate.launches
+    got = tsf.fused_spade_modulate(*args[:8])
+    torch.cuda.synchronize()
+    assert tsf.fused_spade_modulate.launches == before + 1
+    _assert_close(got, tsf.modulate_ref(*args[:8]), dtype)
+
+
+@pytest.mark.gpu
+def test_modulate_kernel_edge_rows():
+    """Constant actv: a halo clamped at the image edge instead of zero-filled
+    would show in the border pixels."""
+    _need_card()
+    args, _ = _inputs(torch.bfloat16, 1, 32, 48, 16, 8, 3, False)
+    args[3] = torch.ones_like(args[3])
+    got = tsf.fused_spade_modulate(*args[:8])
+    _assert_close(got, tsf.modulate_ref(*args[:8]), torch.bfloat16)
+
+
+def _conv_inputs(dtype, b, h, w, cin, cout, bias=True):
+    rng = np.random.default_rng(1)
+    x = _a(rng, (b, h, w, cin)).to(dtype)
+    wt = _a(rng, (cout, cin, 3, 3), (1.0 / (9 * cin)) ** 0.5)
+    return x, wt, _a(rng, (cout,), 0.3) if bias else None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,pre_act,bias", [
+    (128, 528, "relu", True), (256, 72, "leaky0.2", True),
+    (64, 33, None, False)])
+def test_wide_conv_kernel_matches_plain(dtype, cin, cout, pre_act, bias):
+    _need_card()
+    x, w, b = _conv_inputs(dtype, 2, 37, 45, cin, cout, bias)
+    before = tc3.conv3x3_wide.launches
+    got = tc3.conv3x3_wide(x, w, b, pre_act)
+    torch.cuda.synchronize()
+    assert tc3.conv3x3_wide.launches == before + 1
+    _assert_close(got, tc3.conv3x3_ref(x, w, b, pre_act, fused_bias=True), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,pre_act,bias", [
+    (9, 16, None, True), (32, 32, "leaky0.2", True), (32, 3, "leaky0.2", True),
+    (7, 42, "relu", False)])
+def test_small_conv_kernel_matches_plain(dtype, cin, cout, pre_act, bias):
+    """Odd channel counts: a pixel of 9 or 3 channels is 18 or 6 bytes."""
+    _need_card()
+    x, w, b = _conv_inputs(dtype, 2, 37, 45, cin, cout, bias)
+    before = tc3.conv3x3_small.launches
+    got = tc3.conv3x3_small(x, w, b, pre_act)
+    torch.cuda.synchronize()
+    assert tc3.conv3x3_small.launches == before + 1
+    _assert_close(got, tc3.conv3x3_ref(x, w, b, pre_act), dtype)
+
+
+@pytest.mark.gpu
+def test_conv_kernel_edge_rows():
+    """Constant input: the conv's zero padding shows in the border pixels."""
+    _need_card()
+    x, w, _ = _conv_inputs(torch.bfloat16, 1, 32, 48, 32, 32, False)
+    x = torch.ones_like(x)
+    _assert_close(tc3.conv3x3_small(x, w), tc3.conv3x3_ref(x, w), torch.bfloat16)
+    _assert_close(tc3.conv3x3_wide(x, w),
+                  tc3.conv3x3_ref(x, w, fused_bias=True), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_bad_input():
+    _need_card()
+    x, w, b = _conv_inputs(torch.bfloat16, 1, 16, 16, 48, 48)
+    with pytest.raises(ValueError):
+        tc3.conv3x3_small(x, w, b)                # 3 * 48 > 128
+    with pytest.raises(ValueError):
+        tc3.conv3x3_wide(x, w, b)                 # bf16: Cin % 32
+    with pytest.raises(ValueError):
+        tc3.conv3x3(x, w, b)                      # no gate admits it
+    with pytest.raises(TypeError):
+        tc3.conv3x3_wide(x.half(), w, b)
+    with pytest.raises(ValueError):
+        tc3.conv3x3_wide(x.permute(0, 2, 1, 3), w, b)   # not contiguous
+    args, _ = _inputs(torch.float16, 1, 8, 8, 8, 8, 3, False)
+    with pytest.raises(TypeError):
+        tsf.fused_spade_modulate(*args[:8])
+    args, _ = _inputs(torch.bfloat16, 1, 8, 8, 7, 8, 3, False)
+    with pytest.raises(ValueError):
+        tsf.fused_spade_modulate(*args[:8])       # bf16: odd C

@@ -6,11 +6,14 @@ BatchNorm running stats, spectral u/v) and carried into the port with
 sums at most 3*3*16 f32 products, in another order on each side.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hrviton_tpu.nn import layers as jl
 from hrviton_tpu_torch.convert import load_jax_variables
@@ -53,6 +56,65 @@ def test_conv2d(k, stride, pad, bias, pre_act):
     port = tl.Conv2d(6, 5, k, stride, pad, bias, device="cpu")
     load_jax_variables(port, v)
     _close(port(tx, pre_act=pre_act), want)
+
+
+@pytest.mark.parametrize("kind", ["leaky0.2", "relu"])
+def test_activation_bf16_is_bit_equal(kind):
+    """bf16: the JAX package multiplies by the slope rounded to bf16
+    (jax.nn.leaky_relu in nn/layers.py, max(x, 0.2x) in ops/conv3x3.py and
+    ops/spade_block.py); so must the port. Exact, on the same bf16 inputs.
+    float32 keeps float32(0.2)."""
+    jc3 = importlib.import_module("hrviton_tpu.ops.conv3x3")
+    a = (_rng.standard_normal(50000) * 3).astype(np.float32)
+    a[:4] = [0.0, -0.0, 1.0, -1.0]
+    xb = jnp.asarray(a).astype(jnp.bfloat16)
+    got = tl.activation(torch.from_numpy(a).bfloat16(), kind)
+    assert got.dtype == torch.bfloat16
+    wants = [jc3._act(xb, kind)]
+    if kind == "leaky0.2":
+        wants.append(jl.leaky_relu(xb, 0.2))
+    for want in wants:
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    xf = torch.from_numpy(a)
+    torch.testing.assert_close(
+        tl.activation(xf, kind),
+        F.leaky_relu(xf, 0.2) if kind == "leaky0.2" else F.relu(xf),
+        atol=0, rtol=0)
+    np.testing.assert_array_equal(tl.activation(xf, kind).numpy(),
+                                  np.asarray(jc3._act(jnp.asarray(a), kind)))
+
+
+def test_conv2d_routes_3x3_through_the_kernel_gate(monkeypatch):
+    """A 3x3/s1/p1 conv asks ops/conv3x3.kernel_for and, when a gate admits
+    it, hands the wrapper a contiguous NHWC tensor with the pre-activation
+    still to do; the result comes back as a channels_last view. Other convs
+    never ask."""
+    asked = []
+
+    def kernel_for(x_shape, w_shape, stride, padding, dtype, device):
+        asked.append((tuple(x_shape), tuple(w_shape)))
+
+        def run(x, w, bias, pre_act):
+            assert x.is_contiguous() and pre_act == "relu"
+            return tl.c3.conv3x3_ref(x, w, bias, pre_act)
+        return run
+
+    g = torch.Generator().manual_seed(0)
+    m3 = tl.Conv2d(6, 5, 3, padding=1, device="cpu")
+    m1 = tl.Conv2d(6, 5, 1, device="cpu")
+    ms = tl.Conv2d(6, 5, 3, stride=2, padding=1, device="cpu")
+    for m in (m3, m1, ms):
+        tl.init_weights(m, g)
+    x = torch.randn(2, 6, 9, 7, generator=g)               # NCHW, not channels_last
+    with torch.no_grad():
+        want = [m(x, pre_act="relu") for m in (m3, m1, ms)]
+        monkeypatch.setattr(tl.c3, "kernel_for", kernel_for)
+        got = [m(x, pre_act="relu") for m in (m3, m1, ms)]
+    assert asked == [((2, 9, 7, 6), (5, 6, 3, 3))]
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
 
 
 def test_batchnorm_eval_running_stats():

@@ -148,3 +148,21 @@ def test_load_jax_variables_fills_every_tensor():
     partial = {"params": {"conv_img": v["params"]["conv_img"]}}
     with pytest.raises(KeyError, match="not filled"):
         load_jax_variables(port, partial)
+
+
+@pytest.mark.parametrize("knob", ["s2d_tail", "fast_conv", "fast_spade",
+                                  "merge_gamma_beta"])
+def test_load_jax_variables_fills_generator_with_knob(knob):
+    """No knob changes the parameter tree: the variables of the plain JAX
+    generator fill a port generator built with any knob, tensor for tensor
+    as they fill the plain one."""
+    v = _jax_generator("most", 256, 128)[0]
+    kw = dict(ngf=8, fine_height=256, fine_width=128)
+    plain = SPADEGenerator(SPADEGenConfig(**kw), device="cpu")
+    port = SPADEGenerator(SPADEGenConfig(**kw, **{knob: True}), device="cpu")
+    assert sorted(load_jax_variables(port, v)) == sorted(load_jax_variables(plain, v))
+    want = dict(plain.named_parameters()) | dict(plain.named_buffers())
+    got = dict(port.named_parameters()) | dict(port.named_buffers())
+    assert sorted(got) == sorted(want)
+    for name, t in got.items():
+        torch.testing.assert_close(t, want[name], atol=0, rtol=0)

@@ -6,6 +6,12 @@ outputs are held at 2e-4 / 1e-3 (as the model tests). The argmax may flip
 where two blurred logits tie to f32 rounding, so at most 0.1% of fake_parse
 pixels may differ; the rgb is then compared with the port's generator fed
 the JAX parse_labels, at 2e-4 / 1e-3.
+
+The generator's kernel configuration (fused_block off, fast_spade and fast_conv on,
+the small-channel switch on) goes through the same comparison: the JAX side
+runs its three Pallas kernels in interpret mode; the port's gates, which never
+open on the CPU, are forced open with the interpret-mode rules so that its
+branches run through the wrappers' plain versions.
 """
 
 import functools
@@ -25,7 +31,10 @@ from hrviton_tpu.models import SPADEGenerator as JSPADE
 from hrviton_tpu.pipelines import tryon_forward as jtryon_forward
 from hrviton_tpu_torch import (PipelineConfig, SPADEGenConfig, TOCGConfig,
                                TryOnPipeline, load_jax_variables)
-from test_torch_support import injected_noise, random_variables
+from hrviton_tpu_torch.ops import conv3x3 as tc3
+from hrviton_tpu_torch.ops import spade_fused as tsf
+from test_torch_support import (injected_noise, open_port_gates,
+                                random_variables)
 
 torch.set_num_threads(1)
 FH, FW, CH, CW = 256, 128, 64, 64
@@ -38,17 +47,21 @@ def _jax_unfused_on_cpu(monkeypatch):
     monkeypatch.setattr(sb, "_INTERPRET", False)
 
 
+_KNOBS = dict(fused_block=False, fast_spade=True, fast_conv=True)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_models():
+def _jax_models(knobs=False):
     """Random JAX variables and jitted applies; the generator's noise draws
-    are recorded on its first (tracing) call and reused after."""
+    are recorded on its first (tracing) call and reused after. With ``knobs``
+    the generator has its kernel configuration (the dispatch knobs on)."""
     rng = np.random.default_rng(3)
     k = jax.random.PRNGKey(0)
     tocg = JCondition(JTOCGConfig(ngf=8))
     tv = random_variables(tocg, k, jnp.zeros((1, CH, CW, 4)),
                           jnp.zeros((1, CH, CW, 16)), train=False, seed=1)
     gen = JSPADE(JSPADEGenConfig(ngf=8, fine_height=FH, fine_width=FW,
-                                 remat=False))
+                                 remat=False, **(_KNOBS if knobs else {})))
     gv = random_variables(gen, {"params": k, "noise": k},
                           jnp.zeros((1, FH, FW, 9)), jnp.zeros((1, FH, FW, 7)),
                           train=False, seed=2)
@@ -79,7 +92,31 @@ def _close(t, j, atol=_ATOL, rtol=_RTOL):
 
 @pytest.mark.parametrize("occlusion", [False, True])
 def test_tryon_forward_matches_jax(occlusion):
-    tv, gv, tocg_apply, gen_apply, draws = _jax_models()
+    _check_tryon(occlusion, False)
+
+
+def test_tryon_forward_with_kernel_knobs_matches_jax(monkeypatch):
+    c3 = importlib.import_module("hrviton_tpu.ops.conv3x3")
+    sf = importlib.import_module("hrviton_tpu.ops.spade_fused")
+    for mod in (c3, sf):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+        monkeypatch.setattr(mod, "_TH", 4)
+    monkeypatch.setattr(c3, "_VTH", 4)
+    monkeypatch.setattr(c3, "_VIEWS", True)
+    asked = open_port_gates(monkeypatch, ("fast_spade", "fast_conv", "views"))
+    launches = lambda: (tsf.fused_spade_modulate.launches,
+                        tc3.conv3x3_wide.launches, tc3.conv3x3_small.launches)
+    before = launches()
+    _check_tryon(False, True)
+    # up_0 .. up_4's norms twice (pipeline, then generator fed the JAX labels)
+    assert asked.count("modulate") == 30 and asked.count("small") == 8
+    assert "wide" in asked
+    assert launches() == before                          # no kernel on the CPU
+    assert not tc3.fast_conv_enabled() and not tsf.fast_spade_enabled()
+
+
+def _check_tryon(occlusion, knobs):
+    tv, gv, tocg_apply, gen_apply, draws = _jax_models(knobs)
     batch = _batch(4)
     jcfg = JPipelineConfig(fine_height=FH, fine_width=FW, cond_height=CH,
                            cond_width=CW, occlusion=occlusion)
@@ -91,7 +128,9 @@ def test_tryon_forward_matches_jax(occlusion):
     pipe = TryOnPipeline(
         PipelineConfig(fine_height=FH, fine_width=FW, cond_height=CH,
                        cond_width=CW, occlusion=occlusion),
-        TOCGConfig(ngf=8), SPADEGenConfig(ngf=8, fine_height=FH, fine_width=FW),
+        TOCGConfig(ngf=8),
+        SPADEGenConfig(ngf=8, fine_height=FH, fine_width=FW,
+                       **(_KNOBS if knobs else {})),
         device="cpu")
     load_jax_variables(pipe.tocg, tv)
     load_jax_variables(pipe.generator, gv)

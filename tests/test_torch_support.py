@@ -7,6 +7,10 @@ BatchNorm shifts N(0, 0.1), BatchNorm scales 1 + N(0, 0.1), running
 variances in [0.5, ...), SPADE noise_scale N(0, 0.5) (non-zero, so noise
 wiring errors show), spectral u random and v = normalize(W^T u).
 
+``open_port_gates`` forces the port's kernel dispatch open on the CPU, with
+the shape rules the JAX gates have in interpret mode, so that the port's
+knob branches run (through the wrappers' plain versions).
+
 ``injected_noise`` replaces ``jax.random.normal`` for the per-norm (B, H, W, 1)
 noise fields with numpy draws and records them in call order; the port then
 consumes the same list.
@@ -85,3 +89,42 @@ def injected_noise(rng):
         yield draws
     finally:
         jax.random.normal = real
+
+
+def open_port_gates(monkeypatch, knobs, th=4):
+    """Patch the port's gates for the named knobs ('fast_spade', 'fast_conv',
+    'views') to the JAX gates' interpret-mode rules at ``th`` rows per step,
+    whatever the device. Returns the list that records each kernel asked
+    for ('modulate' | 'wide' | 'small')."""
+    from hrviton_tpu_torch.models import spade as tspade
+    from hrviton_tpu_torch.ops import conv3x3 as tc3
+    from hrviton_tpu_torch.ops import spade_fused as tsf
+    asked = []
+
+    def rows_ok(h, w, wmod):
+        return h % th == 0 and w % wmod == 0 and h > th
+
+    if "fast_spade" in knobs:
+        def mod_gate(x_shape, nh, dtype, device):
+            ok = (tsf.fast_spade_enabled() and nh % 128 == 0
+                  and rows_ok(x_shape[1], x_shape[2], 8))
+            if ok:
+                asked.append("modulate")
+            return ok
+        monkeypatch.setattr(tspade, "fused_spade_eligible", mod_gate)
+
+    def kernel_for(x_shape, w_shape, stride, padding, dtype, device):
+        _, h, w, cin = x_shape
+        if ("views" in knobs and rows_ok(h, w, 128) and w_shape[0] * 3 <= 128
+                and cin * 3 <= 128):
+            asked.append("small")
+            return tc3.conv3x3_small
+        if ("fast_conv" in knobs and tc3.fast_conv_enabled()
+                and rows_ok(h, w, 8)):
+            asked.append("wide")
+            return tc3.conv3x3_wide
+        return None
+
+    if "fast_conv" in knobs or "views" in knobs:
+        monkeypatch.setattr(tc3, "kernel_for", kernel_for)
+    return asked
