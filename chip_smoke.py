@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
-     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3}.cu: four
-     kernels), one nvcc process each, all started together;
+     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_exp,
+     copy_probe}.cu: eight kernels), one nvcc process each, all started
+     together;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
      every shape its main path gives it, batch 4, in bf16 and f32, with times
      beside the bound:
@@ -30,7 +31,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      answers 3 requests of batch 4; per request the modulation kernel must
      launch exactly 9 times, the wide conv 8 times, the small conv 4 times
      and the fused unit never; one request is compared with the same pipeline
-     with the knobs off, and both are timed in turns.
+     with the knobs off, and both are timed in turns;
+  6. tools: the conv-experiment entry points hrviton_tpu_torch/tools/
+     {exp_conv,exp_conv2,exp_copy_probe}.main at their full size (x (4, 1024,
+     768, 128), w (3, 3, 128, 128), bf16), with exact launch counts; then
+     each of their four kernels (conv_band, conv_halo, conv_dma, the
+     band-copy probe) against its plain version at that size and at one
+     ragged small size (the probe bit for bit), with times beside the
+     library call (F.conv2d; Tensor.copy_), conv3x3_wide at the same shape
+     and the bound.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -93,6 +102,13 @@ SECOND_PATH = {"spade_unit": 0,
                "spade_modulate": sum(s[-1] for s in MODULATE_SITES),   # 9
                "conv3x3_wide": sum(s[-1] for s in WIDE_SITES),         # 8
                "conv3x3_small": sum(s[-1] for s in SMALL_SITES)}       # 4
+TOOLS_X = (B, 1024, 768, 128)           # the tools' x; w is (3, 3, 128, 128)
+TOOLS_RAGGED = (2, 48, 40, 16, 24, 8)   # b, h, w, cin, cout, th
+# (key, kernel name in a profile, band heights; the first is the record's)
+TOOL_CONVS = [("conv_band", "conv_band_kernel", (8, 16, 32)),
+              ("conv_halo", "conv_halo_kernel", (8, 16)),
+              ("conv_dma", "conv_dma_kernel", (8,))]
+PROBE_TH = 16
 
 
 def log(*a):
@@ -107,6 +123,15 @@ def _wrappers():
     return {"spade_unit": sb.spade_conv_unit,
             "spade_modulate": sf.fused_spade_modulate,
             "conv3x3_wide": c3.conv3x3_wide, "conv3x3_small": c3.conv3x3_small}
+
+
+def _tool_wrappers():
+    """name -> (kernel wrapper with the launch count, its plain version)."""
+    from hrviton_tpu_torch.tools import exp_conv, exp_conv2, exp_copy_probe
+    return {"conv_band": (exp_conv.conv_band, exp_conv.conv_band_ref),
+            "conv_halo": (exp_conv2.conv_halo, exp_conv2.conv_halo_ref),
+            "conv_dma": (exp_conv2.conv_dma, exp_conv2.conv_dma_ref),
+            "copy_probe": (exp_copy_probe.probe, exp_copy_probe.probe_ref)}
 
 
 def device_phase():
@@ -145,20 +170,32 @@ def _events_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def _device_ms(fn, kernel_name, iters=2):
+def _device_ms(fn, kernel_name, iters=2, per_call=None):
     """Device time of the kernels named ``kernel_name`` in one call of fn,
     from torch.profiler (the wrapper's own packing and stats left out), or
-    None if the profiler recorded no such kernel."""
+    None if the profiler recorded no such kernel. A window now and then loses
+    records (seen after the pipelines' profiles: one of two launches, or all
+    of a window shorter than ~2 ms). ``per_call`` says how many such kernels
+    one call launches, if known: then the mean over the records that did
+    arrive is taken. Otherwise a window's records are summed, and a window
+    whose count is no multiple of its calls is taken again, four times as
+    long."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(3):
+        n = iters * 4 ** attempt
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel_name in e.name]
-    return sum(us) / 1e3 / iters if us else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel_name in e.name]
+        if us and per_call:
+            return sum(us) / len(us) * per_call / 1e3
+        if us and len(us) % n == 0:
+            return sum(us) / 1e3 / n
+    return None
 
 
 def _randn(gen, *shape, scale=1.0):
@@ -178,10 +215,11 @@ def _unit_inputs(gen, dtype, h, w, c, cout, ks, residual):
 
 
 def _check_site(tot, label, dtype, n, kernel, plain, library, kernel_name,
-                flops, nbytes):
+                flops, nbytes, exact=False, per_call=None):
     """One shape of one kernel: run the wrapper, hold it against its plain
-    version, time wrapper, plain and library call, and add ``n`` launches'
-    worth to the totals. Raises if the kernel disagrees."""
+    version (bit for bit if ``exact``), time wrapper, plain and library call,
+    and add ``n`` launches' worth to the totals. ``per_call``: as in
+    ``_device_ms``. Raises if the kernel disagrees."""
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
@@ -189,12 +227,13 @@ def _check_site(tot, label, dtype, n, kernel, plain, library, kernel_name,
         raise RuntimeError(f"{label} {dtype}: non-finite kernel output")
     scale = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs().max().item()
-    tol = (1e-4 if dtype == torch.float32 else 2 * 2 ** -7) * scale
+    tol = (0.0 if exact else
+           1e-4 if dtype == torch.float32 else 2 * 2 ** -7) * scale
     iters = 3 if dtype == torch.bfloat16 else 2
     ms = _events_ms(kernel, iters)
     plain_ms = _events_ms(plain, iters)
     lib_ms = _events_ms(library, iters) if library is not None else None
-    dev_ms = (_device_ms(kernel, kernel_name)
+    dev_ms = (_device_ms(kernel, kernel_name, per_call=per_call)
               if dtype == torch.bfloat16 else None)
     t_ops = flops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -515,6 +554,114 @@ def second_path_phase(card):
     return counts
 
 
+def _hold(label, wrapper, call, plain, exact):
+    """One call of a wrapper at a small size against its plain version: one
+    launch, finite, within 2 bf16 ulps of max|ref| (or bit for bit)."""
+    before = wrapper.launches
+    out = call()
+    torch.cuda.synchronize()
+    ref = plain()
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 0.0 if exact else 2 * 2 ** -7 * scale
+    log(f"{label}: max_abs {err:.3e} (tol {tol:.3e}) "
+        f"{'ok' if err <= tol else 'FAIL'}, launches {wrapper.launches - before}")
+    if wrapper.launches != before + 1:
+        raise RuntimeError(f"{label}: {wrapper.launches - before} launches in "
+                           f"one call")
+    if not torch.isfinite(out).all() or err > tol or out.shape != ref.shape:
+        raise RuntimeError(f"{label}: kernel disagrees with its plain version")
+
+
+def tools_phase(card):
+    """The conv-experiment path. First its entry points, at full size, with
+    the launch counts set to 0 just before and read just after; then each
+    kernel against its plain version. Tolerance: 2 bf16 ulps of max|ref| for
+    the convs (kernel and plain version both sum nine taps x Cin products in
+    f32 and round once; the orders differ), none for the probe (a copy).
+    Returns ({kernel: {bf16: totals}}, {kernel: launches of the entry
+    points})."""
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    from hrviton_tpu_torch.tools import exp_conv, exp_conv2, exp_copy_probe
+    from hrviton_tpu_torch.tools._common import problem_size
+    for name in ("PROF_BATCH", "PROF_H", "PROF_W", "PROF_C", "PROF_ITERS",
+                 "PROF_TH", "SKIP_CHECK"):
+        os.environ.pop(name, None)          # the tools' own full size
+    model, tools = _wrappers(), _tool_wrappers()
+    for w in (*model.values(), *(t[0] for t in tools.values())):
+        w.launches = 0
+    t0 = time.perf_counter()
+    exp_conv.main()
+    exp_conv2.main("all")
+    exp_copy_probe.main()
+    counts = {k: t[0].launches for k, t in tools.items()}
+    model_counts = {k: w.launches for k, w in model.items()}
+    log(f"tools: entry points ran in {time.perf_counter() - t0:.1f} s, launches "
+        f"{counts}, of the model kernels {model_counts}")
+    timed = 1 + 2 * problem_size()[-1]   # a warm-up and twice PROF_ITERS calls
+    expect = {"conv_band": 1 + 3 * timed,    # the check; TH = 8, 16, 32
+              "conv_halo": 1 + timed, "conv_dma": 1 + timed,
+              "copy_probe": 1 + timed}
+    # exp_conv.main times conv3x3_wide beside conv_band; nothing else of the
+    # model's kernels runs here
+    expect_model = dict.fromkeys(model, 0) | {"conv3x3_wide": timed}
+    if counts != expect or model_counts != expect_model:
+        raise RuntimeError(f"tools: launches {counts} / {model_counts}, "
+                           f"expected {expect} / {expect_model}")
+
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, w, cin, cout, th = TOOLS_RAGGED
+    x = _randn(gen, b, h, w, cin).to(dtype)
+    wt = _randn(gen, 3, 3, cin, cout, scale=0.1).to(dtype)
+    for key, _, _ in TOOL_CONVS:
+        run, plain = tools[key]
+        _hold(f"{key} ragged {TOOLS_RAGGED}", run, lambda: run(x, wt, th=th),
+              lambda: plain(x, wt, th), False)
+    probe, probe_ref = tools["copy_probe"]
+    _hold(f"copy_probe ragged {TOOLS_RAGGED[:4]} TH={th}", probe,
+          lambda: probe(x, th=th), lambda: probe_ref(x, th), True)
+
+    _, h, w, c = TOOLS_X
+    x = _randn(gen, *TOOLS_X).to(dtype)
+    wt = _randn(gen, 3, 3, c, c, scale=0.1).to(dtype)
+    # the library call: one F.conv2d, channels_last, in the working dtype
+    xa = x.permute(0, 3, 1, 2)
+    w_oihw = wt.permute(3, 2, 0, 1)
+    wl = w_oihw.contiguous(memory_format=torch.channels_last)
+    flops = c3.conv_flops(B, h, w, c, c)
+    nbytes = (2 * x.numel() + wt.numel()) * x.element_size()
+    totals = {}
+    for key, kname, ths in TOOL_CONVS:
+        run, plain = tools[key]
+        for th in ths:
+            tot = {}
+            _check_site(tot, f"{key} TH={th} {c}->{c} {h}x{w}", dtype, 1,
+                        lambda: run(x, wt, th=th), lambda: plain(x, wt, th),
+                        lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
+                        nbytes, per_call=1)
+            totals.setdefault(key, {dtype: tot})
+    for th in TOOL_CONVS[1][2]:
+        log(f"conv_halo TH={th}: the gather alone (halo_tiles) "
+            f"{_events_ms(lambda: exp_conv2.halo_tiles(x, th), 3):.3f} ms")
+    wide = lambda: c3.conv3x3_wide(x, w_oihw)
+    wide_alone = _device_ms(wide, "conv3x3_tc_kernel", per_call=1)
+    log(f"conv3x3_wide {c}->{c} {h}x{w}: wrapper {_events_ms(wide, 3):.3f} ms, "
+        f"kernel alone "
+        + ("not measured" if wide_alone is None else f"{wide_alone:.3f} ms"))
+    out = torch.empty_like(x)
+    tot = {}
+    _check_site(tot, f"copy_probe TH={PROBE_TH} {TOOLS_X}", dtype, 1,
+                lambda: probe(x, th=PROBE_TH), lambda: probe_ref(x, PROBE_TH),
+                lambda: out.copy_(x), "band_copy_probe_kernel", 0,
+                2 * x.numel() * x.element_size(), exact=True, per_call=1)
+    totals["copy_probe"] = {dtype: tot}
+    log(f"tools: {card}")
+    del x, xa, out
+    torch.cuda.empty_cache()
+    return totals, counts
+
+
 KERNELS = [
     # (key, name, source, file:line of the TPU kernel's pl.pallas_call)
     ("spade_unit", "spade_unit (six units of one batch-4 request: up_3, up_4 x "
@@ -529,6 +676,15 @@ KERNELS = [
     ("conv3x3_small", "conv3x3_small (four convs of one batch-4 request: "
      "conv_6, conv_7, up_4.conv_1, conv_img, bf16)", "conv3x3.cu",
      "hrviton_tpu/ops/conv3x3.py:426"),
+    ("conv_band", "conv_band (tools/exp_conv.main: x (4, 1024, 768, 128), w "
+     "(3, 3, 128, 128), bf16; times at TH=8, launches of the check and the "
+     "timings at TH=8, 16, 32)", "conv_exp.cu", "tools/exp_pallas_conv.py:93"),
+    ("conv_halo", "conv_halo (tools/exp_conv2.main('all'): the same x and w; "
+     "gather and kernel, TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:98"),
+    ("conv_dma", "conv_dma (tools/exp_conv2.main('all'): the same x and w, "
+     "TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:253"),
+    ("copy_probe", "band-copy probe (tools/exp_copy_probe.main: the same x, "
+     "TH=16)", "copy_probe.cu", "tools/exp_dma_probe.py:67"),
 ]
 
 
@@ -540,6 +696,10 @@ def main():
     torch.cuda.empty_cache()
     second = second_path_phase(card)
     launches.update({k: v for k, v in second.items() if SECOND_PATH[k]})
+    torch.cuda.empty_cache()
+    tool_totals, tool_launches = tools_phase(card)
+    totals.update(tool_totals)
+    launches.update(tool_launches)
     record = {"kernels": []}
     for key, name, source, replaces in KERNELS:
         t = totals[key][torch.bfloat16]

@@ -28,7 +28,8 @@ import torch
 __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
            "KERNEL_DTYPES", "check_tensor", "pad_to"]
 
-SOURCES = ("spade_block", "spade_fused", "conv3x3")   # csrc/<name>.cu
+# csrc/<name>.cu
+SOURCES = ("spade_block", "spade_fused", "conv3x3", "conv_exp", "copy_probe")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

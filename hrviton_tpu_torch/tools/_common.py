@@ -1,0 +1,183 @@
+"""What the conv experiments share: seeded inputs, the library convolution,
+timing, the check against the library call, the padding and the nine-tap
+plain arithmetic, and the launcher of the kernels in ``csrc/conv_exp.cu``.
+
+Layouts are the JAX tools': activations NHWC, weights HWIO (3, 3, Cin, Cout).
+The experiments compute a 3x3 stride-1 conv with zero padding 1, accumulate
+in f32 over all nine taps and all of Cin and round once; no bias, no
+activation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hrviton_tpu_torch.ops import _build
+from hrviton_tpu_torch.ops._build import check_tensor, pad_to
+
+__all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
+           "pad_input", "check_conv_args", "nine_taps", "run_conv_exp",
+           "conv_wrapper", "CARD_TH"]
+
+CARD_TH = (8, 16, 32)      # band heights the conv kernels are built for
+_KC = 32                   # the kernels' input-channel chunk
+_NCOL = 64                 # the kernels' output-channel tile
+
+
+def env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def problem_size():
+    """(B, H, W, C, K) from PROF_BATCH, PROF_H, PROF_W, PROF_C and PROF_ITERS,
+    read when a ``main`` runs; the defaults are the tools' full size."""
+    return (env_int("PROF_BATCH", 4), env_int("PROF_H", 1024),
+            env_int("PROF_W", 768), env_int("PROF_C", 128),
+            env_int("PROF_ITERS", 10))
+
+
+def arr(rng: np.random.Generator, shape, dtype=torch.bfloat16, scale=1.0,
+        device="cpu") -> torch.Tensor:
+    """Standard-normal values from ``rng`` times ``scale`` on ``device``."""
+    a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+    return torch.from_numpy(a).to(device).to(dtype)
+
+
+def conv_ref(x, w):
+    """The library convolution on an NHWC x and an HWIO w (one ``F.conv2d``);
+    counterpart of the JAX tools' ``conv_xla``."""
+    wk = w.to(x.dtype).permute(3, 2, 0, 1)
+    return F.conv2d(x.permute(0, 3, 1, 2), wk, None, 1, 1).permute(0, 2, 3, 1)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timeit(name: str, fn, *args, iters: int = 10) -> float:
+    """ms per call of ``fn(*args)``: a warm-up, then ``iters`` calls timed
+    twice, the better of the two (CUDA events on the card, the host clock on
+    the CPU). Prints and returns it."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    fn(*args)
+    _sync(device)
+    best = float("inf")
+    for _ in range(2):
+        if device.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(iters):
+                fn(*args)
+            e1.record()
+            torch.cuda.synchronize(device)
+            ms = e0.elapsed_time(e1)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args)
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms)
+    print(f"{name:58s} {best / iters:9.2f} ms", flush=True)
+    return best / iters
+
+
+def check(name: str, fn, x, w, tol: float = 0.15) -> float:
+    """max|fn(x, w) - conv_ref(x, w)|; raises unless it is below ``tol``."""
+    ref = conv_ref(x, w)
+    out = fn(x, w)
+    d = (out.float() - ref.float()).abs().max().item()
+    print(f"{name}: max|diff| {d:.5f} shape {tuple(out.shape)}", flush=True)
+    if not d < tol:
+        raise RuntimeError(f"{name}: max|diff| {d} is not below {tol}")
+    return d
+
+
+def check_conv_args(name: str, x, w, th: int) -> None:
+    if x.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]) or w.dim() != 4:
+        raise ValueError(f"{name}: x {tuple(x.shape)} (NHWC) does not go with "
+                         f"w {tuple(w.shape)} (3, 3, Cin, Cout)")
+    if th <= 0 or x.shape[1] % th:
+        raise ValueError(f"{name}: h = {x.shape[1]} is not a multiple of the "
+                         f"band height th = {th}")
+
+
+def pad_input(x, cinp: int | None = None):
+    """One zero row above and below, one zero column on the left and on the
+    right up to Wp = W + 2 rounded up to 8 (every pixel row stays 16-byte
+    aligned), channels zero-padded to ``cinp``: (B, H + 2, Wp, cinp)."""
+    ww, c = x.shape[2], x.shape[3]
+    wp = pad_to(ww + 2, 8)
+    return F.pad(x, (0, (cinp or c) - c, 1, wp - ww - 1, 1, 1))
+
+
+def nine_taps(src, tap, rows: int, cols: int):
+    """sum over ky, kx of src[..., ky:ky+rows, kx:kx+cols, :] @ tap(ky, kx) in
+    f32, ky-major: the kernels' arithmetic, one product after another."""
+    acc = None
+    for ky in range(3):
+        for kx in range(3):
+            win = src[..., ky:ky + rows, kx:kx + cols, :].float()
+            p = win @ tap(ky, kx).float()
+            acc = p if acc is None else acc.add_(p)
+    return acc
+
+
+def _declare(lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.conv_band_forward_bf16, lib.conv_dma_forward_bf16,
+               lib.conv_halo_forward_bf16):
+        fn.argtypes = [vp] * 3 + [i] * 8 + [vp]
+        fn.restype = ctypes.c_int
+
+
+def run_conv_exp(entry: str, x, w, th: int, stage):
+    """Launch one kernel of ``csrc/conv_exp.cu`` on a CUDA x (bf16, NHWC) and
+    w (3, 3, Cin, Cout). ``stage(x, cinp)`` gives the kernel's input: the
+    padded image or its gathered row tiles, channels padded to ``cinp``.
+    Raises on what the kernels do not take."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{entry}: the kernel takes bfloat16, got {x.dtype}")
+    if th not in CARD_TH:
+        raise ValueError(f"{entry}: the kernels are built for th in {CARD_TH}, "
+                         f"got {th}")
+    n, h, ww, cin = x.shape
+    cout = w.shape[-1]
+    dev = x.device
+    check_tensor("x", x, (n, h, ww, cin), torch.bfloat16, dev)
+    if w.device != dev:
+        raise ValueError(f"w on {w.device}, expected {dev}")
+    cinp, np_ = pad_to(cin, _KC), pad_to(cout, _NCOL)
+    src = stage(x, cinp).contiguous()
+    wk = F.pad(w.to(torch.bfloat16).reshape(9, cin, cout),
+               (0, np_ - cout, 0, cinp - cin)).contiguous()
+    out = torch.empty((n, h, ww, cout), dtype=torch.bfloat16, device=dev)
+    lib = _build.load("conv_exp", _declare)
+    err = getattr(lib, entry)(
+        src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww,
+        src.shape[-2], cinp, cout, np_, th,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return out
+
+
+def conv_wrapper(wrapper, plain, entry: str, stage, x, w, th: int):
+    """What the three conv wrappers do: a CPU tensor takes ``plain``, a CUDA
+    tensor launches ``entry`` (or raises) and adds one to
+    ``wrapper.launches``."""
+    check_conv_args(wrapper.__name__, x, w, th)
+    if x.device.type == "cpu":
+        return plain(x, w, th)
+    if x.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
+    out = run_conv_exp(entry, x, w, th, stage)
+    wrapper.launches += 1
+    return out

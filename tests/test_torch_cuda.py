@@ -7,7 +7,8 @@ without a card, each test skips.
 Tolerances: f32 with TF32 off, 1e-4 x max|ref| (f32 sums of up to 9*128
 products in another order); bf16, 2 bf16 ulps of max|ref| (each plain
 version rounds the same intermediates to bf16 as its kernel, and a sum in
-another order flips single roundings).
+another order flips single roundings). The band-copy probe is a copy: bit
+for bit.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 from hrviton_tpu_torch.ops import conv3x3 as tc3
 from hrviton_tpu_torch.ops import spade_block as tsb
 from hrviton_tpu_torch.ops import spade_fused as tsf
+from hrviton_tpu_torch.tools import exp_conv, exp_conv2, exp_copy_probe
 
 _ORDER = ("x", "noise", "nscale", "actv", "wg", "bg", "wb", "bb", "wc", "bc")
 
@@ -172,3 +174,95 @@ def test_new_kernels_reject_bad_input():
     args, _ = _inputs(torch.bfloat16, 1, 8, 8, 7, 8, 3, False)
     with pytest.raises(ValueError):
         tsf.fused_spade_modulate(*args[:8])       # bf16: odd C
+
+
+# The conv experiments (csrc/conv_exp.cu) and the band-copy probe
+# (csrc/copy_probe.cu), bf16 only.
+_TOOL_CONVS = {
+    "band": (exp_conv.conv_band, exp_conv.conv_band_ref),
+    "halo": (exp_conv2.conv_halo, exp_conv2.conv_halo_ref),
+    "dma": (exp_conv2.conv_dma, exp_conv2.conv_dma_ref),
+}
+# (b, h, w, cin, cout, th): 11 bands (a block walks 8, the next 3) and 3
+# bands, W no multiple of the 16-column segment, Cin padded to one, two and
+# one 32-channel chunks, Cout no multiple of the 64-channel tile
+_TOOL_SHAPES = [(2, 88, 37, 16, 24, 8), (1, 48, 45, 40, 72, 16),
+                (3, 96, 20, 8, 130, 32)]
+
+
+def _tool_inputs(b, h, w, cin, cout):
+    rng = np.random.default_rng(2)
+    x = _a(rng, (b, h, w, cin)).to(torch.bfloat16)
+    return x, _a(rng, (3, 3, cin, cout), 0.1).to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _TOOL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", sorted(_TOOL_CONVS))
+def test_tool_conv_kernel_matches_plain(kind, shape):
+    _need_card()
+    run, plain = _TOOL_CONVS[kind]
+    b, h, w, cin, cout, th = shape
+    x, wt = _tool_inputs(b, h, w, cin, cout)
+    before = run.launches
+    got = run(x, wt, th=th)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    assert tuple(got.shape) == (b, h, w, cout)
+    _assert_close(got, plain(x, wt, th), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(_TOOL_CONVS))
+def test_tool_conv_kernel_edge_rows(kind):
+    """Constant input: the conv's zero padding shows in the border pixels."""
+    _need_card()
+    run, plain = _TOOL_CONVS[kind]
+    x, wt = _tool_inputs(1, 32, 48, 32, 32)
+    x = torch.ones_like(x)
+    _assert_close(run(x, wt, th=8), plain(x, wt, 8), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (2, 88, 37, 16, 8), (1, 48, 45, 8, 16), (3, 96, 70, 24, 32),
+    (1, 16, 5, 128, 16)], ids=lambda s: "x".join(map(str, s)))
+def test_probe_kernel_is_bit_exact(shape):
+    """Odd band counts (11: a block walks 8, the next 3), one band that is
+    first and last at once, W no multiple of the column segment."""
+    _need_card()
+    b, h, w, c, th = shape
+    x = _a(np.random.default_rng(3), (b, h, w, c)).to(torch.bfloat16)
+    before = exp_copy_probe.probe.launches
+    got = exp_copy_probe.probe(x, th=th)
+    torch.cuda.synchronize()
+    assert exp_copy_probe.probe.launches == before + 1
+    assert torch.equal(got, x)
+    assert torch.equal(exp_copy_probe.probe_ref(x, th), x)
+
+
+@pytest.mark.gpu
+def test_tool_kernels_reject_bad_input():
+    _need_card()
+    x, wt = _tool_inputs(1, 48, 16, 16, 16)
+    counts = [f.launches for f, _ in _TOOL_CONVS.values()] \
+        + [exp_copy_probe.probe.launches]
+    for run, _ in _TOOL_CONVS.values():
+        with pytest.raises(TypeError):
+            run(x.float(), wt.float())                      # bf16 only
+        with pytest.raises(ValueError):
+            run(x, wt, th=24)                               # th: 8, 16 or 32
+        with pytest.raises(ValueError):
+            run(x, wt, th=32)                               # 48 % 32
+        with pytest.raises(ValueError):
+            run(x.permute(0, 2, 1, 3), wt, th=8)            # not contiguous
+    with pytest.raises(TypeError):
+        exp_copy_probe.probe(x.float(), th=16)
+    with pytest.raises(ValueError):
+        exp_copy_probe.probe(x[..., :12].contiguous(), th=16)   # C % 8
+    with pytest.raises(ValueError):
+        exp_copy_probe.probe(x, th=32)
+    with pytest.raises(ValueError):
+        exp_copy_probe.probe(x.permute(0, 2, 1, 3), th=16)
+    assert counts == [f.launches for f, _ in _TOOL_CONVS.values()] \
+        + [exp_copy_probe.probe.launches]

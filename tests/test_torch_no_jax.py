@@ -1,5 +1,6 @@
-"""Import guard: the port and chip_smoke.py import no JAX and nothing of the
-JAX package (hrviton_tpu), statically and at run time."""
+"""Import guard: the port and chip_smoke.py import no JAX, nothing of the
+JAX package (hrviton_tpu) and none of its scripts under tools/, statically
+and at run time."""
 
 import ast
 import os
@@ -16,7 +17,9 @@ PORT_FILES = sorted((ROOT / "hrviton_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "hrviton_tpu")
+    # "tools": the JAX repository's scripts (the port has its own package,
+    # hrviton_tpu_torch.tools)
+    return top in ("jax", "jaxlib", "flax", "optax", "hrviton_tpu", "tools")
 
 
 def _imports(path: Path):

@@ -1,0 +1,240 @@
+"""The conv-experiment path: the port's ``hrviton_tpu_torch/tools`` (plain
+versions on the CPU) vs the JAX scripts under ``tools/`` with their Pallas
+kernels in interpret mode, on the same numpy inputs, in f32 and bf16; and
+vs the library conv. The CUDA kernels themselves are held against these
+plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances: f32, 1e-5 x max|ref| (sums of 9 * Cin f32 products in another
+order); bf16, one bf16 ulp of max|ref| (2^-7 x max|ref|: both sides
+accumulate in f32 and round once, so they differ by single roundings). The
+probe is a copy: bit for bit.
+
+The JAX scripts are loaded by file path (importing one runs no ``main``).
+``exp_pallas_conv2`` reads its ``INTERPRET`` switch at call time; the other
+two pass no such flag, so ``pallas_call`` is patched for them.
+"""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hrviton_tpu_torch.tools import _common, exp_conv, exp_conv2, exp_copy_probe
+
+ROOT = Path(__file__).resolve().parents[1]
+torch.set_num_threads(1)
+
+# (batch, h, w, cin, cout, th)
+SIZES = [(1, 32, 24, 8, 16, 8), (2, 32, 24, 8, 16, 16)]
+DTYPES = [("float32", torch.float32, jnp.float32),
+          ("bfloat16", torch.bfloat16, jnp.bfloat16)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_jax_tool_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _interpret(monkeypatch, mod):
+    """Make the script's ``pl.pallas_call`` run in interpret mode."""
+    monkeypatch.setattr(mod.pl, "pallas_call",
+                        functools.partial(mod.pl.pallas_call, interpret=True))
+
+
+def _inputs(size, seed=0):
+    b, h, w, cin, cout, _ = size
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, w, cin)).astype(np.float32),
+            (rng.standard_normal((3, 3, cin, cout)) * 0.1).astype(np.float32))
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _assert_close(got, want, tdtype):
+    """got: torch tensor; want: float32 numpy."""
+    scale = np.abs(want).max()
+    tol = (1e-5 if tdtype == torch.float32 else 2.0 ** -7) * scale
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= tol, (err, tol)
+
+
+def _conv_case(port_fn, port_ref, jax_fn, size, tdtype, jdtype):
+    xn, wn = _inputs(size)
+    th = size[-1]
+    x, w = torch.from_numpy(xn).to(tdtype), torch.from_numpy(wn).to(tdtype)
+    before = port_fn.launches
+    got = port_fn(x, w, th=th)                  # a CPU tensor: the plain version
+    assert port_fn.launches == before
+    assert got.dtype == tdtype and tuple(got.shape) == size[:3] + (size[4],)
+    assert torch.equal(got, port_ref(x, w, th))
+    want = _f32(jax_fn(jnp.asarray(xn, jdtype), jnp.asarray(wn, jdtype), th=th))
+    _assert_close(got, want, tdtype)
+    _assert_close(got, _common.conv_ref(x, w).float().numpy(), tdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_halo_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    _conv_case(exp_conv2.conv_halo, exp_conv2.conv_halo_ref, tool.conv_halo,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_dma_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    _conv_case(exp_conv2.conv_dma, exp_conv2.conv_dma_ref, tool.conv_dma,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_band_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv")
+    _interpret(monkeypatch, tool)
+    _conv_case(exp_conv.conv_band, exp_conv.conv_band_ref, tool.conv_pallas,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_probe_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_dma_probe")
+    _interpret(monkeypatch, tool)
+    th = size[-1]
+    monkeypatch.setattr(tool, "TH", th)
+    xn, _ = _inputs(size)
+    x = torch.from_numpy(xn).to(tdtype)
+    before = exp_copy_probe.probe.launches
+    got = exp_copy_probe.probe(x, th=th)
+    assert exp_copy_probe.probe.launches == before
+    assert torch.equal(got, x)
+    assert torch.equal(exp_copy_probe.probe_ref(x, th), x)
+    want = _f32(tool.probe(jnp.asarray(xn, jdtype)))
+    assert np.array_equal(got.float().numpy(), want)
+
+
+def test_halo_tiles_match_jax_gather():
+    """Tile i is padded rows [i * th, i * th + th + 2), Wp = W + 2 up to 8."""
+    size = (2, 32, 20, 8, 16, 8)
+    xn, _ = _inputs(size)
+    th = size[-1]
+    tiles = exp_conv2.halo_tiles(torch.from_numpy(xn), th)
+    wp = -(-(20 + 2) // 8) * 8
+    xp = np.pad(xn, ((0, 0), (1, 1), (1, wp - 20 - 1), (0, 0)))
+    idx = (np.arange(32 // th) * th)[:, None] + np.arange(th + 2)[None, :]
+    assert tuple(tiles.shape) == (2, 4, th + 2, wp, 8)
+    assert np.array_equal(tiles.numpy(), xp[:, idx])
+    assert np.array_equal(_common.pad_input(torch.from_numpy(xn)).numpy(), xp)
+    # channels padded for the kernels' 32-channel chunks
+    assert tuple(exp_conv2.halo_tiles(torch.from_numpy(xn), th, 32).shape) \
+        == (2, 4, th + 2, wp, 32)
+
+
+@pytest.mark.parametrize("fn", [exp_conv.conv_band, exp_conv2.conv_halo,
+                                exp_conv2.conv_dma, exp_conv.conv_band_ref,
+                                exp_conv2.conv_halo_ref, exp_conv2.conv_dma_ref],
+                         ids=lambda f: f.__name__)
+def test_conv_wrappers_reject_bad_shapes(fn):
+    x, w = torch.zeros(1, 20, 16, 8), torch.zeros(3, 3, 8, 8)
+    with pytest.raises(ValueError):
+        fn(x, w, th=8)                                  # 20 % 8 != 0
+    with pytest.raises(ValueError):
+        fn(torch.zeros(1, 16, 16, 4), w, th=8)          # Cin of x and w differ
+    assert tuple(fn(torch.zeros(1, 16, 16, 8), w, th=8).shape) == (1, 16, 16, 8)
+
+
+@pytest.mark.parametrize("fn", [exp_copy_probe.probe, exp_copy_probe.probe_ref],
+                         ids=lambda f: f.__name__)
+def test_probe_rejects_bad_shapes(fn):
+    with pytest.raises(ValueError):
+        fn(torch.zeros(1, 20, 16, 8), th=8)
+    with pytest.raises(ValueError):
+        fn(torch.zeros(16, 16, 8), th=8)
+    x = torch.arange(16 * 4 * 8, dtype=torch.float32).reshape(1, 16, 4, 8)
+    assert torch.equal(fn(x, th=16), x)                 # one band: first and last
+
+
+@pytest.mark.parametrize("which", ["roll", "prodroll", "e", "e2"])
+def test_unported_selectors_raise(which):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        exp_conv2.main(which, device="cpu")
+
+
+def test_unknown_selector_raises():
+    with pytest.raises(ValueError):
+        exp_conv2.main("im2col", device="cpu")
+
+
+def _tiny(monkeypatch, **extra):
+    env = {**dict(PROF_BATCH=1, PROF_H=16, PROF_W=16, PROF_C=8, PROF_ITERS=1),
+           **extra}
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(v))
+
+
+@pytest.mark.parametrize("skip_check", [0, 1])
+def test_exp_conv2_main_on_cpu(monkeypatch, capsys, skip_check):
+    _tiny(monkeypatch, SKIP_CHECK=skip_check)
+    before = (exp_conv2.conv_halo.launches, exp_conv2.conv_dma.launches)
+    times = exp_conv2.main("all", device="cpu")
+    assert (exp_conv2.conv_halo.launches, exp_conv2.conv_dma.launches) == before
+    want = ({"library", "halo TH=8", "halo TH=16", "dma TH=8", "dma TH=16"}
+            if skip_check else
+            {"library", "halo TH=8", "halo gather TH=8", "dma TH=8"})
+    assert set(times) == want and all(t > 0 for t in times.values())
+    out = capsys.readouterr().out
+    assert ("max|diff|" in out) == (not skip_check)
+    assert set(exp_conv2.main("dma", device="cpu")) == (
+        {"library", "dma TH=8", "dma TH=16"} if skip_check
+        else {"library", "dma TH=8"})
+
+
+def test_exp_conv_main_on_cpu(monkeypatch, capsys):
+    _tiny(monkeypatch, PROF_H=32)
+    times = exp_conv.main(device="cpu")
+    assert set(times) == {"library", "conv3x3_wide", "band TH=8", "band TH=16",
+                          "band TH=32"}
+    assert "max|diff|" in capsys.readouterr().out
+
+
+def test_exp_copy_probe_main_on_cpu(monkeypatch, capsys):
+    _tiny(monkeypatch, PROF_TH=8)
+    got = exp_copy_probe.main(device="cpu")
+    assert got["ms"] > 0 and got["gb_per_s"] > 0
+    assert "TH=8" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("main", [exp_conv.main, exp_conv2.main,
+                                  exp_copy_probe.main],
+                         ids=["exp_conv", "exp_conv2", "exp_copy_probe"])
+def test_mains_default_to_the_card(monkeypatch, main):
+    """Without a card an entry point raises; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    _tiny(monkeypatch)
+    monkeypatch.setattr("sys.argv", ["prog"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main()
+
+
+def test_timeit_and_check(capsys):
+    x, w = torch.ones(1, 8, 8, 8), torch.ones(3, 3, 8, 8)
+    ms = _common.timeit("library", _common.conv_ref, x, w, iters=2)
+    assert ms > 0 and "library" in capsys.readouterr().out
+    assert _common.check("same", _common.conv_ref, x, w) == 0.0
+    with pytest.raises(RuntimeError):
+        _common.check("off", lambda a, b: _common.conv_ref(a, b) + 1.0, x, w)
