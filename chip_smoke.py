@@ -7,8 +7,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
      (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_exp,
-     copy_probe}.cu: eight kernels), one nvcc process each, all started
-     together;
+     conv_shift,copy_probe}.cu: twelve kernels), one nvcc process each, all
+     started together;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
      every shape its main path gives it, batch 4, in bf16 and f32, with times
      beside the bound:
@@ -34,12 +34,17 @@ Phases (any failure exits non-zero, and no result line is printed):
      with the knobs off, and both are timed in turns;
   6. tools: the conv-experiment entry points hrviton_tpu_torch/tools/
      {exp_conv,exp_conv2,exp_copy_probe}.main at their full size (x (4, 1024,
-     768, 128), w (3, 3, 128, 128), bf16), with exact launch counts; then
-     each of their four kernels (conv_band, conv_halo, conv_dma, the
-     band-copy probe) against its plain version at that size and at one
-     ragged small size (the probe bit for bit), with times beside the
-     library call (F.conv2d; Tensor.copy_), conv3x3_wide at the same shape
-     and the bound.
+     768, 128), w (3, 3, 128, 128), bf16), exp_conv2.main once with 'all'
+     and, as the JAX script times them, with 'e' and 'e2' under SKIP_CHECK,
+     with exact launch counts; then each of their eight kernels (conv_band,
+     conv_halo, conv_dma, conv_roll, conv_prodroll, conv_e, conv_e2, the
+     band-copy probe) against its plain version at that size, at every band
+     height its entry point times, and at one ragged small size (the probe
+     bit for bit), with times beside the library call (F.conv2d;
+     Tensor.copy_), conv3x3_wide at the same shape and the bound. conv_e and
+     conv_e2 read x as it is: their wrappers may allocate the output and the
+     packed weights only, and may take no longer than the kernel alone and
+     the weight packing.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -107,7 +112,12 @@ TOOLS_RAGGED = (2, 48, 40, 16, 24, 8)   # b, h, w, cin, cout, th
 # (key, kernel name in a profile, band heights; the first is the record's)
 TOOL_CONVS = [("conv_band", "conv_band_kernel", (8, 16, 32)),
               ("conv_halo", "conv_halo_kernel", (8, 16)),
-              ("conv_dma", "conv_dma_kernel", (8,))]
+              ("conv_dma", "conv_dma_kernel", (8,)),
+              ("conv_roll", "conv_roll_kernel", (8,)),
+              ("conv_prodroll", "conv_prodroll_kernel", (8, 16)),
+              ("conv_e", "conv_e_kernel", (8, 16)),
+              ("conv_e2", "conv_e2_kernel", (8, 16))]
+UNSTAGED = ("conv_e", "conv_e2")        # wrappers that make no copy of x
 PROBE_TH = 16
 
 
@@ -131,6 +141,11 @@ def _tool_wrappers():
     return {"conv_band": (exp_conv.conv_band, exp_conv.conv_band_ref),
             "conv_halo": (exp_conv2.conv_halo, exp_conv2.conv_halo_ref),
             "conv_dma": (exp_conv2.conv_dma, exp_conv2.conv_dma_ref),
+            "conv_roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
+            "conv_prodroll": (exp_conv2.conv_prodroll,
+                              exp_conv2.conv_prodroll_ref),
+            "conv_e": (exp_conv2.conv_e, exp_conv2.conv_e_ref),
+            "conv_e2": (exp_conv2.conv_e2, exp_conv2.conv_e2_ref),
             "copy_probe": (exp_copy_probe.probe, exp_copy_probe.probe_ref)}
 
 
@@ -573,6 +588,38 @@ def _hold(label, wrapper, call, plain, exact):
         raise RuntimeError(f"{label}: kernel disagrees with its plain version")
 
 
+def _no_staging(label, call, alone, pack, x):
+    """A wrapper that reads x as it is. One call may allocate its output and
+    the packed weights, far less than a second copy of x. And it may take
+    longer than its kernel alone (``alone``, from the profiler) and the
+    weight packing ``pack`` by launch gaps only: by less than half of the
+    cheapest staging pass there could be, one read and one write of x, timed
+    here as Tensor.copy_. All by CUDA events over ten calls, so that the gap
+    before the first launch weighs little."""
+    x_bytes = x.numel() * x.element_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base \
+        - out.numel() * out.element_size()
+    ms, pack_ms = _events_ms(call, 10), _events_ms(pack, 10)
+    copy_ms = _events_ms(lambda: out.copy_(x), 10)
+    del out
+    log(f"{label}: wrapper {ms:.3f} ms, kernel alone "
+        + ("not measured" if alone is None else f"{alone:.3f} ms")
+        + f", weight packing {pack_ms:.3f} ms, a copy of x {copy_ms:.3f} ms; "
+        f"allocated beside the output {extra / 1e6:.2f} MB (x is "
+        f"{x_bytes / 1e6:.0f} MB)")
+    if extra > x_bytes // 8:
+        raise RuntimeError(f"{label}: the wrapper allocated {extra} bytes "
+                           f"beside its output: a staged copy of x?")
+    if alone is not None and ms - alone - pack_ms > 0.5 * copy_ms:
+        raise RuntimeError(f"{label}: the wrapper takes {ms - alone:.3f} ms "
+                           f"more than its kernel: a staging pass?")
+
+
 def tools_phase(card):
     """The conv-experiment path. First its entry points, at full size, with
     the launch counts set to 0 just before and read just after; then each
@@ -583,7 +630,8 @@ def tools_phase(card):
     points})."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.tools import exp_conv, exp_conv2, exp_copy_probe
-    from hrviton_tpu_torch.tools._common import problem_size
+    from hrviton_tpu_torch.tools._common import (pack_ky, pack_taps,
+                                                 pack_weights, problem_size)
     for name in ("PROF_BATCH", "PROF_H", "PROF_W", "PROF_C", "PROF_ITERS",
                  "PROF_TH", "SKIP_CHECK"):
         os.environ.pop(name, None)          # the tools' own full size
@@ -593,6 +641,12 @@ def tools_phase(card):
     t0 = time.perf_counter()
     exp_conv.main()
     exp_conv2.main("all")
+    os.environ["SKIP_CHECK"] = "1"      # the JAX script times e and e2 so
+    try:
+        exp_conv2.main("e")
+        exp_conv2.main("e2")
+    finally:
+        del os.environ["SKIP_CHECK"]
     exp_copy_probe.main()
     counts = {k: t[0].launches for k, t in tools.items()}
     model_counts = {k: w.launches for k, w in model.items()}
@@ -601,6 +655,10 @@ def tools_phase(card):
     timed = 1 + 2 * problem_size()[-1]   # a warm-up and twice PROF_ITERS calls
     expect = {"conv_band": 1 + 3 * timed,    # the check; TH = 8, 16, 32
               "conv_halo": 1 + timed, "conv_dma": 1 + timed,
+              "conv_roll": 1 + timed,        # main('all'): the check; TH = 8
+              "conv_prodroll": 1 + 2 * timed,            # ... TH = 8, 16
+              # the check of main('all'); TH = 8, 16 under SKIP_CHECK
+              "conv_e": 1 + 2 * timed, "conv_e2": 1 + 2 * timed,
               "copy_probe": 1 + timed}
     # exp_conv.main times conv3x3_wide beside conv_band; nothing else of the
     # model's kernels runs here
@@ -641,8 +699,14 @@ def tools_phase(card):
                         lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
                         nbytes, per_call=1)
             totals.setdefault(key, {dtype: tot})
-    for th in TOOL_CONVS[1][2]:
-        log(f"conv_halo TH={th}: the gather alone (halo_tiles) "
+            if key in UNSTAGED:
+                pack = pack_ky if key == "conv_e2" else pack_taps
+                _no_staging(f"{key} TH={th}", lambda: run(x, wt, th=th),
+                            tot["kernel_alone_ms"],
+                            lambda: pack_weights(wt, pack), x)
+    for th in (8, 16):
+        log(f"conv_halo, conv_roll, conv_prodroll TH={th}: the gather alone "
+            f"(halo_tiles) "
             f"{_events_ms(lambda: exp_conv2.halo_tiles(x, th), 3):.3f} ms")
     wide = lambda: c3.conv3x3_wide(x, w_oihw)
     wide_alone = _device_ms(wide, "conv3x3_tc_kernel", per_call=1)
@@ -683,6 +747,18 @@ KERNELS = [
      "gather and kernel, TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:98"),
     ("conv_dma", "conv_dma (tools/exp_conv2.main('all'): the same x and w, "
      "TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:253"),
+    ("conv_roll", "conv_roll (tools/exp_conv2.main('all'): the same x and w; "
+     "gather and kernel, TH=8)", "conv_shift.cu",
+     "tools/exp_pallas_conv2.py:146"),
+    ("conv_prodroll", "conv_prodroll (tools/exp_conv2.main('all'): the same x "
+     "and w; gather and kernel; times at TH=8, launches at TH=8, 16)",
+     "conv_shift.cu", "tools/exp_pallas_conv2.py:197"),
+    ("conv_e", "conv_e (tools/exp_conv2.main('all') and main('e') under "
+     "SKIP_CHECK: the same x, unpadded, and w; times at TH=8, launches at "
+     "TH=8, 16)", "conv_shift.cu", "tools/exp_pallas_conv2.py:352"),
+    ("conv_e2", "conv_e2 (tools/exp_conv2.main('all') and main('e2') under "
+     "SKIP_CHECK: the same x, unpadded, and w; times at TH=8, launches at "
+     "TH=8, 16)", "conv_shift.cu", "tools/exp_pallas_conv2.py:438"),
     ("copy_probe", "band-copy probe (tools/exp_copy_probe.main: the same x, "
      "TH=16)", "copy_probe.cu", "tools/exp_dma_probe.py:67"),
 ]

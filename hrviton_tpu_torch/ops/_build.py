@@ -29,7 +29,8 @@ __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
            "KERNEL_DTYPES", "check_tensor", "pad_to"]
 
 # csrc/<name>.cu
-SOURCES = ("spade_block", "spade_fused", "conv3x3", "conv_exp", "copy_probe")
+SOURCES = ("spade_block", "spade_fused", "conv3x3", "conv_exp", "conv_shift",
+           "copy_probe")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

@@ -1,6 +1,8 @@
 """What the conv experiments share: seeded inputs, the library convolution,
-timing, the check against the library call, the padding and the nine-tap
-plain arithmetic, and the launcher of the kernels in ``csrc/conv_exp.cu``.
+timing, the check against the library call, the padding, the nine-tap plain
+arithmetic, the weight packings and the plain product shift of the shift
+formulations, and the launcher of the kernels in ``csrc/conv_exp.cu`` and
+``csrc/conv_shift.cu``.
 
 Layouts are the JAX tools': activations NHWC, weights HWIO (3, 3, Cin, Cout).
 The experiments compute a 3x3 stride-1 conv with zero padding 1, accumulate
@@ -22,12 +24,14 @@ from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import check_tensor, pad_to
 
 __all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
-           "pad_input", "check_conv_args", "nine_taps", "run_conv_exp",
-           "conv_wrapper", "CARD_TH"]
+           "pad_input", "check_conv_args", "nine_taps", "pack_taps",
+           "pack_kx", "pack_ky", "pack_weights", "roll_p", "run_conv_exp",
+           "conv_wrapper", "CARD_TH", "SHIFT_TH"]
 
-CARD_TH = (8, 16, 32)      # band heights the conv kernels are built for
+CARD_TH = (8, 16, 32)      # band heights the kernels of conv_exp.cu are built for
+SHIFT_TH = (8, 16)         # and those of conv_shift.cu
 _KC = 32                   # the kernels' input-channel chunk
-_NCOL = 64                 # the kernels' output-channel tile
+_NCOL = 64                 # a multiple of the kernels' output-channel tiles (64, 32)
 
 
 def env_int(name: str, default: int) -> int:
@@ -130,23 +134,79 @@ def nine_taps(src, tap, rows: int, cols: int):
     return acc
 
 
-def _declare(lib) -> None:
+def pack_taps(w):
+    """w as (3, 3, Cin, Cout): [ky][kx], the nine taps one by one."""
+    return w
+
+
+def pack_kx(w):
+    """The kx taps stacked along channels in the order (2, 1, 0), for an
+    operand whose channels are (t[j + 1], t[j], t[j - 1]): (3, 3 Cin, Cout),
+    [ky][third * Cin + c]."""
+    return torch.cat([w[:, 2], w[:, 1], w[:, 0]], dim=1)
+
+
+def pack_ky(w):
+    """The ky taps stacked along channels per kx, for an operand whose
+    channels are three successive rows: (3, 3 Cin, Cout), [kx][ky * Cin + c]."""
+    return torch.stack([torch.cat([w[0, kx], w[1, kx], w[2, kx]], dim=0)
+                        for kx in range(3)])
+
+
+def roll_p(p, kx: int):
+    """The product shift with a zero boundary: the term of tap kx in
+    acc[q] += p[q + kx - 1], columns on axis -2. The roll is circular, so the
+    image's first column (kx = 0) or last (kx = 2) is masked to zero."""
+    if kx == 1:
+        return p
+    r = torch.roll(p, 1 - kx, dims=-2)
+    r[..., 0 if kx == 0 else -1, :] = 0.0
+    return r
+
+
+def pack_weights(w, pack=pack_taps):
+    """w (3, 3, Cin, Cout) as a kernel reads it: bf16, ordered by ``pack``,
+    each of the nine (Cin, Cout) slices zero-padded to the kernels' chunk and
+    tile, (9, CINP, NP). All that a wrapper does to the weights per call."""
+    cin, cout = w.shape[2:]
+    return F.pad(pack(w.to(torch.bfloat16)).reshape(9, cin, cout),
+                 (0, pad_to(cout, _NCOL) - cout, 0, pad_to(cin, _KC) - cin)
+                 ).contiguous()
+
+
+_ENTRIES = {
+    # csrc/<source>.cu: its entry points, all (x, wk, out, B, H, W, the
+    # padded row width of a staged input or the channels of an unstaged one,
+    # CINP, COUT, NP, TH, stream)
+    "conv_exp": ("conv_band_forward_bf16", "conv_dma_forward_bf16",
+                 "conv_halo_forward_bf16"),
+    "conv_shift": ("conv_roll_forward_bf16", "conv_prodroll_forward_bf16",
+                   "conv_e_forward_bf16", "conv_e2_forward_bf16"),
+}
+
+
+def _declare(lib, source: str) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.conv_band_forward_bf16, lib.conv_dma_forward_bf16,
-               lib.conv_halo_forward_bf16):
+    for entry in _ENTRIES[source]:
+        fn = getattr(lib, entry)
         fn.argtypes = [vp] * 3 + [i] * 8 + [vp]
         fn.restype = ctypes.c_int
 
 
-def run_conv_exp(entry: str, x, w, th: int, stage):
-    """Launch one kernel of ``csrc/conv_exp.cu`` on a CUDA x (bf16, NHWC) and
-    w (3, 3, Cin, Cout). ``stage(x, cinp)`` gives the kernel's input: the
-    padded image or its gathered row tiles, channels padded to ``cinp``.
-    Raises on what the kernels do not take."""
+def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
+    """Launch one conv kernel of ``csrc/conv_exp.cu`` or ``csrc/conv_shift.cu``
+    on a CUDA x (bf16, NHWC) and w (3, 3, Cin, Cout). ``stage(x, cinp)`` gives
+    the kernel's input: the padded image or its gathered row tiles, channels
+    padded to ``cinp``; with ``stage=None`` the kernel reads x as it is and no
+    copy of x is made. ``pack(w)`` orders the weights as the kernel multiplies
+    them; each of its nine (Cin, Cout) slices is zero-padded to the kernels'
+    chunk and tile. Raises on what the kernels do not take."""
+    source = next(s for s, entries in _ENTRIES.items() if entry in entries)
+    ths = SHIFT_TH if source == "conv_shift" else CARD_TH
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{entry}: the kernel takes bfloat16, got {x.dtype}")
-    if th not in CARD_TH:
-        raise ValueError(f"{entry}: the kernels are built for th in {CARD_TH}, "
+    if th not in ths:
+        raise ValueError(f"{entry}: the kernel is built for th in {ths}, "
                          f"got {th}")
     n, h, ww, cin = x.shape
     cout = w.shape[-1]
@@ -154,30 +214,35 @@ def run_conv_exp(entry: str, x, w, th: int, stage):
     check_tensor("x", x, (n, h, ww, cin), torch.bfloat16, dev)
     if w.device != dev:
         raise ValueError(f"w on {w.device}, expected {dev}")
-    cinp, np_ = pad_to(cin, _KC), pad_to(cout, _NCOL)
-    src = stage(x, cinp).contiguous()
-    wk = F.pad(w.to(torch.bfloat16).reshape(9, cin, cout),
-               (0, np_ - cout, 0, cinp - cin)).contiguous()
+    wk = pack_weights(w, pack)
+    _, cinp, np_ = wk.shape
+    if stage is None:
+        if cin % 8:
+            raise ValueError(f"{entry}: Cin = {cin} is not a multiple of 8 "
+                             f"(pixels must be 16-byte aligned)")
+        src, width_or_c = x, cin
+    else:
+        src = stage(x, cinp).contiguous()
+        width_or_c = src.shape[-2]
     out = torch.empty((n, h, ww, cout), dtype=torch.bfloat16, device=dev)
-    lib = _build.load("conv_exp", _declare)
+    lib = _build.load(source, lambda lib: _declare(lib, source))
     err = getattr(lib, entry)(
-        src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww,
-        src.shape[-2], cinp, cout, np_, th,
-        torch.cuda.current_stream(dev).cuda_stream)
+        src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww, width_or_c,
+        cinp, cout, np_, th, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out
 
 
-def conv_wrapper(wrapper, plain, entry: str, stage, x, w, th: int):
-    """What the three conv wrappers do: a CPU tensor takes ``plain``, a CUDA
-    tensor launches ``entry`` (or raises) and adds one to
-    ``wrapper.launches``."""
+def conv_wrapper(wrapper, plain, entry: str, stage, x, w, th: int,
+                 pack=pack_taps):
+    """What the conv wrappers do: a CPU tensor takes ``plain``, a CUDA tensor
+    launches ``entry`` (or raises) and adds one to ``wrapper.launches``."""
     check_conv_args(wrapper.__name__, x, w, th)
     if x.device.type == "cpu":
         return plain(x, w, th)
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
-    out = run_conv_exp(entry, x, w, th, stage)
+    out = run_conv_exp(entry, x, w, th, stage, pack)
     wrapper.launches += 1
     return out

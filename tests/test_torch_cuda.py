@@ -8,7 +8,8 @@ Tolerances: f32 with TF32 off, 1e-4 x max|ref| (f32 sums of up to 9*128
 products in another order); bf16, 2 bf16 ulps of max|ref| (each plain
 version rounds the same intermediates to bf16 as its kernel, and a sum in
 another order flips single roundings). The band-copy probe is a copy: bit
-for bit.
+for bit. The shift formulations of the conv experiments sum the same f32
+products as their plain versions, per kx first: the same 2 ulps.
 """
 
 import numpy as np
@@ -266,3 +267,84 @@ def test_tool_kernels_reject_bad_input():
         exp_copy_probe.probe(x.permute(0, 2, 1, 3), th=16)
     assert counts == [f.launches for f, _ in _TOOL_CONVS.values()] \
         + [exp_copy_probe.probe.launches]
+
+
+# The shift formulations (csrc/conv_shift.cu), bf16, th 8 or 16.
+_SHIFT_CONVS = {
+    "roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
+    "prodroll": (exp_conv2.conv_prodroll, exp_conv2.conv_prodroll_ref),
+    "e": (exp_conv2.conv_e, exp_conv2.conv_e_ref),
+    "e2": (exp_conv2.conv_e2, exp_conv2.conv_e2_ref),
+}
+# (b, h, w, cin, cout, th): 11 bands (a block of e / e2 walks 8, the next 3),
+# Cin half a chunk, W = 37 (two column blocks of 30 or 32, the second ragged);
+# 3 bands, Cin = 40 (the second chunk's tail is zero-filled), W = 45 (four
+# blocks of 14 or three of 16), Cout = 72 (three channel tiles, the last
+# ragged); one band that is first and last at once, W = 70, Cout = 130
+_SHIFT_SHAPES = [(2, 88, 37, 16, 24, 8), (1, 48, 45, 40, 72, 16),
+                 (3, 8, 70, 8, 130, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _SHIFT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", sorted(_SHIFT_CONVS))
+def test_shift_conv_kernel_matches_plain(kind, shape):
+    _need_card()
+    run, plain = _SHIFT_CONVS[kind]
+    b, h, w, cin, cout, th = shape
+    x, wt = _tool_inputs(b, h, w, cin, cout)
+    before = run.launches
+    got = run(x, wt, th=th)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    assert tuple(got.shape) == (b, h, w, cout)
+    _assert_close(got, plain(x, wt, th), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("th", [8, 16])
+@pytest.mark.parametrize("pattern", ["ones", "corners"])
+@pytest.mark.parametrize("kind", sorted(_SHIFT_CONVS))
+def test_shift_conv_kernel_borders(kind, pattern, th):
+    """Two bands (a first and a last) and 64 columns (the image's first and
+    last column in blocks of their own kind). Constant input: the conv's zero
+    padding shows in the border rows and columns. An impulse in each corner:
+    a shift that wrapped, or a border column not masked, would put a corner's
+    taps on the other side."""
+    _need_card()
+    run, plain = _SHIFT_CONVS[kind]
+    x, wt = _tool_inputs(1, 2 * th, 64, 32, 32)
+    if pattern == "ones":
+        x = torch.ones_like(x)
+    else:
+        corners = torch.zeros_like(x)
+        for r in (0, -1):
+            for c in (0, -1):
+                corners[:, r, c] = x[:, r, c]
+        x = corners
+    got = run(x, wt, th=th)
+    ref = plain(x, wt, th)
+    _assert_close(got, ref, torch.bfloat16)
+    assert torch.equal(got == 0, ref == 0)          # nothing leaked across a border
+
+
+@pytest.mark.gpu
+def test_shift_kernels_reject_bad_input():
+    _need_card()
+    x, wt = _tool_inputs(1, 48, 16, 16, 16)
+    counts = [f.launches for f, _ in _SHIFT_CONVS.values()]
+    for kind, (run, _) in _SHIFT_CONVS.items():
+        with pytest.raises(TypeError):
+            run(x.float(), wt.float())                      # bf16 only
+        with pytest.raises(ValueError):
+            run(x, wt, th=24)                               # th: 8 or 16
+        with pytest.raises(ValueError):
+            run(torch.cat([x, x], 1), wt, th=32)            # built for 8 and 16
+        with pytest.raises(ValueError):
+            run(x, wt, th=32)                               # 48 % 32
+        with pytest.raises(ValueError):
+            run(x.permute(0, 2, 1, 3), wt, th=8)            # not contiguous
+        if kind in ("e", "e2"):                             # x as it is: C % 8
+            with pytest.raises(ValueError):
+                run(x[..., :12].contiguous(), wt[:, :, :12].contiguous(), th=8)
+    assert counts == [f.launches for f, _ in _SHIFT_CONVS.values()]

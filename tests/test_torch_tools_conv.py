@@ -7,7 +7,9 @@ plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 Tolerances: f32, 1e-5 x max|ref| (sums of 9 * Cin f32 products in another
 order); bf16, one bf16 ulp of max|ref| (2^-7 x max|ref|: both sides
 accumulate in f32 and round once, so they differ by single roundings). The
-probe is a copy: bit for bit.
+probe is a copy: bit for bit. The edge cases of the shift formulations (the
+tightest padded width, one and two bands, corner impulses) hold the plain
+versions to the library conv in f32.
 
 The JAX scripts are loaded by file path (importing one runs no ``main``).
 ``exp_pallas_conv2`` reads its ``INTERPRET`` switch at call time; the other
@@ -102,6 +104,42 @@ def test_conv_dma_matches_jax(monkeypatch, size, name, tdtype, jdtype):
 
 @pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
 @pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_roll_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    _conv_case(exp_conv2.conv_roll, exp_conv2.conv_roll_ref, tool.conv_roll,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_prodroll_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    _conv_case(exp_conv2.conv_prodroll, exp_conv2.conv_prodroll_ref, tool.conv_prodroll,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_e_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    _conv_case(exp_conv2.conv_e, exp_conv2.conv_e_ref, tool.conv_e,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
+def test_conv_e2_matches_jax(monkeypatch, size, name, tdtype, jdtype):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    _conv_case(exp_conv2.conv_e2, exp_conv2.conv_e2_ref, tool.conv_e2,
+               size, tdtype, jdtype)
+
+
+@pytest.mark.parametrize("name,tdtype,jdtype", DTYPES, ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("size", SIZES, ids=["one_image_th8", "two_images_th16"])
 def test_conv_band_matches_jax(monkeypatch, size, name, tdtype, jdtype):
     tool = _jax_tool("exp_pallas_conv")
     _interpret(monkeypatch, tool)
@@ -144,9 +182,90 @@ def test_halo_tiles_match_jax_gather():
         == (2, 4, th + 2, wp, 32)
 
 
+_SHIFT = {"roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
+          "prodroll": (exp_conv2.conv_prodroll, exp_conv2.conv_prodroll_ref),
+          "e": (exp_conv2.conv_e, exp_conv2.conv_e_ref),
+          "e2": (exp_conv2.conv_e2, exp_conv2.conv_e2_ref)}
+
+
+def _plain_vs_library(name, size, x=None):
+    """Both the wrapper (a CPU tensor: the plain version) and the plain
+    version itself against the library conv, in f32."""
+    xn, wn = _inputs(size)
+    x = torch.from_numpy(xn) if x is None else x
+    w = torch.from_numpy(wn)
+    want = _common.conv_ref(x, w)
+    for fn in _SHIFT[name]:
+        got = fn(x, w, th=size[-1])
+        assert tuple(got.shape) == tuple(want.shape)
+        _assert_close(got, want.numpy(), torch.float32)
+    return got, want
+
+
+@pytest.mark.parametrize("name", ["roll", "prodroll"])
+def test_circular_roll_is_harmless_at_the_tightest_width(name):
+    """W % 8 == 6: Wp = W + 2, no spare padded column. The roll wraps padded
+    column 0 onto Wp - 1 and back; no kept column may see it."""
+    size = (2, 16, 22, 8, 16, 8)
+    assert _common.pad_input(torch.zeros(size[:4])).shape[2] == size[2] + 2
+    _plain_vs_library(name, size)
+
+
+@pytest.mark.parametrize("bands", [1, 2], ids=["one_band", "two_bands"])
+@pytest.mark.parametrize("name", ["e", "e2"])
+def test_band_cases_of_the_unpadded_copy(name, bands):
+    """Two bands: a first and a last, no middle one. One band (H == th) is
+    first and last at once: both missing rows are zero."""
+    th = 8
+    size = (2, bands * th, 24, 8, 16, th)
+    tiles = exp_conv2.band_tiles(torch.from_numpy(_inputs(size)[0]), th)
+    assert tuple(tiles.shape) == (2, bands, th + 2, 24, 8)
+    assert not tiles[:, 0, 0].any() and not tiles[:, -1, -1].any()
+    assert tiles[:, 0, 1].any() and tiles[:, -1, -2].any()
+    _plain_vs_library(name, size)
+
+
+@pytest.mark.parametrize("name", sorted(_SHIFT))
+def test_corner_impulses(name):
+    """An impulse in each image corner: a shift that wrapped, or a border
+    column that was not masked, would put a corner's taps on the other side;
+    each corner reaches exactly its 2 x 2 neighbourhood."""
+    size = (1, 16, 22, 8, 16, 8)
+    x = torch.zeros(size[:4])
+    for r in (0, -1):
+        for c in (0, -1):
+            x[:, r, c] = 1.0
+    got, want = _plain_vs_library(name, size, x)
+    reached = torch.zeros(size[1:3], dtype=torch.bool)
+    for r in (slice(0, 2), slice(-2, None)):
+        for c in (slice(0, 2), slice(-2, None)):
+            reached[r, c] = True
+    assert not got[0, ~reached].any() and got[0, reached].any()
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_weight_packings_and_product_shift_match_jax(monkeypatch):
+    tool = _jax_tool("exp_pallas_conv2")
+    monkeypatch.setattr(tool, "INTERPRET", True)
+    wn = _inputs(SIZES[0])[1]
+    w = torch.from_numpy(wn)
+    assert _common.pack_taps(w) is w
+    assert np.array_equal(_common.pack_kx(w).numpy(), np.concatenate(
+        [wn[:, 2], wn[:, 1], wn[:, 0]], axis=1))
+    assert np.array_equal(_common.pack_ky(w).numpy(), np.stack(
+        [np.concatenate([wn[0, kx], wn[1, kx], wn[2, kx]], axis=0)
+         for kx in range(3)]))
+    p = np.arange(2 * 5 * 3, dtype=np.float32).reshape(2, 5, 3) + 1
+    col = np.arange(5).reshape(1, 5, 1)
+    for kx in range(3):
+        want = np.asarray(tool._roll_p(jnp.asarray(p), kx, 5, col))
+        assert np.array_equal(_common.roll_p(torch.from_numpy(p), kx).numpy(), want)
+
+
 @pytest.mark.parametrize("fn", [exp_conv.conv_band, exp_conv2.conv_halo,
                                 exp_conv2.conv_dma, exp_conv.conv_band_ref,
-                                exp_conv2.conv_halo_ref, exp_conv2.conv_dma_ref],
+                                exp_conv2.conv_halo_ref, exp_conv2.conv_dma_ref,
+                                *(f for pair in _SHIFT.values() for f in pair)],
                          ids=lambda f: f.__name__)
 def test_conv_wrappers_reject_bad_shapes(fn):
     x, w = torch.zeros(1, 20, 16, 8), torch.zeros(3, 3, 8, 8)
@@ -168,12 +287,6 @@ def test_probe_rejects_bad_shapes(fn):
     assert torch.equal(fn(x, th=16), x)                 # one band: first and last
 
 
-@pytest.mark.parametrize("which", ["roll", "prodroll", "e", "e2"])
-def test_unported_selectors_raise(which):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        exp_conv2.main(which, device="cpu")
-
-
 def test_unknown_selector_raises():
     with pytest.raises(ValueError):
         exp_conv2.main("im2col", device="cpu")
@@ -186,21 +299,35 @@ def _tiny(monkeypatch, **extra):
         monkeypatch.setenv(k, str(v))
 
 
+_ALL = ("halo", "roll", "prodroll", "dma", "e", "e2")
+# what main times after its checks (the JAX script's lists)
+_TIMED = {"halo": {"halo TH=8", "halo gather TH=8"}, "roll": {"roll TH=8"},
+          "prodroll": {"prodroll TH=8", "prodroll TH=16"}, "dma": {"dma TH=8"},
+          "e": set(), "e2": set()}
+
+
+def _main_labels(which, skip_check):
+    chosen = _ALL if which == "all" else (which,)
+    if skip_check:
+        return {"library"} | {f"{n} TH={th}" for n in chosen for th in (8, 16)}
+    return {"library"}.union(*(_TIMED[n] for n in chosen))
+
+
 @pytest.mark.parametrize("skip_check", [0, 1])
-def test_exp_conv2_main_on_cpu(monkeypatch, capsys, skip_check):
+@pytest.mark.parametrize("which", ["all", *_ALL])
+def test_exp_conv2_main_on_cpu(monkeypatch, capsys, which, skip_check):
     _tiny(monkeypatch, SKIP_CHECK=skip_check)
-    before = (exp_conv2.conv_halo.launches, exp_conv2.conv_dma.launches)
-    times = exp_conv2.main("all", device="cpu")
-    assert (exp_conv2.conv_halo.launches, exp_conv2.conv_dma.launches) == before
-    want = ({"library", "halo TH=8", "halo TH=16", "dma TH=8", "dma TH=16"}
-            if skip_check else
-            {"library", "halo TH=8", "halo gather TH=8", "dma TH=8"})
-    assert set(times) == want and all(t > 0 for t in times.values())
+    fns = [getattr(exp_conv2, f"conv_{n}") for n in _ALL]
+    before = [f.launches for f in fns]
+    times = exp_conv2.main(which, device="cpu")
+    assert [f.launches for f in fns] == before
+    assert set(times) == _main_labels(which, skip_check)
+    assert all(t > 0 for t in times.values())
     out = capsys.readouterr().out
-    assert ("max|diff|" in out) == (not skip_check)
-    assert set(exp_conv2.main("dma", device="cpu")) == (
-        {"library", "dma TH=8", "dma TH=16"} if skip_check
-        else {"library", "dma TH=8"})
+    checked = [line.split(":")[0] for line in out.splitlines()
+               if "max|diff|" in line]
+    assert checked == ([] if skip_check else
+                       list(_ALL if which == "all" else (which,)))
 
 
 def test_exp_conv_main_on_cpu(monkeypatch, capsys):
