@@ -7,8 +7,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
      (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_exp,
-     conv_shift,copy_probe}.cu: twelve kernels), one nvcc process each, all
-     started together;
+     conv_shift,copy_probe,conv_tma}.cu: twelve kernels), one nvcc process
+     each, all started together;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
      every shape its main path gives it, batch 4, in bf16 and f32, with times
      beside the bound:
@@ -41,10 +41,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      band-copy probe) against its plain version at that size, at every band
      height its entry point times, and at one ragged small size (the probe
      bit for bit), with times beside the library call (F.conv2d;
-     Tensor.copy_), conv3x3_wide at the same shape and the bound. conv_e and
+     Tensor.copy_), conv3x3_wide at the same shape and the bound. conv_halo
+     and conv_roll (TMA tensor loads and wgmma, csrc/conv_tma.cu), conv_e and
      conv_e2 read x as it is: their wrappers may allocate the output and the
      packed weights only, and may take no longer than the kernel alone and
-     the weight packing.
+     the weight packing. The times of conv_halo and conv_roll are printed
+     beside those of the designs they replaced, with the time the host takes
+     to encode a call's tensor maps.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -111,13 +114,21 @@ TOOLS_X = (B, 1024, 768, 128)           # the tools' x; w is (3, 3, 128, 128)
 TOOLS_RAGGED = (2, 48, 40, 16, 24, 8)   # b, h, w, cin, cout, th
 # (key, kernel name in a profile, band heights; the first is the record's)
 TOOL_CONVS = [("conv_band", "conv_band_kernel", (8, 16, 32)),
-              ("conv_halo", "conv_halo_kernel", (8, 16)),
+              ("conv_halo", "conv_halo_tma_kernel", (8, 16)),
               ("conv_dma", "conv_dma_kernel", (8,)),
-              ("conv_roll", "conv_roll_kernel", (8,)),
+              ("conv_roll", "conv_roll_tma_kernel", (8, 16)),
               ("conv_prodroll", "conv_prodroll_kernel", (8, 16)),
               ("conv_e", "conv_e_kernel", (8, 16)),
               ("conv_e2", "conv_e2_kernel", (8, 16))]
-UNSTAGED = ("conv_e", "conv_e2")        # wrappers that make no copy of x
+# wrappers that make no copy of x
+UNSTAGED = ("conv_halo", "conv_roll", "conv_e", "conv_e2")
+# What conv_halo and conv_roll took before they read x by TMA and multiplied
+# on wgmma (a gather in device memory, then a cp.async / mma.sync kernel):
+# {band height: (wrapper ms, kernel alone ms)} as PERF.md records them, at
+# TOOLS_X on an NVIDIA H100 80GB HBM3 at 700 W. Printed beside this run's
+# times; those kernels no longer exist to be timed again.
+EARLIER = {"conv_halo": {8: (7.62, 4.04), 16: (8.44, 5.07)},
+           "conv_roll": {8: (8.63, 5.05)}}
 PROBE_TH = 16
 
 
@@ -630,8 +641,11 @@ def tools_phase(card):
     points})."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.tools import exp_conv, exp_conv2, exp_copy_probe
-    from hrviton_tpu_torch.tools._common import (pack_ky, pack_taps,
-                                                 pack_weights, problem_size)
+    from hrviton_tpu_torch.tools._common import (pack_kx, pack_ky, pack_taps,
+                                                 pack_weights,
+                                                 pack_weights_kmajor,
+                                                 problem_size,
+                                                 tensor_map_encode_us)
     for name in ("PROF_BATCH", "PROF_H", "PROF_W", "PROF_C", "PROF_ITERS",
                  "PROF_TH", "SKIP_CHECK"):
         os.environ.pop(name, None)          # the tools' own full size
@@ -700,14 +714,29 @@ def tools_phase(card):
                         nbytes, per_call=1)
             totals.setdefault(key, {dtype: tot})
             if key in UNSTAGED:
-                pack = pack_ky if key == "conv_e2" else pack_taps
+                order = {"conv_roll": pack_kx, "conv_e2": pack_ky}.get(
+                    key, pack_taps)
+                layout = (pack_weights_kmajor if key in EARLIER
+                          else pack_weights)
                 _no_staging(f"{key} TH={th}", lambda: run(x, wt, th=th),
                             tot["kernel_alone_ms"],
-                            lambda: pack_weights(wt, pack), x)
+                            lambda: layout(wt, order), x)
+            if key in EARLIER:
+                was = EARLIER[key].get(th)
+                alone = tot["kernel_alone_ms"]
+                log(f"{key} TH={th}: wrapper {tot['ms']:.3f} ms, kernel alone "
+                    + ("not measured" if alone is None else f"{alone:.3f} ms")
+                    + " by TMA and wgmma; the earlier design "
+                    + ("not measured at this band height" if was is None else
+                       f"{was[0]:.2f} ms, kernel alone {was[1]:.2f} ms "
+                       f"(PERF.md)"))
+    log(f"conv_halo, conv_roll: encoding one call's two tensor maps takes "
+        f"{tensor_map_encode_us(x, wt):.2f} us of host time")
     for th in (8, 16):
-        log(f"conv_halo, conv_roll, conv_prodroll TH={th}: the gather alone "
-            f"(halo_tiles) "
-            f"{_events_ms(lambda: exp_conv2.halo_tiles(x, th), 3):.3f} ms")
+        log(f"conv_prodroll TH={th}: the gather alone (halo_tiles) "
+            f"{_events_ms(lambda: exp_conv2.halo_tiles(x, th), 3):.3f} ms; "
+            f"conv_halo and conv_roll no longer pay it: their tiles are TMA "
+            f"boxes of the unpadded x")
     wide = lambda: c3.conv3x3_wide(x, w_oihw)
     wide_alone = _device_ms(wide, "conv3x3_tc_kernel", per_call=1)
     log(f"conv3x3_wide {c}->{c} {h}x{w}: wrapper {_events_ms(wide, 3):.3f} ms, "
@@ -743,13 +772,14 @@ KERNELS = [
     ("conv_band", "conv_band (tools/exp_conv.main: x (4, 1024, 768, 128), w "
      "(3, 3, 128, 128), bf16; times at TH=8, launches of the check and the "
      "timings at TH=8, 16, 32)", "conv_exp.cu", "tools/exp_pallas_conv.py:93"),
-    ("conv_halo", "conv_halo (tools/exp_conv2.main('all'): the same x and w; "
-     "gather and kernel, TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:98"),
+    ("conv_halo", "conv_halo (tools/exp_conv2.main('all'): the same x, "
+     "unpadded, and w; TMA halo tiles and wgmma, TH=8)", "conv_tma.cu",
+     "tools/exp_pallas_conv2.py:98"),
     ("conv_dma", "conv_dma (tools/exp_conv2.main('all'): the same x and w, "
      "TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:253"),
-    ("conv_roll", "conv_roll (tools/exp_conv2.main('all'): the same x and w; "
-     "gather and kernel, TH=8)", "conv_shift.cu",
-     "tools/exp_pallas_conv2.py:146"),
+    ("conv_roll", "conv_roll (tools/exp_conv2.main('all'): the same x, "
+     "unpadded, and w; three TMA boxes a stage and wgmma; times at TH=8, "
+     "launches at TH=8)", "conv_tma.cu", "tools/exp_pallas_conv2.py:146"),
     ("conv_prodroll", "conv_prodroll (tools/exp_conv2.main('all'): the same x "
      "and w; gather and kernel; times at TH=8, launches at TH=8, 16)",
      "conv_shift.cu", "tools/exp_pallas_conv2.py:197"),

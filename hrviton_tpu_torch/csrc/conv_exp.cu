@@ -1,7 +1,8 @@
 // The staging formulations of the 3x3 stride-1 pad-1 convolution experiment
-// for Hopper (sm_90a): three kernels that compute the same conv (bf16 in, f32
+// for Hopper (sm_90a): two kernels that compute the same conv (bf16 in, f32
 // accumulation over all nine taps and all of Cin, one rounding to bf16, no
-// bias, no activation) and differ in how an input tile reaches shared memory.
+// bias, no activation) from a pre-padded input. (The third staging
+// formulation, conv_halo, reads the unpadded x by TMA: csrc/conv_tma.cu.)
 //
 //   conv_band_kernel replaces the TPU kernel tools/exp_pallas_conv.py:_kernel
 //     (reached through conv_pallas, whose pl.pallas_call is at
@@ -11,10 +12,6 @@
 //   conv_dma_kernel replaces tools/exp_pallas_conv2.py:_kernel_dma (through
 //     conv_dma, pl.pallas_call at exp_pallas_conv2.py:253): the same band
 //     double buffer, the nine taps in a run-time loop with computed offsets.
-//   conv_halo_kernel replaces tools/exp_pallas_conv2.py:_kernel_halo (through
-//     conv_halo, pl.pallas_call at exp_pallas_conv2.py:98): overlapping row
-//     tiles gathered in device memory beforehand; a standard blocked kernel
-//     with plain vector loads, one buffer, nine unrolled taps.
 //
 // None is carried over block by block. The TPU kernels hold a whole-width
 // band (2 x (TH + 2) x Wp x 128, megabytes) in fast memory and start the
@@ -58,7 +55,7 @@ constexpr int LDB = NCOL + 8;           // staged weight row stride
 constexpr int BANDS_PER_BLOCK = 8;      // successive bands one block walks
 
 struct Params {
-  const bf* x;        // padded input (B, H + 2, WP, CINP) or tiles (B, NBANDS, TH + 2, WP, CINP)
+  const bf* x;        // padded input (B, H + 2, WP, CINP)
   const bf* wk;       // (9, CINP, NP), zeros past Cin and COUT
   bf* out;            // (B, H, W, COUT)
   size_t img_stride;  // elements from one image of x to the next
@@ -69,18 +66,10 @@ struct Params {
 // elements of one slot: the input piece and one chunk of weights
 __host__ __device__ constexpr int slot_elems(int th) { return (th + 2) * AW * AS + 9 * KC * LDB; }
 
-template <bool ASYNC>
-__device__ __forceinline__ void copy16(bf* dst, const bf* src) {
-  if (ASYNC)
-    cp_async16(dst, src);
-  else
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-
 // One step's operands into a slot: channels [q * KC, (q + 1) * KC) of the
 // band's (TH + 2) x AW pixels from column x0, and of the nine taps' weights
 // for output channels [n0, n0 + NCOL).
-template <int TH, bool ASYNC>
+template <int TH>
 __device__ __forceinline__ void stage_step(bf* slot, const Params& p, const bf* band, int x0,
                                            int q, int n0, int tid) {
   bf* A = slot;
@@ -90,15 +79,15 @@ __device__ __forceinline__ void stage_step(bf* slot, const Params& p, const bf* 
     const int s = i % N8, pix = i / N8;
     const int r = pix / AW, c = pix % AW;
     if (x0 + c < p.WP)
-      copy16<ASYNC>(A + pix * AS + s * 8,
-                    band + ((size_t)r * p.WP + x0 + c) * p.CINP + q * KC + s * 8);
+      cp_async16(A + pix * AS + s * 8,
+                 band + ((size_t)r * p.WP + x0 + c) * p.CINP + q * KC + s * 8);
   }
   constexpr int SEGS = NCOL / 8;
   for (int i = tid; i < 9 * KC * SEGS; i += NT) {
     const int s = i % SEGS, row = i / SEGS;       // row = tap * KC + k
     const int tap = row / KC, k = row % KC;
-    copy16<ASYNC>(Bs + row * LDB + s * 8,
-                  p.wk + (size_t)(tap * p.CINP + q * KC + k) * p.NP + n0 + s * 8);
+    cp_async16(Bs + row * LDB + s * 8,
+               p.wk + (size_t)(tap * p.CINP + q * KC + k) * p.NP + n0 + s * 8);
   }
 }
 
@@ -201,7 +190,7 @@ __device__ __forceinline__ void band_conv(const Params& p, bf* slots) {
   const bf* img = p.x + (size_t)b * p.img_stride;
   float acc[R][2 * NFRAG][4] = {};
 
-  stage_step<TH, true>(slots, p, img + (size_t)i0 * p.band_stride, x0, 0, n0, tid);
+  stage_step<TH>(slots, p, img + (size_t)i0 * p.band_stride, x0, 0, n0, tid);
   cp_async_commit();
   int band = i0, q = 0;                  // of step s
   for (int s = 0; s < steps; ++s) {
@@ -210,7 +199,7 @@ __device__ __forceinline__ void band_conv(const Params& p, bf* slots) {
     if (s + 1 < steps) {
       // the other slot was read in step s - 1; the barrier that ended that
       // step lets this copy overwrite it
-      stage_step<TH, true>(slots + ((s + 1) & 1) * SLOT, p,
+      stage_step<TH>(slots + ((s + 1) & 1) * SLOT, p,
                            img + (size_t)band_n * p.band_stride, x0, q_n, n0, tid);
       cp_async_commit();
       cp_async_wait<1>();                // step s has landed; s + 1 is in flight
@@ -239,27 +228,6 @@ __global__ void __launch_bounds__(NT) conv_dma_kernel(const Params p) {
   band_conv<R, false>(p, reinterpret_cast<bf*>(smem_raw));
 }
 
-// One pre-gathered tile per block (blockIdx.y), one buffer, plain loads.
-template <int R>
-__global__ void __launch_bounds__(NT) conv_halo_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int TH = 8 * R;
-  bf* slot = reinterpret_cast<bf*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nct = p.NP / NCOL;
-  const int n0 = (blockIdx.x % nct) * NCOL, x0 = (blockIdx.x / nct) * TW;
-  const int i = blockIdx.y, b = blockIdx.z;
-  const bf* tile = p.x + (size_t)b * p.img_stride + (size_t)i * p.band_stride;
-  float acc[R][2 * NFRAG][4] = {};
-  for (int q = 0; q < p.CINP / KC; ++q) {
-    stage_step<TH, false>(slot, p, tile, x0, q, n0, tid);
-    __syncthreads();
-    mma_taps<R, true>(acc, slot, slot + (TH + 2) * AW * AS, warp, lane);
-    __syncthreads();
-  }
-  store_band<R>(acc, p, b, i * TH, x0, n0, warp, lane);
-}
-
 template <typename K>
 cudaError_t launch(K kernel, const Params& p, dim3 grid, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -275,7 +243,7 @@ bool bad_shape(int B, int H, int W, int WP, int CINP, int COUT, int NP, int TH) 
          NP < COUT;
 }
 
-enum Kind { BAND, DMA, HALO };
+enum Kind { BAND, DMA };
 
 int forward(Kind kind, const void* x, const void* wk, void* out, int B, int H, int W, int WP,
             int CINP, int COUT, int NP, int TH, void* stream) {
@@ -283,20 +251,18 @@ int forward(Kind kind, const void* x, const void* wk, void* out, int B, int H, i
   const int nbands = H / TH;
   const size_t row = (size_t)WP * CINP;
   Params p{static_cast<const bf*>(x), static_cast<const bf*>(wk), static_cast<bf*>(out),
-           kind == HALO ? (size_t)nbands * (TH + 2) * row : (size_t)(H + 2) * row,
-           kind == HALO ? (size_t)(TH + 2) * row : (size_t)TH * row,
+           (size_t)(H + 2) * row, (size_t)TH * row,
            H, W, WP, CINP, COUT, NP, nbands};
   const int gx = (W + TW - 1) / TW * (NP / NCOL);
-  const int gy = kind == HALO ? nbands : (nbands + BANDS_PER_BLOCK - 1) / BANDS_PER_BLOCK;
+  const int gy = (nbands + BANDS_PER_BLOCK - 1) / BANDS_PER_BLOCK;
   const dim3 grid(gx, gy, B);
-  const size_t smem = (size_t)slot_elems(TH) * sizeof(bf) * (kind == HALO ? 1 : 2);
+  const size_t smem = (size_t)slot_elems(TH) * sizeof(bf) * 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HV_LAUNCH(KERNEL)                                                  \
   (TH == 8 ? launch(KERNEL<1>, p, grid, smem, s)                           \
            : TH == 16 ? launch(KERNEL<2>, p, grid, smem, s) : launch(KERNEL<4>, p, grid, smem, s))
   if (kind == BAND) return (int)HV_LAUNCH(conv_band_kernel);
-  if (kind == DMA) return (int)HV_LAUNCH(conv_dma_kernel);
-  return (int)HV_LAUNCH(conv_halo_kernel);
+  return (int)HV_LAUNCH(conv_dma_kernel);
 #undef HV_LAUNCH
 }
 
@@ -316,13 +282,6 @@ int conv_band_forward_bf16(const void* xp, const void* wk, void* out, int B, int
 int conv_dma_forward_bf16(const void* xp, const void* wk, void* out, int B, int H, int W,
                           int WP, int CINP, int COUT, int NP, int TH, void* stream) {
   return forward(DMA, xp, wk, out, B, H, W, WP, CINP, COUT, NP, TH, stream);
-}
-
-// tiles: (B, H / TH, TH + 2, WP, CINP) bf16, the overlapping row tiles of the
-// padded input; the rest as above.
-int conv_halo_forward_bf16(const void* tiles, const void* wk, void* out, int B, int H, int W,
-                           int WP, int CINP, int COUT, int NP, int TH, void* stream) {
-  return forward(HALO, tiles, wk, out, B, H, W, WP, CINP, COUT, NP, TH, stream);
 }
 
 }  // extern "C"

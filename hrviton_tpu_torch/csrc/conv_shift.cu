@@ -1,19 +1,10 @@
 // The shift formulations of the 3x3 stride-1 pad-1 convolution experiment for
-// Hopper (sm_90a): four kernels that compute the same conv as csrc/conv_exp.cu
+// Hopper (sm_90a): three kernels that compute the same conv as csrc/conv_exp.cu
 // (bf16 in, f32 accumulation over all nine taps and all of Cin, one rounding
-// to bf16, no bias, no activation) and differ in how the kx / ky shifts of the
-// taps are realised.
+// to bf16, no bias, no activation) and realise the kx shift of the taps on
+// the f32 products. (The fourth shift formulation, conv_roll, packs the kx
+// neighbours by TMA: csrc/conv_tma.cu.)
 //
-//   conv_roll_kernel replaces tools/exp_pallas_conv2.py:_kernel_roll (through
-//     conv_roll, pl.pallas_call at exp_pallas_conv2.py:146): pre-gathered halo
-//     tiles; the three kx neighbours of a pixel are packed into channels,
-//     s[j] = (t[j + 1], t[j], t[j - 1]), and three products of K = 3 Cin run
-//     against w packed as (3, 3 Cin, Cout) in kx order (2, 1, 0). The packed
-//     tile is real: every 16-byte piece of the tile is copied to its three
-//     places in shared memory, so a stacked pixel's K = 96 values of a chunk
-//     are contiguous. Output column q is stacked column q + 1; the columns
-//     that the TPU kernel's circular roll wraps (stacked 0 and Wp - 1) are
-//     discarded there and never computed here.
 //   conv_prodroll_kernel replaces _kernel_prodroll (conv_prodroll, call :197):
 //     pre-gathered halo tiles, nine products of unshifted rows (only the ky
 //     row offset moves) and the kx shift applied to the f32 products,
@@ -25,15 +16,17 @@
 //     column outside the image is read, and the contributions of p0 to the
 //     image's first column and of p2 to its last are masked to zero.
 //   conv_e2_kernel replaces _kernel_e2 (conv_e2, call :438): as conv_e, but
-//     the three ky rows are packed into channels (a real packed tile, as for
-//     conv_roll), w is (3, 3 Cin, Cout) stacked over ky per kx, and three
+//     the three ky rows are packed into channels (a real packed tile: every
+//     16-byte piece is copied to its three places in shared memory, so a
+//     packed pixel's K = 96 values of a chunk are contiguous), w is (3, 3
+//     Cin, Cout) stacked over ky per kx, and three
 //     products of K = 3 Cin are followed by the same masked product shift.
 //
 // None is carried over block by block. The TPU kernels hold a whole-width
 // tile in fast memory and rotate whole products along the width. Here a block
 // of 8 warps owns TH rows x MW = 16 MT product columns x 32 output channels
 // and walks Cin in chunks of 32 through a double buffer filled by cp.async
-// (the chunks of one pre-gathered tile for roll and prodroll; the chunks of up
+// (the chunks of one pre-gathered tile for prodroll; the chunks of up
 // to 8 successive bands of one image for e and e2, since blocks run in no
 // order and the prefetch of band i + 1 has to live inside one block). A warp
 // owns R = TH / 8 full rows, so a product's neighbour along the width is
@@ -74,7 +67,7 @@ constexpr int LDB = NCOL + 8;           // staged weight row stride
 constexpr int WROWS = 9 * KC;           // staged weight rows of a chunk, whatever the packing
 constexpr int BANDS_PER_BLOCK = 8;      // successive bands a block of e / e2 walks
 
-enum Kind { ROLL, PRODROLL, E, E2 };
+enum Kind { PRODROLL, E, E2 };
 
 struct Params {
   const bf* x;        // tiles (B, NBANDS, TH + 2, WX, C) or the image (B, H, W, C), WX = W
@@ -89,15 +82,14 @@ template <int KIND_, int R_, int MT_>
 struct Cfg {
   static constexpr int KIND = KIND_, R = R_, MT = MT_;
   static constexpr int TH = 8 * R, MW = 16 * MT;              // rows, product columns
-  static constexpr bool TILES = KIND == ROLL || KIND == PRODROLL;
-  static constexpr bool PACKED = KIND == ROLL || KIND == E2;
-  static constexpr int NACC = KIND == ROLL ? 1 : 3;           // accumulator sets (one per kx)
-  static constexpr int SC = KIND == ROLL ? MW + 2 : MW;       // staged columns
-  static constexpr int OW = KIND == ROLL ? MW : MW - 2;       // output columns
+  static constexpr bool TILES = KIND == PRODROLL;
+  static constexpr bool PACKED = KIND == E2;
+  static constexpr int NACC = 3;                              // accumulator sets (one per kx)
+  static constexpr int SC = MW;                               // staged columns
+  static constexpr int OW = MW - 2;                           // output columns
   // column of x (tile or image) at staged column 0, less the block's first output column
   static constexpr int COL0 = TILES ? 0 : -1;
-  static constexpr int A_ELEMS = KIND == ROLL ? (TH + 2) * MW * PS
-                                 : KIND == E2 ? TH * MW * PS : (TH + 2) * MW * AS;
+  static constexpr int A_ELEMS = KIND == E2 ? TH * MW * PS : (TH + 2) * MW * AS;
   static constexpr int SLOT = A_ELEMS + WROWS * LDB;          // elements of one slot
 };
 
@@ -124,15 +116,7 @@ __device__ __forceinline__ void stage_input(bf* A, const Params& p, const bf* im
     // image's border columns
     const bool ok = rr >= r_lo && rr < r_hi && gc >= 0 && gc < p.WX && ch < p.C;
     const bf* src = ok ? img + ((row0 + rr) * p.WX + gc) * p.C + ch : p.x;
-    if constexpr (C::KIND == ROLL) {
-      // stacked pixel m holds tile columns m + 2, m + 1, m in its thirds
-#pragma unroll
-      for (int third = 0; third < 3; ++third) {
-        const int m = c - 2 + third;
-        if (m >= 0 && m < MW)
-          cp_async16_zfill(A + (rr * MW + m) * PS + third * KC + s * 8, src, ok);
-      }
-    } else if constexpr (C::KIND == E2) {
+    if constexpr (C::KIND == E2) {
       // packed row r holds slot rows r, r + 1, r + 2 in its thirds
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
@@ -189,8 +173,7 @@ __device__ __forceinline__ void mma_slice(float (&acc)[R][2 * NF][MT][4],
   }
 }
 
-// The products of a staged chunk. No operand is shifted along the width
-// except in roll, where the shift is the packing itself.
+// The products of a staged chunk. No operand is shifted along the width.
 template <class C>
 __device__ __forceinline__ void products(float (&acc)[C::NACC][C::R][2 * NF][C::MT][4],
                                          const bf* A, const bf* Bs, int warp, int lane) {
@@ -210,15 +193,6 @@ __device__ __forceinline__ void products(float (&acc)[C::NACC][C::R][2 * NF][C::
       for (int kx = 0; kx < 3; ++kx)
         mma_slice<R, MT>(acc[kx], fa, b_lane + (kx * 3 * KC + kk) * LDB);
     }
-  } else if constexpr (C::KIND == ROLL) {
-    // three products of K = 3 KC: stacked rows ky .. against w[ky]
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kk = 0; kk < 3 * KC; kk += 16) {
-        load_a<R, MT>(fa, a_lane + ky * MW * PIX + kk, MW * PIX, 16 * PIX);
-        mma_slice<R, MT>(acc[0], fa, b_lane + (ky * 3 * KC + kk) * LDB);
-      }
   } else {
     // nine products of unshifted rows: one A fragment feeds the three kx taps
 #pragma unroll
@@ -285,12 +259,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[C::NACC][C::R][2 * NF][C::
 #pragma unroll
     for (int j = 0; j < 2 * NF; ++j) {
       float o[MT][4];
-      if constexpr (C::KIND == ROLL) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[mt][e] = acc[0][r][j][mt][e];
-      } else if constexpr (C::KIND == PRODROLL) {
+      if constexpr (C::KIND == PRODROLL) {
         // o[c] = p0[c] + p1[c + 1] + p2[c + 2]
         float s1[MT][4], s2[MT][4], s3[MT][4];
         shift_up<MT>(acc[1][r][j], s1, lane);
@@ -388,12 +357,6 @@ __device__ __forceinline__ void shift_conv(const Params& p, bf* slots) {
 }
 
 template <int R, int MT>
-__global__ void __launch_bounds__(NT) conv_roll_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  shift_conv<Cfg<ROLL, R, MT>>(p, reinterpret_cast<bf*>(smem_raw));
-}
-
-template <int R, int MT>
 __global__ void __launch_bounds__(NT) conv_prodroll_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   shift_conv<Cfg<PRODROLL, R, MT>>(p, reinterpret_cast<bf*>(smem_raw));
@@ -425,7 +388,7 @@ cudaError_t launch(K kernel, const Params& p, int B, cudaStream_t stream) {
 // wx: the width of x's rows (Wp of the gathered tiles, W of the image); c: its channels
 int forward(Kind kind, const void* x, const void* wk, void* out, int B, int H, int W, int wx,
             int c, int CINP, int COUT, int NP, int TH, void* stream) {
-  const bool tiles = kind == ROLL || kind == PRODROLL;
+  const bool tiles = kind == PRODROLL;
   if (B <= 0 || H <= 0 || W <= 0 || (TH != 8 && TH != 16) || H % TH || c <= 0 || c % 8 ||
       CINP < c || CINP % KC || COUT <= 0 || NP % NCOL || NP < COUT ||
       (tiles ? wx < W + 2 : wx != W))
@@ -438,7 +401,6 @@ int forward(Kind kind, const void* x, const void* wk, void* out, int B, int H, i
 #define HV_LAUNCH(KIND, KERNEL)                                        \
   (int)(TH == 8 ? launch<Cfg<KIND, 1, 2>>(KERNEL<1, 2>, p, B, s)       \
                 : launch<Cfg<KIND, 2, 1>>(KERNEL<2, 1>, p, B, s))
-  if (kind == ROLL) return HV_LAUNCH(ROLL, conv_roll_kernel);
   if (kind == PRODROLL) return HV_LAUNCH(PRODROLL, conv_prodroll_kernel);
   if (kind == E) return HV_LAUNCH(E, conv_e_kernel);
   return HV_LAUNCH(E2, conv_e2_kernel);
@@ -451,15 +413,9 @@ extern "C" {
 
 // tiles: (B, H / TH, TH + 2, WP, CINP) bf16, the overlapping row tiles of the
 // input padded by one zero row above and below, one zero column left and
-// WP - W - 1 right, channels zero-padded to CINP % 32 == 0. wk: (3, 3 CINP,
-// NP) bf16, [ky][third][c] with third = 2 - kx; NP = COUT padded to a
-// multiple of 32. out: (B, H, W, COUT) bf16. TH: 8 or 16, H % TH == 0.
-int conv_roll_forward_bf16(const void* tiles, const void* wk, void* out, int B, int H, int W,
-                           int WP, int CINP, int COUT, int NP, int TH, void* stream) {
-  return forward(ROLL, tiles, wk, out, B, H, W, WP, CINP, CINP, COUT, NP, TH, stream);
-}
-
-// tiles as above; wk: (9, CINP, NP), tap 3 ky + kx.
+// WP - W - 1 right, channels zero-padded to CINP % 32 == 0. wk: (9, CINP, NP)
+// bf16, tap 3 ky + kx; NP = COUT padded to a multiple of 32. out: (B, H, W,
+// COUT) bf16. TH: 8 or 16, H % TH == 0.
 int conv_prodroll_forward_bf16(const void* tiles, const void* wk, void* out, int B, int H, int W,
                                int WP, int CINP, int COUT, int NP, int TH, void* stream) {
   return forward(PRODROLL, tiles, wk, out, B, H, W, WP, CINP, CINP, COUT, NP, TH, stream);

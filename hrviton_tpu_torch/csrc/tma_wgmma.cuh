@@ -1,0 +1,165 @@
+// Device helpers for kernels built from Hopper's asynchronous units (sm_90a):
+// mbarriers, TMA tensor loads (cp.async.bulk.tensor through a CUtensorMap
+// passed as a __grid_constant__ kernel parameter) and the warpgroup matrix
+// product (wgmma.mma_async) with both operands in shared memory.
+//
+// The operand layout used throughout is "K-major with the 32-byte swizzle": a
+// matrix row (an M or N index) holds 16 bf16 values of K in 32 contiguous
+// bytes, eight successive rows are 256 contiguous bytes (one swizzle pattern:
+// the hardware XORs address bit 4 with address bit 7), and groups of eight
+// rows lie `sbo` bytes apart. A TMA box whose innermost extent is 16 bf16
+// values, loaded with CU_TENSOR_MAP_SWIZZLE_32B to a 256-byte aligned
+// address, has exactly that layout, with the pixels (or output channels) of
+// the box as the rows.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hv {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier ----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// after the inits of one thread, before any other thread or the copy engine
+// uses the barriers
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// one arrival, and `bytes` more for the copy engine to count down
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of this parity is complete. A phase that
+// never completes (a byte count that does not match, a lost arrival) is a
+// fault after about a second, not a hang.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 31)) __trap();
+  }
+}
+
+// ---- TMA ---------------------------------------------------------------
+
+// orders generic-proxy writes to shared memory before the asynchronous
+// proxy's (TMA, wgmma) accesses
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// One box of a 4-D tensor map into shared memory at `dst`; coordinates
+// innermost first, signed: what lies outside the tensor arrives as the map's
+// fill value and still counts towards the barrier's bytes.
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma -------------------------------------------------------------
+
+constexpr unsigned WGMMA_SWIZZLE_32B = 3;   // the descriptor's layout code
+
+// The shared-memory descriptor of a K-major swizzled operand: the address of
+// row 0 at this instruction's 16 values of K, the byte distance `sbo` between
+// groups of eight rows, the layout code. The leading byte offset is not used
+// by swizzled K-major layouts (set to 1, as the ISA asks). The address may lie
+// inside a swizzle pattern (a window that starts some rows into a group): the
+// hardware swizzles on the bits of the absolute shared-memory address, as the
+// copy engine did when it wrote the tile, so the descriptor's base_offset
+// field stays 0 (measured on the H100: a window one or two 32-byte rows into
+// a pattern multiplies right with the field 0, and also with (addr >> 7) & 7).
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned sbo, unsigned layout) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+template <int N> __device__ __forceinline__ void wgmma_fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32, this warpgroup's accumulator) = a (64 x 16 bf16) x b (128 x
+// 16 bf16, K-major) + (scale_d ? d : 0), both operands in shared memory.
+// Thread 32 w + 4 g + t of the warpgroup holds rows 16 w + g (d[4 j], d[4 j +
+// 1]) and 16 w + g + 8 (d[4 j + 2], d[4 j + 3]) at columns 8 j + 2 t, + 1.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+}  // namespace hv

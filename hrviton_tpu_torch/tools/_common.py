@@ -1,8 +1,8 @@
 """What the conv experiments share: seeded inputs, the library convolution,
 timing, the check against the library call, the padding, the nine-tap plain
 arithmetic, the weight packings and the plain product shift of the shift
-formulations, and the launcher of the kernels in ``csrc/conv_exp.cu`` and
-``csrc/conv_shift.cu``.
+formulations, and the launcher of the kernels in ``csrc/conv_exp.cu``,
+``csrc/conv_shift.cu`` and ``csrc/conv_tma.cu``.
 
 Layouts are the JAX tools': activations NHWC, weights HWIO (3, 3, Cin, Cout).
 The experiments compute a 3x3 stride-1 conv with zero padding 1, accumulate
@@ -25,13 +25,16 @@ from hrviton_tpu_torch.ops._build import check_tensor, pad_to
 
 __all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
            "pad_input", "check_conv_args", "nine_taps", "pack_taps",
-           "pack_kx", "pack_ky", "pack_weights", "roll_p", "run_conv_exp",
-           "conv_wrapper", "CARD_TH", "SHIFT_TH"]
+           "pack_kx", "pack_ky", "pack_weights", "pack_weights_kmajor",
+           "roll_p", "run_conv_exp", "conv_wrapper", "tensor_map_encode_us",
+           "CARD_TH", "SHIFT_TH"]
 
-CARD_TH = (8, 16, 32)      # band heights the kernels of conv_exp.cu are built for
-SHIFT_TH = (8, 16)         # and those of conv_shift.cu
-_KC = 32                   # the kernels' input-channel chunk
-_NCOL = 64                 # a multiple of the kernels' output-channel tiles (64, 32)
+CARD_TH = (8, 16, 32)      # band heights the staging formulations are built for
+SHIFT_TH = (8, 16)         # and those of the shift formulations
+_KC = 32                   # the input-channel chunk of conv_exp.cu and conv_shift.cu
+_NCOL = 64                 # a multiple of their output-channel tiles (64, 32)
+_TMA_KC = 16               # the chunk of conv_tma.cu: one wgmma K
+_TMA_N = 128               # and its output-channel tile
 
 
 def env_int(name: str, default: int) -> int:
@@ -174,35 +177,71 @@ def pack_weights(w, pack=pack_taps):
                  ).contiguous()
 
 
+def pack_weights_kmajor(w, pack=pack_taps):
+    """w (3, 3, Cin, Cout) as the kernels of ``csrc/conv_tma.cu`` read it:
+    bf16, ordered by ``pack``, Cin zero-padded to chunks of 16 and Cout to
+    tiles of 128, each chunk of each of the nine slices transposed so that
+    the 16 input channels are contiguous (the B operand of ``wgmma`` is
+    K-major): (CINP / 16, NP / 128, 9, 128, 16), [chunk][tile][slice][n][k].
+    One (chunk, tile) block is what a stage holds, contiguous, so it is copied
+    in long rows; it is stored as the 32-byte swizzle lays it out in shared
+    memory: the two 16-byte halves of row n change places where n & 4. All
+    that a wrapper does to the weights per call."""
+    cin, cout = w.shape[2:]
+    cinp, np_ = pad_to(cin, _TMA_KC), pad_to(cout, _TMA_N)
+    wk = F.pad(pack(w.to(torch.bfloat16)).reshape(9, cin, cout),
+               (0, np_ - cout, 0, cinp - cin))
+    # [slice][chunk][k][tile][n] -> [chunk][tile][slice][n][k]
+    wk = wk.reshape(9, cinp // _TMA_KC, _TMA_KC, np_ // _TMA_N, _TMA_N) \
+        .permute(1, 3, 0, 4, 2)
+    # n = 8 g + 4 b + r, k = 8 h + e: half h is stored at h ^ b
+    wk = wk.reshape(*wk.shape[:3], _TMA_N // 8, 2, 4, 2, 8)
+    wk = torch.stack([wk[:, :, :, :, 0], wk[:, :, :, :, 1].flip(-2)], dim=4)
+    return wk.reshape(cinp // _TMA_KC, np_ // _TMA_N, 9, _TMA_N, _TMA_KC) \
+        .contiguous()
+
+
 _ENTRIES = {
-    # csrc/<source>.cu: its entry points, all (x, wk, out, B, H, W, the
-    # padded row width of a staged input or the channels of an unstaged one,
-    # CINP, COUT, NP, TH, stream)
-    "conv_exp": ("conv_band_forward_bf16", "conv_dma_forward_bf16",
-                 "conv_halo_forward_bf16"),
-    "conv_shift": ("conv_roll_forward_bf16", "conv_prodroll_forward_bf16",
-                   "conv_e_forward_bf16", "conv_e2_forward_bf16"),
+    # entry point: (csrc/<source>.cu, the band heights it admits, the layout
+    # of the packed weights). All take (x, wk, out, B, H, W, the padded row
+    # width of a staged input or the channels of an unstaged one, CINP, COUT,
+    # NP, TH, stream).
+    "conv_band_forward_bf16": ("conv_exp", CARD_TH, pack_weights),
+    "conv_dma_forward_bf16": ("conv_exp", CARD_TH, pack_weights),
+    "conv_halo_forward_bf16": ("conv_tma", CARD_TH, pack_weights_kmajor),
+    "conv_roll_forward_bf16": ("conv_tma", SHIFT_TH, pack_weights_kmajor),
+    "conv_prodroll_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
+    "conv_e_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
+    "conv_e2_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
 }
 
 
 def _declare(lib, source: str) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for entry in _ENTRIES[source]:
-        fn = getattr(lib, entry)
-        fn.argtypes = [vp] * 3 + [i] * 8 + [vp]
-        fn.restype = ctypes.c_int
+    for entry, (src, _, _) in _ENTRIES.items():
+        if src == source:
+            fn = getattr(lib, entry)
+            fn.argtypes = [vp] * 3 + [i] * 8 + [vp]
+            fn.restype = ctypes.c_int
+    if source == "conv_tma":
+        lib.conv_tma_encode_us.argtypes = [vp] * 2 + [i] * 7
+        lib.conv_tma_encode_us.restype = ctypes.c_double
+
+
+def _load(source: str):
+    return _build.load(source, lambda lib: _declare(lib, source))
 
 
 def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
-    """Launch one conv kernel of ``csrc/conv_exp.cu`` or ``csrc/conv_shift.cu``
-    on a CUDA x (bf16, NHWC) and w (3, 3, Cin, Cout). ``stage(x, cinp)`` gives
-    the kernel's input: the padded image or its gathered row tiles, channels
-    padded to ``cinp``; with ``stage=None`` the kernel reads x as it is and no
-    copy of x is made. ``pack(w)`` orders the weights as the kernel multiplies
-    them; each of its nine (Cin, Cout) slices is zero-padded to the kernels'
-    chunk and tile. Raises on what the kernels do not take."""
-    source = next(s for s, entries in _ENTRIES.items() if entry in entries)
-    ths = SHIFT_TH if source == "conv_shift" else CARD_TH
+    """Launch one conv kernel of ``csrc/conv_exp.cu``, ``csrc/conv_shift.cu``
+    or ``csrc/conv_tma.cu`` on a CUDA x (bf16, NHWC) and w (3, 3, Cin, Cout).
+    ``stage(x, cinp)`` gives the kernel's input: the padded image or its
+    gathered row tiles, channels padded to ``cinp``; with ``stage=None`` the
+    kernel reads x as it is and no copy of x is made. ``pack(w)`` orders the
+    weights as the kernel multiplies them; each of its nine (Cin, Cout) slices
+    is zero-padded to the kernel's chunk and tile. Raises on what the kernels
+    do not take."""
+    source, ths, layout = _ENTRIES[entry]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{entry}: the kernel takes bfloat16, got {x.dtype}")
     if th not in ths:
@@ -214,8 +253,11 @@ def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
     check_tensor("x", x, (n, h, ww, cin), torch.bfloat16, dev)
     if w.device != dev:
         raise ValueError(f"w on {w.device}, expected {dev}")
-    wk = pack_weights(w, pack)
-    _, cinp, np_ = wk.shape
+    wk = layout(w, pack)
+    if wk.dim() == 3:                       # (9, CINP, NP)
+        _, cinp, np_ = wk.shape
+    else:                                   # (CINP / 16, NP / 128, 9, 128, 16)
+        cinp, np_ = wk.shape[0] * wk.shape[4], wk.shape[1] * wk.shape[3]
     if stage is None:
         if cin % 8:
             raise ValueError(f"{entry}: Cin = {cin} is not a multiple of 8 "
@@ -225,13 +267,27 @@ def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
         src = stage(x, cinp).contiguous()
         width_or_c = src.shape[-2]
     out = torch.empty((n, h, ww, cout), dtype=torch.bfloat16, device=dev)
-    lib = _build.load(source, lambda lib: _declare(lib, source))
-    err = getattr(lib, entry)(
+    err = getattr(_load(source), entry)(
         src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww, width_or_c,
         cinp, cout, np_, th, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out
+
+
+def tensor_map_encode_us(x, w, iters: int = 1000) -> float:
+    """Microseconds of host time that one call of a kernel of
+    ``csrc/conv_tma.cu`` spends encoding its two tensor maps (x as it is and
+    the packed weights), the mean of ``iters`` encodings. x: CUDA, bf16, NHWC,
+    Cin % 8 == 0."""
+    wk = pack_weights_kmajor(w)
+    n, h, ww, cin = x.shape
+    us = _load("conv_tma").conv_tma_encode_us(
+        x.data_ptr(), wk.data_ptr(), n, h, ww, cin, wk.shape[0] * wk.shape[4],
+        wk.shape[1] * wk.shape[3], iters)
+    if us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled failed")
+    return us
 
 
 def conv_wrapper(wrapper, plain, entry: str, stage, x, w, th: int,

@@ -3,20 +3,27 @@
 and in how the taps' shifts are realised.
 
 PyTorch counterpart of ``tools/exp_pallas_conv2.py``. Its six formulations
-are hand-written CUDA kernels for sm_90a. The staging formulations
-(``csrc/conv_exp.cu``):
+are hand-written CUDA kernels for sm_90a. Two are built from Hopper's copy
+engine and warpgroup products (``csrc/conv_tma.cu``: TMA tensor loads into a
+ring of stages, ``wgmma``); their wrappers hand x over as it is:
 
-  * ``conv_halo`` (the JAX ``conv_halo``): overlapping row tiles
-    (B, nT, TH + 2, Wp, C) are gathered in device memory by tensor code, and
-    a standard blocked kernel reads one tile per block with plain loads.
+  * ``conv_halo`` (the JAX ``conv_halo``): a standard blocked kernel whose
+    nine taps are nine windows of one halo tile. The JAX tool gathers the
+    overlapping row tiles (B, nT, TH + 2, Wp, C) in device memory first; here
+    a tile with its zero border is one box of a tensor map over the unpadded
+    x, so neither the pad nor the gather exists.
+  * ``conv_roll`` (the JAX ``conv_roll``): the three kx neighbours of a pixel
+    packed into channels (K = 3 C), three products. The packing is three
+    boxes of the same rows, one column apart.
+
+One staging formulation (``csrc/conv_exp.cu``):
+
   * ``conv_dma`` (the JAX ``conv_dma``): pre-padded input, row bands through
     a double buffer filled by asynchronous copies, the nine taps in a loop
     with computed offsets.
 
-The shift formulations (``csrc/conv_shift.cu``):
+The other shift formulations (``csrc/conv_shift.cu``):
 
-  * ``conv_roll`` (the JAX ``conv_roll``): the gathered tiles; the three kx
-    neighbours of a pixel packed into channels (K = 3 C), three products.
   * ``conv_prodroll`` (the JAX ``conv_prodroll``): the gathered tiles; nine
     products of unshifted rows, the kx shift applied to the f32 products.
   * ``conv_e`` (the JAX ``conv_e``): the unpadded x through a double-buffered
@@ -27,7 +34,8 @@ The shift formulations (``csrc/conv_shift.cu``):
     packed into channels (K = 3 C), three products, the same shift.
 
 Each wrapper launches its kernel for a CUDA tensor (bf16; th in 8 / 16 / 32
-for the staging formulations, 8 / 16 for the shift formulations; or raises)
+for ``conv_halo`` and ``conv_dma``, 8 / 16 for the shift formulations; Cin % 8
+== 0 where x is read as it is; or raises)
 and takes its plain version (``conv_<name>_ref``, which mirrors the JAX body
 step by step in f32) only for a CPU tensor. ``<wrapper>.launches`` counts
 kernel launches.
@@ -187,11 +195,12 @@ def _gather(th):
 
 
 def conv_halo(x, w, th: int = 8):
-    """3x3 conv from pre-gathered row tiles (the JAX ``conv_halo``). x: (B,
-    H, W, Cin), w: (3, 3, Cin, Cout), H % th == 0. The gather is tensor code
-    (``halo_tiles``); the kernel is ``conv_halo_kernel``."""
+    """3x3 conv whose taps are windows of one halo tile per step (the JAX
+    ``conv_halo``). x: (B, H, W, Cin), w: (3, 3, Cin, Cout), H % th == 0, Cin
+    % 8 == 0 on the card. x is read as it is: a tile with its zero border is
+    one TMA box; the kernel is ``conv_halo_tma_kernel``."""
     return conv_wrapper(conv_halo, conv_halo_ref, "conv_halo_forward_bf16",
-                        _gather(th), x, w, th)
+                        None, x, w, th)
 
 
 def conv_dma(x, w, th: int = 8):
@@ -203,11 +212,12 @@ def conv_dma(x, w, th: int = 8):
 
 
 def conv_roll(x, w, th: int = 8):
-    """3x3 conv from pre-gathered row tiles with the kx neighbours packed
-    into channels (the JAX ``conv_roll``). Arguments as ``conv_halo``, th 8
-    or 16; the gather is ``halo_tiles``, the kernel ``conv_roll_kernel``."""
+    """3x3 conv with the kx neighbours packed into channels (the JAX
+    ``conv_roll``). Arguments as ``conv_halo``, th 8 or 16. x is read as it
+    is: the packed tile is three TMA boxes one column apart; the kernel is
+    ``conv_roll_tma_kernel``."""
     return conv_wrapper(conv_roll, conv_roll_ref, "conv_roll_forward_bf16",
-                        _gather(th), x, w, th, pack_kx)
+                        None, x, w, th, pack_kx)
 
 
 def conv_prodroll(x, w, th: int = 8):
@@ -273,6 +283,8 @@ def main(which=None, device="cuda"):
                     f"{name} conv 3x3 TH={th}", functools.partial(fn, th=th),
                     x, w, iters=k)
             if name == "halo" and not skip_check:
+                # what the JAX tool pays before its kernel and conv_prodroll
+                # still does; conv_halo and conv_roll no longer gather
                 times["halo gather TH=8"] = timeit(
                     "halo gather alone TH=8", lambda t: halo_tiles(t, 8), x,
                     iters=k)

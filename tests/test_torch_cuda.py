@@ -177,8 +177,8 @@ def test_new_kernels_reject_bad_input():
         tsf.fused_spade_modulate(*args[:8])       # bf16: odd C
 
 
-# The conv experiments (csrc/conv_exp.cu) and the band-copy probe
-# (csrc/copy_probe.cu), bf16 only.
+# The staging formulations of the conv experiments (csrc/conv_exp.cu; halo:
+# csrc/conv_tma.cu) and the band-copy probe (csrc/copy_probe.cu), bf16 only.
 _TOOL_CONVS = {
     "band": (exp_conv.conv_band, exp_conv.conv_band_ref),
     "halo": (exp_conv2.conv_halo, exp_conv2.conv_halo_ref),
@@ -257,6 +257,9 @@ def test_tool_kernels_reject_bad_input():
             run(x, wt, th=32)                               # 48 % 32
         with pytest.raises(ValueError):
             run(x.permute(0, 2, 1, 3), wt, th=8)            # not contiguous
+    with pytest.raises(ValueError, match="multiple of 8"):  # x as it is: C % 8
+        exp_conv2.conv_halo(x[..., :12].contiguous(),
+                            wt[:, :, :12].contiguous(), th=8)
     with pytest.raises(TypeError):
         exp_copy_probe.probe(x.float(), th=16)
     with pytest.raises(ValueError):
@@ -269,7 +272,8 @@ def test_tool_kernels_reject_bad_input():
         + [exp_copy_probe.probe.launches]
 
 
-# The shift formulations (csrc/conv_shift.cu), bf16, th 8 or 16.
+# The shift formulations (csrc/conv_shift.cu; roll: csrc/conv_tma.cu), bf16,
+# th 8 or 16.
 _SHIFT_CONVS = {
     "roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
     "prodroll": (exp_conv2.conv_prodroll, exp_conv2.conv_prodroll_ref),
@@ -301,18 +305,24 @@ def test_shift_conv_kernel_matches_plain(kind, shape):
     _assert_close(got, plain(x, wt, th), torch.bfloat16)
 
 
+# the kernels whose borders are the kernel's own work: the shift formulations
+# and conv_halo, whose zero border is the out-of-bounds fill of its TMA boxes
+_BORDER_CONVS = {**_SHIFT_CONVS, "halo": _TOOL_CONVS["halo"]}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("th", [8, 16])
 @pytest.mark.parametrize("pattern", ["ones", "corners"])
-@pytest.mark.parametrize("kind", sorted(_SHIFT_CONVS))
+@pytest.mark.parametrize("kind", sorted(_BORDER_CONVS))
 def test_shift_conv_kernel_borders(kind, pattern, th):
     """Two bands (a first and a last) and 64 columns (the image's first and
     last column in blocks of their own kind). Constant input: the conv's zero
     padding shows in the border rows and columns. An impulse in each corner:
-    a shift that wrapped, or a border column not masked, would put a corner's
-    taps on the other side."""
+    a shift that wrapped, a border column not masked, a window read through a
+    wrong swizzle or a box filled with anything but zeros outside the image
+    would put a corner's taps where they do not belong."""
     _need_card()
-    run, plain = _SHIFT_CONVS[kind]
+    run, plain = _BORDER_CONVS[kind]
     x, wt = _tool_inputs(1, 2 * th, 64, 32, 32)
     if pattern == "ones":
         x = torch.ones_like(x)
@@ -344,7 +354,57 @@ def test_shift_kernels_reject_bad_input():
             run(x, wt, th=32)                               # 48 % 32
         with pytest.raises(ValueError):
             run(x.permute(0, 2, 1, 3), wt, th=8)            # not contiguous
-        if kind in ("e", "e2"):                             # x as it is: C % 8
-            with pytest.raises(ValueError):
+        if kind in ("roll", "e", "e2"):                     # x as it is: C % 8
+            with pytest.raises(ValueError, match="multiple of 8"):
                 run(x[..., :12].contiguous(), wt[:, :, :12].contiguous(), th=8)
     assert counts == [f.launches for f, _ in _SHIFT_CONVS.values()]
+
+
+# The two kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
+_TMA_CONVS = {"halo": _TOOL_CONVS["halo"], "roll": _SHIFT_CONVS["roll"]}
+# (b, h, w, cin, cout, th). A block owns 32 / 16 / 8 columns at th 8 / 16 / 32
+# and 128 output channels, a stage 16 input channels. W below one block, one
+# band (H == th), Cin = 8 (half a chunk, from the map's bounds), Cout = 130
+# (two channel tiles, the second almost empty); W = 45 ragged at every block
+# width, Cin = 40 (the third chunk half from the bounds); 3 bands, W = 37,
+# Cin = 128 (eight chunks: the ring of stages wraps twice per band); 9 bands
+# (a block walks 8, the next 1), W = 33 (one column into the second block)
+_TMA_SHAPES = [(1, 8, 5, 8, 130, 8), (2, 16, 45, 40, 24, 16),
+               (1, 24, 37, 128, 16, 8), (2, 72, 33, 16, 130, 8),
+               (1, 16, 5, 40, 130, 16)]
+_TMA_CASES = [(k, s) for k in sorted(_TMA_CONVS) for s in _TMA_SHAPES] \
+    + [("halo", (2, 32, 45, 40, 130, 32)), ("halo", (1, 64, 7, 8, 24, 32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", _TMA_CASES,
+                         ids=[f"{k}-" + "x".join(map(str, s))
+                              for k, s in _TMA_CASES])
+def test_tma_conv_kernel_matches_plain(kind, shape):
+    _need_card()
+    run, plain = _TMA_CONVS[kind]
+    b, h, w, cin, cout, th = shape
+    x, wt = _tool_inputs(b, h, w, cin, cout)
+    before = run.launches
+    got = run(x, wt, th=th)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    assert tuple(got.shape) == (b, h, w, cout)
+    _assert_close(got, plain(x, wt, th), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(_TMA_CONVS))
+def test_tma_conv_kernel_follows_its_tensors(kind):
+    """Two calls on tensors at other addresses and of another shape: a tensor
+    map kept from the first call would read the first call's x or weights."""
+    _need_card()
+    run, plain = _TMA_CONVS[kind]
+    x1, w1 = _tool_inputs(1, 16, 40, 16, 24)
+    keep = torch.empty(1 << 20, device="cuda")      # moves the next allocations
+    x2, w2 = _tool_inputs(2, 32, 24, 32, 40)
+    x3, w3 = torch.flip(x1, (2,)).contiguous(), (w1 * 0.5).contiguous()
+    assert len({t.data_ptr() for t in (x1, x2, x3)}) == 3
+    for x, wt in ((x1, w1), (x2, w2), (x3, w3), (x1, w1)):
+        _assert_close(run(x, wt, th=8), plain(x, wt, 8), torch.bfloat16)
+    del keep

@@ -262,6 +262,69 @@ def test_weight_packings_and_product_shift_match_jax(monkeypatch):
         assert np.array_equal(_common.roll_p(torch.from_numpy(p), kx).numpy(), want)
 
 
+def _unswizzled(wk):
+    """Undo the 32-byte swizzle of ``pack_weights_kmajor`` in numpy: the two
+    16-byte halves of row n change places where n & 4."""
+    a = wk.float().numpy().copy()
+    rows = (np.arange(a.shape[3]) & 4) != 0
+    a[:, :, :, rows] = np.concatenate([a[:, :, :, rows, 8:],
+                                       a[:, :, :, rows, :8]], axis=-1)
+    return a
+
+
+@pytest.mark.parametrize("pack", [_common.pack_taps, _common.pack_kx],
+                         ids=["taps", "kx"])
+@pytest.mark.parametrize("cin,cout", [(8, 16), (40, 130), (128, 128)],
+                         ids=["8to16", "40to130", "128to128"])
+def test_kmajor_weight_packing(pack, cin, cout):
+    """[chunk][tile][slice][n][k] of the K-major packing is element [slice][16
+    chunk + k][128 tile + n] of the (9, Cin, Cout) packing the other kernels
+    read, zeros in the padding, bf16, contiguous."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((3, 3, cin, cout))
+                         .astype(np.float32))
+    wk = _common.pack_weights_kmajor(w, pack)
+    nch, nt = -(-cin // 16), -(-cout // 128)
+    assert tuple(wk.shape) == (nch, nt, 9, 128, 16)
+    assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    want = np.zeros((9, nch * 16, nt * 128), np.float32)
+    want[:, :cin, :cout] = pack(w.to(torch.bfloat16)).reshape(9, cin, cout) \
+        .float().numpy()
+    want = want.reshape(9, nch, 16, nt, 128).transpose(1, 3, 0, 4, 2)
+    assert np.array_equal(_unswizzled(wk), want)
+    # the same nine slices as the (9, CINP, NP) layout, chunk by chunk
+    flat = _common.pack_weights(w, pack).float().numpy()
+    assert np.array_equal(want[0, 0, :, :min(cout, 64), :min(cin, 16)],
+                          flat[:, :min(cin, 16), :min(cout, 64)]
+                          .transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("entry,th", [("conv_halo_forward_bf16", 8),
+                                      ("conv_roll_forward_bf16", 16),
+                                      ("conv_e_forward_bf16", 8)])
+def test_unstaged_kernels_need_16_byte_pixels(entry, th):
+    """A kernel that reads x as it is needs Cin % 8 == 0; the launcher says
+    so before it builds or launches anything (here on a CPU tensor)."""
+    x = torch.zeros(1, 16, 16, 12, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 12, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _common.run_conv_exp(entry, x, w, th, None)
+
+
+@pytest.mark.parametrize("entry,ths", [
+    ("conv_halo_forward_bf16", (8, 16, 32)), ("conv_roll_forward_bf16", (8, 16)),
+    ("conv_band_forward_bf16", (8, 16, 32)), ("conv_e2_forward_bf16", (8, 16))])
+def test_band_heights_are_looked_up_per_entry(entry, ths):
+    x = torch.zeros(1, 96, 16, 8, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 8, 8, dtype=torch.bfloat16)
+    assert _common._ENTRIES[entry][1] == ths
+    for th in {8, 16, 24, 32} - set(ths):
+        with pytest.raises(ValueError, match="built for th"):
+            _common.run_conv_exp(entry, x, w, th, None)
+    with pytest.raises(TypeError, match="bfloat16"):
+        _common.run_conv_exp(entry, x.float(), w, ths[0], None)
+
+
 @pytest.mark.parametrize("fn", [exp_conv.conv_band, exp_conv2.conv_halo,
                                 exp_conv2.conv_dma, exp_conv.conv_band_ref,
                                 exp_conv2.conv_halo_ref, exp_conv2.conv_dma_ref,
