@@ -277,52 +277,6 @@ __global__ void __launch_bounds__(NT, 1)
 
 // ---- host ----------------------------------------------------------------
 
-typedef CUresult (*EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the runtime,
-// so the library links no libcuda.
-EncodeFn encode_fn() {
-  static EncodeFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) f = nullptr;
-    return reinterpret_cast<EncodeFn>(f);
-  }();
-  return fn;
-}
-
-CUresult encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle,
-                CUtensorMapL2promotion l2) {
-  EncodeFn fn = encode_fn();
-  if (!fn) return CUDA_ERROR_NOT_FOUND;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr), dims,
-            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// x as it is, (B, H, W, C) bf16: dimensions innermost first, a box of KC
-// channels x sc columns x rows; outside the tensor the box is zero-filled.
-CUresult encode_x(CUtensorMap* map, const void* x, int B, int H, int W, int C, int sc, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {KC, (cuuint32_t)sc, (cuuint32_t)rows, 1};
-  return encode(map, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
-}
-
 // The packed weights (NCHUNKS, NTILES, 9, BN, KC): a (chunk, tile) block is
 // what a stage holds, W_BYTES contiguous, already in the swizzled order. The
 // map sees it as W_ROWS rows of 512 bytes and copies it as it is: long rows,

@@ -1,7 +1,8 @@
-// Device helpers for kernels built from Hopper's asynchronous units (sm_90a):
+// Helpers for kernels built from Hopper's asynchronous units (sm_90a):
 // mbarriers, TMA tensor loads (cp.async.bulk.tensor through a CUtensorMap
-// passed as a __grid_constant__ kernel parameter) and the warpgroup matrix
-// product (wgmma.mma_async) with both operands in shared memory.
+// passed as a __grid_constant__ kernel parameter) and plain bulk copies, the
+// warpgroup matrix product (wgmma.mma_async) with both operands in shared
+// memory, and on the host the encoding of a tensor map.
 //
 // The operand layout used throughout is "K-major with the 32-byte swizzle": a
 // matrix row (an M or N index) holds 16 bf16 values of K in 32 contiguous
@@ -88,6 +89,21 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned) into
+// shared memory at `dst`, counted on the barrier like a tensor box
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// a barrier among `count` threads (a multiple of 32) under name `id` (not 0,
+// which __syncthreads uses)
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------
 
 constexpr unsigned WGMMA_SWIZZLE_32B = 3;   // the descriptor's layout code
@@ -160,6 +176,57 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- host: tensor maps ---------------------------------------------------
+
+typedef CUresult (*EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the runtime,
+// so a library links no libcuda.
+inline EncodeFn encode_fn() {
+  static EncodeFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) f = nullptr;
+    return reinterpret_cast<EncodeFn>(f);
+  }();
+  return fn;
+}
+
+// a bf16 tensor map; outside the tensor a box is zero-filled
+inline CUresult encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle, CUtensorMapL2promotion l2) {
+  EncodeFn fn = encode_fn();
+  if (!fn) return CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// x as it is, (B, H, W, C) bf16: dimensions innermost first, a box of 16
+// channels (one 32-byte swizzle row) x sc columns x rows; outside the tensor
+// the box is zero-filled (the conv's zero border, and channels past C).
+inline CUresult encode_x(CUtensorMap* map, const void* x, int B, int H, int W, int C, int sc,
+                         int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {16, (cuuint32_t)sc, (cuuint32_t)rows, 1};
+  return encode(map, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
 }  // namespace hv

@@ -36,10 +36,12 @@ def _sample(x, grid):
 
 
 def _flow_grid(flow_nchw, h, w, norm_w, norm_h):
-    """Identity grid + flow normalized by (norm_w, norm_h), as (N, H, W, 2)."""
-    fl = flow_nchw.float()
-    fn = torch.stack([fl[:, 0] / norm_w, fl[:, 1] / norm_h], dim=-1)
-    return make_grid(fl.shape[0], h, w, fl.device) + fn
+    """Identity grid + flow normalized by (norm_w, norm_h), as (N, H, W, 2)
+    f32. The flow is divided in its own dtype, as the JAX tocg divides it,
+    and only the sum with the f32 grid is f32."""
+    fn = torch.stack([flow_nchw[:, 0] / norm_w, flow_nchw[:, 1] / norm_h],
+                     dim=-1)
+    return make_grid(fn.shape[0], h, w, fn.device) + fn.float()
 
 
 class ResBlock(nn.Module):

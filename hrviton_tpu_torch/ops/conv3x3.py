@@ -5,7 +5,9 @@ kernels for sm_90a (``csrc/conv3x3.cu``) stand where the JAX package has two
 Pallas kernels:
 
   * ``conv3x3_wide``: wide channel counts (the JAX ``_conv3x3_pallas``). The
-    bias joins the f32 accumulator and the sum is rounded once.
+    bias joins the f32 accumulator and the sum is rounded once. In bf16 it
+    runs on the TMA / wgmma conv engine (``csrc/conv_engine.cuh``), with its
+    weights packed once per weight tensor (``ops/conv_engine.py``).
   * ``conv3x3_small``: small channel counts, 3 * Cin <= 128 and 3 * Cout <=
     128 (the JAX ``_conv3x3_views_pallas``). The accumulator is rounded,
     then the bias is added in the output dtype.
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
                                           check_tensor, pad_to)
+from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed, pick_bn
 
 __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "conv3x3_eligible", "kernel_for", "enable_fast_conv",
@@ -43,6 +46,7 @@ __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "conv_flops", "conv_bytes"]
 
 _TH = 8          # the JAX kernels' rows per grid step: their gates' row rule
+_WIDE_BN = (32, 64, 96, 128, 136)   # the N tiles conv3x3_wide is built for
 _ENABLED = False
 # The small-channel kernel's switch: a module switch with no config knob and
 # off by default, as in the JAX package. Callers set it and restore it.
@@ -145,8 +149,8 @@ def conv3x3_ref(x, w, bias=None, pre_act=None, fused_bias: bool = False):
 
 def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_forward_bf16.argtypes = [vp] * 4 + [i] * 7 + [vp]
-    lib.conv3x3_forward_bf16.restype = ctypes.c_int
+    lib.conv3x3_wide_forward_bf16.argtypes = [vp] * 4 + [i] * 8 + [vp]
+    lib.conv3x3_wide_forward_bf16.restype = ctypes.c_int
     lib.conv3x3_small_forward_bf16.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.conv3x3_small_forward_bf16.restype = ctypes.c_int
     lib.conv3x3_forward_f32.argtypes = [vp] * 4 + [i] * 8 + [vp]
@@ -159,6 +163,24 @@ def _taps(w, dtype, cinp: int, np_: int):
     cout, cin = w.shape[0], w.shape[1]
     k = w.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout)
     return F.pad(k, (0, np_ - cout, 0, cinp - cin))
+
+
+def wide_weights(w, bias, bn: int):
+    """The wide bf16 kernel's operands for N tiles of ``bn``: the taps in the
+    engine's layout, (CINP / 16, NP / bn, 9, bn, 16), and the bias rounded
+    through bf16, f32, zero-padded to NP; packed once per (w, bias)."""
+    def make():
+        cout, cin = w.shape[0], w.shape[1]
+        wk = pack_kmajor(w.permute(2, 3, 1, 0).reshape(9, cin, cout), bn)
+        return wk, _bias_f32(bias, torch.bfloat16, wk.shape[1] * bn, w.device)
+    return packed(f"conv3x3_wide/{bn}", (w, bias), make)
+
+
+def wide_bn(x_shape, cout: int) -> int:
+    """The N tile of the wide bf16 kernel for x (N, H, W, Cin): the choice
+    of ``conv_engine.pick_bn`` over the engine's 8 x 32-pixel blocks."""
+    n, h, w, _ = x_shape
+    return pick_bn(cout, n * -(-h // 8) * -(-w // 32), _WIDE_BN)
 
 
 def _bias_f32(bias, dtype, np_: int, device):
@@ -187,8 +209,8 @@ def _launch(kind: str, x, w, bias, pre_act):
     if small and (cin * 3 > 128 or cout * 3 > 128):
         raise ValueError(f"conv3x3_small takes 3 * Cin <= 128 and 3 * Cout <= "
                          f"128, got {cin} -> {cout}")
-    if not small and x.dtype == torch.bfloat16 and cin % 32:
-        raise ValueError(f"conv3x3_wide takes Cin % 32 == 0 in bfloat16, got {cin}")
+    if not small and x.dtype == torch.bfloat16 and cin % 8:
+        raise ValueError(f"conv3x3_wide takes Cin % 8 == 0 in bfloat16, got {cin}")
     lib = _build.load("conv3x3", _declare)
     out = torch.empty((n, h, ww, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -208,15 +230,13 @@ def _launch(kind: str, x, w, bias, pre_act):
             x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
             n, h, ww, cin, cout, cinp, np_, act, stream)
     else:
-        np_ = pad_to(cout, 64)
-        # (9, Cin, NP) -> (Cin / 32, 9 * 32, NP): one chunk of 32 input
-        # channels of every tap after another
-        wk = _taps(w, x.dtype, cin, np_).reshape(9, cin // 32, 32, np_) \
-            .permute(1, 0, 2, 3).contiguous()
-        bk = _bias_f32(bias, x.dtype, np_, dev)
-        err = lib.conv3x3_forward_bf16(
+        if w.device != dev:
+            raise ValueError(f"w on {w.device}, expected {dev}")
+        bn = wide_bn(x.shape, cout)
+        wk, bk = wide_weights(w, bias, bn)
+        err = lib.conv3x3_wide_forward_bf16(
             x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-            n, h, ww, cin, cout, np_, act, stream)
+            n, h, ww, cin, cout, bn, wk.shape[1], act, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 ({kind}) launch failed: cudaError {err}")
     return out
@@ -236,7 +256,7 @@ def conv3x3_wide(x, w, bias=None, pre_act=None):
     """The wide kernel: pre_act -> 3x3/s1/p1 conv -> + bias in f32 -> one
     round. x: (N, H, W, Cin) contiguous; w: (Cout, Cin, 3, 3); bias: (Cout,)
     or None. CUDA tensors launch the kernel (or raise; bfloat16 needs Cin %
-    32 == 0); CPU tensors take ``conv3x3_ref`` with ``fused_bias=True``.
+    8 == 0); CPU tensors take ``conv3x3_ref`` with ``fused_bias=True``.
     ``conv3x3_wide.launches`` counts kernel launches."""
     return _run(conv3x3_wide, "wide", True, x, w, bias, pre_act)
 

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``hrviton_tpu/ops/spade_block.py``. One call fuses one
 of a SPADEResBlock's three {SPADENorm, conv} pairs:
 
-    mu, rsig   = instance stats of x + noise*nscale   # plain torch, f32
+    mu, rsig   = instance stats of x + noise*nscale   # norm_stats, f32
     actv       = conv_shared(seg)                     # caller, pre-relu
     ------------------------------------------------------------- in-kernel:
     xn         = x + noise * nscale
@@ -11,10 +11,15 @@ of a SPADEResBlock's three {SPADENorm, conv} pairs:
     mod        = normalized * (1 + conv_g(relu(actv))) + conv_b(relu(actv))
     out        = conv(act(mod), Wc) + bias [+ residual]
 
-The kernel is CUDA C++ for sm_90a (``csrc/spade_block.cu``): bf16 inputs
-run on the tensor cores, f32 inputs on plain FMA loops. It is built with
+The kernels are CUDA C++ for sm_90a (``csrc/spade_block.cu``), built with
 ``nvcc`` at first use into ``build/`` at the repository root and loaded with
-ctypes (``ops/_build.py``). ``spade_conv_unit`` launches it for
+ctypes (``ops/_build.py``). bf16 runs in two launches on the TMA / wgmma conv
+engine: (a) gamma|beta with the modulation in its epilogue, storing act(mod)
+(plain version ``gamma_beta_stage_ref``), then (b) the consumer conv with
+the bias and the residual (``consumer_stage_ref``); their weights are packed
+once per weight tensor (``ops/conv_engine.py``). f32 runs one fused kernel
+on plain FMA loops. The statistics come from ``spade_fused.norm_stats`` (a
+one-pass kernel on the card). ``spade_conv_unit`` launches the kernels for
 CUDA tensors and takes the plain formulation ``spade_conv_ref`` only for CPU
 tensors; a CUDA tensor never reaches the plain version through it.
 
@@ -36,13 +41,17 @@ from hrviton_tpu_torch.ops._build import KERNEL_DTYPES as _DTYPES
 from hrviton_tpu_torch.ops._build import check_tensor as _check
 from hrviton_tpu_torch.ops._build import pad_to as _pad_to
 from hrviton_tpu_torch.ops.conv3x3 import activation
-from hrviton_tpu_torch.ops.spade_fused import instance_stats, modulate_ref
+from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
+from hrviton_tpu_torch.ops.spade_fused import modulate_ref, norm_stats
 
-__all__ = ["spade_conv_unit", "spade_conv_ref", "fused_spade_conv_eligible",
-           "unit_flops", "unit_bytes"]
+__all__ = ["spade_conv_unit", "spade_conv_ref", "gamma_beta_stage_ref",
+           "consumer_stage_ref", "gb_tiles", "conv_tiles", "pack_gb",
+           "fused_spade_conv_eligible", "unit_flops", "unit_bytes"]
 
 _MIN_H = 256          # the JAX gate's row floor: admits up_3 and up_4 only
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+_GB_BN = (64, 80, 96)       # the N tiles stage (a) is built for
+_CONV_BN = (32, 64, 128)    # and stage (b)
 
 
 def _declare(lib) -> None:
@@ -51,10 +60,10 @@ def _declare(lib) -> None:
     lib.spade_unit_forward.restype = ctypes.c_int
     lib.spade_unit_smem_bytes.argtypes = [i, i, i]
     lib.spade_unit_smem_bytes.restype = ctypes.c_size_t
-    lib.spade_unit_forward_bf16.argtypes = [vp] * 12 + [i] * 11 + [vp]
-    lib.spade_unit_forward_bf16.restype = ctypes.c_int
-    lib.spade_unit_tc_smem_bytes.argtypes = [i] * 5
-    lib.spade_unit_tc_smem_bytes.restype = ctypes.c_size_t
+    lib.spade_unit_gb_forward_bf16.argtypes = [vp] * 9 + [i] * 8 + [vp]
+    lib.spade_unit_gb_forward_bf16.restype = ctypes.c_int
+    lib.spade_unit_conv_forward_bf16.argtypes = [vp] * 5 + [i] * 8 + [vp]
+    lib.spade_unit_conv_forward_bf16.restype = ctypes.c_int
 
 
 def fused_spade_conv_eligible(h: int, w: int, nh: int, dtype,
@@ -76,11 +85,35 @@ def spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     NH) pre-relu; wg/wb: (C, NH, 3, 3); bg/bb: (C,); wc: (cout, C, k, k);
     bc: (cout,) or None; residual: (B, H, W, cout) or None. NHWC out.
     """
-    dtype = x.dtype
     mod = activation(modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb),
                      pre_act)
+    return consumer_stage_ref(mod, wc, bc, residual)
+
+
+def gamma_beta_stage_ref(x, noise, nscale, mu, rsig, actv, wg, bg, wb, bb,
+                         pre_act=None):
+    """Plain version of the bf16 unit's first launch: act(mod), in x's
+    dtype, from the statistics mu, rsig (B, C) f32. Each intermediate is
+    rounded where ``modulate_ref`` rounds it, so with the statistics that
+    ``modulate_ref`` forms itself this stage and ``consumer_stage_ref`` give
+    ``spade_conv_ref`` bit for bit."""
+    dtype = x.dtype
+    xn = x + (noise * nscale).to(dtype)
+    normalized = ((xn.float() - mu[:, None, None, :])
+                  * rsig[:, None, None, :]).to(dtype)
+    a = F.relu(actv).permute(0, 3, 1, 2)
+    gamma = F.conv2d(a, wg.to(dtype), padding=1).permute(0, 2, 3, 1) \
+        + bg.to(dtype)
+    beta = F.conv2d(a, wb.to(dtype), padding=1).permute(0, 2, 3, 1) \
+        + bb.to(dtype)
+    return activation(normalized * (1.0 + gamma) + beta, pre_act)
+
+
+def consumer_stage_ref(mod, wc, bc=None, residual=None):
+    """Plain version of the unit's consumer: conv(mod, wc) (3x3 pad 1 or
+    1x1) rounded to mod's dtype, + bc in that dtype, + residual."""
     pad = wc.shape[-1] // 2
-    y = F.conv2d(mod.permute(0, 3, 1, 2), wc.to(dtype),
+    y = F.conv2d(mod.permute(0, 3, 1, 2), wc.to(mod.dtype),
                  padding=pad).permute(0, 2, 3, 1)
     if bc is not None:
         y = y + bc.to(y.dtype)
@@ -113,32 +146,60 @@ def _pack_weights(wg, bg, wb, bb, wc, bc):
     return wgb, bgb, wck, bck, cp, coutp
 
 
-def _pack_weights_tc(wg, bg, wb, bb, wc, bc):
-    """bf16 tensor-core layouts (row-major K x N B operands): wgb (NPASS,
-    9*NH, 64), pass p holding [gamma | beta] of channel tiles 2p and 2p+1
-    (16 columns each, zeros past the last tile); bgb (2, CP) f32; wck (k*k,
-    CP, COUTP); bck (COUTP,) f32. CP, COUTP: channels padded to 16 with
-    zeros; biases rounded through bf16."""
+def gb_tiles(c: int):
+    """(CT, NTILES) of stage (a) for C channels: N tiles of at most 96
+    columns, each CT channels wide (2 CT columns, one of ``_GB_BN``, padded
+    with zero columns where C needs less): C = 144 is three tiles of 48, C =
+    80 two of 40. Wider tiles hold more accumulators than the consumers'
+    registers, and spill (PERF.md §6)."""
+    ntiles = -(-2 * c // _GB_BN[-1])
+    need = 2 * _pad_to(-(-c // ntiles), 8)
+    return next(bn for bn in _GB_BN if bn >= need) // 2, ntiles
+
+
+def conv_tiles(cout: int):
+    """(BN, NTILES) of stage (b): the narrowest of ``_CONV_BN`` that holds
+    COUT, or tiles of 128."""
+    bn = next((bn for bn in _CONV_BN if bn >= cout), _CONV_BN[-1])
+    return bn, -(-cout // bn)
+
+
+def pack_gb(wg, wb, ct: int, ntiles: int):
+    """Stage (a)'s weights: the taps of gamma and beta, (9, NH, C) each, as
+    one (9, NH, NTILES * 2 CT) operand whose N tile j holds, for i < CT / 8,
+    gamma of the channels j CT + 8 i .. + 7 in columns 16 i .. + 7 and beta
+    of the same channels in columns 16 i + 8 .. + 15 (zeros past C); then
+    ``pack_kmajor`` with N tiles of 2 CT."""
     c, nh = wg.shape[0], wg.shape[1]
-    cout, ks = wc.shape[0], wc.shape[-1]
-    cp, coutp = _pad_to(c, 16), _pad_to(cout, 16)
-    npass = (cp // 16 + 1) // 2
+
+    def taps(w):   # (C, NH, 3, 3) -> (9, NH, NTILES, CT / 8, 8), zero-padded
+        t = F.pad(w.permute(2, 3, 1, 0).reshape(9, nh, c), (0, ntiles * ct - c))
+        return t.reshape(9, nh, ntiles, ct // 8, 8)
+    both = torch.stack([taps(wg), taps(wb)], dim=4)        # (..., CT / 8, 2, 8)
+    return pack_kmajor(both.reshape(9, nh, ntiles * 2 * ct), 2 * ct)
+
+
+def _stage_weights(wg, bg, wb, bb, wc, bc, c: int, cout: int, ks: int):
+    """The two stages' packed operands, each packed once per weight set:
+    (wk_gb, bgb (2, C) f32 rounded through bf16, CT, NTILES) and (wk_conv,
+    bias (NTILES * BN) f32 rounded through bf16, BN, NTILES)."""
+    ct, ntg = gb_tiles(c)
     bf = torch.bfloat16
 
-    def tiles(w):   # (C, NH, 3, 3) -> (9*NH, 2*NPASS, 16)
-        k = F.pad(w.permute(2, 3, 1, 0).reshape(9 * nh, c), (0, 32 * npass - c))
-        return k.reshape(9 * nh, 2 * npass, 16)
+    def make_gb():
+        return (pack_gb(wg, wb, ct, ntg),
+                torch.stack([bg, bb]).to(bf).float().contiguous())
+    bn, ntc = conv_tiles(cout)
 
-    wgb = torch.stack([tiles(wg), tiles(wb)], dim=2)        # (9NH, 2NP, 2, 16)
-    wgb = wgb.reshape(9 * nh, npass, 64).transpose(0, 1).to(bf).contiguous()
-    bgb = F.pad(torch.stack([bg, bb]).to(bf).float(), (0, cp - c)).contiguous()
-    wck = wc.permute(2, 3, 1, 0).reshape(ks * ks, c, cout)
-    wck = F.pad(wck, (0, coutp - cout, 0, cp - c)).to(bf).contiguous()
-    if bc is None:
-        bck = torch.zeros(coutp, dtype=torch.float32, device=wc.device)
-    else:
-        bck = F.pad(bc.to(bf).float(), (0, coutp - cout)).contiguous()
-    return wgb, bgb, wck, bck, cp, coutp
+    def make_conv():
+        wk = pack_kmajor(wc.permute(2, 3, 1, 0).reshape(ks * ks, c, cout), bn)
+        bias = torch.zeros(ntc * bn, dtype=torch.float32, device=wc.device)
+        if bc is not None:
+            bias[:cout] = bc.to(bf).float()
+        return wk, bias
+    gb = packed(f"spade_gb/{ct}", (wg, wb, bg, bb), make_gb)
+    conv = packed(f"spade_conv/{bn}", (wc, bc), make_conv)
+    return (*gb, ct, ntg), (*conv, bn, ntc)
 
 
 def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
@@ -158,30 +219,37 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     _check("noise", noise, (n, h, w), torch.float32, dev)
     if residual is not None:
         _check("residual", residual, (n, h, w, cout), x.dtype, dev)
+    if any(t.device != dev for t in (wg, wb, wc)):
+        raise ValueError(f"unit weights must be on {dev}")
     lib = _build.load("spade_block", _declare)
     tc = x.dtype == torch.bfloat16
     if tc:
-        cp = _pad_to(c, 16)
-        cs = cp + 8                             # spread shared-memory banks
-        smem = lib.spade_unit_tc_smem_bytes(ks, nh, cp, _pad_to(cout, 16), cs)
+        if c % 8 or cout % 8 or nh % 8:
+            raise ValueError(f"unsupported unit: c={c} cout={cout} nh={nh} k={ks} "
+                             f"{x.dtype} (bf16 takes multiples of 8)")
     else:
         smem = lib.spade_unit_smem_bytes(ks, nh, c)
-    if smem == 0 or smem > _SMEM_LIMIT or (tc and (c % 8 or cout % 8)):
-        raise ValueError(f"unsupported unit: c={c} cout={cout} nh={nh} k={ks} "
-                         f"{x.dtype} ({smem} B of shared memory)")
+        if smem == 0 or smem > _SMEM_LIMIT:
+            raise ValueError(f"unsupported unit: c={c} cout={cout} nh={nh} k={ks} "
+                             f"{x.dtype} ({smem} B of shared memory)")
 
-    mu, rsig = instance_stats(x, noise[..., None], nscale)
+    mu, rsig = norm_stats(x, noise[..., None], nscale)
     nsc = nscale.float().contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = residual.data_ptr() if residual is not None else None
     if tc:
-        wgb, bgb, wck, bck, cp, coutp = _pack_weights_tc(wg, bg, wb, bb, wc, bc)
-        err = lib.spade_unit_forward_bf16(
-            x.data_ptr(), noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
-            rsig.data_ptr(), actv.data_ptr(), wgb.data_ptr(), bgb.data_ptr(),
-            wck.data_ptr(), bck.data_ptr(), res, out.data_ptr(),
-            n, h, w, c, nh, cout, cp, coutp, cs, ks, _ACTS[pre_act], stream)
+        (wk_gb, bgb, ct, ntg), (wk_c, bk, bn, ntc) = _stage_weights(
+            wg, bg, wb, bb, wc, bc, c, cout, ks)
+        mod = torch.empty_like(x)
+        err = lib.spade_unit_gb_forward_bf16(
+            actv.data_ptr(), wk_gb.data_ptr(), x.data_ptr(), noise.data_ptr(),
+            nsc.data_ptr(), mu.data_ptr(), rsig.data_ptr(), bgb.data_ptr(),
+            mod.data_ptr(), n, h, w, nh, c, ct, ntg, _ACTS[pre_act], stream)
+        if err == 0:
+            err = lib.spade_unit_conv_forward_bf16(
+                mod.data_ptr(), wk_c.data_ptr(), bk.data_ptr(), res,
+                out.data_ptr(), n, h, w, c, cout, ks, bn, ntc, stream)
     else:
         wgb, bgb, wck, bck, cp, coutp = _pack_weights(wg, bg, wb, bb, wc, bc)
         err = lib.spade_unit_forward(
@@ -190,7 +258,7 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
             wck.data_ptr(), bck.data_ptr(), res, out.data_ptr(),
             n, h, w, c, nh, cout, cp, coutp, ks, _ACTS[pre_act], stream)
     if err != 0:
-        raise RuntimeError(f"spade_unit_forward launch failed: cudaError {err}")
+        raise RuntimeError(f"spade_unit launch failed: cudaError {err}")
     spade_conv_unit.launches += 1
     return out
 

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``hrviton_tpu/ops/spade_fused.py``. One call computes
 a SPADENorm from the pre-relu ``actv = conv_shared(seg)`` on:
 
-    mu, rsig   = instance stats of x + noise*nscale   # plain torch, f32
+    mu, rsig   = instance stats of x + noise*nscale   # norm_stats, f32
     ------------------------------------------------------------- in-kernel:
     xn         = x + noise * nscale
     normalized = (xn - mu) * rsig
@@ -13,8 +13,10 @@ The kernel is CUDA C++ for sm_90a (``csrc/spade_fused.cu``): bf16 inputs run
 on the tensor cores, f32 inputs on plain FMA loops. gamma, beta and
 ``normalized`` never reach device memory. ``fused_spade_modulate`` launches
 it for CUDA tensors (or raises) and takes the plain version ``modulate_ref``
-only for CPU tensors. The instance statistics stay a plain-torch pass outside
-the kernel, as in the JAX package.
+only for CPU tensors. The instance statistics are a pass of their own, as in
+the JAX package: ``norm_stats``, a one-pass CUDA kernel on the card (also the
+fused unit's, ``ops/spade_block.py``) whose plain version is
+``instance_stats``.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout). ``noise`` is (B, H, W, 1) float32, as the JAX package draws it.
@@ -33,7 +35,8 @@ from hrviton_tpu_torch.ops._build import KERNEL_DTYPES, check_tensor, pad_to
 
 __all__ = ["fused_spade_modulate", "modulate_ref", "fused_spade_eligible",
            "enable_fast_spade", "fast_spade_enabled", "fast_spade",
-           "instance_stats", "modulate_flops", "modulate_bytes"]
+           "instance_stats", "norm_stats", "modulate_flops",
+           "modulate_bytes", "stats_bytes"]
 
 _TH = 16         # the JAX kernel's rows per grid step: its gate's row rule
 _ENABLED = False
@@ -85,6 +88,50 @@ def instance_stats(x, noise, nscale):
     return mu, torch.rsqrt(var + _EPS)
 
 
+def norm_stats(x, noise, nscale):
+    """The instance statistics as ``instance_stats`` gives them: mu and
+    1/sqrt(var + eps) of x + noise*nscale per (image, channel), f32 (B, C).
+
+    x: (B, H, W, C) float32 or bfloat16; noise: (B, H, W, 1) f32; nscale:
+    (C,). A CUDA x launches the one-pass kernel of ``csrc/spade_fused.cu``
+    (or raises): x is read once, xn formed in x's dtype as the plain version
+    forms it, summed per thread in f32 about a shift and merged in f64. A
+    CPU x takes ``instance_stats``.
+    ``norm_stats.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return instance_stats(x, noise, nscale)
+    if x.device.type != "cuda":
+        raise ValueError(f"norm_stats: unsupported device {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"norm_stats kernel takes float32/bfloat16, got {x.dtype}")
+    n, h, w, c = x.shape
+    dev = x.device
+    check_tensor("x", x, (n, h, w, c), x.dtype, dev)
+    noise = noise.reshape(n, h, w)
+    check_tensor("noise", noise, (n, h, w), torch.float32, dev)
+    if tuple(nscale.shape) != (c,) or c > 2048:
+        raise ValueError(f"norm_stats: nscale {tuple(nscale.shape)} for C = {c} "
+                         f"(at most 2048)")
+    lib = _build.load("spade_fused", _declare)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = max(1, min(-(-4 * sms // n), -(-h * w // 1024)))
+    ws = torch.empty((n, chunks, c, 2), dtype=torch.float64, device=dev)
+    mu = torch.empty((n, c), dtype=torch.float32, device=dev)
+    rsig = torch.empty_like(mu)
+    err = lib.instance_stats_forward(
+        x.data_ptr(), noise.data_ptr(), nscale.float().contiguous().data_ptr(),
+        ws.data_ptr(), mu.data_ptr(), rsig.data_ptr(), n, h * w, c, chunks,
+        int(x.dtype == torch.bfloat16), _EPS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"instance_stats_forward launch failed: cudaError {err}")
+    norm_stats.launches += 1
+    return mu, rsig
+
+
+norm_stats.launches = 0
+
+
 def modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb):
     """Plain PyTorch formulation (the CPU path and the gold).
 
@@ -110,6 +157,8 @@ def _declare(lib) -> None:
     for fn in (lib.spade_modulate_forward_bf16, lib.spade_modulate_forward_f32):
         fn.argtypes = [vp] * 9 + [i] * 6 + [vp]
         fn.restype = ctypes.c_int
+    lib.instance_stats_forward.argtypes = [vp] * 6 + [i] * 5 + [ctypes.c_float, vp]
+    lib.instance_stats_forward.restype = ctypes.c_int
 
 
 def _pack_weights(wg, bg, wb, bb, dtype):
@@ -154,7 +203,7 @@ def _modulate_cuda(x, noise, nscale, actv, wg, bg, wb, bb):
     noise = noise.reshape(n, h, w)
     check_tensor("noise", noise, (n, h, w), torch.float32, dev)
     lib = _build.load("spade_fused", _declare)
-    mu, rsig = instance_stats(x, noise[..., None], nscale)
+    mu, rsig = norm_stats(x, noise[..., None], nscale)
     nsc = nscale.float().contiguous()
     wk, bgb, cp = _pack_weights(wg, bg, wb, bb, x.dtype)
     out = torch.empty_like(x)
@@ -198,3 +247,9 @@ def modulate_bytes(b, h, w, c, nh=128, elem=2) -> int:
     written once, weights read once."""
     px = b * h * w
     return px * (2 * c + nh) * elem + px * 4 + 2 * 9 * nh * c * elem
+
+
+def stats_bytes(b, h, w, c, elem=2) -> int:
+    """Bytes the instance statistics must move: x and the noise (f32) read
+    once, mu and rsig (f32) written once."""
+    return b * h * w * (c * elem + 4) + 2 * b * c * 4

@@ -1,6 +1,7 @@
 """What the conv experiments share: seeded inputs, the library convolution,
 timing, the check against the library call, the padding, the nine-tap plain
-arithmetic, the weight packings and the plain product shift of the shift
+arithmetic, the weight packings (the K-major one re-exported from
+``ops/conv_engine.py``) and the plain product shift of the shift
 formulations, and the launcher of the kernels in ``csrc/conv_exp.cu``,
 ``csrc/conv_shift.cu`` and ``csrc/conv_tma.cu``.
 
@@ -22,6 +23,9 @@ import torch.nn.functional as F
 
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import check_tensor, pad_to
+# the K-major, swizzled weight layout of csrc/conv_tma.cu (and of the model
+# kernels' conv engine) lives with the ops
+from hrviton_tpu_torch.ops.conv_engine import pack_weights_kmajor
 
 __all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
            "pad_input", "check_conv_args", "nine_taps", "pack_taps",
@@ -33,8 +37,6 @@ CARD_TH = (8, 16, 32)      # band heights the staging formulations are built for
 SHIFT_TH = (8, 16)         # and those of the shift formulations
 _KC = 32                   # the input-channel chunk of conv_exp.cu and conv_shift.cu
 _NCOL = 64                 # a multiple of their output-channel tiles (64, 32)
-_TMA_KC = 16               # the chunk of conv_tma.cu: one wgmma K
-_TMA_N = 128               # and its output-channel tile
 
 
 def env_int(name: str, default: int) -> int:
@@ -175,30 +177,6 @@ def pack_weights(w, pack=pack_taps):
     return F.pad(pack(w.to(torch.bfloat16)).reshape(9, cin, cout),
                  (0, pad_to(cout, _NCOL) - cout, 0, pad_to(cin, _KC) - cin)
                  ).contiguous()
-
-
-def pack_weights_kmajor(w, pack=pack_taps):
-    """w (3, 3, Cin, Cout) as the kernels of ``csrc/conv_tma.cu`` read it:
-    bf16, ordered by ``pack``, Cin zero-padded to chunks of 16 and Cout to
-    tiles of 128, each chunk of each of the nine slices transposed so that
-    the 16 input channels are contiguous (the B operand of ``wgmma`` is
-    K-major): (CINP / 16, NP / 128, 9, 128, 16), [chunk][tile][slice][n][k].
-    One (chunk, tile) block is what a stage holds, contiguous, so it is copied
-    in long rows; it is stored as the 32-byte swizzle lays it out in shared
-    memory: the two 16-byte halves of row n change places where n & 4. All
-    that a wrapper does to the weights per call."""
-    cin, cout = w.shape[2:]
-    cinp, np_ = pad_to(cin, _TMA_KC), pad_to(cout, _TMA_N)
-    wk = F.pad(pack(w.to(torch.bfloat16)).reshape(9, cin, cout),
-               (0, np_ - cout, 0, cinp - cin))
-    # [slice][chunk][k][tile][n] -> [chunk][tile][slice][n][k]
-    wk = wk.reshape(9, cinp // _TMA_KC, _TMA_KC, np_ // _TMA_N, _TMA_N) \
-        .permute(1, 3, 0, 4, 2)
-    # n = 8 g + 4 b + r, k = 8 h + e: half h is stored at h ^ b
-    wk = wk.reshape(*wk.shape[:3], _TMA_N // 8, 2, 4, 2, 8)
-    wk = torch.stack([wk[:, :, :, :, 0], wk[:, :, :, :, 1].flip(-2)], dim=4)
-    return wk.reshape(cinp // _TMA_KC, np_ // _TMA_N, 9, _TMA_N, _TMA_KC) \
-        .contiguous()
 
 
 _ENTRIES = {

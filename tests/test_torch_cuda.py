@@ -158,11 +158,11 @@ def test_conv_kernel_edge_rows():
 @pytest.mark.gpu
 def test_new_kernels_reject_bad_input():
     _need_card()
-    x, w, b = _conv_inputs(torch.bfloat16, 1, 16, 16, 48, 48)
+    x, w, b = _conv_inputs(torch.bfloat16, 1, 16, 16, 44, 48)
     with pytest.raises(ValueError):
-        tc3.conv3x3_small(x, w, b)                # 3 * 48 > 128
+        tc3.conv3x3_small(x, w, b)                # 3 * 44 > 128
     with pytest.raises(ValueError):
-        tc3.conv3x3_wide(x, w, b)                 # bf16: Cin % 32
+        tc3.conv3x3_wide(x, w, b)                 # bf16: Cin % 8
     with pytest.raises(ValueError):
         tc3.conv3x3(x, w, b)                      # no gate admits it
     with pytest.raises(TypeError):
@@ -408,3 +408,95 @@ def test_tma_conv_kernel_follows_its_tensors(kind):
     for x, wt in ((x1, w1), (x2, w2), (x3, w3), (x1, w1)):
         _assert_close(run(x, wt, th=8), plain(x, wt, 8), torch.bfloat16)
     del keep
+
+
+# The TMA / wgmma conv engine (csrc/conv_engine.cuh): the wide conv, the
+# unit's two stages at every N tile they are built for, and the one-pass
+# statistics (csrc/spade_fused.cu).
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [32, 64, 96, 128, 136])
+def test_wide_conv_engine_every_tile(bn, monkeypatch):
+    """Ragged 37x45 and 150 output channels at each N tile (several tiles,
+    the last one part padding), relu as the transform on A."""
+    _need_card()
+    monkeypatch.setattr(tc3, "_WIDE_BN", (bn,))
+    x, w, b = _conv_inputs(torch.bfloat16, 2, 37, 45, 128, 150, True)
+    assert tc3.wide_bn(x.shape, 150) == bn
+    _assert_close(tc3.conv3x3_wide(x, w, b, "relu"),
+                  tc3.conv3x3_ref(x, w, b, "relu", fused_bias=True), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gb_bn", [64, 80, 96])
+@pytest.mark.parametrize("ks,cout", [(3, 24), (1, 64), (3, 72)])
+def test_unit_stages_every_tile(gb_bn, ks, cout, monkeypatch):
+    """The unit with C = N / 2 of stage (a)'s tile and a consumer tile of 32,
+    64 or 128 columns, ragged 37x45, leaky, residual on the 3x3 ones."""
+    _need_card()
+    monkeypatch.setattr(tsb, "_GB_BN", (gb_bn,))
+    c = gb_bn // 2
+    args, res = _inputs(torch.bfloat16, 2, 37, 45, c, cout, ks, ks == 3)
+    assert tsb.gb_tiles(c) == (c, 1)
+    got = tsb.spade_conv_unit("leaky0.2", *args, res)
+    _assert_close(got, tsb.spade_conv_ref(*args, pre_act="leaky0.2", residual=res),
+                  torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_unit_split_gamma_beta_tiles():
+    """C = 144 is three N tiles of 48 channels; the epilogues of the second
+    and third start at channels 48 and 96."""
+    _need_card()
+    args, res = _inputs(torch.bfloat16, 1, 24, 40, 144, 64, 3, True)
+    assert tsb.gb_tiles(144)[1] > 1
+    _assert_close(tsb.spade_conv_unit(None, *args, res),
+                  tsb.spade_conv_ref(*args, residual=res), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_unit_weights_follow_in_place_updates():
+    """The packed weights are kept between calls: a weight written in place
+    must be packed again."""
+    _need_card()
+    args, _ = _inputs(torch.bfloat16, 1, 16, 32, 32, 32, 3, False)
+    for step in range(3):
+        _assert_close(tsb.spade_conv_unit("relu", *args),
+                      tsb.spade_conv_ref(*args, pre_act="relu"), torch.bfloat16)
+        args[4].mul_(-1.5)                   # gamma's weights
+        args[8].add_(0.01)                   # the consumer's
+        args[9].mul_(2.0)                    # its bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 45, 40), (1, 9, 11, 13), (2, 64, 48, 144)])
+def test_norm_stats_matches_instance_stats(dtype, shape):
+    """mu within 1e-4 of the channel's std, rsig within 1e-4 relative; C =
+    13 takes the unvectorised loads."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    b, h, w, c = shape
+    x = (_a(rng, shape) * 2 + 3).to(dtype)
+    noise, nscale = _a(rng, (b, h, w, 1)), _a(rng, (c,), 0.1)
+    before = tsf.norm_stats.launches
+    mu, rsig = tsf.norm_stats(x, noise, nscale)
+    torch.cuda.synchronize()
+    assert tsf.norm_stats.launches == before + 1
+    mu0, rsig0 = tsf.instance_stats(x, noise, nscale)
+    assert ((mu - mu0).abs() * rsig0).max().item() <= 1e-4
+    assert ((rsig - rsig0).abs() / rsig0).max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_engine_kernels_reject_bad_input():
+    _need_card()
+    args, _ = _inputs(torch.bfloat16, 1, 8, 8, 20, 8, 3, False)
+    with pytest.raises(ValueError):
+        tsb.spade_conv_unit(None, *args)     # bf16: C % 8
+    args, _ = _inputs(torch.bfloat16, 1, 8, 8, 16, 12, 3, False)
+    with pytest.raises(ValueError):
+        tsb.spade_conv_unit(None, *args)     # bf16: COUT % 8
+    x = torch.zeros(1, 8, 8, 4, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tsf.norm_stats(x, torch.zeros(1, 8, 8, 1, device="cuda"),
+                       torch.zeros(4, device="cuda"))

@@ -12,6 +12,14 @@ the small-channel switch on) goes through the same comparison: the JAX side
 runs its three Pallas kernels in interpret mode; the port's gates, which never
 open on the CPU, are forced open with the interpret-mode rules so that its
 branches run through the wrappers' plain versions.
+
+The default configuration also runs in bf16 on both sides (the JAX bf16
+policy: ``bf16_params`` and bf16 inputs; the port built in bf16), with
+limits in bf16 ulps of max|ref| (one ulp: 2^-7 * max|ref|) about twice the
+differences seen: flows 4 at most and 1 on average, the other condition
+outputs 16 and 2. In bf16 the blurred logits tie more often, so up to 2% of
+fake_parse may flip; the rgb is compared with the port's generator fed the
+JAX labels, 16 and 1.5.
 """
 
 import functools
@@ -26,6 +34,7 @@ import torch
 from hrviton_tpu.config import PipelineConfig as JPipelineConfig
 from hrviton_tpu.config import SPADEGenConfig as JSPADEGenConfig
 from hrviton_tpu.config import TOCGConfig as JTOCGConfig
+from hrviton_tpu.core.precision import bf16_params
 from hrviton_tpu.models import ConditionGenerator as JCondition
 from hrviton_tpu.models import SPADEGenerator as JSPADE
 from hrviton_tpu.pipelines import tryon_forward as jtryon_forward
@@ -33,8 +42,8 @@ from hrviton_tpu_torch import (PipelineConfig, SPADEGenConfig, TOCGConfig,
                                TryOnPipeline, load_jax_variables)
 from hrviton_tpu_torch.ops import conv3x3 as tc3
 from hrviton_tpu_torch.ops import spade_fused as tsf
-from test_torch_support import (injected_noise, open_port_gates,
-                                random_variables)
+from test_torch_support import (assert_within_ulps, injected_noise,
+                                open_port_gates, random_variables)
 
 torch.set_num_threads(1)
 FH, FW, CH, CW = 256, 128, 64, 64
@@ -75,6 +84,65 @@ def _jax_models(knobs=False):
         draws.extend(d)
         return out
     return tv, gv, tocg_apply, gen_apply, draws
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_models_bf16():
+    """The default configuration's variables (as ``_jax_models()``) under
+    the JAX bf16 policy: jitted applies on ``bf16_params`` of them."""
+    tv, gv = _jax_models()[:2]
+    rng = np.random.default_rng(3)
+    k = jax.random.PRNGKey(0)
+    tocg = JCondition(JTOCGConfig(ngf=8))
+    gen = JSPADE(JSPADEGenConfig(ngf=8, fine_height=FH, fine_width=FW,
+                                 remat=False))
+    tv16, gv16 = bf16_params(tv), bf16_params(gv)
+    tocg_apply = jax.jit(lambda a, b: tocg.apply(tv16, a, b, train=False))
+    draws = []
+
+    @jax.jit
+    def gen_apply(x, seg):
+        with injected_noise(rng) as d:
+            out = gen.apply(gv16, x, seg, train=False, rngs={"noise": k})
+        draws.extend(d)
+        return out
+    return tv, gv, tocg_apply, gen_apply, draws
+
+
+def test_tryon_forward_bf16_matches_jax():
+    tv, gv, tocg_apply, gen_apply, draws = _jax_models_bf16()
+    batch = _batch(4)
+    jcfg = JPipelineConfig(fine_height=FH, fine_width=FW, cond_height=CH,
+                           cond_width=CW)
+    want_rgb, want = jtryon_forward(
+        tocg_apply, gen_apply,
+        {k: jnp.asarray(v, jnp.bfloat16) for k, v in batch.items()}, jcfg)
+    assert len(draws) == 23
+    pipe = TryOnPipeline(
+        PipelineConfig(fine_height=FH, fine_width=FW, cond_height=CH,
+                       cond_width=CW),
+        TOCGConfig(ngf=8), SPADEGenConfig(ngf=8, fine_height=FH, fine_width=FW),
+        device="cpu", dtype=torch.bfloat16)
+    load_jax_variables(pipe.tocg, tv)
+    load_jax_variables(pipe.generator, gv)
+    rgb, got = pipe({k: torch.from_numpy(v) for k, v in batch.items()},
+                    noise=draws)
+    assert rgb.dtype == torch.bfloat16 and want_rgb.dtype == jnp.bfloat16
+    for a, b in zip(got.flow_list, want.flow_list):
+        assert_within_ulps(a, b, 4, 1.0)
+    for name in ("fake_segmap", "warped_cloth_lr", "warped_clothmask_lr",
+                 "fake_parse_gauss", "warped_cloth", "warped_clothmask"):
+        assert_within_ulps(getattr(got, name), getattr(want, name), 16, 2.0)
+    flips = (got.fake_parse.numpy() != np.asarray(want.fake_parse)).mean()
+    assert flips <= 0.02, flips
+    gen_in = torch.cat([torch.from_numpy(batch["agnostic"]).bfloat16(),
+                        torch.from_numpy(batch["densepose"]).bfloat16(),
+                        got.warped_cloth], dim=-1)
+    with torch.no_grad():
+        rgb_fed = pipe.generator(
+            gen_in, torch.from_numpy(np.array(want.parse_labels)), draws)
+    assert 0.05 < np.asarray(want_rgb.astype(jnp.float32)).std() < 0.9
+    assert_within_ulps(rgb_fed, want_rgb, 16, 1.5)
 
 
 def _batch(seed):

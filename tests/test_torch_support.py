@@ -11,6 +11,9 @@ wiring errors show), spectral u random and v = normalize(W^T u).
 the shape rules the JAX gates have in interpret mode, so that the port's
 knob branches run (through the wrappers' plain versions).
 
+``assert_within_ulps`` holds a bf16 result against a reference in bf16 ulps
+of max|ref| (one ulp: 2^-7 * max|ref|), at the worst element and on average.
+
 ``injected_noise`` replaces ``jax.random.normal`` for the per-norm (B, H, W, 1)
 noise fields with numpy draws and records them in call order; the port then
 consumes the same list.
@@ -128,3 +131,17 @@ def open_port_gates(monkeypatch, knobs, th=4):
     if "fast_conv" in knobs or "views" in knobs:
         monkeypatch.setattr(tc3, "kernel_for", kernel_for)
     return asked
+
+
+def assert_within_ulps(got, want, max_ulps, mean_ulps):
+    """|got - want| within ``max_ulps`` bf16 ulps of max|want| at the worst
+    element and ``mean_ulps`` on average; got a torch tensor, want a JAX or
+    numpy array."""
+    a = got.float().numpy()
+    b = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert a.shape == b.shape, (a.shape, b.shape)
+    ulp = 2.0 ** -7 * float(np.abs(b).max())
+    d = np.abs(a - b)
+    assert np.isfinite(a).all()
+    assert d.max() <= max_ulps * ulp and d.mean() <= mean_ulps * ulp, (
+        d.max() / ulp, d.mean() / ulp)
