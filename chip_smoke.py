@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py --paths    # phases 1, 2, 4 and 5 only
+    python3 chip_smoke.py --alone    # phases 1, 2 and the engine kernels' times
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
@@ -21,15 +22,25 @@ Phases (any failure exits non-zero, and no result line is printed):
        - the one-pass instance statistics (ops/spade_fused.py:norm_stats)
          against instance_stats at the six unit shapes (mu within 1e-4 of
          the std, rsig within 1e-4 relative);
-       - the fused modulation (ops/spade_fused.py) at the nine norms of the
-         second path (up_2, up_3, up_4);
+       - the fused modulation (ops/spade_fused.py, in bf16 the unit's
+         gamma|beta stage on the conv engine with no activation) at the nine
+         norms of the second path (up_2, up_3, up_4), beside cuDNN's time for
+         the gamma|beta product alone (not the same function), and at one
+         ragged small shape;
        - the wide 3x3 conv (ops/conv3x3.py:conv3x3_wide, on the conv engine
          in bf16) at its eight sites (up_1's gamma/beta convs and conv_1,
          up_2's conv_1), beside F.conv2d, and at one ragged small shape;
-       - the small-channel 3x3 conv (conv3x3_small) at its four sites
-         (conv_6, conv_7, up_4.conv_1, conv_img);
-     the times of the unit and the wide conv are printed beside those of the
-     designs they replaced (PERF.md);
+       - the small-channel 3x3 conv (conv3x3_small, on the conv engine in
+         bf16; 9 input channels as the engine's narrow input) at its four
+         sites (conv_6, conv_7, up_4.conv_1, conv_img), beside F.conv2d,
+         and at three ragged small shapes (one with 20 input channels,
+         which the wrapper pads to 24);
+     the bf16 kernels of the modulation and the small conv are also timed
+     alone by CUDA events around the bare C entry point, with the operands
+     packed; the times of the unit, the modulation and both convs are
+     printed beside those of the designs they replaced (PERF.md); and the
+     SASS of every engine kernel (cuobjdump -sass) must hold HGMMA and no
+     HMMA;
   4. first path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
      ngf=64 'most' at 1024x768, bf16, random seeded weights) with its default
      configuration answers 3 requests of batch 4; the unit kernel must launch
@@ -41,7 +52,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      answers 3 requests of batch 4; per request the modulation kernel must
      launch exactly 9 times, the wide conv 8 times, the small conv 4 times
      and the fused unit never; one request is compared with the same pipeline
-     with the knobs off, and both are timed in turns;
+     with the knobs off, and both are timed in turns; the layout copies
+     around the modulation (models/spade.py:_nhwc) are timed in one request;
   6. tools: the conv-experiment entry points hrviton_tpu_torch/tools/
      {exp_conv,exp_conv2,exp_copy_probe}.main at their full size (x (4, 1024,
      768, 128), w (3, 3, 128, 128), bf16), exp_conv2.main once with 'all'
@@ -62,12 +74,19 @@ Phases (any failure exits non-zero, and no result line is printed):
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
 phase 5 and prints only the last line: it is how two checkouts are timed in
-turns (a copy of this script in each, see README). Imports nothing of JAX.
+turns (a copy of this script in each, see README). With --alone it times
+the engine's model kernels at their main-path shapes by CUDA events (the
+modulation and the small conv around their bare entry points, the unit and
+the wide conv through their wrappers), checks no result, and prints only the
+last line: it is how two builds of the engine, a checkout and a copy of it
+with one change, are timed in turns. Imports nothing of JAX.
 """
 
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -125,11 +144,22 @@ SECOND_PATH = {"spade_unit": 0,
                "instance_stats": sum(s[-1] for s in MODULATE_SITES)}   # 9
 UNIT_RAGGED = (2, 37, 45, 40, 24, 3, "leaky0.2", True)   # b, h, w, c, cout, k
 WIDE_RAGGED = (2, 37, 45, 128, 528, "relu")              # b, h, w, cin, cout
-# The model kernels this version redesigned, as they were before (ldmatrix +
-# mma.sync, weights packed per call, three-pass statistics): one batch-4 bf16
-# request's (wrapper ms, kernel alone ms), as PERF.md records them, on an
-# NVIDIA H100 80GB HBM3 at 700 W. Printed beside this run's totals.
-EARLIER_MODEL = {"spade_unit": (46.50, 34.74), "conv3x3_wide": (2.38, 1.77)}
+MODULATE_RAGGED = (2, 37, 45, 272)                       # b, h, w, c
+# b, h, w, cin, cout, pre_act: a narrow input, one N tile of 8, and a Cin
+# that the wrapper pads to a multiple of 8
+SMALL_RAGGED = [(2, 37, 40, 9, 16, None), (2, 37, 40, 32, 3, "leaky0.2"),
+                (2, 37, 45, 20, 24, "relu")]
+# The model kernels on the conv engine, as they were before it (ldmatrix +
+# mma.sync kernels, weights packed per call; the unit also with the
+# three-pass statistics): one batch-4 bf16 request's (wrapper ms, kernel
+# alone ms), as PERF.md records them, on an NVIDIA H100 80GB HBM3 at 700 W.
+# Printed beside this run's totals.
+EARLIER_MODEL = {"spade_unit": (46.50, 34.74), "conv3x3_wide": (2.38, 1.77),
+                 "spade_modulate": (23.09, 20.33), "conv3x3_small": (1.82, 1.59)}
+# the engine kernels of each source, whose SASS must hold HGMMA and no HMMA
+ENGINE_KERNELS = {"spade_fused": ("spade_modulate_kernel",),
+                  "conv3x3": ("conv3x3_wide_kernel", "conv3x3_small_kernel"),
+                  "spade_block": ("spade_unit_gb_kernel", "spade_unit_conv_kernel")}
 TOOLS_X = (B, 1024, 768, 128)           # the tools' x; w is (3, 3, 128, 128)
 TOOLS_RAGGED = (2, 48, 40, 16, 24, 8)   # b, h, w, cin, cout, th
 # (key, kernel name in a profile, band heights; the first is the record's)
@@ -373,6 +403,82 @@ def _check_stats(tot, label, args, shape):
                            (rsig - rsig0).abs().max().item()))
 
 
+def _alone_events(tot, label, n, launch):
+    """The kernel alone by CUDA events around its bare C entry point
+    (``launch``: operands checked, statistics computed and weights packed
+    beforehand), beside the profiler's time, whose windows lose records now
+    and then; ``n`` launches' worth into the totals."""
+    ms = _events_ms(launch, 10)
+    tot["events_alone_ms"] = tot.get("events_alone_ms", 0.0) + n * ms
+    log(f"{label}: kernel alone by CUDA events {ms:.3f} ms")
+
+
+def alone_phase():
+    """The engine's model kernels timed by CUDA events at each main-path
+    shape, batch 4, bf16, summed over one request's launches; no result is
+    checked. The modulation and the small conv alone, around their bare
+    entry points (statistics computed and weights packed beforehand); the
+    unit and the wide conv through their wrappers (weights packed once)."""
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    from hrviton_tpu_torch.ops import spade_block as sb
+    from hrviton_tpu_torch.ops import spade_fused as sf
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    sums = {}
+
+    def timed(key, label, n, fn):
+        ms = _events_ms(fn, 10)
+        sums[key] = sums.get(key, 0.0) + n * ms
+        log(f"alone {key} {label}: {ms:.3f} ms")
+    for name, h, w, c, cout, ks, act, residual in UNITS:
+        args, res = _unit_inputs(gen, bf, h, w, c, cout, ks, residual)
+        timed("spade_unit (wrapper)", name, 1,
+              lambda: sb.spade_conv_unit(act, *args, res))
+    for name, h, w, c, n in MODULATE_SITES:
+        args = _unit_inputs(gen, bf, h, w, c, 8, 1, False)[0][:8]
+        timed("spade_modulate", f"{name} (CT, NTILES) {sf.gb_tiles(c)}", n,
+              sf.modulate_launcher(*args)[0])
+    del args, res
+    for key, sites in (("conv3x3_wide (wrapper)", WIDE_SITES),
+                       ("conv3x3_small", SMALL_SITES)):
+        for name, h, w, cin, cout, act, n in sites:
+            x = _randn(gen, B, h, w, cin).to(bf)
+            wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
+            bias = _randn(gen, cout, scale=0.1)
+            fn = (c3.small_launcher(x, wt, bias, act)[0] if key == "conv3x3_small"
+                  else lambda: c3.conv3x3_wide(x, wt, bias, act))
+            timed(key, name, n, fn)
+    log("alone, one request's launches: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sums.items()))
+
+
+def sass_phase():
+    """Every instantiation of the conv engine's kernels: its SASS
+    (cuobjdump -sass of the built library) must hold HGMMA (wgmma) and no
+    HMMA (mma.sync)."""
+    from hrviton_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src, names in ENGINE_KERNELS.items():
+        text = subprocess.run([tool, "-sass", str(_build.build(src))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        seen = {n: 0 for n in names}
+        for func in re.split(r"\n\s*Function : ", text)[1:]:
+            fname = func.split("\n", 1)[0].strip()
+            hit = next((n for n in names if n in fname), None)
+            if hit is None:
+                continue
+            seen[hit] += 1
+            hgmma = len(re.findall(r"\bHGMMA\b", func))
+            hmma = len(re.findall(r"\bHMMA\b", func))
+            if hgmma == 0 or hmma:
+                raise RuntimeError(f"{fname}: {hgmma} HGMMA, {hmma} HMMA")
+        if not all(seen.values()):
+            raise RuntimeError(f"{src}.cu: no SASS of {seen}")
+        log(f"sass {src}.cu: " + ", ".join(f"{n} x{k}" for n, k in seen.items())
+            + ": HGMMA in each, no HMMA")
+
+
 def kernel_phase():
     """Every kernel vs its plain version at each main-path shape. Tolerances:
     f32 (TF32 off in the plain version) 1e-4 x max|ref|, for f32 sums of
@@ -438,16 +544,39 @@ def kernel_phase():
             _check_site(
                 tot, f"modulate {name}", dtype, n,
                 lambda: sf.fused_spade_modulate(*args),
-                lambda: sf.modulate_ref(*args), None, "spade_modulate",
+                lambda: sf.modulate_ref(*args), None,
+                "spade_modulate_kernel" if dtype == torch.bfloat16
+                else "spade_modulate_f32_kernel",
                 sf.modulate_flops(B, h, w, c),
                 sf.modulate_bytes(B, h, w, c, elem=elem))
+            if dtype == torch.bfloat16:
+                _alone_events(tot, f"modulate {name}", n,
+                              sf.modulate_launcher(*args)[0])
+                # cuDNN on the gamma|beta product alone: not the same function
+                # (no modulation, gamma and beta to device memory)
+                a = F.relu(args[3]).permute(0, 3, 1, 2)
+                wgb = torch.cat([args[4], args[6]]).to(dtype).contiguous(
+                    memory_format=torch.channels_last)
+                cudnn_ms = _events_ms(lambda: F.conv2d(a, wgb, None, 1, 1), 3)
+                tot["cudnn_gb_ms"] = tot.get("cudnn_gb_ms", 0.0) + n * cudnn_ms
+                log(f"modulate {name}: cuDNN's gamma|beta product alone (F.conv2d "
+                    f"of relu(actv) with [wg; wb], not the same function) "
+                    f"{cudnn_ms:.3f} ms; N tiles (CT, NTILES) {sf.gb_tiles(c)}")
+                del a, wgb
+            del args
+        if dtype == torch.bfloat16:
+            b, h, w, c = MODULATE_RAGGED
+            args = _unit_inputs(gen, dtype, h, w, c, 8, 1, False, batch=b)[0][:8]
+            _hold(f"modulate ragged {MODULATE_RAGGED}", sf.fused_spade_modulate,
+                  lambda: sf.fused_spade_modulate(*args),
+                  lambda: sf.modulate_ref(*args), False)
             del args
 
         for key, sites, run, fused_bias, kname in (
                 ("conv3x3_wide", WIDE_SITES, c3.conv3x3_wide, True,
                  "conv3x3_wide_kernel"),
                 ("conv3x3_small", SMALL_SITES, c3.conv3x3_small, False,
-                 "conv3x3_small_tc_kernel")):
+                 "conv3x3_small_kernel")):
             tot = totals[key][dtype] = {}
             for name, h, w, cin, cout, act, n in sites:
                 x = _randn(gen, B, h, w, cin).to(dtype)
@@ -469,6 +598,12 @@ def kernel_phase():
                     c3.conv_bytes(B, h, w, cin, cout, elem=elem))
                 if key == "conv3x3_wide" and dtype == torch.bfloat16:
                     log(f"{key} {name}: N tile {c3.wide_bn(x.shape, cout)}")
+                if key == "conv3x3_small" and dtype == torch.bfloat16:
+                    _alone_events(tot, f"{key} {name}", n,
+                                  c3.small_launcher(x, wt, bias, act)[0])
+                    log(f"{key} {name}: N tiles {c3.small_tiles(cout)}, "
+                        + (f"narrow input, boxes of {c3.narrow_box(cin)} elements"
+                           if cin % 8 else "16-channel boxes"))
                 del x, xa
             if key == "conv3x3_wide" and dtype == torch.bfloat16:
                 b, h, w, cin, cout, act = WIDE_RAGGED
@@ -480,6 +615,15 @@ def kernel_phase():
                       lambda: c3.conv3x3_ref(x, wt, bias, act, fused_bias=True),
                       False)
                 del x
+            if key == "conv3x3_small" and dtype == torch.bfloat16:
+                for b, h, w, cin, cout, act in SMALL_RAGGED:
+                    x = _randn(gen, b, h, w, cin).to(dtype)
+                    wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
+                    bias = _randn(gen, cout, scale=0.1)
+                    _hold(f"{key} ragged {(b, h, w, cin, cout, act)}", run,
+                          lambda: run(x, wt, bias, act),
+                          lambda: c3.conv3x3_ref(x, wt, bias, act), False)
+                    del x
         for key in totals:
             t = totals[key][dtype]
             if not t:
@@ -491,15 +635,21 @@ def kernel_phase():
                 f"library {fmt(t['library_ms'])}, bound {t['bound_ms']:.4f} ms"
                 + (f", of the wrapper: the statistics {t['stats_ms']:.3f} ms"
                    if "stats_ms" in t else "")
+                + (f", alone by CUDA events around the bare entry point "
+                   f"{t['events_alone_ms']:.3f} ms" if "events_alone_ms" in t else "")
+                + (f", cuDNN's gamma|beta product alone {t['cudnn_gb_ms']:.3f} ms"
+                   if "cudnn_gb_ms" in t else "")
                 + (", alone by part " + ", ".join(
                     f"{k} {v:.3f} ms" for k, v in t["split"].items())
                    if "split" in t else ""))
             if key in EARLIER_MODEL and dtype == torch.bfloat16:
                 was = EARLIER_MODEL[key]
                 log(f"{key}: on the TMA / wgmma engine wrapper {t['ms']:.3f} ms, "
-                    f"kernels alone {fmt(t['kernel_alone_ms'])}; the earlier "
-                    f"design {was[0]:.2f} ms, kernel alone {was[1]:.2f} ms "
-                    f"(PERF.md)")
+                    f"kernels alone {fmt(t['kernel_alone_ms'])}"
+                    + (f" (events {t['events_alone_ms']:.3f} ms)"
+                       if "events_alone_ms" in t else "")
+                    + f"; the earlier design {was[0]:.2f} ms, kernel alone "
+                    f"{was[1]:.2f} ms (PERF.md)")
         torch.cuda.empty_cache()
     return totals
 
@@ -667,6 +817,35 @@ def first_path_phase(card):
     return counts
 
 
+def _layout_copies(pipe, batch):
+    """The NHWC copies of x and actv that models/spade.py makes before each
+    fused modulation (_nhwc), in one request: each call timed by CUDA events
+    on the stream around it; a call whose input is already NHWC in memory
+    makes no copy. Informational (a part of the profile's elementwise
+    work)."""
+    from hrviton_tpu_torch.models import spade as ms
+    orig, spans = ms._nhwc, []
+
+    def timed(t):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(t)
+        e1.record()
+        spans.append((e0, e1, out.data_ptr() != t.data_ptr()))
+        return out
+    ms._nhwc = timed
+    try:
+        pipe(batch)
+        torch.cuda.synchronize()
+    finally:
+        ms._nhwc = orig
+    total = sum(e0.elapsed_time(e1) for e0, e1, _ in spans)
+    log(f"second path: the modulation's layout copies (_nhwc of x and actv): "
+        f"{len(spans)} calls, {sum(c for *_, c in spans)} copies, {total:.3f} ms "
+        f"per request")
+
+
 def second_path_phase(card):
     """The generator's dispatch knobs on: fused modulation, wide and
     small-channel 3x3 conv kernels; the fused unit off."""
@@ -709,6 +888,7 @@ def second_path_phase(card):
             turns[on].append(seconds * 1e3)
         knobs(True)
         profile_phase("second path", pipe, batches[2])
+        _layout_copies(pipe, batches[2])
     finally:
         c3._VIEWS = views_before
     steady = sum(times[1:]) / len(times[1:])
@@ -955,8 +1135,14 @@ def main():
         second_path_phase(card)
         _contract_line()
         return
+    if sys.argv[1:] == ["--alone"]:
+        log(card)
+        alone_phase()
+        _contract_line()
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    sass_phase()
     totals = kernel_phase()
     first = first_path_phase(card)
     torch.cuda.empty_cache()

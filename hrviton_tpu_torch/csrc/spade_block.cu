@@ -14,19 +14,16 @@
 // bfloat16 (the main path) runs as two launches on the TMA / wgmma conv
 // engine (conv_engine.cuh), and the statistics come from the one-pass kernel
 // of spade_fused.cu:
-//   (a) spade_unit_gb_kernel: M = pixels, K = 9 x NH of the relu'd actv halo
-//       (relu is the engine's transform on A), N = 2 C: gamma and beta
-//       columns interleaved in groups of 8, so that gamma[c] and beta[c] of a
-//       pixel sit in one thread. Its epilogue reads x, noise, nscale, mu,
-//       rsig and the biases and stores act(mod) in bf16, each intermediate
-//       rounded as the plain version rounds it (bf16x2 arithmetic; x and the
-//       noise are read while the tile's last products run). N tiles of at
-//       most 96 columns (C = 144: three tiles of 48 channels; C = 80: two of
-//       40), since the consumers hold 2 x BN / 2 accumulators a thread and
+//   (a) spade_unit_gb_kernel: the gamma|beta product with the modulation and
+//       the activation in its epilogue (spade_mod.cuh, shared with the fused
+//       modulation of spade_fused.cu), storing act(mod) in bf16. N tiles of
+//       at most 96 columns (C = 144: three tiles of 48 channels; C = 80: two
+//       of 40), since the consumers hold 2 x BN / 2 accumulators a thread and
 //       the epilogue's operands beside them;
 //   (b) spade_unit_conv_kernel: the consumer conv (3x3 or 1x1, C -> COUT) of
-//       act(mod) on the same engine; its epilogue rounds the accumulator,
-//       adds the bias in bf16, then the residual in bf16.
+//       act(mod) on the same engine; its epilogue (conv_engine.cuh's
+//       BiasEpilogue) rounds the accumulator, adds the bias in bf16, then the
+//       residual in bf16.
 // Why two launches and not one: the gamma|beta product is 4.06 of the six
 // units' 4.48 TFLOP at 1024x768; a fused block would recompute it on a halo
 // of its tile (1.3-1.5x that work), and one 16-channel stage of the C = 144
@@ -52,8 +49,7 @@
 // Plain C interface for ctypes; the entry points return cudaGetLastError()
 // (the bf16 ones 1000 + a CUresult if a tensor map cannot be encoded).
 
-#include "conv_engine.cuh"
-#include "mma_utils.cuh"
+#include "spade_mod.cuh"
 
 using namespace hv;
 
@@ -230,151 +226,6 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // bfloat16: the two stages on the conv engine.
 
-// read-only loads (ld.global.nc): free to move ahead of the epilogue's stores
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
-// Two neighbouring channels of mod, each rounded as spade_conv_ref rounds it,
-// in bf16x2 arithmetic: an add or a multiply of two bf16 values rounds the
-// exact result once, which is what the plain version's f32 operation followed
-// by its rounding to bf16 gives. g and bt are the f32 accumulators of gamma
-// and beta.
-__device__ __forceinline__ __nv_bfloat162 modulate2(__nv_bfloat162 x, float nz, float2 nsc,
-                                                    float2 mu, float2 rs, float g0, float g1,
-                                                    float b0, float b1, __nv_bfloat162 bg,
-                                                    __nv_bfloat162 bb, int pre_act) {
-  const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
-  const __nv_bfloat162 xn = __hadd2(x, __floats2bfloat162_rn(nz * nsc.x, nz * nsc.y));
-  const float2 xf = __bfloat1622float2(xn);
-  const __nv_bfloat162 nrm =
-      __floats2bfloat162_rn((xf.x - mu.x) * rs.x, (xf.y - mu.y) * rs.y);
-  const __nv_bfloat162 gm = __hadd2(__floats2bfloat162_rn(g0, g1), bg);
-  const __nv_bfloat162 be = __hadd2(__floats2bfloat162_rn(b0, b1), bb);
-  __nv_bfloat162 m = __hadd2(__hmul2(nrm, __hadd2(one, gm)), be);
-  if (pre_act == 1) m = __hmax2(m, __float2bfloat162_rn(0.f));
-  if (pre_act == 2) m = __hmax2(m, __hmul2(m, __float2bfloat162_rn(0.2f)));
-  return m;
-}
-
-// Stage (a)'s epilogue. Column group 2 i of an N tile holds gamma of the
-// channels c0 + 8 i .. + 7 (c0 = ntile * CT), group 2 i + 1 beta of the same.
-// x and the noise of the tile are read while its last products run.
-struct ModEpilogue {
-  __nv_bfloat16* out;          // (B, H, W, C): act(mod)
-  const __nv_bfloat16* x;      // (B, H, W, C)
-  const float* noise;          // (B, H, W)
-  const float* nscale;         // (C)
-  const float* mu;             // (B, C)
-  const float* rsig;           // (B, C)
-  const float* bgb;            // (2, C): gamma's and beta's bias, rounded through bf16
-  int H, W, C, CT, pre_act;    // CT: channels of an N tile (BN / 2)
-
-  template <int BN> struct Pre {
-    __nv_bfloat162 x[2][BN / 16];
-    float nz[2];
-  };
-
-  template <int BN>
-  __device__ __forceinline__ Pre<BN> load(int b, int y, int x0, int ntile, int lane,
-                                          int w4) const {
-    const int g = lane >> 2, t = lane & 3, c0 = ntile * CT, px = x0 + g;
-    Pre<BN> p;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int py = y + 2 * w4 + half;
-      const bool ok = py < H && px < W;
-      const size_t pix = ok ? (size_t)(b * H + py) * W + px : 0;
-      p.nz[half] = ok ? __ldg(noise + pix) : 0.f;
-#pragma unroll
-      for (int i = 0; i < BN / 16; ++i) {
-        const int c = c0 + 8 * i + 2 * t;
-        p.x[half][i] = ok && c < C
-                           ? __ldg(reinterpret_cast<const __nv_bfloat162*>(x + pix * C + c))
-                           : __float2bfloat162_rn(0.f);
-      }
-    }
-    return p;
-  }
-
-  template <int BN>
-  __device__ __forceinline__ void apply(const float (&d)[BN / 2], const Pre<BN>& p, int b, int y,
-                                        int x0, int ntile, int lane, int w4) const {
-    constexpr int G = BN / 16;
-    const int g = lane >> 2, t = lane & 3, c0 = ntile * CT, px = x0 + g;
-    unsigned w[2][G];
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const int c = min(c0 + 8 * i + 2 * t, C - 2);   // past C: computed, not stored
-      const float2 ns = ld2(nscale + c), m = ld2(mu + b * C + c), rs = ld2(rsig + b * C + c);
-      const float2 bg = ld2(bgb + c), bb = ld2(bgb + C + c);
-      const __nv_bfloat162 bg2 = __floats2bfloat162_rn(bg.x, bg.y);
-      const __nv_bfloat162 bb2 = __floats2bfloat162_rn(bb.x, bb.y);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const __nv_bfloat162 v =
-            modulate2(p.x[half][i], p.nz[half], ns, m, rs, d[8 * i + 2 * half],
-                      d[8 * i + 2 * half + 1], d[8 * i + 4 + 2 * half],
-                      d[8 * i + 4 + 2 * half + 1], bg2, bb2, pre_act);
-        w[half][i] = *reinterpret_cast<const unsigned*>(&v);
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int py = y + 2 * w4 + half;
-      const bool ok = py < H && px < W;
-      const size_t pix = ok ? (size_t)(b * H + py) * W + px : 0;
-      engine::store_words<G>(out + pix * C, w[half], c0, C, ok, t);
-    }
-  }
-};
-
-// Stage (b)'s epilogue: round the accumulator, add the bias in bf16, then the
-// residual in bf16.
-struct UnitEpilogue {
-  __nv_bfloat16* out;          // (B, H, W, COUT)
-  const float* bias;           // (NTILES * BN), rounded through bf16, zeros past COUT
-  const __nv_bfloat16* res;    // (B, H, W, COUT) or null
-  int H, W, COUT;
-
-  template <int BN> struct Pre {};
-  template <int BN>
-  __device__ __forceinline__ Pre<BN> load(int, int, int, int, int, int) const {
-    return {};
-  }
-
-  template <int BN>
-  __device__ __forceinline__ void apply(const float (&d)[BN / 2], const Pre<BN>&, int b, int y,
-                                        int x0, int ntile, int lane, int w4) const {
-    typedef __nv_bfloat16 bf;
-    const int g = lane >> 2, t = lane & 3, n0 = ntile * BN, px = x0 + g;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int py = y + 2 * w4 + half;
-      const bool ok = py < H && px < W;
-      const size_t pix = ok ? (size_t)(b * H + py) * W + px : 0;
-      unsigned w[BN / 8];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int co = n0 + 8 * j + 2 * t;
-        const float2 bc = ld2(bias + co);
-        float v0 = rt<bf>(rt<bf>(d[4 * j + 2 * half]) + bc.x);
-        float v1 = rt<bf>(rt<bf>(d[4 * j + 2 * half + 1]) + bc.y);
-        if (res != nullptr && ok && co < COUT) {   // COUT % 8 == 0: co + 1 < COUT too
-          const float2 r = ld2(res + pix * COUT + co);
-          v0 = rt<bf>(v0 + r.x);
-          v1 = rt<bf>(v1 + r.y);
-        }
-        w[j] = engine::pack2(v0, v1);
-      }
-      engine::store_words<BN / 8>(out + pix * COUT, w, n0, COUT, ok, t);
-    }
-  }
-};
-
 template <int BN>
 __global__ void __launch_bounds__(engine::NT, 1)
     spade_unit_gb_kernel(const __grid_constant__ CUtensorMap tmx, const unsigned char* wk,
@@ -385,7 +236,7 @@ __global__ void __launch_bounds__(engine::NT, 1)
 template <int KS, int BN>
 __global__ void __launch_bounds__(engine::NT, 1)
     spade_unit_conv_kernel(const __grid_constant__ CUtensorMap tmx, const unsigned char* wk,
-                           const UnitEpilogue epi, const engine::Geometry g) {
+                           const engine::BiasEpilogue epi, const engine::Geometry g) {
   engine::run<engine::Cfg<KS, BN>>(&tmx, wk, epi, g);
 }
 
@@ -396,7 +247,7 @@ extern "C" {
 // Stage (a), bfloat16: act(mod) of a unit. actv: (B, H, W, NH) pre-relu, NH %
 // 8 == 0; x: (B, H, W, C), C % 8 == 0; all contiguous and 16-byte aligned.
 // wk: (NH / 16 rounded up, NTILES, 9, 2 CT, 16) bf16, the gamma|beta columns
-// of N tile j interleaved in groups of 8 (ops/spade_block.py:pack_gb). bgb:
+// of N tile j interleaved in groups of 8 (ops/spade_fused.py:pack_gb). bgb:
 // (2, C) f32. CT: channels of an N tile, 2 CT one of 64, 80, 96.
 // pre_act: 0 none, 1 relu, 2 leaky 0.2. mod: (B, H, W, C) bf16.
 #define HV_GB(BN_)                                                                       \
@@ -434,8 +285,9 @@ int spade_unit_conv_forward_bf16(const void* mod, const void* wk, const void* bi
                                  const void* res, void* out, int B, int H, int W, int C, int COUT,
                                  int KS, int BN, int NTILES, void* stream) {
   if (COUT <= 0 || COUT % 8 || BN * NTILES < COUT) return (int)cudaErrorInvalidValue;
-  const UnitEpilogue epi{static_cast<__nv_bfloat16*>(out), static_cast<const float*>(bias),
-                         static_cast<const __nv_bfloat16*>(res), H, W, COUT};
+  const engine::BiasEpilogue epi{{}, static_cast<__nv_bfloat16*>(out),
+                                 static_cast<const float*>(bias),
+                                 static_cast<const __nv_bfloat16*>(res), H, W, COUT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (KS * 1000 + BN) {
     HV_CONV(1, 32);

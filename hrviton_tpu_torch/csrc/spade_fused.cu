@@ -13,100 +13,57 @@
 // gamma, beta and norm never touch device memory, and relu(actv) is never
 // written. The TPU kernel streams row bands of actv through a double buffer
 // and merges taps into the contraction to suit its matrix unit; none of
-// that is carried over. Here a thread block owns a 16 x 16 pixel tile and
-// 32 of the channels: the main loop of conv_tile.cuh runs the 3x3 over the
-// relu(actv) halo with 64 weight columns, [gamma | beta] of those 32
-// channels, so each thread ends with gamma and beta of the same (pixel,
-// channel) in its registers and applies the chain to x there.
+// that is carried over. bfloat16 (spade_modulate_kernel) runs on the TMA /
+// wgmma conv engine (conv_engine.cuh) as the fused unit's gamma|beta stage
+// does, with the same epilogue and no activation (spade_mod.cuh): the actv
+// halo arrives by TMA from the unpadded input, relu is the engine's
+// transform on A, gamma and beta columns are interleaved in groups of 8 in
+// N tiles of at most 96 columns so that each thread ends with gamma and beta
+// of the same (pixel, channel), and the weights are packed once per weight
+// tensor on the host (ops/spade_fused.py:gb_weights).
 //
 // What bounds it on this card: operations. A pixel of C channels needs
 // 4 * 9 * NH * C flops against 2 * (2 * C + NH) + 4 bytes; at C = 80, NH = 128 that
 // is 369 KFLOP against 0.6 KB. Blocks of one pixel tile that differ in the
-// channel tile are neighbours in the grid, so actv comes from device memory
-// once and from L2 after.
+// N tile are neighbours in the grid, so actv comes from device memory once
+// and from L2 after.
 //
 // Rounding follows the plain PyTorch version (modulate_ref in
 // ops/spade_fused.py): every intermediate it holds in the compute dtype is
-// rounded through T here (rt<T>); accumulation and the normalisation are f32.
-// float32 inputs take plain FMA loops (exact in f32, slow).
+// rounded here too; accumulation and the normalisation are f32. float32
+// inputs take plain FMA loops (exact in f32, slow).
 //
 // Below the modulation kernels, the one-pass instance statistics (a helper of
 // both SPADE kernels).
 //
-// Plain C interface for ctypes; the entry points return cudaGetLastError().
+// Plain C interface for ctypes; the entry points return cudaGetLastError()
+// (the bfloat16 one 1000 + a CUresult if its tensor map cannot be encoded).
 
 #include "conv_tile.cuh"
+#include "spade_mod.cuh"
 
 using namespace hv;
 
 namespace {
 
-constexpr int MOD_KC = 32;           // actv channels per chunk
-constexpr int MOD_CT = 32;           // x channels per block
-
 struct ModParams {
-  const void* x;        // (B, H, W, C)
+  const float* x;       // (B, H, W, C)
   const float* noise;   // (B, H, W)
   const float* nscale;  // (C)
   const float* mu;      // (B, C)
   const float* rsig;    // (B, C)
-  const void* actv;     // (B, H, W, NH), pre-relu
-  const void* wk;       // packed gamma|beta weights (see the entry points)
-  const float* bgb;     // (2, CP): gamma bias, beta bias, rounded through the dtype
-  void* out;            // (B, H, W, C)
+  const float* actv;    // (B, H, W, NH), pre-relu
+  const float* wk;      // (9, NH, 2 CP): gamma in columns [0, CP), beta in [CP, 2 CP)
+  const float* bgb;     // (2, CP)
+  float* out;           // (B, H, W, C)
   int B, H, W, C, NH, CP;
 };
 
-__global__ void __launch_bounds__(CT_NT, 2)
-spade_modulate_tc_kernel(const ModParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int nct = p.CP / MOD_CT;
-  const int ct = blockIdx.x % nct, tx = blockIdx.x / nct;
-  const int b = blockIdx.z, y0 = blockIdx.y * CT_TH, x0 = tx * CT_TW;
-  // columns [64 ct, 64 ct + 32): gamma of channels [32 ct, 32 ct + 32); the
-  // next 32: their beta. acc[r][j] and acc[r][j + 4] belong together.
-  float acc[2][8][4] = {};
-  conv_mainloop_tc<4>(acc, static_cast<const bf*>(p.actv), p.H, p.W, p.NH,
-                      static_cast<const bf*>(p.wk), MOD_KC, p.NH / MOD_KC, 2 * p.CP,
-                      ct * 2 * MOD_CT, /*relu*/ 1, b, y0, x0,
-                      reinterpret_cast<bf*>(smem_raw));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const bf* x = static_cast<const bf*>(p.x);
-  bf* out = static_cast<bf*>(p.out);
-  const float* mu = p.mu + b * p.C;
-  const float* rsig = p.rsig + b * p.C;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int gy = y0 + 2 * warp + r;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gx = x0 + g + 8 * half;
-      if (gy >= p.H || gx >= p.W) continue;
-      const size_t pix = (size_t)(b * p.H + gy) * p.W + gx;
-      const float nz = p.noise[pix];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = ct * MOD_CT + j * 8 + 2 * t;     // C is even: c and c + 1, or neither
-        if (c >= p.C) continue;
-        const float2 xv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + pix * p.C + c));
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cc = c + e;
-          const float gm = rt<bf>(rt<bf>(acc[r][j][2 * half + e]) + __ldg(p.bgb + cc));
-          const float be =
-              rt<bf>(rt<bf>(acc[r][j + 4][2 * half + e]) + __ldg(p.bgb + p.CP + cc));
-          const float xn = rt<bf>((e ? xv.y : xv.x) + rt<bf>(nz * __ldg(p.nscale + cc)));
-          const float nrm = rt<bf>((xn - __ldg(mu + cc)) * __ldg(rsig + cc));
-          o[e] = rt<bf>(rt<bf>(nrm * rt<bf>(1.f + gm)) + be);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + pix * p.C + c) =
-            __floats2bfloat162_rn(o[0], o[1]);
-      }
-    }
-  }
+template <int BN>
+__global__ void __launch_bounds__(engine::NT, 1)
+    spade_modulate_kernel(const __grid_constant__ CUtensorMap tmx, const unsigned char* wk,
+                          const ModEpilogue epi, const engine::Geometry g) {
+  engine::run<engine::Cfg<3, BN>>(&tmx, wk, epi, g);
 }
 
 // float32: warp = tile row, lane = channel; gamma and beta columns side by side.
@@ -120,13 +77,10 @@ spade_modulate_f32_kernel(const ModParams p) {
   const int c = ct * 32 + lane;
   const int col[2] = {c, p.CP + c};
   float acc[2][CF_TW] = {};
-  conv_mainloop_f32<2>(acc, static_cast<const float*>(p.actv), p.H, p.W, p.NH,
-                       static_cast<const float*>(p.wk), p.NH, 2 * p.CP, col, /*relu*/ 1, b,
+  conv_mainloop_f32<2>(acc, p.actv, p.H, p.W, p.NH, p.wk, p.NH, 2 * p.CP, col, /*relu*/ 1, b,
                        y0, x0, A);
   const int gy = y0 + warp;
   if (c >= p.C || gy >= p.H) return;
-  const float* x = static_cast<const float*>(p.x);
-  float* out = static_cast<float*>(p.out);
   const float bg = p.bgb[c], bb = p.bgb[p.CP + c], nsc = p.nscale[c];
   const float muc = p.mu[b * p.C + c], rsc = p.rsig[b * p.C + c];
 #pragma unroll
@@ -134,22 +88,10 @@ spade_modulate_f32_kernel(const ModParams p) {
     const int gx = x0 + j;
     if (gx >= p.W) continue;
     const size_t pix = (size_t)(b * p.H + gy) * p.W + gx;
-    const float xn = x[pix * p.C + c] + p.noise[pix] * nsc;
+    const float xn = p.x[pix * p.C + c] + p.noise[pix] * nsc;
     const float nrm = (xn - muc) * rsc;
-    out[pix * p.C + c] = nrm * (1.f + (acc[0][j] + bg)) + (acc[1][j] + bb);
+    p.out[pix * p.C + c] = nrm * (1.f + (acc[0][j] + bg)) + (acc[1][j] + bb);
   }
-}
-
-ModParams make_params(const void* x, const void* noise, const void* nscale, const void* mu,
-                      const void* rsig, const void* actv, const void* wk, const void* bgb,
-                      void* out, int B, int H, int W, int C, int NH, int CP) {
-  ModParams p;
-  p.x = x; p.noise = static_cast<const float*>(noise);
-  p.nscale = static_cast<const float*>(nscale);
-  p.mu = static_cast<const float*>(mu); p.rsig = static_cast<const float*>(rsig);
-  p.actv = actv; p.wk = wk; p.bgb = static_cast<const float*>(bgb); p.out = out;
-  p.B = B; p.H = H; p.W = W; p.C = C; p.NH = NH; p.CP = CP;
-  return p;
 }
 
 // ---------------------------------------------------------------------------
@@ -280,25 +222,34 @@ __global__ void __launch_bounds__(ST_NT)
 
 extern "C" {
 
-// bfloat16: C even, NH % 32 == 0, CP = C padded to 32. wk: (NH / 32, 9 * 32,
-// 2 * CP) bf16 K x N; of each 64 columns the first 32 are gamma's and the
-// last 32 beta's of the same channels (zeros past C). bgb: (2, CP) f32.
-int spade_modulate_forward_bf16(const void* x, const void* noise, const void* nscale,
-                                const void* mu, const void* rsig, const void* actv,
-                                const void* wk, const void* bgb, void* out, int B, int H,
-                                int W, int C, int NH, int CP, void* stream) {
-  if (C <= 0 || C % 2 || NH <= 0 || NH % MOD_KC || CP % MOD_CT || CP < C)
-    return (int)cudaErrorInvalidValue;
-  const ModParams p = make_params(x, noise, nscale, mu, rsig, actv, wk, bgb, out, B, H, W,
-                                  C, NH, CP);
-  const size_t smem = ct_smem_bytes(MOD_KC, 2 * MOD_CT);
-  cudaError_t err = cudaFuncSetAttribute(
-      spade_modulate_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + CT_TW - 1) / CT_TW * (CP / MOD_CT), (H + CT_TH - 1) / CT_TH, B);
-  spade_modulate_tc_kernel<<<grid, CT_NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+// bfloat16, on the conv engine. actv: (B, H, W, NH) pre-relu, NH % 8 == 0;
+// x: (B, H, W, C), C % 8 == 0; all contiguous and 16-byte aligned. wk: (NH /
+// 16 rounded up, NTILES, 9, 2 CT, 16) bf16, the gamma|beta columns of N tile
+// j interleaved in groups of 8 (ops/spade_fused.py:pack_gb). bgb: (2, C) f32
+// rounded through bf16. CT: channels of an N tile, 2 CT one of 64, 80, 96.
+// out: (B, H, W, C) bf16.
+#define HV_MOD(BN_)                                                                          \
+  case BN_:                                                                                  \
+    return engine::launch<engine::Cfg<3, BN_>>(spade_modulate_kernel<BN_>, actv, wk, B, H, W, \
+                                               NH, NTILES, 1, epi, s)
+int spade_modulate_forward_bf16(const void* actv, const void* wk, const void* x,
+                                const void* noise, const void* nscale, const void* mu,
+                                const void* rsig, const void* bgb, void* out, int B, int H,
+                                int W, int NH, int C, int CT, int NTILES, void* stream) {
+  if (C <= 0 || C % 8 || CT % 8 || CT * NTILES < C) return (int)cudaErrorInvalidValue;
+  const ModEpilogue epi{static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const float*>(noise), static_cast<const float*>(nscale),
+                        static_cast<const float*>(mu), static_cast<const float*>(rsig),
+                        static_cast<const float*>(bgb), H, W, C, CT, /*pre_act*/ 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (2 * CT) {
+    HV_MOD(64);
+    HV_MOD(80);
+    HV_MOD(96);
+  }
+  return (int)cudaErrorInvalidValue;
 }
+#undef HV_MOD
 
 // float32: NH % 32 == 0, CP = C padded to 32. wk: (9, NH, 2 * CP) f32, gamma
 // in columns [0, CP), beta in [CP, 2 CP). bgb: (2, CP) f32.
@@ -307,8 +258,11 @@ int spade_modulate_forward_f32(const void* x, const void* noise, const void* nsc
                                const void* wk, const void* bgb, void* out, int B, int H,
                                int W, int C, int NH, int CP, void* stream) {
   if (C <= 0 || NH <= 0 || NH % CF_KC || CP % 32 || CP < C) return (int)cudaErrorInvalidValue;
-  const ModParams p = make_params(x, noise, nscale, mu, rsig, actv, wk, bgb, out, B, H, W,
-                                  C, NH, CP);
+  const ModParams p{static_cast<const float*>(x), static_cast<const float*>(noise),
+                    static_cast<const float*>(nscale), static_cast<const float*>(mu),
+                    static_cast<const float*>(rsig), static_cast<const float*>(actv),
+                    static_cast<const float*>(wk), static_cast<const float*>(bgb),
+                    static_cast<float*>(out), B, H, W, C, NH, CP};
   dim3 grid((W + CF_TW - 1) / CF_TW * (CP / 32), (H + CF_TH - 1) / CF_TH, B);
   spade_modulate_f32_kernel<<<grid, CT_NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

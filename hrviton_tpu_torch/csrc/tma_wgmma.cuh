@@ -104,6 +104,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrive on named barrier `id` without waiting: the writes before it are
+// visible to the threads that wait there (bar.sync) once it completes.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------
 
 constexpr unsigned WGMMA_SWIZZLE_32B = 3;   // the descriptor's layout code
@@ -226,6 +232,20 @@ inline CUresult encode_x(CUtensorMap* map, const void* x, int B, int H, int W, i
                                  (cuuint64_t)H * W * C * 2};
   const cuuint32_t box[4] = {16, (cuuint32_t)sc, (cuuint32_t)rows, 1};
   return encode(map, x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+// x (B, H, W, C) bf16 with C so small that a pixel is no 16-byte row, as
+// rows of W * C elements: a box of `elems` elements (a multiple of 8, at most
+// 256) x rows x 1 image, no swizzle; it may start at any element, and outside
+// a row (the zero border left and right) or the image it is zero-filled.
+// Needs W * C % 8 == 0 (a row's stride a multiple of 16 bytes).
+inline CUresult encode_rows(CUtensorMap* map, const void* x, int B, int H, int W, int C,
+                            int elems, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)W * C, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * C * 2, (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)elems, (cuuint32_t)rows, 1};
+  return encode(map, x, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 

@@ -10,7 +10,11 @@ Pallas kernels:
     weights packed once per weight tensor (``ops/conv_engine.py``).
   * ``conv3x3_small``: small channel counts, 3 * Cin <= 128 and 3 * Cout <=
     128 (the JAX ``_conv3x3_views_pallas``). The accumulator is rounded,
-    then the bias is added in the output dtype.
+    then the bias is added in the output dtype. In bf16 it runs on the same
+    engine, in N tiles of 8, 16 or 32 columns; a Cin below 15 that is no
+    multiple of 8 (9 channels: 18-byte pixels) is read as rows of W * Cin
+    elements (``narrow_box``), a larger one from a copy of x with its
+    channels zero-padded to a multiple of 8 (``small_channels``).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version ``conv3x3_ref``, with its own rounding chain, only for a CPU
@@ -43,10 +47,14 @@ from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed, pick_bn
 __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "conv3x3_eligible", "kernel_for", "enable_fast_conv",
            "fast_conv_enabled", "fast_conv", "activation", "leaky_slope",
+           "small_tiles", "small_weights", "narrow_box", "small_channels",
+           "small_launcher",
            "conv_flops", "conv_bytes"]
 
 _TH = 8          # the JAX kernels' rows per grid step: their gates' row rule
 _WIDE_BN = (32, 64, 96, 128, 136)   # the N tiles conv3x3_wide is built for
+_SMALL_BN = (8, 16, 32)             # and conv3x3_small
+_HALO_COLS = 34  # columns of the engine's halo tile that its products read
 _ENABLED = False
 # The small-channel kernel's switch: a module switch with no config knob and
 # off by default, as in the JAX package. Callers set it and restore it.
@@ -151,7 +159,7 @@ def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.conv3x3_wide_forward_bf16.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.conv3x3_wide_forward_bf16.restype = ctypes.c_int
-    lib.conv3x3_small_forward_bf16.argtypes = [vp] * 4 + [i] * 8 + [vp]
+    lib.conv3x3_small_forward_bf16.argtypes = [vp] * 4 + [i] * 9 + [vp]
     lib.conv3x3_small_forward_bf16.restype = ctypes.c_int
     lib.conv3x3_forward_f32.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.conv3x3_forward_f32.restype = ctypes.c_int
@@ -183,6 +191,48 @@ def wide_bn(x_shape, cout: int) -> int:
     return pick_bn(cout, n * -(-h // 8) * -(-w // 32), _WIDE_BN)
 
 
+def small_tiles(cout: int):
+    """(BN, NTILES) of the small bf16 kernel: the narrowest of
+    ``_SMALL_BN`` that holds Cout (Cout = 3: one tile of 8), else tiles of
+    32."""
+    bn = next((bn for bn in _SMALL_BN if bn >= cout), _SMALL_BN[-1])
+    return bn, -(-cout // bn)
+
+
+def small_weights(w, bias, bn: int):
+    """The small bf16 kernel's operands for N tiles of ``bn``: the taps in
+    the engine's layout, (CINP / 16, NP / bn, 9, bn, 16) with Cin
+    zero-padded to 16 (the channels a narrow input's spread leaves zero),
+    and the bias rounded through bf16, f32, zero-padded to NP; packed once
+    per (w, bias)."""
+    def make():
+        cout, cin = w.shape[0], w.shape[1]
+        wk = pack_kmajor(w.permute(2, 3, 1, 0).reshape(9, cin, cout), bn)
+        return wk, _bias_f32(bias, torch.bfloat16, wk.shape[1] * bn, w.device)
+    return packed(f"conv3x3_small/{bn}", (w, bias), make)
+
+
+def narrow_box(cin: int) -> int:
+    """Elements of each of the two boxes in which the small kernel reads a
+    halo row of a narrow input (Cin < 15, no multiple of 8): together they
+    hold the 34 pixels its products read, 34 * Cin elements, from the 16
+    bytes at or left of the first (up to 7 elements more); each a multiple
+    of 8 elements (16 bytes) and at most 256. 9 channels: 160."""
+    if not 0 < cin < 15 or cin % 8 == 0:
+        raise ValueError(f"narrow_box: Cin {cin} is not a narrow input")
+    return pad_to(-(-(_HALO_COLS * cin + 7) // 2), 8)
+
+
+def small_channels(cin: int) -> int:
+    """The channels of the input the small bf16 kernel reads for Cin: Cin
+    itself where it is a multiple of 8 (whole 16-byte rows of a 4-D box) or
+    below 15 (a narrow input, ``narrow_box``); else Cin padded to a multiple
+    of 8, in a copy of x that the wrapper makes (a halo row of 34 pixels of
+    15 to 42 channels would take three to six boxes of a narrow stage). No
+    site of the generator has such a Cin (9 and 32 do)."""
+    return cin if cin % 8 == 0 or cin < 15 else pad_to(cin, 8)
+
+
 def _bias_f32(bias, dtype, np_: int, device):
     """The bias as the kernels take it: rounded through ``dtype``, f32, zero
     padded to ``np_`` (zeros for no bias)."""
@@ -191,7 +241,10 @@ def _bias_f32(bias, dtype, np_: int, device):
     return F.pad(bias.to(dtype).float(), (0, np_ - bias.shape[0])).contiguous()
 
 
-def _launch(kind: str, x, w, bias, pre_act):
+def _launcher(kind: str, x, w, bias, pre_act):
+    """Check the arguments, pack the weights and allocate the output; return
+    (launch, out): ``launch()`` makes the one kernel launch into ``out`` and
+    nothing else, and raises if it fails. CUDA tensors only."""
     if pre_act not in ACT_CODES:
         raise ValueError(pre_act)
     if x.dtype not in KERNEL_DTYPES:
@@ -205,41 +258,61 @@ def _launch(kind: str, x, w, bias, pre_act):
     check_tensor("x", x, (n, h, ww, cin), x.dtype, dev)
     if bias is not None and tuple(bias.shape) != (cout,):
         raise ValueError(f"bias has shape {tuple(bias.shape)}, expected ({cout},)")
+    if w.device != dev:
+        raise ValueError(f"w on {w.device}, expected {dev}")
     small = kind == "small"
+    bf16 = x.dtype == torch.bfloat16
     if small and (cin * 3 > 128 or cout * 3 > 128):
         raise ValueError(f"conv3x3_small takes 3 * Cin <= 128 and 3 * Cout <= "
                          f"128, got {cin} -> {cout}")
-    if not small and x.dtype == torch.bfloat16 and cin % 8:
-        raise ValueError(f"conv3x3_wide takes Cin % 8 == 0 in bfloat16, got {cin}")
+    box, xk = 0, x
+    if bf16 and cin % 8:
+        if not small:
+            raise ValueError(f"conv3x3_wide takes Cin % 8 == 0 in bfloat16, got {cin}")
+        if small_channels(cin) != cin:
+            xk = F.pad(x, (0, small_channels(cin) - cin))
+        elif ww * cin % 8:
+            raise ValueError(f"conv3x3_small takes, in bfloat16, a Cin below 15 "
+                             f"with W * Cin % 8 == 0; got Cin {cin}, W {ww}")
+        else:
+            box = narrow_box(cin)
     lib = _build.load("conv3x3", _declare)
     out = torch.empty((n, h, ww, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     act = ACT_CODES[pre_act]
-    if x.dtype == torch.float32:
+    if not bf16:
         cinp, np_ = pad_to(cin, 32), pad_to(cout, 32)
         wk = _taps(w, x.dtype, cinp, np_).contiguous()
         bk = _bias_f32(bias, x.dtype, np_, dev)
-        err = lib.conv3x3_forward_f32(
-            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-            n, h, ww, cin, cout, cinp, np_, act, stream)
+        fn = lib.conv3x3_forward_f32
+        args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+                n, h, ww, cin, cout, cinp, np_, act, stream)
     elif small:
-        cinp, np_ = pad_to(cin, 16), pad_to(cout, 16)
-        wk = _taps(w, x.dtype, cinp, np_).contiguous()
-        bk = _bias_f32(bias, x.dtype, np_, dev)
-        err = lib.conv3x3_small_forward_bf16(
-            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-            n, h, ww, cin, cout, cinp, np_, act, stream)
+        bn = small_tiles(cout)[0]
+        wk, bk = small_weights(w, bias, bn)
+        fn = lib.conv3x3_small_forward_bf16
+        args = (xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+                n, h, ww, xk.shape[-1], cout, bn, wk.shape[1], act, box, stream)
     else:
-        if w.device != dev:
-            raise ValueError(f"w on {w.device}, expected {dev}")
         bn = wide_bn(x.shape, cout)
         wk, bk = wide_weights(w, bias, bn)
-        err = lib.conv3x3_wide_forward_bf16(
-            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-            n, h, ww, cin, cout, bn, wk.shape[1], act, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3 ({kind}) launch failed: cudaError {err}")
-    return out
+        fn = lib.conv3x3_wide_forward_bf16
+        args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+                n, h, ww, cin, cout, bn, wk.shape[1], act, stream)
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"conv3x3 ({kind}) launch failed: cudaError {err}")
+    launch.operands = (xk, wk, bk)              # alive while launch may run
+    return launch, out
+
+
+def small_launcher(x, w, bias=None, pre_act=None):
+    """``conv3x3_small``'s launch prepared, as (launch, out): ``launch()``
+    is the bare kernel launch, with the weights already packed (for timing
+    the kernel alone). CUDA tensors only."""
+    return _launcher("small", x, w, bias, pre_act)
 
 
 def _run(wrapper, kind: str, fused_bias: bool, x, w, bias, pre_act):
@@ -247,7 +320,8 @@ def _run(wrapper, kind: str, fused_bias: bool, x, w, bias, pre_act):
         return conv3x3_ref(x, w, bias, pre_act, fused_bias=fused_bias)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_{kind}: unsupported device {x.device}")
-    out = _launch(kind, x, w, bias, pre_act)
+    launch, out = _launcher(kind, x, w, bias, pre_act)
+    launch()
     wrapper.launches += 1
     return out
 
@@ -264,8 +338,10 @@ def conv3x3_wide(x, w, bias=None, pre_act=None):
 def conv3x3_small(x, w, bias=None, pre_act=None):
     """The small-channel kernel: pre_act -> 3x3/s1/p1 conv -> round -> + bias
     in the output dtype, for 3 * Cin <= 128 and 3 * Cout <= 128. Arguments as
-    ``conv3x3_wide``. CUDA tensors launch the kernel (or raise); CPU tensors
-    take ``conv3x3_ref``. ``conv3x3_small.launches`` counts kernel launches."""
+    ``conv3x3_wide``. CUDA tensors launch the kernel (or raise; in bfloat16
+    a Cin below 15 that is no multiple of 8 needs W * Cin % 8 == 0, and a
+    Cin from 15 to 42 that is none is read from a zero-padded copy of x);
+    CPU tensors take ``conv3x3_ref``. ``conv3x3_small.launches`` counts kernel launches."""
     return _run(conv3x3_small, "small", False, x, w, bias, pre_act)
 
 

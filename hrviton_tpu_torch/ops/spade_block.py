@@ -42,7 +42,9 @@ from hrviton_tpu_torch.ops._build import check_tensor as _check
 from hrviton_tpu_torch.ops._build import pad_to as _pad_to
 from hrviton_tpu_torch.ops.conv3x3 import activation
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
-from hrviton_tpu_torch.ops.spade_fused import modulate_ref, norm_stats
+from hrviton_tpu_torch.ops.spade_fused import (gb_tiles, gb_weights,
+                                               modulate_ref, norm_stats,
+                                               pack_gb)
 
 __all__ = ["spade_conv_unit", "spade_conv_ref", "gamma_beta_stage_ref",
            "consumer_stage_ref", "gb_tiles", "conv_tiles", "pack_gb",
@@ -50,8 +52,7 @@ __all__ = ["spade_conv_unit", "spade_conv_ref", "gamma_beta_stage_ref",
 
 _MIN_H = 256          # the JAX gate's row floor: admits up_3 and up_4 only
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_GB_BN = (64, 80, 96)       # the N tiles stage (a) is built for
-_CONV_BN = (32, 64, 128)    # and stage (b)
+_CONV_BN = (32, 64, 128)    # the N tiles stage (b) is built for
 
 
 def _declare(lib) -> None:
@@ -146,17 +147,6 @@ def _pack_weights(wg, bg, wb, bb, wc, bc):
     return wgb, bgb, wck, bck, cp, coutp
 
 
-def gb_tiles(c: int):
-    """(CT, NTILES) of stage (a) for C channels: N tiles of at most 96
-    columns, each CT channels wide (2 CT columns, one of ``_GB_BN``, padded
-    with zero columns where C needs less): C = 144 is three tiles of 48, C =
-    80 two of 40. Wider tiles hold more accumulators than the consumers'
-    registers, and spill (PERF.md §6)."""
-    ntiles = -(-2 * c // _GB_BN[-1])
-    need = 2 * _pad_to(-(-c // ntiles), 8)
-    return next(bn for bn in _GB_BN if bn >= need) // 2, ntiles
-
-
 def conv_tiles(cout: int):
     """(BN, NTILES) of stage (b): the narrowest of ``_CONV_BN`` that holds
     COUT, or tiles of 128."""
@@ -164,42 +154,20 @@ def conv_tiles(cout: int):
     return bn, -(-cout // bn)
 
 
-def pack_gb(wg, wb, ct: int, ntiles: int):
-    """Stage (a)'s weights: the taps of gamma and beta, (9, NH, C) each, as
-    one (9, NH, NTILES * 2 CT) operand whose N tile j holds, for i < CT / 8,
-    gamma of the channels j CT + 8 i .. + 7 in columns 16 i .. + 7 and beta
-    of the same channels in columns 16 i + 8 .. + 15 (zeros past C); then
-    ``pack_kmajor`` with N tiles of 2 CT."""
-    c, nh = wg.shape[0], wg.shape[1]
-
-    def taps(w):   # (C, NH, 3, 3) -> (9, NH, NTILES, CT / 8, 8), zero-padded
-        t = F.pad(w.permute(2, 3, 1, 0).reshape(9, nh, c), (0, ntiles * ct - c))
-        return t.reshape(9, nh, ntiles, ct // 8, 8)
-    both = torch.stack([taps(wg), taps(wb)], dim=4)        # (..., CT / 8, 2, 8)
-    return pack_kmajor(both.reshape(9, nh, ntiles * 2 * ct), 2 * ct)
-
-
 def _stage_weights(wg, bg, wb, bb, wc, bc, c: int, cout: int, ks: int):
     """The two stages' packed operands, each packed once per weight set:
-    (wk_gb, bgb (2, C) f32 rounded through bf16, CT, NTILES) and (wk_conv,
-    bias (NTILES * BN) f32 rounded through bf16, BN, NTILES)."""
-    ct, ntg = gb_tiles(c)
-    bf = torch.bfloat16
-
-    def make_gb():
-        return (pack_gb(wg, wb, ct, ntg),
-                torch.stack([bg, bb]).to(bf).float().contiguous())
+    stage (a)'s ``spade_fused.gb_weights`` (wk_gb, bgb, CT, NTILES) and
+    (wk_conv, bias (NTILES * BN) f32 rounded through bf16, BN, NTILES)."""
     bn, ntc = conv_tiles(cout)
 
     def make_conv():
         wk = pack_kmajor(wc.permute(2, 3, 1, 0).reshape(ks * ks, c, cout), bn)
         bias = torch.zeros(ntc * bn, dtype=torch.float32, device=wc.device)
         if bc is not None:
-            bias[:cout] = bc.to(bf).float()
+            bias[:cout] = bc.to(torch.bfloat16).float()
         return wk, bias
-    gb = packed(f"spade_gb/{ct}", (wg, wb, bg, bb), make_gb)
     conv = packed(f"spade_conv/{bn}", (wc, bc), make_conv)
-    return (*gb, ct, ntg), (*conv, bn, ntc)
+    return gb_weights(wg, bg, wb, bb), (*conv, bn, ntc)
 
 
 def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,

@@ -10,13 +10,16 @@ a SPADENorm from the pre-relu ``actv = conv_shared(seg)`` on:
     out        = normalized * (1 + conv_g(relu(actv))) + conv_b(relu(actv))
 
 The kernel is CUDA C++ for sm_90a (``csrc/spade_fused.cu``): bf16 inputs run
-on the tensor cores, f32 inputs on plain FMA loops. gamma, beta and
-``normalized`` never reach device memory. ``fused_spade_modulate`` launches
-it for CUDA tensors (or raises) and takes the plain version ``modulate_ref``
-only for CPU tensors. The instance statistics are a pass of their own, as in
-the JAX package: ``norm_stats``, a one-pass CUDA kernel on the card (also the
-fused unit's, ``ops/spade_block.py``) whose plain version is
-``instance_stats``.
+on the TMA / wgmma conv engine (``csrc/conv_engine.cuh``) as the fused
+unit's gamma|beta stage, with the modulation in the epilogue
+(``csrc/spade_mod.cuh``) and its weights packed once per weight tensor
+(``gb_weights``, shared with ``ops/spade_block.py``); f32 inputs run on plain
+FMA loops. gamma, beta and ``normalized`` never reach device memory.
+``fused_spade_modulate`` launches it for CUDA tensors (or raises) and takes
+the plain version ``modulate_ref`` only for CPU tensors. The instance
+statistics are a pass of their own, as in the JAX package: ``norm_stats``, a
+one-pass CUDA kernel on the card (also the fused unit's) whose plain version
+is ``instance_stats``.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout). ``noise`` is (B, H, W, 1) float32, as the JAX package draws it.
@@ -32,13 +35,16 @@ import torch.nn.functional as F
 
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import KERNEL_DTYPES, check_tensor, pad_to
+from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
 
 __all__ = ["fused_spade_modulate", "modulate_ref", "fused_spade_eligible",
            "enable_fast_spade", "fast_spade_enabled", "fast_spade",
-           "instance_stats", "norm_stats", "modulate_flops",
+           "instance_stats", "norm_stats", "gb_tiles", "pack_gb",
+           "gb_weights", "modulate_launcher", "modulate_flops",
            "modulate_bytes", "stats_bytes"]
 
 _TH = 16         # the JAX kernel's rows per grid step: its gate's row rule
+_GB_BN = (64, 80, 96)   # the N tiles of the gamma|beta stage (both kernels)
 _ENABLED = False
 _MIN_H = 256
 _EPS = 1e-5
@@ -152,70 +158,121 @@ def modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb):
     return normalized * (1.0 + gamma) + beta
 
 
+def gb_tiles(c: int):
+    """(CT, NTILES) of the gamma|beta stage for C channels: the fewest N
+    tiles of at most 96 columns (wider tiles hold more accumulators than the
+    consumers' registers, and spill, PERF.md §6), each CT channels wide (2
+    CT columns, the narrowest of ``_GB_BN`` that holds C / NTILES, zero
+    columns past C): C = 144 is three tiles of 48, C = 80 two of 40, C =
+    272 six of 48, C = 128 three of 48. Kept over the rule "fewest padded
+    columns" (``_GB_BN = (64, 80)``: 272 seven tiles of 40, 128 four of 32,
+    144 four of 40) because the nine norms of the second path take 9.26 ms
+    with it against 9.69 (alone, batch 4 at 1024x768, NVIDIA H100 80GB HBM3
+    at 700 W, ``chip_smoke.py --alone`` in turns, PERF.md §6), although at C
+    = 128 four tiles of 32 are as fast or slightly faster (0.272 against
+    0.272-0.286 ms)."""
+    ntiles = -(-2 * c // _GB_BN[-1])
+    need = 2 * pad_to(-(-c // ntiles), 8)
+    return next(bn for bn in _GB_BN if bn >= need) // 2, ntiles
+
+
+def pack_gb(wg, wb, ct: int, ntiles: int):
+    """The gamma|beta stage's weights: the taps of gamma and beta, (9, NH, C)
+    each, as one (9, NH, NTILES * 2 CT) operand whose N tile j holds, for i <
+    CT / 8, gamma of the channels j CT + 8 i .. + 7 in columns 16 i .. + 7
+    and beta of the same channels in columns 16 i + 8 .. + 15 (zeros past
+    C); then ``pack_kmajor`` with N tiles of 2 CT."""
+    c, nh = wg.shape[0], wg.shape[1]
+
+    def taps(w):   # (C, NH, 3, 3) -> (9, NH, NTILES, CT / 8, 8), zero-padded
+        t = F.pad(w.permute(2, 3, 1, 0).reshape(9, nh, c), (0, ntiles * ct - c))
+        return t.reshape(9, nh, ntiles, ct // 8, 8)
+    both = torch.stack([taps(wg), taps(wb)], dim=4)        # (..., CT / 8, 2, 8)
+    return pack_kmajor(both.reshape(9, nh, ntiles * 2 * ct), 2 * ct)
+
+
+def gb_weights(wg, bg, wb, bb):
+    """The gamma|beta stage's operands, packed once per weight set: (wk,
+    bgb (2, C) f32 rounded through bf16, CT, NTILES)."""
+    ct, ntiles = gb_tiles(wg.shape[0])
+
+    def make():
+        return (pack_gb(wg, wb, ct, ntiles),
+                torch.stack([bg, bb]).to(torch.bfloat16).float().contiguous())
+    return (*packed(f"spade_gb/{ct}", (wg, wb, bg, bb), make), ct, ntiles)
+
+
 def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.spade_modulate_forward_bf16, lib.spade_modulate_forward_f32):
-        fn.argtypes = [vp] * 9 + [i] * 6 + [vp]
-        fn.restype = ctypes.c_int
+    lib.spade_modulate_forward_bf16.argtypes = [vp] * 9 + [i] * 7 + [vp]
+    lib.spade_modulate_forward_bf16.restype = ctypes.c_int
+    lib.spade_modulate_forward_f32.argtypes = [vp] * 9 + [i] * 6 + [vp]
+    lib.spade_modulate_forward_f32.restype = ctypes.c_int
     lib.instance_stats_forward.argtypes = [vp] * 6 + [i] * 5 + [ctypes.c_float, vp]
     lib.instance_stats_forward.restype = ctypes.c_int
 
 
-def _pack_weights(wg, bg, wb, bb, dtype):
-    """Kernel layouts. taps (9, NH, CP) per conv, CP = C padded to 32 with
-    zeros; f32: wk = [gamma | beta] on the last axis, (9, NH, 2 CP); bf16:
-    of each 64 columns the first 32 are gamma's and the last 32 beta's of
-    the same channels, and chunks of 32 NH rows of every tap follow one
-    another: (NH / 32, 9 * 32, 2 CP). bgb: (2, CP) f32, rounded through
-    ``dtype``."""
+def _pack_f32(wg, bg, wb, bb):
+    """The float32 kernel's layouts: wk (9, NH, 2 CP), gamma in columns [0,
+    CP) and beta in [CP, 2 CP), CP = C padded to 32 with zeros; bgb (2, CP)."""
     c, nh = wg.shape[0], wg.shape[1]
     cp = pad_to(c, 32)
 
     def taps(w):
-        return F.pad(w.to(dtype).permute(2, 3, 1, 0).reshape(9, nh, c),
-                     (0, cp - c))
-
-    if dtype == torch.float32:
-        wk = torch.cat([taps(wg), taps(wb)], dim=-1).contiguous()
-    else:
-        wk = torch.stack([taps(wg).reshape(9, nh, cp // 32, 32),
-                          taps(wb).reshape(9, nh, cp // 32, 32)], dim=3)
-        wk = wk.reshape(9, nh // 32, 32, 2 * cp).permute(1, 0, 2, 3).contiguous()
-    bgb = F.pad(torch.stack([bg, bb]).to(dtype).float(), (0, cp - c)).contiguous()
+        return F.pad(w.float().permute(2, 3, 1, 0).reshape(9, nh, c), (0, cp - c))
+    wk = torch.cat([taps(wg), taps(wb)], dim=-1).contiguous()
+    bgb = F.pad(torch.stack([bg, bb]).float(), (0, cp - c)).contiguous()
     return wk, bgb, cp
 
 
-def _modulate_cuda(x, noise, nscale, actv, wg, bg, wb, bb):
+def modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb):
+    """Check the arguments, compute the statistics, pack the weights and
+    allocate the output; return (launch, out): ``launch()`` makes the one
+    kernel launch into ``out`` and nothing else (so that the kernel can be
+    timed alone), and raises if the launch fails. CUDA tensors only."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"fused_spade_modulate kernel takes float32/bfloat16, "
                         f"got {x.dtype}")
     n, h, w, c = x.shape
     nh = actv.shape[-1]
     bf16 = x.dtype == torch.bfloat16
-    if (nh % 32 or tuple(wg.shape) != (c, nh, 3, 3)
-            or tuple(wb.shape) != (c, nh, 3, 3) or (bf16 and c % 2)):
+    if (tuple(wg.shape) != (c, nh, 3, 3) or tuple(wb.shape) != (c, nh, 3, 3)
+            or (nh % 8 or c % 8 if bf16 else nh % 32)):
         raise ValueError(f"unsupported modulate shapes: x {tuple(x.shape)}, actv "
                          f"{tuple(actv.shape)}, wg {tuple(wg.shape)}, wb "
-                         f"{tuple(wb.shape)}")
+                         f"{tuple(wb.shape)} ({x.dtype}: "
+                         + ("C and NH multiples of 8)" if bf16 else "NH % 32 == 0)"))
     dev = x.device
     check_tensor("x", x, (n, h, w, c), x.dtype, dev)
     check_tensor("actv", actv, (n, h, w, nh), x.dtype, dev)
     noise = noise.reshape(n, h, w)
     check_tensor("noise", noise, (n, h, w), torch.float32, dev)
+    if any(t.device != dev for t in (wg, wb, nscale)):
+        raise ValueError(f"modulate weights must be on {dev}")
     lib = _build.load("spade_fused", _declare)
     mu, rsig = norm_stats(x, noise[..., None], nscale)
     nsc = nscale.float().contiguous()
-    wk, bgb, cp = _pack_weights(wg, bg, wb, bb, x.dtype)
     out = torch.empty_like(x)
-    fn = lib.spade_modulate_forward_bf16 if bf16 else lib.spade_modulate_forward_f32
-    err = fn(x.data_ptr(), noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
-             rsig.data_ptr(), actv.data_ptr(), wk.data_ptr(), bgb.data_ptr(),
-             out.data_ptr(), n, h, w, c, nh, cp,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"spade_modulate_forward launch failed: cudaError {err}")
-    fused_spade_modulate.launches += 1
-    return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf16:
+        wk, bgb, ct, ntiles = gb_weights(wg, bg, wb, bb)
+        args = (actv.data_ptr(), wk.data_ptr(), x.data_ptr(), noise.data_ptr(),
+                nsc.data_ptr(), mu.data_ptr(), rsig.data_ptr(), bgb.data_ptr(),
+                out.data_ptr(), n, h, w, nh, c, ct, ntiles, stream)
+        fn = lib.spade_modulate_forward_bf16
+    else:
+        wk, bgb, cp = _pack_f32(wg, bg, wb, bb)
+        args = (x.data_ptr(), noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
+                rsig.data_ptr(), actv.data_ptr(), wk.data_ptr(), bgb.data_ptr(),
+                out.data_ptr(), n, h, w, c, nh, cp, stream)
+        fn = lib.spade_modulate_forward_f32
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"spade_modulate_forward launch failed: cudaError {err}")
+    launch.args = args                                  # the entry point's arguments
+    launch.operands = (noise, mu, rsig, nsc, wk, bgb)   # alive while launch may run
+    return launch, out
 
 
 def fused_spade_modulate(x, noise, nscale, actv, wg, bg, wb, bb):
@@ -229,7 +286,10 @@ def fused_spade_modulate(x, noise, nscale, actv, wg, bg, wb, bb):
         return modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb)
     if x.device.type != "cuda":
         raise ValueError(f"fused_spade_modulate: unsupported device {x.device}")
-    return _modulate_cuda(x, noise, nscale, actv, wg, bg, wb, bb)
+    launch, out = modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb)
+    launch()
+    fused_spade_modulate.launches += 1
+    return out
 
 
 fused_spade_modulate.launches = 0

@@ -83,7 +83,7 @@ def test_wide_tiles_fill_the_card():
     assert tc3.wide_bn((4, 256, 192, 128), 128) == 128
 
 
-@pytest.mark.parametrize("c", [144, 80, 64, 32, 40])
+@pytest.mark.parametrize("c", [144, 80, 64, 32, 40, 272, 128])
 def test_gamma_beta_packing_interleaves_groups_of_eight(c):
     """Stage (a)'s operand: N tile j, group i of 16 columns = gamma of the
     channels j CT + 8 i .. + 7, then beta of the same; zero columns past C."""
@@ -91,7 +91,7 @@ def test_gamma_beta_packing_interleaves_groups_of_eight(c):
     nh = 128
     wg, wb = _t(rng, (c, nh, 3, 3)), _t(rng, (c, nh, 3, 3))
     ct, nt = tsb.gb_tiles(c)
-    assert 2 * ct in tsb._GB_BN and ct % 8 == 0 and ct * nt >= c
+    assert 2 * ct in tsf._GB_BN and ct % 8 == 0 and ct * nt >= c
     cols = _unpack(tsb.pack_gb(wg, wb, ct, nt), 9, nh, nt * 2 * ct)
     tg, tb = _taps(wg), _taps(wb)
     for j in range(nt):
@@ -107,8 +107,12 @@ def test_gamma_beta_packing_interleaves_groups_of_eight(c):
 
 
 def test_unit_tiles():
-    assert [tsb.gb_tiles(c) for c in (144, 80, 64, 32, 40, 24)] == \
-        [(48, 3), (40, 2), (32, 2), (32, 1), (40, 1), (32, 1)]
+    """Stage (a)'s tiles, the unit's and the modulation's (one rule): the
+    fewest tiles of at most 96 columns, each the narrowest that holds its
+    share; 272 and 128 are the modulation's C at up_2."""
+    assert tsb.gb_tiles is tsf.gb_tiles
+    assert [tsb.gb_tiles(c) for c in (144, 80, 64, 32, 40, 24, 272, 128)] == \
+        [(48, 3), (40, 2), (32, 2), (32, 1), (40, 1), (32, 1), (48, 6), (48, 3)]
     assert [tsb.conv_tiles(c) for c in (64, 32, 24, 130)] == \
         [(64, 1), (32, 1), (32, 1), (128, 2)]
 
@@ -129,6 +133,140 @@ def test_unit_stage_weights_unpack(c, cout, ks):
     want = np.zeros(ntc * bn, np.float32)
     want[:cout] = bc.to(torch.bfloat16).float().numpy()
     np.testing.assert_array_equal(bk.numpy(), want)
+
+
+@pytest.mark.parametrize("c", [272, 128, 144, 64, 80, 32])
+def test_gamma_beta_stage_is_the_modulation(c):
+    """The bf16 modulation runs as the unit's gamma|beta stage with no
+    activation: with the statistics that ``modulate_ref`` forms, the
+    stage's plain version gives ``modulate_ref`` bit for bit at the nine
+    norms' C."""
+    rng = np.random.default_rng(8)
+    b, h, w, nh = 2, 6, 5, 16
+    args = [_t(rng, (b, h, w, c)).bfloat16(), _t(rng, (b, h, w, 1)), _t(rng, (c,), 0.3),
+            _t(rng, (b, h, w, nh)).bfloat16(), _t(rng, (c, nh, 3, 3), 0.1),
+            _t(rng, (c,), 0.1), _t(rng, (c, nh, 3, 3), 0.1), _t(rng, (c,), 0.1)]
+    want = tsf.modulate_ref(*args)
+    mu, rsig = _stats_two_pass(*args[:3])
+    got = tsb.gamma_beta_stage_ref(*args[:3], mu, rsig, *args[3:], pre_act=None)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_gamma_beta_weights_packed_once():
+    """The modulation's and the unit's stage (a) operands: packed once per
+    weight set, again after an in-place update."""
+    rng = np.random.default_rng(9)
+    wg, wb = _t(rng, (128, 128, 3, 3)), _t(rng, (128, 128, 3, 3))
+    bg, bb = _t(rng, (128,)), _t(rng, (128,))
+    wk, bgb, ct, nt = tsf.gb_weights(wg, bg, wb, bb)
+    assert (ct, nt) == (48, 3)
+    again = tsf.gb_weights(wg, bg, wb, bb)
+    assert again[0] is wk and again[1] is bgb
+    bb.mul_(3.0)
+    wk2, bgb2, _, _ = tsf.gb_weights(wg, bg, wb, bb)
+    assert bgb2 is not bgb
+    np.testing.assert_array_equal(
+        bgb2.numpy(), torch.stack([bg, bb]).to(torch.bfloat16).float().numpy())
+    np.testing.assert_array_equal(wk2.float().numpy(),
+                                  tsf.pack_gb(wg, wb, ct, nt).float().numpy())
+
+
+@pytest.mark.parametrize("cin,cout", [(9, 16), (32, 32), (32, 3), (7, 42), (16, 8),
+                                      (20, 24)])
+def test_small_weights_unpack_to_oihw(cin, cout):
+    """The small kernel's operand: N tiles of 8, 16 or 32 (Cout = 3: one of
+    8; 42: two of 32), Cin zero-padded to 16 (a narrow input's spread leaves
+    channels Cin..15 zero: the products see zeros times zeros; Cin = 20 is
+    read from x padded to 24, whose two K chunks these weights fill)."""
+    rng = np.random.default_rng(10)
+    wt, bias = _t(rng, (cout, cin, 3, 3)), _t(rng, (cout,))
+    bn, nt = tc3.small_tiles(cout)
+    assert bn in tc3._SMALL_BN and bn * nt >= cout and (nt == 1 or bn == 32)
+    wk, bk = tc3.small_weights(wt, bias, bn)
+    assert tuple(wk.shape) == (-(-cin // 16), nt, 9, bn, 16)
+    np.testing.assert_array_equal(_unpack(wk, 9, cin, cout), _taps(wt))
+    want = np.zeros(nt * bn, np.float32)
+    want[:cout] = bias.to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(bk.numpy(), want)
+    assert tc3.small_tiles(3) == (8, 1) and tc3.small_tiles(16) == (16, 1)
+
+
+def test_small_weights_cache_follows_in_place_updates():
+    rng = np.random.default_rng(11)
+    w, b = _t(rng, (16, 9, 3, 3)), _t(rng, (16,))
+    wk, bk = tc3.small_weights(w, b, 16)
+    assert tc3.small_weights(w, b, 16)[0] is wk           # packed once
+    w.add_(1.0)
+    wk2, bk2 = tc3.small_weights(w, b, 16)
+    assert wk2 is not wk and bk2 is not bk
+    np.testing.assert_array_equal(_unpack(wk2, 9, 9, 16), _taps(w))
+    b.mul_(-2.0)
+    np.testing.assert_array_equal(tc3.small_weights(w, b, 16)[1].numpy()[:16],
+                                  b.to(torch.bfloat16).float().numpy())
+
+
+def test_narrow_box():
+    """Two boxes of ``narrow_box(C)`` elements hold a halo row of 34 pixels
+    from the 16 bytes at or left of its first element; each a multiple of 8
+    elements, at most 256. Not for Cin that a 4-D box takes, nor above 14."""
+    assert tc3.narrow_box(9) == 160
+    for c in (1, 2, 3, 5, 7, 9, 11, 13, 14):
+        e = tc3.narrow_box(c)
+        assert e % 8 == 0 and 0 < e <= 256 and 2 * e >= 34 * c + 7
+        assert 2 * (e - 8) < 34 * c + 7                  # the least such
+    for c in (0, 8, 15, 16, 24):
+        with pytest.raises(ValueError):
+            tc3.narrow_box(c)
+
+
+def test_small_channels():
+    """The channels the small bf16 kernel reads: Cin as it is where a 4-D box
+    (a multiple of 8) or a narrow stage (below 15) takes it, else padded to
+    the next multiple of 8, which keeps the weights' K chunks of 16."""
+    for cin in range(1, 43):
+        k = tc3.small_channels(cin)
+        if cin % 8 == 0 or cin < 15:
+            assert k == cin
+        else:
+            assert k % 8 == 0 and cin < k < cin + 8
+            assert -(-k // 16) == -(-cin // 16)
+    assert [tc3.small_channels(c) for c in (9, 15, 20, 32, 33, 42)] == [9, 16, 24, 32, 40, 48]
+
+
+@pytest.mark.parametrize("cin,w", [(9, 40), (9, 384), (7, 72), (13, 8), (3, 40)])
+def test_narrow_rows_spread_to_the_halo(cin, w):
+    """The narrow input's layout arithmetic as the engine's producer and its
+    spread pass do it (csrc/conv_engine.cuh: boxes from the halo's first
+    element rounded down to 16 bytes, a second box only where the row
+    reaches into it, elements right of the row zeroed, left of it the box's
+    zero fill), emulated in numpy on one image row: every column strip's 34
+    halo pixels come out as the row with its zero border."""
+    rng = np.random.default_rng(12)
+    row = rng.standard_normal(w * cin).astype(np.float32)
+    e_box = tc3.narrow_box(cin)
+
+    def box(start):                     # a box of the 3-D map, zero-filled outside
+        out = np.zeros(e_box, np.float32)
+        lo, hi = max(start, 0), min(start + e_box, w * cin)
+        if hi > lo:
+            out[lo - start:hi - start] = row[lo:hi]
+        return out
+    padded = np.concatenate([np.zeros(cin), row, np.zeros(40 * cin)]).reshape(-1, cin)
+    for x0 in range(0, w, 32):
+        e = (x0 - 1) * cin
+        e0 = e & ~7
+        two = e0 + e_box < w * cin
+        raw = np.concatenate([box(e0), box(e0 + e_box) if two else
+                              np.full(e_box, np.nan, np.float32)])
+        d, lim = e - e0, w * cin - e0
+        halo = np.zeros((34, 16), np.float32)
+        for col in range(34):
+            for c in range(cin):
+                el = d + col * cin + c
+                halo[col, c] = 0.0 if el >= lim else raw[el]
+        np.testing.assert_array_equal(halo[:, :cin], padded[x0:x0 + 34])
+        assert not halo[:, cin:].any()
 
 
 def test_packing_cache_follows_in_place_updates():

@@ -82,10 +82,11 @@ def test_kernel_rejects_bad_input():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [40, 272])
+@pytest.mark.parametrize("c", [40, 128, 272])
 def test_modulate_kernel_matches_plain(dtype, c):
-    """Ragged 37x45 (every edge mask of the 16x16 and 8x8 tilings); c = 40 is
-    one ragged channel tile, c = 272 nine."""
+    """Ragged 37x45 (every edge mask of the engine's 8x32 and the f32 8x8
+    tilings); in bf16 c = 40 is one N tile of 40 channels, c = 128 three of
+    48 (the last part padding), c = 272 six of 48."""
     _need_card()
     args, _ = _inputs(dtype, 2, 37, 45, c, 8, 3, False)
     before = tsf.fused_spade_modulate.launches
@@ -132,11 +133,16 @@ def test_wide_conv_kernel_matches_plain(dtype, cin, cout, pre_act, bias):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,cout,pre_act,bias", [
     (9, 16, None, True), (32, 32, "leaky0.2", True), (32, 3, "leaky0.2", True),
-    (7, 42, "relu", False)])
+    (7, 42, "relu", False), (20, 24, "relu", True)])
 def test_small_conv_kernel_matches_plain(dtype, cin, cout, pre_act, bias):
-    """Odd channel counts: a pixel of 9 or 3 channels is 18 or 6 bytes."""
+    """Odd channel counts: a pixel of 9 or 7 channels is 18 or 14 bytes (in
+    bf16 the engine's narrow input), 20 channels are read from a copy padded
+    to 24, 3 output channels are one N tile of 8, 42 two of 32; ragged 37
+    rows and W = 45 (partly filled 8-column tiles), but W = 40 for a narrow
+    bf16 input, which needs W * Cin % 8 == 0."""
     _need_card()
-    x, w, b = _conv_inputs(dtype, 2, 37, 45, cin, cout, bias)
+    narrow = dtype == torch.bfloat16 and cin % 8 and cin < 15
+    x, w, b = _conv_inputs(dtype, 2, 37, 40 if narrow else 45, cin, cout, bias)
     before = tc3.conv3x3_small.launches
     got = tc3.conv3x3_small(x, w, b, pre_act)
     torch.cuda.synchronize()
@@ -156,11 +162,52 @@ def test_conv_kernel_edge_rows():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["ones", "corners"])
+@pytest.mark.parametrize("cin,cout,w", [(9, 16, 40), (9, 16, 72), (32, 3, 40),
+                                        (13, 8, 8)])
+def test_small_conv_kernel_borders(cin, cout, w, pattern):
+    """Constant input and an impulse in each corner, 2 images of 16 rows: the
+    zero border of a narrow input's rows (elements left of a row's first
+    pixel, right of its last) and of the 4-D boxes; W = 72 puts the last
+    column strip 8 pixels in, W = 8 (Cin 13: boxes of 232 elements) leaves
+    one strip that is mostly border."""
+    _need_card()
+    x, wt, b = _conv_inputs(torch.bfloat16, 2, 16, w, cin, cout, True)
+    if pattern == "ones":
+        x = torch.ones_like(x)
+    else:
+        corners = torch.zeros_like(x)
+        for r in (0, -1):
+            for c in (0, -1):
+                corners[:, r, c] = x[:, r, c]
+        x = corners
+    got = tc3.conv3x3_small(x, wt, None)
+    ref = tc3.conv3x3_ref(x, wt, None)
+    _assert_close(got, ref, torch.bfloat16)
+    assert torch.equal(got == 0, ref == 0)          # nothing leaked across a border
+    _assert_close(tc3.conv3x3_small(x, wt, b), tc3.conv3x3_ref(x, wt, b), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_small_conv_weights_follow_in_place_updates():
+    """Packed once per weight tensor; written in place, packed again."""
+    _need_card()
+    x, w, b = _conv_inputs(torch.bfloat16, 1, 16, 64, 9, 16, True)
+    for _ in range(3):
+        _assert_close(tc3.conv3x3_small(x, w, b), tc3.conv3x3_ref(x, w, b), torch.bfloat16)
+        w.mul_(-1.5)
+        b.add_(0.25)
+
+
+@pytest.mark.gpu
 def test_new_kernels_reject_bad_input():
     _need_card()
     x, w, b = _conv_inputs(torch.bfloat16, 1, 16, 16, 44, 48)
     with pytest.raises(ValueError):
         tc3.conv3x3_small(x, w, b)                # 3 * 44 > 128
+    x9, w9, b9 = _conv_inputs(torch.bfloat16, 1, 16, 20, 9, 16)
+    with pytest.raises(ValueError):
+        tc3.conv3x3_small(x9, w9, b9)             # narrow: W * Cin % 8
     with pytest.raises(ValueError):
         tc3.conv3x3_wide(x, w, b)                 # bf16: Cin % 8
     with pytest.raises(ValueError):
@@ -175,6 +222,9 @@ def test_new_kernels_reject_bad_input():
     args, _ = _inputs(torch.bfloat16, 1, 8, 8, 7, 8, 3, False)
     with pytest.raises(ValueError):
         tsf.fused_spade_modulate(*args[:8])       # bf16: odd C
+    args, _ = _inputs(torch.bfloat16, 1, 8, 8, 20, 8, 3, False)
+    with pytest.raises(ValueError):
+        tsf.fused_spade_modulate(*args[:8])       # bf16: C % 8
 
 
 # The staging formulations of the conv experiments (csrc/conv_exp.cu; halo:
@@ -433,7 +483,7 @@ def test_unit_stages_every_tile(gb_bn, ks, cout, monkeypatch):
     """The unit with C = N / 2 of stage (a)'s tile and a consumer tile of 32,
     64 or 128 columns, ragged 37x45, leaky, residual on the 3x3 ones."""
     _need_card()
-    monkeypatch.setattr(tsb, "_GB_BN", (gb_bn,))
+    monkeypatch.setattr(tsf, "_GB_BN", (gb_bn,))
     c = gb_bn // 2
     args, res = _inputs(torch.bfloat16, 2, 37, 45, c, cout, ks, ks == 3)
     assert tsb.gb_tiles(c) == (c, 1)
@@ -451,6 +501,30 @@ def test_unit_split_gamma_beta_tiles():
     assert tsb.gb_tiles(144)[1] > 1
     _assert_close(tsb.spade_conv_unit(None, *args, res),
                   tsb.spade_conv_ref(*args, residual=res), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gb_bn", [64, 80, 96])
+def test_modulate_every_tile(gb_bn, monkeypatch):
+    """The modulation at C = 72 in N tiles of 32, 40 or 48 channels (three,
+    two, two: the last part padding), ragged 37x45."""
+    _need_card()
+    monkeypatch.setattr(tsf, "_GB_BN", (gb_bn,))
+    args, _ = _inputs(torch.bfloat16, 2, 37, 45, 72, 8, 3, False)
+    assert tsf.gb_tiles(72)[0] == gb_bn // 2
+    _assert_close(tsf.fused_spade_modulate(*args[:8]), tsf.modulate_ref(*args[:8]),
+                  torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_modulate_weights_follow_in_place_updates():
+    _need_card()
+    args, _ = _inputs(torch.bfloat16, 1, 16, 32, 32, 8, 3, False)
+    for _ in range(3):
+        _assert_close(tsf.fused_spade_modulate(*args[:8]), tsf.modulate_ref(*args[:8]),
+                      torch.bfloat16)
+        args[6].mul_(-1.5)                   # beta's weights
+        args[5].add_(0.25)                   # gamma's bias
 
 
 @pytest.mark.gpu

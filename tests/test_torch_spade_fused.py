@@ -70,9 +70,10 @@ def _compare(arrs):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("c", [8, 40])
-def test_modulate_matches_pallas(c):
-    _compare(_inputs(c=c))
+@pytest.mark.parametrize("c,h,w", [(8, 16, 16), (40, 16, 16), (272, 8, 8)])
+def test_modulate_matches_pallas(c, h, w):
+    """C = 272 is up_2's norm_s / norm_0 (six N tiles of 48 on the card)."""
+    _compare(_inputs(h=h, w=w, c=c))
 
 
 def test_modulate_edge_rows():
