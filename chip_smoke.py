@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py --paths    # phases 1, 2, 4 and 5 only
-    python3 chip_smoke.py --alone    # phases 1, 2 and the engine kernels' times
+    python3 chip_smoke.py --alone    # phases 1, 2 and kernels' times alone
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
      (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_exp,
      conv_shift,copy_probe,conv_tma}.cu: twelve kernels and the instance
-     statistics), one nvcc process each, all started together;
+     statistics; conv_tma.cu holds conv_halo, conv_roll, conv_prodroll and
+     conv_e2, conv_shift.cu conv_e), one nvcc process each, all started
+     together, with ptxas's report of registers and spills;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
      every shape its main path gives it, batch 4, in bf16 and f32, with times
      beside the bound:
@@ -39,8 +41,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      alone by CUDA events around the bare C entry point, with the operands
      packed; the times of the unit, the modulation and both convs are
      printed beside those of the designs they replaced (PERF.md); and the
-     SASS of every engine kernel (cuobjdump -sass) must hold HGMMA and no
-     HMMA;
+     SASS of every kernel on wgmma (cuobjdump -sass: the engine's and the
+     four of conv_tma.cu) must hold HGMMA and no HMMA;
   4. first path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
      ngf=64 'most' at 1024x768, bf16, random seeded weights) with its default
      configuration answers 3 requests of batch 4; the unit kernel must launch
@@ -63,13 +65,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      band-copy probe) against its plain version at that size, at every band
      height its entry point times, and at one ragged small size (the probe
      bit for bit), with times beside the library call (F.conv2d;
-     Tensor.copy_), conv3x3_wide at the same shape and the bound. conv_halo
-     and conv_roll (TMA tensor loads and wgmma, csrc/conv_tma.cu), conv_e and
-     conv_e2 read x as it is: their wrappers may allocate the output and the
-     packed weights only, and may take no longer than the kernel alone and
-     the weight packing. The times of conv_halo and conv_roll are printed
-     beside those of the designs they replaced, with the time the host takes
-     to encode a call's tensor maps.
+     Tensor.copy_), conv3x3_wide at the same shape and the bound. conv_halo,
+     conv_roll, conv_prodroll and conv_e2 (TMA tensor loads and wgmma,
+     csrc/conv_tma.cu) and conv_e read x as it is: their wrappers may
+     allocate the output and the packed weights only, and may take no longer
+     than the kernel alone and the weight packing. The times of the four
+     conv_tma.cu kernels are printed beside those of the designs they
+     replaced, with the time the host takes to encode a call's tensor maps;
+     conv_prodroll and conv_e2 are also timed alone by CUDA events around
+     the bare C entry point (weights packed beforehand), beside the
+     profiler's time, and their bound with the products of the strips'
+     overlapping columns is printed beside the conv's. No kernel pays the
+     JAX tools' gather of halo tiles; it is timed alone for reference.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
@@ -156,10 +163,13 @@ SMALL_RAGGED = [(2, 37, 40, 9, 16, None), (2, 37, 40, 32, 3, "leaky0.2"),
 # Printed beside this run's totals.
 EARLIER_MODEL = {"spade_unit": (46.50, 34.74), "conv3x3_wide": (2.38, 1.77),
                  "spade_modulate": (23.09, 20.33), "conv3x3_small": (1.82, 1.59)}
-# the engine kernels of each source, whose SASS must hold HGMMA and no HMMA
-ENGINE_KERNELS = {"spade_fused": ("spade_modulate_kernel",),
-                  "conv3x3": ("conv3x3_wide_kernel", "conv3x3_small_kernel"),
-                  "spade_block": ("spade_unit_gb_kernel", "spade_unit_conv_kernel")}
+# the kernels on wgmma of each source (the engine's and the tools' TMA
+# kernels), whose SASS must hold HGMMA and no HMMA
+WGMMA_KERNELS = {"spade_fused": ("spade_modulate_kernel",),
+                 "conv3x3": ("conv3x3_wide_kernel", "conv3x3_small_kernel"),
+                 "spade_block": ("spade_unit_gb_kernel", "spade_unit_conv_kernel"),
+                 "conv_tma": ("conv_halo_tma_kernel", "conv_roll_tma_kernel",
+                              "conv_prodroll_tma_kernel", "conv_e2_tma_kernel")}
 TOOLS_X = (B, 1024, 768, 128)           # the tools' x; w is (3, 3, 128, 128)
 TOOLS_RAGGED = (2, 48, 40, 16, 24, 8)   # b, h, w, cin, cout, th
 # (key, kernel name in a profile, band heights; the first is the record's)
@@ -167,18 +177,26 @@ TOOL_CONVS = [("conv_band", "conv_band_kernel", (8, 16, 32)),
               ("conv_halo", "conv_halo_tma_kernel", (8, 16)),
               ("conv_dma", "conv_dma_kernel", (8,)),
               ("conv_roll", "conv_roll_tma_kernel", (8, 16)),
-              ("conv_prodroll", "conv_prodroll_kernel", (8, 16)),
+              ("conv_prodroll", "conv_prodroll_tma_kernel", (8, 16)),
               ("conv_e", "conv_e_kernel", (8, 16)),
-              ("conv_e2", "conv_e2_kernel", (8, 16))]
+              ("conv_e2", "conv_e2_tma_kernel", (8, 16))]
 # wrappers that make no copy of x
-UNSTAGED = ("conv_halo", "conv_roll", "conv_e", "conv_e2")
-# What conv_halo and conv_roll took before they read x by TMA and multiplied
-# on wgmma (a gather in device memory, then a cp.async / mma.sync kernel):
-# {band height: (wrapper ms, kernel alone ms)} as PERF.md records them, at
-# TOOLS_X on an NVIDIA H100 80GB HBM3 at 700 W. Printed beside this run's
-# times; those kernels no longer exist to be timed again.
+UNSTAGED = ("conv_halo", "conv_roll", "conv_prodroll", "conv_e", "conv_e2")
+# how each tool wrapper orders the taps before it packs them
+TAP_ORDER = {"conv_roll": "pack_kx", "conv_e2": "pack_ky"}
+# the product-shift kernels on TMA and wgmma: also timed alone by CUDA events
+# around the bare entry point, and bound with their strips' extra products
+PRODUCT_SHIFT = ("conv_prodroll", "conv_e2")
+# What the four conv_tma.cu kernels took before they read x by TMA and
+# multiplied on wgmma (cp.async / mma.sync kernels, after a gather in device
+# memory for all but conv_e2): {band height: (wrapper ms, kernel alone ms)}
+# as PERF.md records them, at TOOLS_X on an NVIDIA H100 80GB HBM3 at 700 W.
+# Printed beside this run's times; those kernels no longer exist to be timed
+# again.
 EARLIER = {"conv_halo": {8: (7.62, 4.04), 16: (8.44, 5.07)},
-           "conv_roll": {8: (8.63, 5.05)}}
+           "conv_roll": {8: (8.63, 5.05)},
+           "conv_prodroll": {8: (7.87, 4.19), 16: (7.86, 4.45)},
+           "conv_e2": {8: (4.88, 4.68), 16: (5.42, 5.20)}}
 PROBE_TH = 16
 
 
@@ -418,7 +436,9 @@ def alone_phase():
     shape, batch 4, bf16, summed over one request's launches; no result is
     checked. The modulation and the small conv alone, around their bare
     entry points (statistics computed and weights packed beforehand); the
-    unit and the wide conv through their wrappers (weights packed once)."""
+    unit and the wide conv through their wrappers (weights packed once).
+    Then the tools' product-shift kernels around their bare entry points at
+    TOOLS_X, TH 8 and 16 (weights packed beforehand)."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.ops import spade_block as sb
     from hrviton_tpu_torch.ops import spade_fused as sf
@@ -450,15 +470,24 @@ def alone_phase():
             timed(key, name, n, fn)
     log("alone, one request's launches: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in sums.items()))
+    from hrviton_tpu_torch.tools import _common
+    x = _randn(gen, *TOOLS_X).to(bf)
+    wt = _randn(gen, 3, 3, TOOLS_X[-1], TOOLS_X[-1], scale=0.1).to(bf)
+    for key in PRODUCT_SHIFT:
+        order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
+        for th in (8, 16):
+            launch, _ = _common.conv_launcher(f"{key}_forward_bf16", x, wt, th,
+                                              None, order)
+            log(f"alone {key} TH={th} {TOOLS_X}: {_events_ms(launch, 10):.3f} ms")
 
 
 def sass_phase():
-    """Every instantiation of the conv engine's kernels: its SASS
-    (cuobjdump -sass of the built library) must hold HGMMA (wgmma) and no
-    HMMA (mma.sync)."""
+    """Every instantiation of the kernels on wgmma (the conv engine's and
+    conv_tma.cu's): its SASS (cuobjdump -sass of the built library) must hold
+    HGMMA (wgmma) and no HMMA (mma.sync)."""
     from hrviton_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src, names in ENGINE_KERNELS.items():
+    for src, names in WGMMA_KERNELS.items():
         text = subprocess.run([tool, "-sass", str(_build.build(src))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -960,12 +989,8 @@ def tools_phase(card):
     Returns ({kernel: {bf16: totals}}, {kernel: launches of the entry
     points})."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
-    from hrviton_tpu_torch.tools import exp_conv, exp_conv2, exp_copy_probe
-    from hrviton_tpu_torch.tools._common import (pack_kx, pack_ky, pack_taps,
-                                                 pack_weights,
-                                                 pack_weights_kmajor,
-                                                 problem_size,
-                                                 tensor_map_encode_us)
+    from hrviton_tpu_torch.tools import (_common, exp_conv, exp_conv2,
+                                         exp_copy_probe)
     for name in ("PROF_BATCH", "PROF_H", "PROF_W", "PROF_C", "PROF_ITERS",
                  "PROF_TH", "SKIP_CHECK"):
         os.environ.pop(name, None)          # the tools' own full size
@@ -986,7 +1011,8 @@ def tools_phase(card):
     model_counts = {k: w.launches for k, w in model.items()}
     log(f"tools: entry points ran in {time.perf_counter() - t0:.1f} s, launches "
         f"{counts}, of the model kernels {model_counts}")
-    timed = 1 + 2 * problem_size()[-1]   # a warm-up and twice PROF_ITERS calls
+    # a warm-up and twice PROF_ITERS calls
+    timed = 1 + 2 * _common.problem_size()[-1]
     expect = {"conv_band": 1 + 3 * timed,    # the check; TH = 8, 16, 32
               "conv_halo": 1 + timed, "conv_dma": 1 + timed,
               "conv_roll": 1 + timed,        # main('all'): the check; TH = 8
@@ -1022,6 +1048,7 @@ def tools_phase(card):
     w_oihw = wt.permute(3, 2, 0, 1)
     wl = w_oihw.contiguous(memory_format=torch.channels_last)
     flops = c3.conv_flops(B, h, w, c, c)
+    strip_cols = -(-w // 62) * 64       # product columns of the shift kernels
     nbytes = (2 * x.numel() + wt.numel()) * x.element_size()
     totals = {}
     for key, kname, ths in TOOL_CONVS:
@@ -1033,14 +1060,24 @@ def tools_phase(card):
                         lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
                         nbytes, per_call=1)
             totals.setdefault(key, {dtype: tot})
+            entry = f"{key}_forward_bf16"
+            order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
             if key in UNSTAGED:
-                order = {"conv_roll": pack_kx, "conv_e2": pack_ky}.get(
-                    key, pack_taps)
-                layout = (pack_weights_kmajor if key in EARLIER
-                          else pack_weights)
+                layout = _common._ENTRIES[entry][2]
                 _no_staging(f"{key} TH={th}", lambda: run(x, wt, th=th),
                             tot["kernel_alone_ms"],
                             lambda: layout(wt, order), x)
+            if key in PRODUCT_SHIFT:
+                launch, _ = _common.conv_launcher(entry, x, wt, th, None, order)
+                alone, ev = tot["kernel_alone_ms"], _events_ms(launch, 10)
+                log(f"{key} TH={th}: kernel alone by CUDA events around the "
+                    f"bare entry point {ev:.3f} ms, by the profiler "
+                    + ("not measured" if alone is None else
+                       f"{alone:.3f} ms ({100 * (ev - alone) / alone:+.1f}%)")
+                    + f"; bound {flops / PEAK_OPS[dtype] * 1e3:.4f} ms, with "
+                    f"the products of the strips' overlapping columns "
+                    f"{flops * strip_cols / w / PEAK_OPS[dtype] * 1e3:.4f} ms")
+                del launch
             if key in EARLIER:
                 was = EARLIER[key].get(th)
                 alone = tot["kernel_alone_ms"]
@@ -1051,12 +1088,12 @@ def tools_phase(card):
                        f"{was[0]:.2f} ms, kernel alone {was[1]:.2f} ms "
                        f"(PERF.md)"))
     log(f"conv_halo, conv_roll: encoding one call's two tensor maps takes "
-        f"{tensor_map_encode_us(x, wt):.2f} us of host time")
+        f"{_common.tensor_map_encode_us(x, wt):.2f} us of host time")
     for th in (8, 16):
-        log(f"conv_prodroll TH={th}: the gather alone (halo_tiles) "
+        log(f"TH={th}: the JAX tools' gather alone (halo_tiles) "
             f"{_events_ms(lambda: exp_conv2.halo_tiles(x, th), 3):.3f} ms; "
-            f"conv_halo and conv_roll no longer pay it: their tiles are TMA "
-            f"boxes of the unpadded x")
+            f"no kernel pays it any more: the tiles of conv_halo, conv_roll "
+            f"and conv_prodroll are TMA boxes of the unpadded x")
     wide = lambda: c3.conv3x3_wide(x, w_oihw)
     wide_alone = _device_ms(wide, "conv3x3_wide_kernel", per_call=1)
     log(f"conv3x3_wide {c}->{c} {h}x{w}: wrapper {_events_ms(wide, 3):.3f} ms, "
@@ -1101,15 +1138,19 @@ KERNELS = [
     ("conv_roll", "conv_roll (tools/exp_conv2.main('all'): the same x, "
      "unpadded, and w; three TMA boxes a stage and wgmma; times at TH=8, "
      "launches at TH=8)", "conv_tma.cu", "tools/exp_pallas_conv2.py:146"),
-    ("conv_prodroll", "conv_prodroll (tools/exp_conv2.main('all'): the same x "
-     "and w; gather and kernel; times at TH=8, launches at TH=8, 16)",
-     "conv_shift.cu", "tools/exp_pallas_conv2.py:197"),
+    ("conv_prodroll", "conv_prodroll (tools/exp_conv2.main('all'): the same x, "
+     "unpadded, and w; one TMA box a chunk, nine products a chunk on wgmma, "
+     "the kx shift on three accumulators; times at TH=8, launches at TH=8, "
+     "16)",
+     "conv_tma.cu", "tools/exp_pallas_conv2.py:197"),
     ("conv_e", "conv_e (tools/exp_conv2.main('all') and main('e') under "
      "SKIP_CHECK: the same x, unpadded, and w; times at TH=8, launches at "
      "TH=8, 16)", "conv_shift.cu", "tools/exp_pallas_conv2.py:352"),
     ("conv_e2", "conv_e2 (tools/exp_conv2.main('all') and main('e2') under "
-     "SKIP_CHECK: the same x, unpadded, and w; times at TH=8, launches at "
-     "TH=8, 16)", "conv_shift.cu", "tools/exp_pallas_conv2.py:438"),
+     "SKIP_CHECK: the same x, unpadded, and w; three TMA boxes a chunk (ky "
+     "packed into channels), wgmma, the kx shift on three accumulators; "
+     "times at TH=8, launches at TH=8, 16)", "conv_tma.cu",
+     "tools/exp_pallas_conv2.py:438"),
     ("copy_probe", "band-copy probe (tools/exp_copy_probe.main: the same x, "
      "TH=16)", "copy_probe.cu", "tools/exp_dma_probe.py:67"),
     # a helper of kernels 1 and 2, no TPU kernel's counterpart: the JAX

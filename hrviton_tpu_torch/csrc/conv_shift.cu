@@ -1,55 +1,46 @@
-// The shift formulations of the 3x3 stride-1 pad-1 convolution experiment for
-// Hopper (sm_90a): three kernels that compute the same conv as csrc/conv_exp.cu
-// (bf16 in, f32 accumulation over all nine taps and all of Cin, one rounding
-// to bf16, no bias, no activation) and realise the kx shift of the taps on
-// the f32 products. (The fourth shift formulation, conv_roll, packs the kx
-// neighbours by TMA: csrc/conv_tma.cu.)
+// The masked product-shift formulation of the 3x3 stride-1 pad-1 convolution
+// experiment for Hopper (sm_90a): a kernel that computes the same conv as
+// csrc/conv_exp.cu (bf16 in, f32 accumulation over all nine taps and all of
+// Cin, one rounding to bf16, no bias, no activation) and realises the kx
+// shift of the taps on the f32 products. The other three shift formulations
+// read x by TMA and multiply on wgmma in csrc/conv_tma.cu: conv_roll packs
+// the kx neighbours into channels, conv_prodroll and conv_e2 shift their
+// products as this kernel does, with the ky offset in the box's rows or in
+// the packed channels.
 //
-//   conv_prodroll_kernel replaces _kernel_prodroll (conv_prodroll, call :197):
-//     pre-gathered halo tiles, nine products of unshifted rows (only the ky
-//     row offset moves) and the kx shift applied to the f32 products,
-//     o[q] = p0[q] + p1[q + 1] + p2[q + 2].
-//   conv_e_kernel replaces _kernel_e (conv_e, call :352): the same product
-//     shift, o[q] = p0[q - 1] + p1[q] + p2[q + 1], on the unpadded x. The
-//     band copy has the TPU kernel's three cases (first band: slot row 0 is
-//     zero; last band: slot row TH + 1 is zero; a one-band image is both), no
-//     column outside the image is read, and the contributions of p0 to the
-//     image's first column and of p2 to its last are masked to zero.
-//   conv_e2_kernel replaces _kernel_e2 (conv_e2, call :438): as conv_e, but
-//     the three ky rows are packed into channels (a real packed tile: every
-//     16-byte piece is copied to its three places in shared memory, so a
-//     packed pixel's K = 96 values of a chunk are contiguous), w is (3, 3
-//     Cin, Cout) stacked over ky per kx, and three
-//     products of K = 3 Cin are followed by the same masked product shift.
+//   conv_e_kernel replaces _kernel_e (tools/exp_pallas_conv2.py, conv_e, call
+//     :352): nine unshifted products and the product shift,
+//     o[q] = p0[q - 1] + p1[q] + p2[q + 1], on the unpadded x. The band copy
+//     has the TPU kernel's three cases (first band: slot row 0 is zero; last
+//     band: slot row TH + 1 is zero; a one-band image is both), no column
+//     outside the image is read, and the contributions of p0 to the image's
+//     first column and of p2 to its last are masked to zero.
 //
-// None is carried over block by block. The TPU kernels hold a whole-width
-// tile in fast memory and rotate whole products along the width. Here a block
-// of 8 warps owns TH rows x MW = 16 MT product columns x 32 output channels
-// and walks Cin in chunks of 32 through a double buffer filled by cp.async
-// (the chunks of one pre-gathered tile for prodroll; the chunks of up
-// to 8 successive bands of one image for e and e2, since blocks run in no
-// order and the prefetch of band i + 1 has to live inside one block). A warp
+// It is not carried over block by block. The TPU kernel holds a whole-width
+// tile in fast memory and rotates whole products along the width. Here a
+// block of 8 warps owns TH rows x MW = 16 MT product columns x 32 output
+// channels and walks Cin in chunks of 32 through a double buffer filled by
+// cp.async, over up to 8 successive bands of one image (blocks run in no
+// order, and the prefetch of band i + 1 has to live inside one block). A warp
 // owns R = TH / 8 full rows, so a product's neighbour along the width is
 // always in the same warp.
 //
 // The product shift is a shift along the M axis of the m16n8 accumulator: a
 // lane 4 g + t holds columns g and g + 8 of a 16-column tile, so column c + 1
 // is lane + 4, or the lane's own second half (g = 7), or the next tile's first
-// half. The kernels keep one accumulator set per kx through the whole K loop,
-// unshifted, and shift once per band in the epilogue with __shfl_sync. For
-// e2 that is literally the TPU kernel's order (three full products, three
-// shifted adds); for prodroll and e it sums the same f32 terms in another
-// order. A block's products at MW columns give MW - 2 outputs, so it does
-// MW / (MW - 2) of the conv's work: 32 / 30 at TH = 8 (R = 1, MT = 2), 16 / 14
-// at TH = 16 (R = 2, MT = 1); three accumulator sets are 96 registers either
-// way. What the shift buys: one ldmatrix of an A fragment feeds the mma's of
-// three taps.
+// half. The kernel keeps one accumulator set per kx through the whole K loop,
+// unshifted, and shifts once per band in the epilogue with __shfl_sync; it
+// sums the TPU kernel's f32 terms in another order. A block's products at MW
+// columns give MW - 2 outputs, so it does MW / (MW - 2) of the conv's work:
+// 32 / 30 at TH = 8 (R = 1, MT = 2), 16 / 14 at TH = 16 (R = 2, MT = 1); three
+// accumulator sets are 96 registers either way. What the shift buys: one
+// ldmatrix of an A fragment feeds the mma's of three taps.
 //
-// What bounds them on this card: operations (576 FLOP a byte at 128 -> 128,
-// above the card's 295). They run on mma.sync, not wgmma; their times stand
+// What bounds it on this card: operations (576 FLOP a byte at 128 -> 128,
+// above the card's 295). It runs on mma.sync, not wgmma; its times stand
 // beside the bound in PERF.md.
 //
-// Plain C interface for ctypes; the entry points return cudaGetLastError().
+// Plain C interface for ctypes; the entry point returns cudaGetLastError().
 
 #include "mma_utils.cuh"
 
@@ -60,85 +51,63 @@ namespace {
 constexpr int NT = 256;                 // threads of a block: 8 warps
 constexpr int KC = 32;                  // input channels per chunk
 constexpr int AS = KC + 8;              // staged pixel stride: ldmatrix rows on distinct banks
-constexpr int PS = 3 * KC + 8;          // the same for a packed pixel (K = 3 KC)
 constexpr int NF = 2;
 constexpr int NCOL = 16 * NF;           // output channels of a block
 constexpr int LDB = NCOL + 8;           // staged weight row stride
-constexpr int WROWS = 9 * KC;           // staged weight rows of a chunk, whatever the packing
-constexpr int BANDS_PER_BLOCK = 8;      // successive bands a block of e / e2 walks
-
-enum Kind { PRODROLL, E, E2 };
+constexpr int WROWS = 9 * KC;           // staged weight rows of a chunk
+constexpr int BPB = 8;                  // successive bands a block walks
 
 struct Params {
-  const bf* x;        // tiles (B, NBANDS, TH + 2, WX, C) or the image (B, H, W, C), WX = W
-  const bf* wk;       // (3, 3, CINP, NP), zeros past Cin and COUT; what the two
-                      // leading axes mean is the kernel's packing
+  const bf* x;        // the image (B, H, W, C)
+  const bf* wk;       // (9, CINP, NP), tap 3 ky + kx, zeros past Cin and COUT
   bf* out;            // (B, H, W, COUT)
-  size_t img_stride;  // elements from one image of x to the next
-  int H, W, WX, C, CINP, COUT, NP, NBANDS, BPB;   // BPB: bands a block walks
+  int H, W, C, CINP, COUT, NP, NBANDS;
 };
 
-template <int KIND_, int R_, int MT_>
+template <int R_, int MT_>
 struct Cfg {
-  static constexpr int KIND = KIND_, R = R_, MT = MT_;
+  static constexpr int R = R_, MT = MT_;
   static constexpr int TH = 8 * R, MW = 16 * MT;              // rows, product columns
-  static constexpr bool TILES = KIND == PRODROLL;
-  static constexpr bool PACKED = KIND == E2;
   static constexpr int NACC = 3;                              // accumulator sets (one per kx)
-  static constexpr int SC = MW;                               // staged columns
   static constexpr int OW = MW - 2;                           // output columns
-  // column of x (tile or image) at staged column 0, less the block's first output column
-  static constexpr int COL0 = TILES ? 0 : -1;
-  static constexpr int A_ELEMS = KIND == E2 ? TH * MW * PS : (TH + 2) * MW * AS;
+  static constexpr int A_ELEMS = (TH + 2) * MW * AS;
   static constexpr int SLOT = A_ELEMS + WROWS * LDB;          // elements of one slot
 };
 
 // One step's input into a slot: channels [q * KC, (q + 1) * KC) of the band's
-// (TH + 2) x SC pixels. What the image or tile does not have arrives as zeros.
+// (TH + 2) x MW pixels. What the image does not have arrives as zeros.
 template <class C>
 __device__ __forceinline__ void stage_input(bf* A, const Params& p, const bf* img, int band,
                                             int x0, int q, int tid) {
   constexpr int N8 = KC / 8, TH = C::TH, MW = C::MW;
-  // slot rows that x has. A gathered tile has them all. The unpadded image:
-  // first band TH + 1 rows into slot rows 1 .., middle band TH + 2, last band
-  // TH + 1 into rows 0 ..; the missing row is zero
-  const int r_lo = !C::TILES && band == 0 ? 1 : 0;
-  const int r_hi = !C::TILES && band == p.NBANDS - 1 ? TH + 1 : TH + 2;
-  // row of x at slot row 0
-  const long long row0 = C::TILES ? (long long)band * (TH + 2) : (long long)band * TH - 1;
-  for (int i = tid; i < (TH + 2) * C::SC * N8; i += NT) {
+  // slot rows that x has: first band TH + 1 rows into slot rows 1 .., middle
+  // band TH + 2, last band TH + 1 into rows 0 ..; the missing row is zero
+  const int r_lo = band == 0 ? 1 : 0;
+  const int r_hi = band == p.NBANDS - 1 ? TH + 1 : TH + 2;
+  const long long row0 = (long long)band * TH - 1;     // row of x at slot row 0
+  for (int i = tid; i < (TH + 2) * MW * N8; i += NT) {
     const int s = i % N8, pix = i / N8;
-    const int rr = pix / C::SC, c = pix % C::SC;
-    const int gc = x0 + C::COL0 + c, ch = q * KC + s * 8;
+    const int rr = pix / MW, c = pix % MW;
+    const int gc = x0 - 1 + c, ch = q * KC + s * 8;
     // a column that x does not have is never read: the same predicate fills
     // it with zeros (a branch that skipped it made the kernels 5-13% slower).
     // Its products reach no kept output anyway: the epilogue masks the
     // image's border columns
-    const bool ok = rr >= r_lo && rr < r_hi && gc >= 0 && gc < p.WX && ch < p.C;
-    const bf* src = ok ? img + ((row0 + rr) * p.WX + gc) * p.C + ch : p.x;
-    if constexpr (C::KIND == E2) {
-      // packed row r holds slot rows r, r + 1, r + 2 in its thirds
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        const int r = rr - ky;
-        if (r >= 0 && r < TH)
-          cp_async16_zfill(A + (r * MW + c) * PS + ky * KC + s * 8, src, ok);
-      }
-    } else {
-      cp_async16_zfill(A + (rr * MW + c) * AS + s * 8, src, ok);
-    }
+    const bool ok = rr >= r_lo && rr < r_hi && gc >= 0 && gc < p.W && ch < p.C;
+    const bf* src = ok ? img + ((row0 + rr) * p.W + gc) * p.C + ch : p.x;
+    cp_async16_zfill(A + (rr * MW + c) * AS + s * 8, src, ok);
   }
 }
 
-// One step's weights: rows [q * KC, (q + 1) * KC) of each of the nine (a, b)
-// slices, output channels [n0, n0 + NCOL); staged row (3 a + b) * KC + k.
+// One step's weights: rows [q * KC, (q + 1) * KC) of each of the nine taps,
+// output channels [n0, n0 + NCOL); staged row tap * KC + k.
 __device__ __forceinline__ void stage_weights(bf* Bs, const Params& p, int q, int n0, int tid) {
   constexpr int SEGS = NCOL / 8;
   for (int i = tid; i < WROWS * SEGS; i += NT) {
     const int s = i % SEGS, row = i / SEGS;
-    const int ab = row / KC, k = row % KC;
+    const int tap = row / KC, k = row % KC;
     cp_async16(Bs + row * LDB + s * 8,
-               p.wk + (size_t)(ab * p.CINP + q * KC + k) * p.NP + n0 + s * 8);
+               p.wk + (size_t)(tap * p.CINP + q * KC + k) * p.NP + n0 + s * 8);
   }
 }
 
@@ -178,33 +147,21 @@ template <class C>
 __device__ __forceinline__ void products(float (&acc)[C::NACC][C::R][2 * NF][C::MT][4],
                                          const bf* A, const bf* Bs, int warp, int lane) {
   constexpr int R = C::R, MT = C::MT, MW = C::MW;
-  constexpr int PIX = C::PACKED ? PS : AS;
   // A: 16 columns of a row (one per lane % 16), k-half by lane / 16
-  const bf* a_lane = A + (warp * R * MW + (lane & 15)) * PIX + (lane >> 4) * 8;
+  const bf* a_lane = A + (warp * R * MW + (lane & 15)) * AS + (lane >> 4) * 8;
   // B: rows k (one per lane % 16), channel half by lane / 16
   const bf* b_lane = Bs + (lane & 15) * LDB + (lane >> 4) * 8;
   unsigned fa[R][MT][4];
-  if constexpr (C::KIND == E2) {
-    // three products of K = 3 KC: the packed rows against w[kx]
+  // nine products of unshifted rows: one A fragment feeds the three kx taps
 #pragma unroll
-    for (int kk = 0; kk < 3 * KC; kk += 16) {
-      load_a<R, MT>(fa, a_lane + kk, MW * PIX, 16 * PIX);
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      load_a<R, MT>(fa, a_lane + ky * MW * AS + kk, MW * AS, 16 * AS);
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx)
-        mma_slice<R, MT>(acc[kx], fa, b_lane + (kx * 3 * KC + kk) * LDB);
+        mma_slice<R, MT>(acc[kx], fa, b_lane + ((3 * ky + kx) * KC + kk) * LDB);
     }
-  } else {
-    // nine products of unshifted rows: one A fragment feeds the three kx taps
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        load_a<R, MT>(fa, a_lane + ky * MW * PIX + kk, MW * PIX, 16 * PIX);
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-          mma_slice<R, MT>(acc[kx], fa, b_lane + ((3 * ky + kx) * KC + kk) * LDB);
-      }
-  }
 }
 
 // s[c] = v[c + 1] along a row's MT column tiles; the last column gets 0.
@@ -258,32 +215,19 @@ __device__ __forceinline__ void epilogue(float (&acc)[C::NACC][C::R][2 * NF][C::
     bf* orow = p.out + (size_t)(b * p.H + y0 + warp * R + r) * p.W * p.COUT;
 #pragma unroll
     for (int j = 0; j < 2 * NF; ++j) {
-      float o[MT][4];
-      if constexpr (C::KIND == PRODROLL) {
-        // o[c] = p0[c] + p1[c + 1] + p2[c + 2]
-        float s1[MT][4], s2[MT][4], s3[MT][4];
-        shift_up<MT>(acc[1][r][j], s1, lane);
-        shift_up<MT>(acc[2][r][j], s2, lane);
-        shift_up<MT>(s2, s3, lane);
+      // o[c] = p0[c - 1] + p1[c] + p2[c + 1]; nothing lies left of the
+      // image's first column or right of its last
+      float o[MT][4], lf[MT][4], rg[MT][4];
+      shift_down<MT>(acc[0][r][j], lf, lane);
+      shift_up<MT>(acc[2][r][j], rg, lane);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) o[mt][e] = acc[0][r][j][mt][e] + s1[mt][e] + s3[mt][e];
-      } else {
-        // o[c] = p0[c - 1] + p1[c] + p2[c + 1]; nothing lies left of the
-        // image's first column or right of its last
-        float lf[MT][4], rg[MT][4];
-        shift_down<MT>(acc[0][r][j], lf, lane);
-        shift_up<MT>(acc[2][r][j], rg, lane);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int gx = x0 + C::COL0 + 16 * mt + g + 8 * (e >> 1);
-            o[mt][e] = acc[1][r][j][mt][e] + (gx == 0 ? 0.f : lf[mt][e]) +
-                       (gx == p.W - 1 ? 0.f : rg[mt][e]);
-          }
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int gx = x0 - 1 + 16 * mt + g + 8 * (e >> 1);
+          o[mt][e] = acc[1][r][j][mt][e] + (gx == 0 ? 0.f : lf[mt][e]) +
+                     (gx == p.W - 1 ? 0.f : rg[mt][e]);
+        }
       const int co = n0 + j * 8 + 2 * t;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -295,7 +239,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[C::NACC][C::R][2 * NF][C::
             acc[k][r][j][mt][2 * half + 1] = 0.f;
           }
           const int c = 16 * mt + g + 8 * half;         // product column of the block
-          const int oc = c + C::COL0;                   // output column of the block
+          const int oc = c - 1;                         // output column of the block
           const int gx = x0 + oc;
           if (oc < 0 || oc >= C::OW || gx >= p.W) continue;
           const float v0 = o[mt][2 * half], v1 = o[mt][2 * half + 1];
@@ -321,11 +265,11 @@ __device__ __forceinline__ void shift_conv(const Params& p, bf* slots) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nct = p.NP / NCOL;
   const int n0 = (blockIdx.x % nct) * NCOL, x0 = (blockIdx.x / nct) * C::OW;
-  const int i0 = blockIdx.y * p.BPB, b = blockIdx.z;
-  const int nb = min(p.BPB, p.NBANDS - i0);
+  const int i0 = blockIdx.y * BPB, b = blockIdx.z;
+  const int nb = min(BPB, p.NBANDS - i0);
   const int nchunks = p.CINP / KC;
   const int steps = nb * nchunks;
-  const bf* img = p.x + (size_t)b * p.img_stride;
+  const bf* img = p.x + (size_t)b * p.H * p.W * p.C;
   float acc[C::NACC][C::R][2 * NF][C::MT][4] = {};
 
   stage_input<C>(slots, p, img, i0, x0, 0, tid);
@@ -357,21 +301,9 @@ __device__ __forceinline__ void shift_conv(const Params& p, bf* slots) {
 }
 
 template <int R, int MT>
-__global__ void __launch_bounds__(NT) conv_prodroll_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  shift_conv<Cfg<PRODROLL, R, MT>>(p, reinterpret_cast<bf*>(smem_raw));
-}
-
-template <int R, int MT>
 __global__ void __launch_bounds__(NT) conv_e_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  shift_conv<Cfg<E, R, MT>>(p, reinterpret_cast<bf*>(smem_raw));
-}
-
-template <int R, int MT>
-__global__ void __launch_bounds__(NT) conv_e2_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  shift_conv<Cfg<E2, R, MT>>(p, reinterpret_cast<bf*>(smem_raw));
+  shift_conv<Cfg<R, MT>>(p, reinterpret_cast<bf*>(smem_raw));
 }
 
 template <class C, typename K>
@@ -380,59 +312,29 @@ cudaError_t launch(K kernel, const Params& p, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.W + C::OW - 1) / C::OW * (p.NP / NCOL), (p.NBANDS + p.BPB - 1) / p.BPB, B);
+  const dim3 grid((p.W + C::OW - 1) / C::OW * (p.NP / NCOL), (p.NBANDS + BPB - 1) / BPB, B);
   kernel<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-// wx: the width of x's rows (Wp of the gathered tiles, W of the image); c: its channels
-int forward(Kind kind, const void* x, const void* wk, void* out, int B, int H, int W, int wx,
-            int c, int CINP, int COUT, int NP, int TH, void* stream) {
-  const bool tiles = kind == PRODROLL;
-  if (B <= 0 || H <= 0 || W <= 0 || (TH != 8 && TH != 16) || H % TH || c <= 0 || c % 8 ||
-      CINP < c || CINP % KC || COUT <= 0 || NP % NCOL || NP < COUT ||
-      (tiles ? wx < W + 2 : wx != W))
-    return (int)cudaErrorInvalidValue;
-  const int nbands = H / TH;
-  Params p{static_cast<const bf*>(x), static_cast<const bf*>(wk), static_cast<bf*>(out),
-           (tiles ? (size_t)nbands * (TH + 2) : (size_t)H) * wx * c,
-           H, W, wx, c, CINP, COUT, NP, nbands, tiles ? 1 : BANDS_PER_BLOCK};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HV_LAUNCH(KIND, KERNEL)                                        \
-  (int)(TH == 8 ? launch<Cfg<KIND, 1, 2>>(KERNEL<1, 2>, p, B, s)       \
-                : launch<Cfg<KIND, 2, 1>>(KERNEL<2, 1>, p, B, s))
-  if (kind == PRODROLL) return HV_LAUNCH(PRODROLL, conv_prodroll_kernel);
-  if (kind == E) return HV_LAUNCH(E, conv_e_kernel);
-  return HV_LAUNCH(E2, conv_e2_kernel);
-#undef HV_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// tiles: (B, H / TH, TH + 2, WP, CINP) bf16, the overlapping row tiles of the
-// input padded by one zero row above and below, one zero column left and
-// WP - W - 1 right, channels zero-padded to CINP % 32 == 0. wk: (9, CINP, NP)
-// bf16, tap 3 ky + kx; NP = COUT padded to a multiple of 32. out: (B, H, W,
-// COUT) bf16. TH: 8 or 16, H % TH == 0.
-int conv_prodroll_forward_bf16(const void* tiles, const void* wk, void* out, int B, int H, int W,
-                               int WP, int CINP, int COUT, int NP, int TH, void* stream) {
-  return forward(PRODROLL, tiles, wk, out, B, H, W, WP, CINP, CINP, COUT, NP, TH, stream);
-}
-
 // x: (B, H, W, C) bf16 as it is, C % 8 == 0 (a chunk's channels past C are
 // zero-filled by the kernel); wk: (9, CINP, NP), tap 3 ky + kx, CINP = C
-// padded to 32.
+// padded to 32, NP = COUT padded to a multiple of 32. out: (B, H, W, COUT)
+// bf16. TH: 8 or 16, H % TH == 0.
 int conv_e_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W, int C,
                         int CINP, int COUT, int NP, int TH, void* stream) {
-  return forward(E, x, wk, out, B, H, W, W, C, CINP, COUT, NP, TH, stream);
-}
-
-// x as for conv_e; wk: (3, 3 CINP, NP), [kx][ky][c].
-int conv_e2_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W, int C,
-                         int CINP, int COUT, int NP, int TH, void* stream) {
-  return forward(E2, x, wk, out, B, H, W, W, C, CINP, COUT, NP, TH, stream);
+  if (B <= 0 || H <= 0 || W <= 0 || (TH != 8 && TH != 16) || H % TH || C <= 0 || C % 8 ||
+      CINP < C || CINP % KC || COUT <= 0 || NP % NCOL || NP < COUT)
+    return (int)cudaErrorInvalidValue;
+  const Params p{static_cast<const bf*>(x), static_cast<const bf*>(wk), static_cast<bf*>(out),
+                 H, W, C, CINP, COUT, NP, H / TH};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(TH == 8 ? launch<Cfg<1, 2>>(conv_e_kernel<1, 2>, p, B, s)
+                       : launch<Cfg<2, 1>>(conv_e_kernel<2, 1>, p, B, s));
 }
 
 }  // extern "C"

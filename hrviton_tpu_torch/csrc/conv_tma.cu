@@ -1,7 +1,7 @@
-// Two formulations of the 3x3 stride-1 pad-1 convolution experiment designed
+// Four formulations of the 3x3 stride-1 pad-1 convolution experiment designed
 // for Hopper's asynchronous units (sm_90a): the input tile with its halo and
 // its zero border arrives by TMA straight from the unpadded x, and the
-// products run on wgmma. Both compute what the kernels of csrc/conv_exp.cu and
+// products run on wgmma. All compute what the kernels of csrc/conv_exp.cu and
 // csrc/conv_shift.cu compute (bf16 in, f32 accumulation over all nine taps
 // and all of Cin, one rounding to bf16, no bias, no activation).
 //
@@ -24,12 +24,32 @@
 //     offset is whole tile rows, the kx offset lives in the TMA coordinate, so
 //     every operand starts on a swizzle pattern. The columns that the TPU
 //     kernel's circular roll wraps are never computed.
+//   conv_prodroll_tma_kernel replaces tools/exp_pallas_conv2.py:_kernel_prodroll
+//     (through conv_prodroll, pl.pallas_call at exp_pallas_conv2.py:197): nine
+//     products of unshifted input rows, the kx shift applied to the f32
+//     products, once per row after the last chunk. The TPU tool gathers padded
+//     row tiles first and keeps o[q] = p0[q] + p1[q + 1] + p2[q + 2] over the
+//     padded columns; here one box a stage holds rows y - 1 .. y + 2 of the
+//     unpadded x with the strip's halo columns and its zero border, and in
+//     image columns the sum is o[q] = p0[q - 1] + p1[q] + p2[q + 1]. Product
+//     (ky, kx) reads the box at row offset ky and no column offset and
+//     accumulates into acc[kx]: one A descriptor per ky feeds three products.
+//   conv_e2_tma_kernel replaces tools/exp_pallas_conv2.py:_kernel_e2 (through
+//     conv_e2, pl.pallas_call at exp_pallas_conv2.py:438): the three ky rows
+//     packed into channels (K = 3 Cin) against w packed as (3, 3 Cin, Cout)
+//     per kx, three products, the same product shift. The copy engine does the
+//     packing: three boxes a stage at rows y - 1 + ky, one per third of the
+//     packed K (conv_roll's three column-shifted boxes turned by 90 degrees),
+//     and product kx walks its K over the thirds into acc[kx]. The TPU
+//     kernel's border mask is the boxes' out-of-bounds fill: the products of
+//     a zero column are zero.
 //
-// Neither is carried over block by block. A block of two consumer warpgroups
-// and one producer warp owns TH rows x OC columns x 128 output channels (four
-// 64-row wgmma tiles of 8 columns x 8 rows, two per warpgroup: TH x OC = 8 x
-// 32, 16 x 16 or 32 x 8) and walks up to BANDS_PER_BLOCK successive row tiles
-// of its column strip, so the ring of stages never drains between tiles. One
+// None is carried over block by block. conv_halo and conv_roll: a block of
+// two consumer warpgroups and one producer warp owns TH rows x OC columns x
+// 128 output channels (four 64-row wgmma tiles of 8 columns x 8 rows, two per
+// warpgroup: TH x OC = 8 x 32, 16 x 16 or 32 x 8) and walks up to
+// BANDS_PER_BLOCK successive row tiles of its column strip, so the ring of
+// stages never drains between tiles. One
 // stage is (row tile, 16 input channels): the A boxes and the nine taps'
 // weights for those channels, (9, 128, 16) K-major. The producer's elected
 // lane waits on a stage's empty barrier, posts the stage's bytes on its full
@@ -54,14 +74,39 @@
 // layout took a quarter of the time with the tensor cores idle; a quad
 // transpose makes them 16-byte stores.
 //
+// conv_prodroll and conv_e2 keep three accumulators of unshifted products and
+// shift them along the pixels, which an 8 x 8-pixel M tile would cut every 8
+// columns. So their M tile is 64 consecutive pixels of one row (64 rows of 32
+// bytes, core-matrix groups 256 bytes apart): warp w of a warpgroup holds
+// columns 16 w .. 16 w + 15, lane 4 g + t columns g and g + 8, so column c + 1
+// is lane + 4 or the lane's own second half (__shfl_sync), and only the three
+// warp boundaries of a tile pass a column through shared memory (behind the
+// warpgroup's named barrier). A tile's 64 product columns (image columns x0 - 1
+// .. x0 + 62) give 62 outputs; the strips of a row overlap by 2 columns (13
+// strips, 832 product columns at W = 768: 8.3% more products). Three
+// accumulators at N = 64 are 96 registers a thread; a block is two such tiles,
+// one row per warpgroup, x 64 output channels, and walks 64 rows of its strip
+// two at a time. One stage is (two rows, 32 input channels), two chunks of
+// 16: 16 KB of A for prodroll, 24 KB for e2 (x read three times over), 18
+// products of a warpgroup between two waits (one chunk a stage, half as
+// many, was 7-9% slower: PERF.md). Their weights, nine K = 16 x 64 slices a
+// chunk, would be 18 KB a chunk more than A, too many bytes from L2 for 2.4
+// MFLOP (90 FLOP a byte); so the block's N tile of weights stays in shared
+// memory for the whole walk where it fits (9 CINP x 64 x 2 bytes: 144 KB at
+// Cin = 128, CINP = Cin padded to 32), loaded chunk by chunk (one
+// bulk copy each) with the first two rows' stages, as the TPU kernels keep
+// all of w in VMEM. A larger Cin streams each stage's weights with its A, as
+// conv_halo does. The consumers wait for a stage's products before they
+// release it, as conv_halo's do, and shift, round and store a row's tile
+// once, after its last chunk, with conv_halo's 16-byte stores.
+//
 // Plain C interface for ctypes; the entry points return cudaGetLastError(),
 // cudaErrorInvalidValue for a shape they do not take, or 1000 + the CUresult
 // if a tensor map cannot be encoded.
 
 #include <chrono>
 
-#include "mma_utils.cuh"
-#include "tma_wgmma.cuh"
+#include "conv_engine.cuh"   // engine::store_words and engine::pack2 (the shift kinds)
 
 using namespace hv;
 
@@ -76,7 +121,7 @@ constexpr int BANDS_PER_BLOCK = 8;      // successive row tiles a block walks
 constexpr int W_BYTES = 9 * BN * KROW;  // a stage's weights
 constexpr int TAP_BYTES = BN * KROW;
 
-enum Kind { ROLL, HALO };
+enum Kind { ROLL, HALO, PRODROLL, E2 };
 
 struct Params {
   bf* out;            // (B, H, W, COUT)
@@ -275,6 +320,242 @@ __global__ void __launch_bounds__(NT, 1)
   conv_tma<Cfg<ROLL, TR, TC>>(&tmx, &tmw, p);
 }
 
+// ---- the product-shift kinds: conv_prodroll and conv_e2 --------------------
+
+namespace shift {
+
+constexpr int BN = 64;                       // output channels of a block
+constexpr int MW = 64;                       // product columns of an M tile: one row
+constexpr int OW = MW - 2;                   // its output columns
+constexpr int ROW_BYTES = MW * KROW;         // one image row of a box: 2 KB
+constexpr int TAP_BYTES = BN * KROW;
+constexpr int W_BYTES = 9 * TAP_BYTES;       // a chunk's weights: 18 KB
+constexpr int ROWS_PER_BLOCK = 64;           // rows a block walks, two at a time
+constexpr int CPS = 2;                       // chunks of 16 input channels a stage
+// the columns passed across warp boundaries: [warpgroup][row parity][acc0 to
+// the next warp, acc2 to the previous][boundary][channel]
+constexpr int XB_FLOATS = 2 * 2 * 2 * 3 * BN;
+// dynamic shared memory a block may take beside xbuf and the barriers
+constexpr int DYN_LIMIT = 232448 - 4 * XB_FLOATS - 256;
+
+struct Params {
+  const unsigned char* wk;   // (NCHUNKS, NTILES, 9, BN, 16) bf16, swizzled
+  bf* out;                   // (B, H, W, COUT)
+  int H, W, COUT, NCHUNKS, NTILES, TH, NBANDS, BPB;   // BPB: bands a block walks
+  int resident;              // the block's weights stay in shared memory
+};
+
+template <int KIND_>
+struct Cfg {
+  static constexpr int KIND = KIND_;
+  // per chunk, prodroll: one box of the rows y - 1 .. y + 2; e2: three
+  // boxes of two rows at y - 1, y, y + 1, one per third of the packed K
+  static constexpr int NBOX = KIND == E2 ? 3 : 1;
+  static constexpr int BOX_BYTES = (KIND == E2 ? 2 : 4) * ROW_BYTES;
+  static constexpr int CHUNK_BYTES = NBOX * BOX_BYTES;
+  static constexpr int A_BYTES = CPS * CHUNK_BYTES;             // a stage's A: 16 or 24 KB
+  static constexpr int STAGES = KIND == E2 ? 3 : 4;
+  static_assert(KIND == PRODROLL || KIND == E2, "a product-shift kind");
+};
+
+// The producer's lane: one stage per (two rows, CPS chunks), in the
+// consumers' order; the weights with the stages of the first two rows if
+// they stay (chunk q in slot q), else with every stage (in the stage's
+// slots).
+template <class C>
+__device__ __forceinline__ void produce(const CUtensorMap* tmx, const Params& p, unsigned ring,
+                                        unsigned wbase, unsigned full, unsigned empty, int x0,
+                                        int ntile, int r0, int pairs, int b) {
+  int st = 0;
+  unsigned ph = 0;
+  for (int i = 0; i < pairs; ++i) {
+    const int y = r0 + 2 * i - 1;
+    const bool wl = !p.resident || i == 0;
+    for (int q = 0; q < p.NCHUNKS; q += CPS) {
+      mbar_wait(empty + 8 * st, ph ^ 1);
+      const unsigned bar = full + 8 * st, a = ring + st * C::A_BYTES;
+      mbar_expect_tx(bar, C::A_BYTES + (wl ? CPS * W_BYTES : 0));
+#pragma unroll
+      for (int c = 0; c < CPS; ++c) {
+#pragma unroll
+        for (int k = 0; k < C::NBOX; ++k)
+          tma_load_4d(a + c * C::CHUNK_BYTES + k * C::BOX_BYTES, tmx, bar, (q + c) * KC, x0 - 1,
+                      y + k, b);
+        if (wl)
+          bulk_load(wbase + (p.resident ? q + c : CPS * st + c) * W_BYTES,
+                    p.wk + ((size_t)(q + c) * p.NTILES + ntile) * W_BYTES, W_BYTES, bar);
+      }
+      if (++st == C::STAGES) { st = 0; ph ^= 1; }
+    }
+  }
+}
+
+// A row's tile after its last chunk: o[m] = acc0[m - 1] + acc1[m] + acc2[m + 1]
+// at product column m (image column x0 - 1 + m), rounded once, stored for m
+// = 1 .. OW inside the image. Lane 4 g + t of warp w4 holds columns 16 w4 + g
+// (acc[.][4 j + e]) and + 8 (acc[.][4 j + 2 + e]), channels 8 j + 2 t + e.
+// Column g - 1 is lane - 4, or for g = 0 the previous warp's column 15 (from
+// xb); column g + 1 is lane + 4, or for g = 7 that lane's second half; the
+// second half's neighbours likewise. Every lane touches the accumulators
+// first in code that all lanes run (the shuffles): ptxas serialises every
+// wgmma of a kernel whose accumulators are first read on a divergent path.
+// xb: this warpgroup's buffer for this row's parity, so that a warp writes
+// it again only after the next row's barrier, which every reader of this row
+// has passed.
+__device__ __forceinline__ void shift_store(float (&acc)[3][BN / 2], float* xb, const Params& p,
+                                            int b, int y, int x0, int n0, int lane, int w4,
+                                            int wg) {
+  const int g = lane >> 2, t = lane & 3;
+  const int up = (lane + 4) & 31, dn = (lane + 28) & 31;
+  float* to_next = xb;              // acc0 at column 15 of warps 0 .. 2
+  float* to_prev = xb + 3 * BN;     // acc2 at column 0 of warps 1 .. 3, at w4 - 1
+  // the neighbours inside the warp; the tile's own edge columns (m = -1, 64)
+  // reach no kept output
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i0 = 4 * j + e, i1 = i0 + 2;
+      const float a0 = acc[0][i0], a1 = acc[0][i1], c0 = acc[2][i0], c1 = acc[2][i1];
+      const float l0 = __shfl_sync(0xffffffffu, a0, dn);
+      const float l1 = __shfl_sync(0xffffffffu, a1, dn);
+      const float r0 = __shfl_sync(0xffffffffu, c0, up);
+      const float r1 = __shfl_sync(0xffffffffu, c1, up);
+      acc[1][i0] = (g != 0 ? l0 : 0.f) + acc[1][i0] + (g != 7 ? r0 : r1);
+      acc[1][i1] = (g != 0 ? l1 : l0) + acc[1][i1] + (g != 7 ? r1 : 0.f);
+      const int n = 8 * j + 2 * t + e;
+      if (g == 7 && w4 < 3) to_next[w4 * BN + n] = a1;
+      if (g == 0 && w4 > 0) to_prev[(w4 - 1) * BN + n] = c0;
+    }
+  named_bar_sync(1 + wg, 128);
+  // and across the warp boundaries
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * t + e;
+      if (g == 0 && w4 > 0) acc[1][4 * j + e] += to_next[(w4 - 1) * BN + n];
+      if (g == 7 && w4 < 3) acc[1][4 * j + 2 + e] += to_prev[w4 * BN + n];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 16 * w4 + g + 8 * h, col = x0 - 1 + m;
+    const bool ok = m >= 1 && m <= OW && col < p.W;
+    const size_t pix = ok ? (size_t)(b * p.H + y) * p.W + col : 0;
+    unsigned wd[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      wd[j] = engine::pack2(acc[1][4 * j + 2 * h], acc[1][4 * j + 2 * h + 1]);
+    engine::store_words<BN / 8>(p.out + pix * p.COUT, wd, n0, p.COUT, ok, t);
+  }
+}
+
+// One stage's products: per chunk nine m64n64k16 of this warpgroup, one A
+// descriptor per ky (box row ky + wg of prodroll's box, row wg of e2's box
+// ky) for the three kx; w: the stage's first chunk's weights, the next
+// chunk's W_BYTES on. Committed as one group.
+template <class C>
+__device__ __forceinline__ void stage_products(float (&acc)[3][BN / 2], unsigned a, unsigned w,
+                                               int q, int wg) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) wgmma_fence_acc(acc[k]);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < CPS; ++c)
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      const unsigned rows =
+          c * C::CHUNK_BYTES + (C::KIND == E2 ? ky * C::BOX_BYTES : ky * ROW_BYTES);
+      const uint64_t da = wgmma_desc(a + rows + wg * ROW_BYTES, 8 * KROW, WGMMA_SWIZZLE_32B);
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        // prodroll: tap 3 ky + kx; e2: [kx][third ky] of the packed K
+        const int slice = C::KIND == E2 ? 3 * kx + ky : 3 * ky + kx;
+        Wgmma<BN>::mma(acc[kx], da,
+                       wgmma_desc(w + c * W_BYTES + slice * TAP_BYTES, 8 * KROW,
+                                  WGMMA_SWIZZLE_32B),
+                       q != 0 || c != 0 || ky != 0);
+      }
+    }
+  wgmma_commit();
+}
+
+// The consumers: warpgroup wg computes row r0 + 2 i + wg. Each stage's
+// products are waited for before the stage is released, and the accumulators
+// are read only after a row's last stage: ptxas serialises every wgmma of
+// the kernel if a wait or an accumulator's first read lies on a path that
+// not every row takes (a last chunk peeled off, a wait_group 1 kept across
+// stages: PERF.md).
+template <class C>
+__device__ __forceinline__ void consume(const Params& p, float* xbuf, unsigned ring,
+                                        unsigned wbase, unsigned full, unsigned empty, int x0,
+                                        int ntile, int r0, int pairs, int b, int warp,
+                                        int lane) {
+  const int wg = warp >> 2, w4 = warp & 3;
+  float acc[3][BN / 2] = {};
+  int st = 0;
+  unsigned ph = 0;
+  for (int i = 0; i < pairs; ++i) {
+    for (int q = 0; q < p.NCHUNKS; q += CPS) {
+      mbar_wait(full + 8 * st, ph);
+      stage_products<C>(acc, ring + st * C::A_BYTES,
+                        wbase + (p.resident ? q : CPS * st) * W_BYTES, q, wg);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) wgmma_fence_acc(acc[k]);
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if (++st == C::STAGES) { st = 0; ph ^= 1; }
+    }
+    shift_store(acc, xbuf + (2 * wg + (i & 1)) * (XB_FLOATS / 4), p, b, r0 + 2 * i + wg, x0,
+                ntile * BN, lane, w4, wg);
+  }
+}
+
+// This block: image blockIdx.z, bands [BPB * blockIdx.y, ...) (64 rows),
+// column strip and channel tile from blockIdx.x (channel tile fastest: the
+// blocks that read one box run side by side).
+template <class C>
+__device__ __forceinline__ void conv_shift_tma(const CUtensorMap* tmx, const Params& p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) unsigned long long bars[2 * C::STAGES];
+  __shared__ __align__(16) float xbuf[XB_FLOATS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // every box starts a swizzle pattern: the ring is 1024-byte aligned, and
+  // so are its boxes and the weights' slots after it
+  const unsigned ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned wbase = ring + C::STAGES * C::A_BYTES;
+  const unsigned full = smem_u32(bars), empty = full + 8 * C::STAGES;
+  const int ntile = blockIdx.x % p.NTILES, x0 = (blockIdx.x / p.NTILES) * OW;
+  const int i0 = blockIdx.y * p.BPB, b = blockIdx.z;
+  const int r0 = i0 * p.TH, pairs = min(p.BPB, p.NBANDS - i0) * p.TH / 2;
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+    fence_proxy_async();
+  }
+  __syncthreads();
+  if (warp == CONSUMER_WARPS) {
+    if (lane == 0) produce<C>(tmx, p, ring, wbase, full, empty, x0, ntile, r0, pairs, b);
+  } else {
+    consume<C>(p, xbuf, ring, wbase, full, empty, x0, ntile, r0, pairs, b, warp, lane);
+  }
+}
+
+}  // namespace shift
+
+__global__ void __launch_bounds__(NT, 1)
+    conv_prodroll_tma_kernel(const __grid_constant__ CUtensorMap tmx, const shift::Params p) {
+  shift::conv_shift_tma<shift::Cfg<PRODROLL>>(&tmx, p);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    conv_e2_tma_kernel(const __grid_constant__ CUtensorMap tmx, const shift::Params p) {
+  shift::conv_shift_tma<shift::Cfg<E2>>(&tmx, p);
+}
+
 // ---- host ----------------------------------------------------------------
 
 // The packed weights (NCHUNKS, NTILES, 9, BN, KC): a (chunk, tile) block is
@@ -313,6 +594,36 @@ int launch(K kernel, const void* x, const void* wk, void* out, int B, int H, int
   return (int)cudaGetLastError();
 }
 
+
+// The product-shift kinds: x (B, H, W, C) with C % 8 == 0, wk (CINP / 16, NP /
+// 64, 9, 64, 16), CINP % 32 == 0; TH 8 or 16 (a block walks 64 rows whatever
+// TH is).
+template <class C, typename K>
+int launch_shift(K kernel, const void* x, const void* wk, void* out, int B, int H, int W, int Cx,
+                 int CINP, int COUT, int NP, int TH, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || (TH != 8 && TH != 16) || H % TH || Cx <= 0 || Cx % 8 ||
+      CINP < Cx || CINP % (shift::CPS * KC) || COUT <= 0 || NP % shift::BN || NP < COUT)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tmx;
+  const CUresult res = encode_x(&tmx, x, B, H, W, Cx, shift::MW, C::BOX_BYTES / shift::ROW_BYTES);
+  if (res != CUDA_SUCCESS) return 1000 + (int)res;
+  const int nchunks = CINP / KC;
+  const size_t kept = (size_t)C::STAGES * C::A_BYTES + (size_t)nchunks * shift::W_BYTES + 1024;
+  const bool resident = kept <= (size_t)shift::DYN_LIMIT;
+  const size_t smem =
+      resident ? kept : (size_t)C::STAGES * (C::A_BYTES + shift::CPS * shift::W_BYTES) + 1024;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nbands = H / TH, bpb = shift::ROWS_PER_BLOCK / TH;
+  const shift::Params p{static_cast<const unsigned char*>(wk), static_cast<bf*>(out), H, W, COUT,
+                        nchunks, NP / shift::BN, TH, nbands, bpb, resident};
+  const dim3 grid((W + shift::OW - 1) / shift::OW * (NP / shift::BN), (nbands + bpb - 1) / bpb,
+                  B);
+  kernel<<<grid, NT, smem, stream>>>(tmx, p);
+  return (int)cudaGetLastError();
+}
+
 #define HV_LAUNCH(KIND, KERNEL, TR, TC) \
   launch<Cfg<KIND, TR, TC>>(KERNEL<TR, TC>, x, wk, out, B, H, W, C, CINP, COUT, NP, s)
 
@@ -343,6 +654,24 @@ int conv_roll_forward_bf16(const void* x, const void* wk, void* out, int B, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (TH == 8) return HV_LAUNCH(ROLL, conv_roll_tma_kernel, 1, 4);
   return HV_LAUNCH(ROLL, conv_roll_tma_kernel, 2, 2);
+}
+
+// x as for conv_halo; wk: (CINP / 16, NP / 64, 9, 64, 16) bf16, [chunk][tile][3
+// ky + kx][n][k], swizzled as above, CINP = C padded to 32, NP = COUT padded
+// to 64. TH: 8 or 16.
+int conv_prodroll_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W,
+                               int C, int CINP, int COUT, int NP, int TH, void* stream) {
+  return launch_shift<shift::Cfg<PRODROLL>>(conv_prodroll_tma_kernel, x, wk, out, B, H, W, C,
+                                            CINP, COUT, NP, TH,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// As conv_prodroll with wk [chunk][tile][3 kx + ky][n][k] (w packed as (3, 3
+// Cin, Cout) per kx, [kx][ky Cin + c], chunked along c).
+int conv_e2_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W, int C,
+                         int CINP, int COUT, int NP, int TH, void* stream) {
+  return launch_shift<shift::Cfg<E2>>(conv_e2_tma_kernel, x, wk, out, B, H, W, C, CINP, COUT,
+                                      NP, TH, static_cast<cudaStream_t>(stream));
 }
 
 // Microseconds the host takes to encode one call's two tensor maps (the x map

@@ -31,7 +31,7 @@ __all__ = ["KC", "swizzle32", "pack_kmajor", "pack_weights_kmajor", "packed",
            "pick_bn", "sm_count"]
 
 KC = 16                 # input channels per stage: one wgmma K
-_TOOLS_BN = 128         # the N tile of csrc/conv_tma.cu
+_TOOLS_BN = 128         # the N tile of csrc/conv_tma.cu's conv_halo and conv_roll
 
 
 def swizzle32(wk: torch.Tensor) -> torch.Tensor:
@@ -43,27 +43,30 @@ def swizzle32(wk: torch.Tensor) -> torch.Tensor:
     return v.reshape(*lead, n, k)
 
 
-def pack_kmajor(taps: torch.Tensor, bn: int) -> torch.Tensor:
+def pack_kmajor(taps: torch.Tensor, bn: int, kpad: int = KC) -> torch.Tensor:
     """taps (T, K, N), tap-major, K input by N output columns, as the engine
-    reads them: bf16, K zero-padded to chunks of 16 and N to tiles of ``bn``,
-    (KP / 16, NP / bn, T, bn, 16) [chunk][tile][tap][n][k], swizzled."""
+    reads them: bf16, K zero-padded to a multiple of ``kpad`` (chunks of 16)
+    and N to tiles of ``bn``, (KP / 16, NP / bn, T, bn, 16)
+    [chunk][tile][tap][n][k], swizzled."""
     t, k, n = taps.shape
-    kp, np_ = pad_to(k, KC), pad_to(n, bn)
+    kp, np_ = pad_to(k, kpad), pad_to(n, bn)
     wk = F.pad(taps.to(torch.bfloat16), (0, np_ - n, 0, kp - k))
     wk = wk.reshape(t, kp // KC, KC, np_ // bn, bn).permute(1, 3, 0, 4, 2)
     return swizzle32(wk).contiguous()
 
 
-def pack_weights_kmajor(w: torch.Tensor,
-                        pack: Optional[Callable] = None) -> torch.Tensor:
+def pack_weights_kmajor(w: torch.Tensor, pack: Optional[Callable] = None,
+                        bn: int = _TOOLS_BN, kpad: int = KC) -> torch.Tensor:
     """w (3, 3, Cin, Cout) as the kernels of ``csrc/conv_tma.cu`` read it:
     bf16, ordered by ``pack`` (the nine taps as they are by default), in
-    ``pack_kmajor``'s layout with N tiles of 128: (CINP / 16, NP / 128, 9,
-    128, 16). All that their wrappers do to the weights per call."""
+    ``pack_kmajor``'s layout with N tiles of ``bn`` and Cin padded to a
+    multiple of ``kpad`` (128 and 16 for conv_halo and conv_roll; 64 and 32,
+    two chunks a stage, for conv_prodroll and conv_e2): (CINP / 16, NP / bn,
+    9, bn, 16). All that their wrappers do to the weights per call."""
     cin, cout = w.shape[2:]
     wb = w.to(torch.bfloat16)
     return pack_kmajor((wb if pack is None else pack(wb)).reshape(9, cin, cout),
-                       _TOOLS_BN)
+                       bn, kpad)
 
 
 def pick_bn(cout: int, pixel_blocks: int, choices: Sequence[int]) -> int:

@@ -2,8 +2,10 @@
 timing, the check against the library call, the padding, the nine-tap plain
 arithmetic, the weight packings (the K-major one re-exported from
 ``ops/conv_engine.py``) and the plain product shift of the shift
-formulations, and the launcher of the kernels in ``csrc/conv_exp.cu``,
-``csrc/conv_shift.cu`` and ``csrc/conv_tma.cu``.
+formulations, and the launcher of the kernels in ``csrc/conv_exp.cu``
+(``conv_band``, ``conv_dma``), ``csrc/conv_shift.cu`` (``conv_e``) and
+``csrc/conv_tma.cu`` (``conv_halo``, ``conv_roll``, ``conv_prodroll``,
+``conv_e2``).
 
 Layouts are the JAX tools': activations NHWC, weights HWIO (3, 3, Cin, Cout).
 The experiments compute a 3x3 stride-1 conv with zero padding 1, accumulate
@@ -14,6 +16,7 @@ activation.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import time
 
@@ -30,13 +33,15 @@ from hrviton_tpu_torch.ops.conv_engine import pack_weights_kmajor
 __all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
            "pad_input", "check_conv_args", "nine_taps", "pack_taps",
            "pack_kx", "pack_ky", "pack_weights", "pack_weights_kmajor",
-           "roll_p", "run_conv_exp", "conv_wrapper", "tensor_map_encode_us",
-           "CARD_TH", "SHIFT_TH"]
+           "roll_p", "conv_launcher", "run_conv_exp", "conv_wrapper",
+           "tensor_map_encode_us", "CARD_TH", "SHIFT_TH"]
 
 CARD_TH = (8, 16, 32)      # band heights the staging formulations are built for
 SHIFT_TH = (8, 16)         # and those of the shift formulations
 _KC = 32                   # the input-channel chunk of conv_exp.cu and conv_shift.cu
 _NCOL = 64                 # a multiple of their output-channel tiles (64, 32)
+# conv_tma.cu's product-shift kernels: N tiles of 64, two chunks a stage
+_SHIFT_LAYOUT = functools.partial(pack_weights_kmajor, bn=64, kpad=32)
 
 
 def env_int(name: str, default: int) -> int:
@@ -188,9 +193,9 @@ _ENTRIES = {
     "conv_dma_forward_bf16": ("conv_exp", CARD_TH, pack_weights),
     "conv_halo_forward_bf16": ("conv_tma", CARD_TH, pack_weights_kmajor),
     "conv_roll_forward_bf16": ("conv_tma", SHIFT_TH, pack_weights_kmajor),
-    "conv_prodroll_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
+    "conv_prodroll_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
     "conv_e_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
-    "conv_e2_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
+    "conv_e2_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
 }
 
 
@@ -210,15 +215,11 @@ def _load(source: str):
     return _build.load(source, lambda lib: _declare(lib, source))
 
 
-def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
-    """Launch one conv kernel of ``csrc/conv_exp.cu``, ``csrc/conv_shift.cu``
-    or ``csrc/conv_tma.cu`` on a CUDA x (bf16, NHWC) and w (3, 3, Cin, Cout).
-    ``stage(x, cinp)`` gives the kernel's input: the padded image or its
-    gathered row tiles, channels padded to ``cinp``; with ``stage=None`` the
-    kernel reads x as it is and no copy of x is made. ``pack(w)`` orders the
-    weights as the kernel multiplies them; each of its nine (Cin, Cout) slices
-    is zero-padded to the kernel's chunk and tile. Raises on what the kernels
-    do not take."""
+def conv_launcher(entry: str, x, w, th: int, stage=None, pack=pack_taps):
+    """What ``run_conv_exp`` does before its launch, done once: returns
+    ``(launch, out)``, where ``launch()`` calls the bare C entry point on the
+    staged input and the packed weights and writes ``out``. Arguments as for
+    ``run_conv_exp``."""
     source, ths, layout = _ENTRIES[entry]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{entry}: the kernel takes bfloat16, got {x.dtype}")
@@ -234,7 +235,7 @@ def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
     wk = layout(w, pack)
     if wk.dim() == 3:                       # (9, CINP, NP)
         _, cinp, np_ = wk.shape
-    else:                                   # (CINP / 16, NP / 128, 9, 128, 16)
+    else:                                   # (CINP / 16, NP / bn, 9, bn, 16)
         cinp, np_ = wk.shape[0] * wk.shape[4], wk.shape[1] * wk.shape[3]
     if stage is None:
         if cin % 8:
@@ -245,11 +246,27 @@ def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
         src = stage(x, cinp).contiguous()
         width_or_c = src.shape[-2]
     out = torch.empty((n, h, ww, cout), dtype=torch.bfloat16, device=dev)
-    err = getattr(_load(source), entry)(
-        src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww, width_or_c,
-        cinp, cout, np_, th, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    fn = getattr(_load(source), entry)
+
+    def launch():
+        err = fn(src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww,
+                 width_or_c, cinp, cout, np_, th,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return launch, out
+
+
+def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
+    """Launch one conv kernel of ``csrc/conv_exp.cu``, ``csrc/conv_shift.cu``
+    or ``csrc/conv_tma.cu`` on a CUDA x (bf16, NHWC) and w (3, 3, Cin, Cout).
+    ``stage(x, cinp)`` gives the kernel's input: the padded image,
+    channels padded to ``cinp``; with ``stage=None`` the kernel reads x as it
+    is and no copy of x is made. ``pack(w)`` orders the weights as the kernel
+    multiplies them; each of its nine (Cin, Cout) slices is zero-padded to the
+    kernel's chunk and tile. Raises on what the kernels do not take."""
+    launch, out = conv_launcher(entry, x, w, th, stage, pack)
+    launch()
     return out
 
 

@@ -3,7 +3,7 @@
 and in how the taps' shifts are realised.
 
 PyTorch counterpart of ``tools/exp_pallas_conv2.py``. Its six formulations
-are hand-written CUDA kernels for sm_90a. Two are built from Hopper's copy
+are hand-written CUDA kernels for sm_90a. Four are built from Hopper's copy
 engine and warpgroup products (``csrc/conv_tma.cu``: TMA tensor loads into a
 ring of stages, ``wgmma``); their wrappers hand x over as it is:
 
@@ -15,6 +15,14 @@ ring of stages, ``wgmma``); their wrappers hand x over as it is:
   * ``conv_roll`` (the JAX ``conv_roll``): the three kx neighbours of a pixel
     packed into channels (K = 3 C), three products. The packing is three
     boxes of the same rows, one column apart.
+  * ``conv_prodroll`` (the JAX ``conv_prodroll``): nine products of unshifted
+    rows, the kx shift applied to the f32 products (three accumulators,
+    shifted once per row). The JAX tool gathers padded row tiles first; here
+    the rows with their zero border are one box of the unpadded x.
+  * ``conv_e2`` (the JAX ``conv_e2``): the three ky rows packed into channels
+    (K = 3 C), three products, the same product shift; the image's border
+    columns are zero by the boxes' out-of-bounds fill. The packing is three
+    boxes, one row apart.
 
 One staging formulation (``csrc/conv_exp.cu``):
 
@@ -22,20 +30,17 @@ One staging formulation (``csrc/conv_exp.cu``):
     a double buffer filled by asynchronous copies, the nine taps in a loop
     with computed offsets.
 
-The other shift formulations (``csrc/conv_shift.cu``):
+One more shift formulation (``csrc/conv_shift.cu``):
 
-  * ``conv_prodroll`` (the JAX ``conv_prodroll``): the gathered tiles; nine
-    products of unshifted rows, the kx shift applied to the f32 products.
   * ``conv_e`` (the JAX ``conv_e``): the unpadded x through a double-buffered
     band copy in three cases (first, middle, last band), nine unshifted
     products, the product shift with the image's border columns masked. The
     wrapper makes no padded or gathered copy of x.
-  * ``conv_e2`` (the JAX ``conv_e2``): as ``conv_e`` with the three ky rows
-    packed into channels (K = 3 C), three products, the same shift.
 
 Each wrapper launches its kernel for a CUDA tensor (bf16; th in 8 / 16 / 32
 for ``conv_halo`` and ``conv_dma``, 8 / 16 for the shift formulations; Cin % 8
-== 0 where x is read as it is; or raises)
+== 0 where x is read as it is, that is everywhere but ``conv_dma``; or
+raises)
 and takes its plain version (``conv_<name>_ref``, which mirrors the JAX body
 step by step in f32) only for a CPU tensor. ``<wrapper>.launches`` counts
 kernel launches.
@@ -67,10 +72,12 @@ __all__ = ["conv_halo", "conv_halo_ref", "conv_dma", "conv_dma_ref",
            "band_tiles", "main"]
 
 
-def halo_tiles(x, th: int = 8, cinp: int | None = None):
+def halo_tiles(x, th: int = 8):
     """The overlapping row tiles of the padded input, (B, H / th, th + 2, Wp,
-    cinp): tile i holds padded rows [i * th, i * th + th + 2)."""
-    xp = pad_input(x, cinp)
+    C): tile i holds padded rows [i * th, i * th + th + 2). What the JAX
+    tools gather before their kernels; here part of the plain versions only,
+    since the kernels' tiles are TMA boxes of the unpadded x."""
+    xp = pad_input(x)
     nt = x.shape[1] // th
     idx = (torch.arange(nt, device=x.device) * th)[:, None] \
         + torch.arange(th + 2, device=x.device)[None, :]
@@ -190,10 +197,6 @@ def conv_e2_ref(x, w, th: int = 8):
     return acc.to(x.dtype).reshape(n, h, ww, w.shape[-1])
 
 
-def _gather(th):
-    return lambda t, cinp: halo_tiles(t, th, cinp)
-
-
 def conv_halo(x, w, th: int = 8):
     """3x3 conv whose taps are windows of one halo tile per step (the JAX
     ``conv_halo``). x: (B, H, W, Cin), w: (3, 3, Cin, Cout), H % th == 0, Cin
@@ -221,11 +224,12 @@ def conv_roll(x, w, th: int = 8):
 
 
 def conv_prodroll(x, w, th: int = 8):
-    """3x3 conv from pre-gathered row tiles with the kx shift applied to the
-    f32 products (the JAX ``conv_prodroll``). Arguments as ``conv_roll``; the
-    kernel is ``conv_prodroll_kernel``."""
+    """3x3 conv from nine products of unshifted rows with the kx shift
+    applied to the f32 products (the JAX ``conv_prodroll``). Arguments as
+    ``conv_roll``. x is read as it is: a stage's rows are one TMA box; the
+    kernel is ``conv_prodroll_tma_kernel``."""
     return conv_wrapper(conv_prodroll, conv_prodroll_ref,
-                        "conv_prodroll_forward_bf16", _gather(th), x, w, th)
+                        "conv_prodroll_forward_bf16", None, x, w, th)
 
 
 def conv_e(x, w, th: int = 8):
@@ -239,7 +243,8 @@ def conv_e(x, w, th: int = 8):
 
 def conv_e2(x, w, th: int = 8):
     """As ``conv_e`` with the ky rows packed into channels (the JAX
-    ``conv_e2``); the kernel is ``conv_e2_kernel``."""
+    ``conv_e2``). x is read as it is: the packed tile is three TMA boxes one
+    row apart; the kernel is ``conv_e2_tma_kernel``."""
     return conv_wrapper(conv_e2, conv_e2_ref, "conv_e2_forward_bf16", None, x,
                         w, th, pack_ky)
 
@@ -283,8 +288,8 @@ def main(which=None, device="cuda"):
                     f"{name} conv 3x3 TH={th}", functools.partial(fn, th=th),
                     x, w, iters=k)
             if name == "halo" and not skip_check:
-                # what the JAX tool pays before its kernel and conv_prodroll
-                # still does; conv_halo and conv_roll no longer gather
+                # what the JAX tool pays before its kernels; no kernel here
+                # gathers
                 times["halo gather TH=8"] = timeit(
                     "halo gather alone TH=8", lambda t: halo_tiles(t, 8), x,
                     iters=k)

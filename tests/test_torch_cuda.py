@@ -322,8 +322,8 @@ def test_tool_kernels_reject_bad_input():
         + [exp_copy_probe.probe.launches]
 
 
-# The shift formulations (csrc/conv_shift.cu; roll: csrc/conv_tma.cu), bf16,
-# th 8 or 16.
+# The shift formulations (conv_e: csrc/conv_shift.cu; roll, prodroll, e2:
+# csrc/conv_tma.cu), bf16, th 8 or 16.
 _SHIFT_CONVS = {
     "roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
     "prodroll": (exp_conv2.conv_prodroll, exp_conv2.conv_prodroll_ref),
@@ -404,14 +404,14 @@ def test_shift_kernels_reject_bad_input():
             run(x, wt, th=32)                               # 48 % 32
         with pytest.raises(ValueError):
             run(x.permute(0, 2, 1, 3), wt, th=8)            # not contiguous
-        if kind in ("roll", "e", "e2"):                     # x as it is: C % 8
-            with pytest.raises(ValueError, match="multiple of 8"):
-                run(x[..., :12].contiguous(), wt[:, :, :12].contiguous(), th=8)
+        with pytest.raises(ValueError, match="multiple of 8"):  # x as it is: C % 8
+            run(x[..., :12].contiguous(), wt[:, :, :12].contiguous(), th=8)
     assert counts == [f.launches for f, _ in _SHIFT_CONVS.values()]
 
 
-# The two kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
-_TMA_CONVS = {"halo": _TOOL_CONVS["halo"], "roll": _SHIFT_CONVS["roll"]}
+# The four kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
+_TMA_CONVS = {"halo": _TOOL_CONVS["halo"], "roll": _SHIFT_CONVS["roll"],
+              "prodroll": _SHIFT_CONVS["prodroll"], "e2": _SHIFT_CONVS["e2"]}
 # (b, h, w, cin, cout, th). A block owns 32 / 16 / 8 columns at th 8 / 16 / 32
 # and 128 output channels, a stage 16 input channels. W below one block, one
 # band (H == th), Cin = 8 (half a chunk, from the map's bounds), Cout = 130
@@ -433,6 +433,39 @@ _TMA_CASES = [(k, s) for k in sorted(_TMA_CONVS) for s in _TMA_SHAPES] \
 def test_tma_conv_kernel_matches_plain(kind, shape):
     _need_card()
     run, plain = _TMA_CONVS[kind]
+    b, h, w, cin, cout, th = shape
+    x, wt = _tool_inputs(b, h, w, cin, cout)
+    before = run.launches
+    got = run(x, wt, th=th)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    assert tuple(got.shape) == (b, h, w, cout)
+    _assert_close(got, plain(x, wt, th), torch.bfloat16)
+
+
+# The product-shift kernels of csrc/conv_tma.cu (prodroll, e2): a block owns
+# one strip of 62 output columns (64 product columns) x 64 output channels
+# and walks 64 rows, two at a time, 32 input channels a stage. (b, h, w, cin,
+# cout, th): 11 bands at th 8 (a block walks 8, the next 3), W = 40 below one
+# strip, Cin = 16 (one stage, its second chunk zero), Cout = 24 (under one N
+# tile); one band at th 16, W = 130 (two strips and 6 columns of a third),
+# Cin = 136 (CINP = 160: too many chunks to stay in shared memory, the
+# weights come with every stage), Cout = 72 (the second N tile ragged); Cin =
+# 72 (three stages, the last half from the map's bounds and half zero; the
+# weights stay), Cout = 130; the tools' width (13 strips); W one strip
+# exactly, Cin = Cout = 8.
+_PRODUCT_SHIFT_SHAPES = [(2, 88, 40, 16, 24, 8), (1, 16, 130, 136, 72, 16),
+                         (2, 16, 70, 72, 130, 8), (1, 24, 768, 128, 128, 8),
+                         (3, 32, 62, 8, 8, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _PRODUCT_SHIFT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["prodroll", "e2"])
+def test_product_shift_tma_kernel_matches_plain(kind, shape):
+    _need_card()
+    run, plain = _SHIFT_CONVS[kind]
     b, h, w, cin, cout, th = shape
     x, wt = _tool_inputs(b, h, w, cin, cout)
     before = run.launches

@@ -177,9 +177,9 @@ def test_halo_tiles_match_jax_gather():
     assert tuple(tiles.shape) == (2, 4, th + 2, wp, 8)
     assert np.array_equal(tiles.numpy(), xp[:, idx])
     assert np.array_equal(_common.pad_input(torch.from_numpy(xn)).numpy(), xp)
-    # channels padded for the kernels' 32-channel chunks
-    assert tuple(exp_conv2.halo_tiles(torch.from_numpy(xn), th, 32).shape) \
-        == (2, 4, th + 2, wp, 32)
+    # channels padded for the staged kernels' 32-channel chunks
+    assert tuple(_common.pad_input(torch.from_numpy(xn), 32).shape) \
+        == (2, 32 + 2, wp, 32)
 
 
 _SHIFT = {"roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
@@ -264,7 +264,7 @@ def test_weight_packings_and_product_shift_match_jax(monkeypatch):
 
 def _unswizzled(wk):
     """Undo the 32-byte swizzle of ``pack_weights_kmajor`` in numpy: the two
-    16-byte halves of row n change places where n & 4."""
+    16-byte halves of row n change places where n & 4. Returns f32."""
     a = wk.float().numpy().copy()
     rows = (np.arange(a.shape[3]) & 4) != 0
     a[:, :, :, rows] = np.concatenate([a[:, :, :, rows, 8:],
@@ -272,25 +272,29 @@ def _unswizzled(wk):
     return a
 
 
-@pytest.mark.parametrize("pack", [_common.pack_taps, _common.pack_kx],
-                         ids=["taps", "kx"])
+@pytest.mark.parametrize("bn,kpad", [(128, 16), (64, 32)],
+                         ids=["halo_roll_layout", "shift_layout"])
+@pytest.mark.parametrize("pack", [_common.pack_taps, _common.pack_kx,
+                                  _common.pack_ky], ids=["taps", "kx", "ky"])
 @pytest.mark.parametrize("cin,cout", [(8, 16), (40, 130), (128, 128)],
                          ids=["8to16", "40to130", "128to128"])
-def test_kmajor_weight_packing(pack, cin, cout):
+def test_kmajor_weight_packing(pack, cin, cout, bn, kpad):
     """[chunk][tile][slice][n][k] of the K-major packing is element [slice][16
-    chunk + k][128 tile + n] of the (9, Cin, Cout) packing the other kernels
-    read, zeros in the padding, bf16, contiguous."""
+    chunk + k][bn tile + n] of the (9, Cin, Cout) packing the other kernels
+    read, zeros in the padding, bf16, contiguous; N tiles of 128 and Cin
+    padded to 16 (conv_halo, conv_roll), or 64 and 32 (conv_prodroll with the
+    taps, conv_e2 with pack_ky: two chunks a stage)."""
     rng = np.random.default_rng(5)
     w = torch.from_numpy(rng.standard_normal((3, 3, cin, cout))
                          .astype(np.float32))
-    wk = _common.pack_weights_kmajor(w, pack)
-    nch, nt = -(-cin // 16), -(-cout // 128)
-    assert tuple(wk.shape) == (nch, nt, 9, 128, 16)
+    wk = _common.pack_weights_kmajor(w, pack, bn=bn, kpad=kpad)
+    nch, nt = -(-cin // kpad) * kpad // 16, -(-cout // bn)
+    assert tuple(wk.shape) == (nch, nt, 9, bn, 16)
     assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
-    want = np.zeros((9, nch * 16, nt * 128), np.float32)
+    want = np.zeros((9, nch * 16, nt * bn), np.float32)
     want[:, :cin, :cout] = pack(w.to(torch.bfloat16)).reshape(9, cin, cout) \
         .float().numpy()
-    want = want.reshape(9, nch, 16, nt, 128).transpose(1, 3, 0, 4, 2)
+    want = want.reshape(9, nch, 16, nt, bn).transpose(1, 3, 0, 4, 2)
     assert np.array_equal(_unswizzled(wk), want)
     # the same nine slices as the (9, CINP, NP) layout, chunk by chunk
     flat = _common.pack_weights(w, pack).float().numpy()
@@ -301,7 +305,9 @@ def test_kmajor_weight_packing(pack, cin, cout):
 
 @pytest.mark.parametrize("entry,th", [("conv_halo_forward_bf16", 8),
                                       ("conv_roll_forward_bf16", 16),
-                                      ("conv_e_forward_bf16", 8)])
+                                      ("conv_e_forward_bf16", 8),
+                                      ("conv_prodroll_forward_bf16", 16),
+                                      ("conv_e2_forward_bf16", 8)])
 def test_unstaged_kernels_need_16_byte_pixels(entry, th):
     """A kernel that reads x as it is needs Cin % 8 == 0; the launcher says
     so before it builds or launches anything (here on a CPU tensor)."""
@@ -311,18 +317,71 @@ def test_unstaged_kernels_need_16_byte_pixels(entry, th):
         _common.run_conv_exp(entry, x, w, th, None)
 
 
-@pytest.mark.parametrize("entry,ths", [
-    ("conv_halo_forward_bf16", (8, 16, 32)), ("conv_roll_forward_bf16", (8, 16)),
-    ("conv_band_forward_bf16", (8, 16, 32)), ("conv_e2_forward_bf16", (8, 16))])
-def test_band_heights_are_looked_up_per_entry(entry, ths):
+@pytest.mark.parametrize("entry,source,ths", [
+    ("conv_halo_forward_bf16", "conv_tma", (8, 16, 32)),
+    ("conv_roll_forward_bf16", "conv_tma", (8, 16)),
+    ("conv_band_forward_bf16", "conv_exp", (8, 16, 32)),
+    ("conv_prodroll_forward_bf16", "conv_tma", (8, 16)),
+    ("conv_e_forward_bf16", "conv_shift", (8, 16)),
+    ("conv_e2_forward_bf16", "conv_tma", (8, 16))])
+def test_band_heights_are_looked_up_per_entry(entry, source, ths):
     x = torch.zeros(1, 96, 16, 8, dtype=torch.bfloat16)
     w = torch.zeros(3, 3, 8, 8, dtype=torch.bfloat16)
-    assert _common._ENTRIES[entry][1] == ths
+    assert _common._ENTRIES[entry][:2] == (source, ths)
     for th in {8, 16, 24, 32} - set(ths):
         with pytest.raises(ValueError, match="built for th"):
             _common.run_conv_exp(entry, x, w, th, None)
     with pytest.raises(TypeError, match="bfloat16"):
         _common.run_conv_exp(entry, x.float(), w, ths[0], None)
+
+
+def _strip_products(kind, x, w):
+    """What the kernels of ``csrc/conv_tma.cu`` behind conv_prodroll and
+    conv_e2 compute, as they index their operands, in f32: the weights as
+    their wrapper packs them (K-major, N tiles of 64, unswizzled here), strips
+    of 64 product columns (image columns x0 - 1 .. x0 + 62, zeros outside the
+    image) at x0 = 62 s, three accumulators acc[kx] = sum over ky and chunks
+    of the rows ky - 1 away times slice 3 ky + kx (prodroll, taps) or 3 kx +
+    ky (e2, ``pack_ky``), then o[m] = acc0[m - 1] + acc1[m] + acc2[m + 1]
+    kept for m = 1 .. 62 inside the image."""
+    pack, entry = ((_common.pack_taps, "conv_prodroll_forward_bf16")
+                   if kind == "prodroll" else
+                   (_common.pack_ky, "conv_e2_forward_bf16"))
+    wk = torch.from_numpy(_unswizzled(_common._ENTRIES[entry][2](w, pack)))
+    nch, nt, _, bn, kc = wk.shape
+    taps = wk.permute(2, 0, 4, 1, 3).reshape(9, nch * kc, nt * bn)
+    b, h, ww, c = x.shape
+    strips = -(-ww // 62)
+    xp = torch.zeros(b, h + 2, 62 * strips + 2, nch * kc)
+    xp[:, 1:h + 1, 1:ww + 1, :c] = x.float()
+    out = torch.zeros(b, h, 62 * strips, nt * bn)
+    for s in range(strips):
+        x0 = 62 * s
+        acc = [0.0, 0.0, 0.0]
+        for ky in range(3):
+            rows = xp[:, ky:ky + h, x0:x0 + 64]
+            for kx in range(3):
+                acc[kx] = acc[kx] + rows @ taps[3 * ky + kx if kind == "prodroll"
+                                                else 3 * kx + ky]
+        out[:, :, x0:x0 + 62] = acc[0][:, :, 0:62] + acc[1][:, :, 1:63] \
+            + acc[2][:, :, 2:64]
+    return out[:, :, :ww, :w.shape[-1]]
+
+
+@pytest.mark.parametrize("ww", [5, 62, 63, 130])
+@pytest.mark.parametrize("kind", ["prodroll", "e2"])
+def test_product_shift_strips_match_the_conv(kind, ww):
+    """The strips of conv_prodroll's and conv_e2's kernels, their packed
+    weights and the slice each product reads give the library conv (f32):
+    W below one strip, exactly one, one column into the second, and two
+    strips and a ragged third; Cin = 24 (the second chunk half zero), Cout =
+    72 (two N tiles of 64, the second ragged)."""
+    size = (2, 4, ww, 24, 72, 4)
+    xn, wn = _inputs(size)
+    x, w = torch.from_numpy(xn), torch.from_numpy(wn)
+    got = _strip_products(kind, x, w)
+    want = _common.conv_ref(x, w.to(torch.bfloat16).float())
+    _assert_close(got, want.numpy(), torch.float32)
 
 
 @pytest.mark.parametrize("fn", [exp_conv.conv_band, exp_conv2.conv_halo,
