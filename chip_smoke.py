@@ -8,11 +8,12 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
-     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_exp,
-     conv_shift,copy_probe,conv_tma}.cu: twelve kernels and the instance
-     statistics; conv_tma.cu holds conv_halo, conv_roll, conv_prodroll and
-     conv_e2, conv_shift.cu conv_e), one nvcc process each, all started
-     together, with ptxas's report of registers and spills;
+     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_shift,
+     copy_probe,conv_tma}.cu: twelve kernels and the instance statistics;
+     conv_tma.cu holds conv_halo, conv_roll, conv_band, conv_dma,
+     conv_prodroll and conv_e2, conv_shift.cu conv_e), one nvcc process each,
+     all started together, with ptxas's report of registers and spills; a
+     kernel whose wgmma ptxas serialised (C7518, C7520) fails it;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
      every shape its main path gives it, batch 4, in bf16 and f32, with times
      beside the bound:
@@ -42,7 +43,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      packed; the times of the unit, the modulation and both convs are
      printed beside those of the designs they replaced (PERF.md); and the
      SASS of every kernel on wgmma (cuobjdump -sass: the engine's and the
-     four of conv_tma.cu) must hold HGMMA and no HMMA;
+     six of conv_tma.cu) must hold HGMMA and no HMMA, and that of conv_band
+     and conv_dma in a cluster of 2 or 4 the multicast form of the TMA load;
   4. first path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
      ngf=64 'most' at 1024x768, bf16, random seeded weights) with its default
      configuration answers 3 requests of batch 4; the unit kernel must launch
@@ -65,16 +67,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      band-copy probe) against its plain version at that size, at every band
      height its entry point times, and at one ragged small size (the probe
      bit for bit), with times beside the library call (F.conv2d;
-     Tensor.copy_), conv3x3_wide at the same shape and the bound. conv_halo,
-     conv_roll, conv_prodroll and conv_e2 (TMA tensor loads and wgmma,
-     csrc/conv_tma.cu) and conv_e read x as it is: their wrappers may
-     allocate the output and the packed weights only, and may take no longer
-     than the kernel alone and the weight packing. The times of the four
-     conv_tma.cu kernels are printed beside those of the designs they
-     replaced, with the time the host takes to encode a call's tensor maps;
-     conv_prodroll and conv_e2 are also timed alone by CUDA events around
-     the bare C entry point (weights packed beforehand), beside the
-     profiler's time, and their bound with the products of the strips'
+     Tensor.copy_), conv3x3_wide at the same shape and the bound. Every conv
+     (conv_halo, conv_roll, conv_band, conv_dma, conv_prodroll and conv_e2 on
+     TMA tensor loads and wgmma, csrc/conv_tma.cu, and conv_e) reads x as it
+     is: its wrapper may allocate the output and the packed weights only,
+     and may take no longer than the kernel alone and the weight packing.
+     The times of the six conv_tma.cu kernels are printed beside those of
+     the designs they replaced, with the time the host takes to encode a
+     call's tensor maps and, for conv_band and conv_dma, the cluster each
+     launch shares its weights over; conv_band, conv_dma, conv_prodroll and
+     conv_e2 are also timed alone by CUDA events around the bare C entry
+     point (weights packed beforehand), beside the profiler's time, and the
+     bound of the product-shift kernels with the products of the strips'
      overlapping columns is printed beside the conv's. No kernel pays the
      JAX tools' gather of halo tiles; it is timed alone for reference.
 
@@ -84,9 +88,12 @@ phase 5 and prints only the last line: it is how two checkouts are timed in
 turns (a copy of this script in each, see README). With --alone it times
 the engine's model kernels at their main-path shapes by CUDA events (the
 modulation and the small conv around their bare entry points, the unit and
-the wide conv through their wrappers), checks no result, and prints only the
-last line: it is how two builds of the engine, a checkout and a copy of it
-with one change, are timed in turns. Imports nothing of JAX.
+the wide conv through their wrappers) and the tools' conv_prodroll and
+conv_e2, and conv_band and conv_dma in clusters of 1, 2 and 4 in turns (the
+variants the shipped cluster was chosen from; the tap loop against the
+unrolled taps, whose outputs alone are checked), and prints only the last
+line: it is how two builds of the engine, a checkout and a copy of it with
+one change, are timed in turns. Imports nothing of JAX.
 """
 
 import dataclasses
@@ -169,32 +176,44 @@ WGMMA_KERNELS = {"spade_fused": ("spade_modulate_kernel",),
                  "conv3x3": ("conv3x3_wide_kernel", "conv3x3_small_kernel"),
                  "spade_block": ("spade_unit_gb_kernel", "spade_unit_conv_kernel"),
                  "conv_tma": ("conv_halo_tma_kernel", "conv_roll_tma_kernel",
+                              "conv_band_tma_kernel", "conv_dma_tma_kernel",
                               "conv_prodroll_tma_kernel", "conv_e2_tma_kernel")}
+# the BAND kind's template arguments (TR, TC, CL) in a mangled kernel name
+BAND_ARGS = re.compile(r"conv_(?:band|dma)_tma_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+# the SASS of a TMA load multicast over the cluster
+MULTICAST = re.compile(r"\bUTMALDG\S*\.MULTICAST\b")
 TOOLS_X = (B, 1024, 768, 128)           # the tools' x; w is (3, 3, 128, 128)
 TOOLS_RAGGED = (2, 48, 40, 16, 24, 8)   # b, h, w, cin, cout, th
 # (key, kernel name in a profile, band heights; the first is the record's)
-TOOL_CONVS = [("conv_band", "conv_band_kernel", (8, 16, 32)),
+TOOL_CONVS = [("conv_band", "conv_band_tma_kernel", (8, 16, 32)),
               ("conv_halo", "conv_halo_tma_kernel", (8, 16)),
-              ("conv_dma", "conv_dma_kernel", (8,)),
+              ("conv_dma", "conv_dma_tma_kernel", (8,)),
               ("conv_roll", "conv_roll_tma_kernel", (8, 16)),
               ("conv_prodroll", "conv_prodroll_tma_kernel", (8, 16)),
               ("conv_e", "conv_e_kernel", (8, 16)),
               ("conv_e2", "conv_e2_tma_kernel", (8, 16))]
 # wrappers that make no copy of x
-UNSTAGED = ("conv_halo", "conv_roll", "conv_prodroll", "conv_e", "conv_e2")
+UNSTAGED = ("conv_halo", "conv_roll", "conv_band", "conv_dma", "conv_prodroll",
+            "conv_e", "conv_e2")
 # how each tool wrapper orders the taps before it packs them
 TAP_ORDER = {"conv_roll": "pack_kx", "conv_e2": "pack_ky"}
-# the product-shift kernels on TMA and wgmma: also timed alone by CUDA events
-# around the bare entry point, and bound with their strips' extra products
+# the product-shift kernels on TMA and wgmma: bound with their strips' extra
+# products
 PRODUCT_SHIFT = ("conv_prodroll", "conv_e2")
-# What the four conv_tma.cu kernels took before they read x by TMA and
-# multiplied on wgmma (cp.async / mma.sync kernels, after a gather in device
-# memory for all but conv_e2): {band height: (wrapper ms, kernel alone ms)}
-# as PERF.md records them, at TOOLS_X on an NVIDIA H100 80GB HBM3 at 700 W.
-# Printed beside this run's times; those kernels no longer exist to be timed
-# again.
+# the BAND kind (conv_band, conv_dma): launched in clusters
+BAND_KIND = ("conv_band", "conv_dma")
+# also timed alone by CUDA events around the bare entry point
+EVENTS_ALONE = BAND_KIND + PRODUCT_SHIFT
+# What the six conv_tma.cu kernels took before they read x by TMA and
+# multiplied on wgmma (cp.async / mma.sync kernels, after a gather or a pad
+# in device memory for all but conv_e2): {band height: (wrapper ms, kernel
+# alone ms)} as PERF.md records them, at TOOLS_X on an NVIDIA H100 80GB HBM3
+# at 700 W. Printed beside this run's times; those kernels no longer exist to
+# be timed again.
 EARLIER = {"conv_halo": {8: (7.62, 4.04), 16: (8.44, 5.07)},
            "conv_roll": {8: (8.63, 5.05)},
+           "conv_band": {8: (4.78, 3.42), 16: (4.24, 2.94), 32: (3.99, 2.68)},
+           "conv_dma": {8: (4.83, 3.48)},
            "conv_prodroll": {8: (7.87, 4.19), 16: (7.86, 4.45)},
            "conv_e2": {8: (4.88, 4.68), 16: (5.42, 5.20)}}
 PROBE_TH = 16
@@ -248,11 +267,23 @@ def device_phase():
 
 
 def build_phase():
+    """Every source, with ptxas's report; fails if ptxas serialised the wgmma
+    of a kernel (C7518, C7520: "wgmma.mma_async instructions are
+    serialized")."""
+    import contextlib
+    import io
     from hrviton_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    libs = _build.build_all(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        libs = _build.build_all(verbose=True)
+    log(report.getvalue().rstrip())
     log(f"build: {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
+    serialized = [line for line in report.getvalue().splitlines()
+                  if "are serialized" in line]
+    if serialized:
+        raise RuntimeError("ptxas serialised wgmma:\n" + "\n".join(serialized))
 
 
 def _events_ms(fn, iters):
@@ -438,7 +469,8 @@ def alone_phase():
     entry points (statistics computed and weights packed beforehand); the
     unit and the wide conv through their wrappers (weights packed once).
     Then the tools' product-shift kernels around their bare entry points at
-    TOOLS_X, TH 8 and 16 (weights packed beforehand)."""
+    TOOLS_X, TH 8 and 16 (weights packed beforehand), and conv_band and
+    conv_dma at TH=8 in clusters of 1, 2 and 4 (band_variants)."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.ops import spade_block as sb
     from hrviton_tpu_torch.ops import spade_fused as sf
@@ -477,14 +509,96 @@ def alone_phase():
         order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
         for th in (8, 16):
             launch, _ = _common.conv_launcher(f"{key}_forward_bf16", x, wt, th,
-                                              None, order)
+                                              order)
             log(f"alone {key} TH={th} {TOOLS_X}: {_events_ms(launch, 10):.3f} ms")
+    band_variants(x, wt)
+
+
+class _Clocks:
+    """nvidia-smi's SM clock, power draw and temperature sampled every 250 ms
+    while the block runs (the card slows its clock at its power limit under
+    sustained load); summarised on exit, the sampler stopped."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "250"],
+            stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        rows = []
+        for line in self.proc.communicate(timeout=60)[0].splitlines():
+            try:
+                vals = [float(v) for v in line.split(",")]
+            except ValueError:          # a field the card does not report
+                continue
+            if len(vals) == 3:
+                rows.append(vals)
+        if rows:
+            clk, watts, temp = zip(*rows)
+            log(f"clocks over {len(rows)} samples: SM {min(clk):.0f}-{max(clk):.0f} "
+                f"MHz (median {sorted(clk)[len(clk) // 2]:.0f}), power draw up to "
+                f"{max(watts):.1f} W, up to {max(temp):.0f} C")
+        return False
+
+
+def band_variants(x, wt, rounds=2):
+    """conv_band (taps unrolled) and conv_dma (taps in a loop) alone at TH=8
+    by CUDA events around the bare entry point, in clusters of 1, 2 and 4
+    blocks, in turns (1, 2, 4, 4, 2, 1 per round, the two kernels one after
+    the other at each, conv_halo's kernel, the same block, beside them), the
+    card's clocks and power sampled: the variants the shipped cluster was
+    chosen from, and the tap loop against the unrolled taps. Each variant's
+    output is then held to the plain version (2 bf16 ulps of max|ref|).
+    Returns {(key, cluster): [ms]}."""
+    from hrviton_tpu_torch.tools import _common, exp_conv
+    clusters = (1, 2, 4)
+    for cl in clusters:
+        log(f"band variants: the card holds {_common.band_active_clusters(cl)} "
+            f"clusters of {cl} conv_band blocks at TH=8 at once")
+    launchers = {(key, cl): _common.conv_launcher(f"{key}_forward_bf16", x, wt,
+                                                  8, cluster=cl)
+                 for key in BAND_KIND for cl in clusters}
+    launches = {k: v[0] for k, v in launchers.items()}
+    launches["conv_halo", None] = _common.conv_launcher(
+        "conv_halo_forward_bf16", x, wt, 8)[0]
+    times = {k: [] for k in launches}
+    with _Clocks():
+        for _ in range(rounds):
+            for cl in clusters + clusters[::-1]:
+                for key in BAND_KIND:
+                    times[key, cl].append(_events_ms(launches[key, cl], 10))
+                times["conv_halo", None].append(_events_ms(launches["conv_halo", None], 10))
+    shipped = _common.band_cluster(8)
+    for (key, cl), ms in times.items():
+        label = "" if cl is None else \
+            f" cluster {cl}{' (shipped)' if cl == shipped else ''}"
+        log(f"alone {key} TH=8{label} {TOOLS_X}: " + ", ".join(f"{t:.3f}" for t in ms)
+            + f" ms, best {min(ms):.3f}, median {sorted(ms)[len(ms) // 2]:.3f}")
+    for cl in clusters:
+        band, dma = min(times["conv_band", cl]), min(times["conv_dma", cl])
+        log(f"band variants, cluster {cl}: the tap loop (conv_dma) "
+            f"{100 * (dma - band) / band:+.1f}% against the unrolled taps "
+            f"(conv_band), best of each")
+    torch.cuda.synchronize()
+    ref = exp_conv.conv_band_ref(x, wt, 8).float()
+    tol = 2 * 2 ** -7 * ref.abs().max().item()
+    for (key, cl), (_, out) in launchers.items():
+        err = (out.float() - ref).abs().max().item()
+        if not err <= tol:
+            raise RuntimeError(f"{key} in clusters of {cl}: max_abs {err} > {tol}")
+    log(f"band variants: every output within {tol:.3e} of the plain version")
+    return times
 
 
 def sass_phase():
     """Every instantiation of the kernels on wgmma (the conv engine's and
     conv_tma.cu's): its SASS (cuobjdump -sass of the built library) must hold
-    HGMMA (wgmma) and no HMMA (mma.sync)."""
+    HGMMA (wgmma) and no HMMA (mma.sync); conv_band's and conv_dma's in a
+    cluster of 2 or 4 the multicast TMA load too, and in a cluster of 1
+    none."""
     from hrviton_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for src, names in WGMMA_KERNELS.items():
@@ -502,6 +616,14 @@ def sass_phase():
             hmma = len(re.findall(r"\bHMMA\b", func))
             if hgmma == 0 or hmma:
                 raise RuntimeError(f"{fname}: {hgmma} HGMMA, {hmma} HMMA")
+            band = BAND_ARGS.search(fname)
+            if band:
+                cl, casts = int(band.group(3)), len(MULTICAST.findall(func))
+                log(f"sass {hit} (TR, TC, CL) {band.groups()}: {hgmma} HGMMA, "
+                    f"{casts} multicast loads ({MULTICAST.pattern})")
+                if (cl > 1) != (casts > 0):
+                    raise RuntimeError(f"{fname}: a cluster of {cl} with "
+                                       f"{casts} multicast loads")
         if not all(seen.values()):
             raise RuntimeError(f"{src}.cu: no SASS of {seen}")
         log(f"sass {src}.cu: " + ", ".join(f"{n} x{k}" for n, k in seen.items())
@@ -1051,42 +1173,47 @@ def tools_phase(card):
     strip_cols = -(-w // 62) * 64       # product columns of the shift kernels
     nbytes = (2 * x.numel() + wt.numel()) * x.element_size()
     totals = {}
-    for key, kname, ths in TOOL_CONVS:
-        run, plain = tools[key]
-        for th in ths:
-            tot = {}
-            _check_site(tot, f"{key} TH={th} {c}->{c} {h}x{w}", dtype, 1,
-                        lambda: run(x, wt, th=th), lambda: plain(x, wt, th),
-                        lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
-                        nbytes, per_call=1)
-            totals.setdefault(key, {dtype: tot})
-            entry = f"{key}_forward_bf16"
-            order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
-            if key in UNSTAGED:
-                layout = _common._ENTRIES[entry][2]
-                _no_staging(f"{key} TH={th}", lambda: run(x, wt, th=th),
-                            tot["kernel_alone_ms"],
-                            lambda: layout(wt, order), x)
-            if key in PRODUCT_SHIFT:
-                launch, _ = _common.conv_launcher(entry, x, wt, th, None, order)
-                alone, ev = tot["kernel_alone_ms"], _events_ms(launch, 10)
-                log(f"{key} TH={th}: kernel alone by CUDA events around the "
-                    f"bare entry point {ev:.3f} ms, by the profiler "
-                    + ("not measured" if alone is None else
-                       f"{alone:.3f} ms ({100 * (ev - alone) / alone:+.1f}%)")
-                    + f"; bound {flops / PEAK_OPS[dtype] * 1e3:.4f} ms, with "
-                    f"the products of the strips' overlapping columns "
-                    f"{flops * strip_cols / w / PEAK_OPS[dtype] * 1e3:.4f} ms")
-                del launch
-            if key in EARLIER:
-                was = EARLIER[key].get(th)
-                alone = tot["kernel_alone_ms"]
-                log(f"{key} TH={th}: wrapper {tot['ms']:.3f} ms, kernel alone "
-                    + ("not measured" if alone is None else f"{alone:.3f} ms")
-                    + " by TMA and wgmma; the earlier design "
-                    + ("not measured at this band height" if was is None else
-                       f"{was[0]:.2f} ms, kernel alone {was[1]:.2f} ms "
-                       f"(PERF.md)"))
+    with _Clocks():
+        for key, kname, ths in TOOL_CONVS:
+            run, plain = tools[key]
+            for th in ths:
+                tot = {}
+                _check_site(tot, f"{key} TH={th} {c}->{c} {h}x{w}", dtype, 1,
+                            lambda: run(x, wt, th=th), lambda: plain(x, wt, th),
+                            lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
+                            nbytes, per_call=1)
+                totals.setdefault(key, {dtype: tot})
+                entry = f"{key}_forward_bf16"
+                order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
+                if key in UNSTAGED:
+                    layout = _common._ENTRIES[entry][2]
+                    _no_staging(f"{key} TH={th}", lambda: run(x, wt, th=th),
+                                tot["kernel_alone_ms"],
+                                lambda: layout(wt, order), x)
+                if key in EVENTS_ALONE:
+                    launch, _ = _common.conv_launcher(entry, x, wt, th, order)
+                    alone, ev = tot["kernel_alone_ms"], _events_ms(launch, 10)
+                    log(f"{key} TH={th}: kernel alone by CUDA events around the "
+                        f"bare entry point {ev:.3f} ms, by the profiler "
+                        + ("not measured" if alone is None else
+                           f"{alone:.3f} ms ({100 * (ev - alone) / alone:+.1f}%)")
+                        + f"; bound {flops / PEAK_OPS[dtype] * 1e3:.4f} ms"
+                        + (f", with the products of the strips' overlapping "
+                           f"columns {flops * strip_cols / w / PEAK_OPS[dtype] * 1e3:.4f} ms"
+                           if key in PRODUCT_SHIFT else ""))
+                    del launch
+                if key in EARLIER:
+                    was = EARLIER[key].get(th)
+                    alone = tot["kernel_alone_ms"]
+                    log(f"{key} TH={th}: wrapper {tot['ms']:.3f} ms, kernel alone "
+                        + ("not measured" if alone is None else f"{alone:.3f} ms")
+                        + " by TMA and wgmma"
+                        + (f" in clusters of {_common.band_cluster(th)} blocks"
+                           if key in BAND_KIND else "")
+                        + "; the earlier design "
+                        + ("not measured at this band height" if was is None else
+                           f"{was[0]:.2f} ms, kernel alone {was[1]:.2f} ms "
+                           f"(PERF.md)"))
     log(f"conv_halo, conv_roll: encoding one call's two tensor maps takes "
         f"{_common.tensor_map_encode_us(x, wt):.2f} us of host time")
     for th in (8, 16):
@@ -1094,6 +1221,10 @@ def tools_phase(card):
             f"{_events_ms(lambda: exp_conv2.halo_tiles(x, th), 3):.3f} ms; "
             f"no kernel pays it any more: the tiles of conv_halo, conv_roll "
             f"and conv_prodroll are TMA boxes of the unpadded x")
+    log(f"the JAX tools' pad alone (pad_input) "
+        f"{_events_ms(lambda: _common.pad_input(x), 3):.3f} ms; no kernel pays "
+        f"it any more: conv_band's and conv_dma's band tiles are TMA boxes of "
+        f"the unpadded x")
     wide = lambda: c3.conv3x3_wide(x, w_oihw)
     wide_alone = _device_ms(wide, "conv3x3_wide_kernel", per_call=1)
     log(f"conv3x3_wide {c}->{c} {h}x{w}: wrapper {_events_ms(wide, 3):.3f} ms, "
@@ -1128,13 +1259,15 @@ KERNELS = [
      "conv_6, conv_7, up_4.conv_1, conv_img, bf16)", "conv3x3.cu",
      "hrviton_tpu/ops/conv3x3.py:426"),
     ("conv_band", "conv_band (tools/exp_conv.main: x (4, 1024, 768, 128), w "
-     "(3, 3, 128, 128), bf16; times at TH=8, launches of the check and the "
-     "timings at TH=8, 16, 32)", "conv_exp.cu", "tools/exp_pallas_conv.py:93"),
+     "(3, 3, 128, 128), bf16, unpadded; TMA band tiles and wgmma, taps "
+     "unrolled; times at TH=8, launches of the check and the timings at TH=8, "
+     "16, 32)", "conv_tma.cu", "tools/exp_pallas_conv.py:93"),
     ("conv_halo", "conv_halo (tools/exp_conv2.main('all'): the same x, "
      "unpadded, and w; TMA halo tiles and wgmma, TH=8)", "conv_tma.cu",
      "tools/exp_pallas_conv2.py:98"),
-    ("conv_dma", "conv_dma (tools/exp_conv2.main('all'): the same x and w, "
-     "TH=8)", "conv_exp.cu", "tools/exp_pallas_conv2.py:253"),
+    ("conv_dma", "conv_dma (tools/exp_conv2.main('all'): the same x, "
+     "unpadded, and w; TMA band tiles and wgmma, taps in a loop, TH=8)",
+     "conv_tma.cu", "tools/exp_pallas_conv2.py:253"),
     ("conv_roll", "conv_roll (tools/exp_conv2.main('all'): the same x, "
      "unpadded, and w; three TMA boxes a stage and wgmma; times at TH=8, "
      "launches at TH=8)", "conv_tma.cu", "tools/exp_pallas_conv2.py:146"),
@@ -1196,10 +1329,16 @@ def main():
     totals.update(tool_totals)
     launches.update(tool_launches)
     record = {"kernels": []}
+    ths = {key: t for key, _, t in TOOL_CONVS}
     for key, name, source, replaces in KERNELS:
         t = totals[key][torch.bfloat16]
         if launches[key] <= 0:
             raise RuntimeError(f"{key}: no launch on its main path")
+        if key in BAND_KIND:
+            from hrviton_tpu_torch.tools import _common
+            name += "; blocks a cluster, sharing each stage's weights by " \
+                "multicast where more than 1: " + ", ".join(
+                    f"{_common.band_cluster(th)} at TH={th}" for th in ths[key])
         record["kernels"].append({
             "name": name, "route": "cuda", "source": CSRC + source,
             "replaces": replaces, "launches": launches[key],

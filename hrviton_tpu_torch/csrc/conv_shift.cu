@@ -1,8 +1,8 @@
 // The masked product-shift formulation of the 3x3 stride-1 pad-1 convolution
-// experiment for Hopper (sm_90a): a kernel that computes the same conv as
-// csrc/conv_exp.cu (bf16 in, f32 accumulation over all nine taps and all of
-// Cin, one rounding to bf16, no bias, no activation) and realises the kx
-// shift of the taps on the f32 products. The other three shift formulations
+// experiment for Hopper (sm_90a): a kernel that computes the same conv as the
+// kernels of csrc/conv_tma.cu (bf16 in, f32 accumulation over all nine taps
+// and all of Cin, one rounding to bf16, no bias, no activation) and realises
+// the kx shift of the taps on the f32 products. The other three shift formulations
 // read x by TMA and multiply on wgmma in csrc/conv_tma.cu: conv_roll packs
 // the kx neighbours into channels, conv_prodroll and conv_e2 shift their
 // products as this kernel does, with the ky offset in the box's rows or in

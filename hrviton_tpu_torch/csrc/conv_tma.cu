@@ -1,9 +1,9 @@
-// Four formulations of the 3x3 stride-1 pad-1 convolution experiment designed
+// Six formulations of the 3x3 stride-1 pad-1 convolution experiment designed
 // for Hopper's asynchronous units (sm_90a): the input tile with its halo and
 // its zero border arrives by TMA straight from the unpadded x, and the
-// products run on wgmma. All compute what the kernels of csrc/conv_exp.cu and
-// csrc/conv_shift.cu compute (bf16 in, f32 accumulation over all nine taps
-// and all of Cin, one rounding to bf16, no bias, no activation).
+// products run on wgmma. All compute what csrc/conv_shift.cu's conv_e computes
+// (bf16 in, f32 accumulation over all nine taps and all of Cin, one rounding
+// to bf16, no bias, no activation).
 //
 //   conv_halo_tma_kernel replaces the TPU kernel
 //     tools/exp_pallas_conv2.py:_kernel_halo (through conv_halo, pl.pallas_call
@@ -43,8 +43,25 @@
 //     and product kx walks its K over the thirds into acc[kx]. The TPU
 //     kernel's border mask is the boxes' out-of-bounds fill: the products of
 //     a zero column are zero.
+//   conv_band_tma_kernel replaces tools/exp_pallas_conv.py:_kernel (through
+//     conv_pallas, pl.pallas_call at exp_pallas_conv.py:93) and
+//     conv_dma_tma_kernel tools/exp_pallas_conv2.py:_kernel_dma (through
+//     conv_dma, pl.pallas_call at exp_pallas_conv2.py:253), the BAND kind. The
+//     TPU kernels copy a band of TH + 2 rows of an x that XLA padded first
+//     into a two-slot VMEM buffer (the copy of band i + 1 started in step i)
+//     and run the nine taps as windows of the band against a w that stays
+//     whole in VMEM; _kernel writes the taps out, _kernel_dma walks them in a
+//     loop. Here a band's tile is conv_halo's box of the unpadded x (the zero
+//     border is the out-of-bounds fill: no pad), and what is left of the
+//     formulation is its other idea, one load of the weights for the whole
+//     band: the CL blocks of a thread-block cluster own CL adjacent column
+//     strips of the same rows and N tile, and each stage's weights reach all
+//     of them by one multicast load, block r of the cluster loading rows
+//     [r 72 / CL, (r + 1) 72 / CL) of the stage's 72 rows of 512 bytes into
+//     every block. conv_band's consumers write the nine taps out, as
+//     conv_halo's do; conv_dma's walk them in a run-time loop.
 //
-// None is carried over block by block. conv_halo and conv_roll: a block of
+// None is carried over block by block. conv_halo, conv_roll and BAND: a block of
 // two consumer warpgroups and one producer warp owns TH rows x OC columns x
 // 128 output channels (four 64-row wgmma tiles of 8 columns x 8 rows, two per
 // warpgroup: TH x OC = 8 x 32, 16 x 16 or 32 x 8) and walks up to
@@ -73,6 +90,29 @@
 // three times over). And the epilogue: 4-byte stores of the accumulator
 // layout took a quarter of the time with the tensor cores idle; a quad
 // transpose makes them 16-byte stores.
+//
+// The BAND kind is bound the same way (576 FLOP a byte) and asks the same of
+// L2 per stage as conv_halo unless its cluster shares the weights: a stage
+// brings 12.8 KB of A and 36.9 KB of weights for 9.4 MFLOP, at the tensor
+// cores' rate (~4,096 FLOP a clock an SM) ~21.6 bytes a clock an SM, ~5.2
+// TB/s over the card, about where its L2 is reported to saturate. A cluster
+// of CL blocks asks L2 for a stage's weights once: 2 blocks cut an SM's bytes
+// by 37%, 4 by 56%. What the sharing costs: a slot may be refilled only when
+// every block of the cluster has released it (the empty barrier counts
+// CONSUMER_WARPS x CL arrivals, each consumer warp arriving on the barrier of
+// every block by a remote arrive); each block's full barrier expects its own
+// A box and all of the stage's weights, since the peers' slices land in its
+// slot and count on its barrier; the grid puts the strips fastest within an N
+// tile so that a cluster shares n0, the strips padded to a multiple of CL
+// (a block past W loads its box, zeros, joins every barrier and stores
+// nothing); a cluster barrier after the barriers' init, before the first
+// multicast, and another before exit, so that no block leaves while a peer
+// may still write into its shared memory or arrive on its barriers.
+// Measured on the H100 (PERF.md §6), the sharing does not pay: the
+// loads alone take ~55% of the kernel's time and hide behind the products,
+// a slot waits for the slowest block of its cluster, and the card holds 30
+// clusters of 4 (120 SMs). So BAND_CL is 1 at every TH, and clusters of 2 and
+// 4 are kept as variants to measure against.
 //
 // conv_prodroll and conv_e2 keep three accumulators of unshifted products and
 // shift them along the pixels, which an 8 x 8-pixel M tile would cut every 8
@@ -120,20 +160,28 @@ constexpr int NT = 32 * (CONSUMER_WARPS + 1);
 constexpr int BANDS_PER_BLOCK = 8;      // successive row tiles a block walks
 constexpr int W_BYTES = 9 * BN * KROW;  // a stage's weights
 constexpr int TAP_BYTES = BN * KROW;
+// the weights' map copies a stage as W_ROWS rows of W_ROW bf16 (512 bytes)
+constexpr int W_ROW = 256, W_ROWS = W_BYTES / (2 * W_ROW);
 
-enum Kind { ROLL, HALO, PRODROLL, E2 };
+enum Kind { ROLL, HALO, PRODROLL, E2, BAND };
 
 struct Params {
   bf* out;            // (B, H, W, COUT)
   int H, W, COUT, NBANDS, NCHUNKS, NTILES;   // NCHUNKS = CINP / KC, NTILES = NP / BN
+  int NSTRIPS;        // BAND: column strips, padded to a multiple of the cluster
 };
 
 constexpr int align_up(int v, int a) { return (v + a - 1) / a * a; }
 
-template <int KIND_, int TR_, int TC_>
+// CL: blocks of a cluster that share each stage's weights (BAND only); LOOP:
+// the taps in a run-time loop (conv_dma).
+template <int KIND_, int TR_, int TC_, int CL_ = 1, bool LOOP_ = false>
 struct Cfg {
-  static constexpr int KIND = KIND_, TR = TR_, TC = TC_;
+  static constexpr int KIND = KIND_, TR = TR_, TC = TC_, CL = CL_;
+  static constexpr bool LOOP = LOOP_;
   static_assert(TR * TC == 4, "a block is four wgmma tiles");
+  static_assert(CL == 1 || (KIND == BAND && (CL == 2 || CL == 4)),
+                "clusters of 2 or 4 blocks, BAND only");
   static constexpr int TH = 8 * TR, OC = 8 * TC;                // rows, output columns
   // staged columns of a box: roll's boxes carry their shift in the
   // coordinate; halo's one box has OC + 2, rounded up so that the pitch stays
@@ -146,20 +194,25 @@ struct Cfg {
   static constexpr int A_BYTES = NBOX * SUB_BYTES;
   static constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
   static constexpr int STAGES = KIND == ROLL ? 3 : 4;
-  static constexpr unsigned TX = NBOX * BOX_BYTES + W_BYTES;    // bytes a stage's loads deliver
+  // bytes a stage's loads deliver into each block: its A, all the weights
+  static constexpr unsigned TX = NBOX * BOX_BYTES + W_BYTES;
+  static constexpr int W_SLICE = W_ROWS / CL;                   // weight rows a block loads
   static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 1024;
 };
 
 // The producer's lane: one stage per (row tile, chunk), in the consumers' order.
+// rank: this block's in its cluster.
 template <class C>
 __device__ __forceinline__ void produce(const CUtensorMap* tmx, const CUtensorMap* tmw,
                                         const Params& p, unsigned base, unsigned full,
-                                        unsigned empty, int x0, int n0, int i0, int nb, int b) {
+                                        unsigned empty, int x0, int n0, int i0, int nb, int b,
+                                        unsigned rank) {
   int st = 0;
   unsigned ph = 0;
   for (int band = i0; band < i0 + nb; ++band) {
     const int y = band * C::TH - 1;
     for (int q = 0; q < p.NCHUNKS; ++q) {
+      // BAND: every block of the cluster has released the slot
       mbar_wait(empty + 8 * st, ph ^ 1);
       const unsigned bar = full + 8 * st, a = base + st * C::STAGE_BYTES;
       mbar_expect_tx(bar, C::TX);
@@ -170,7 +223,14 @@ __device__ __forceinline__ void produce(const CUtensorMap* tmx, const CUtensorMa
       } else {
         tma_load_4d(a, tmx, bar, q * KC, x0 - 1, y, b);
       }
-      tma_load_3d(a + C::A_BYTES, tmw, bar, 0, 0, q * p.NTILES + n0 / BN);
+      const int wz = q * p.NTILES + n0 / BN;
+      if constexpr (C::CL > 1) {
+        const int r0 = rank * C::W_SLICE;
+        tma_load_3d_multicast(a + C::A_BYTES + r0 * 2 * W_ROW, tmw, bar, 0, r0, wz,
+                              (unsigned short)((1u << C::CL) - 1));
+      } else {
+        tma_load_3d(a + C::A_BYTES, tmw, bar, 0, 0, wz);
+      }
       if (++st == C::STAGES) { st = 0; ph ^= 1; }
     }
   }
@@ -221,6 +281,19 @@ __device__ __forceinline__ void store_tile(const float (&d)[64], const Params& p
   }
 }
 
+// One tap's two products: this warpgroup's two M tiles at window `win` of the
+// stage's A (tile offsets a_off), the tap's weights at w.
+template <class C>
+__device__ __forceinline__ void tap_products(float (&acc)[2][64], unsigned win,
+                                             const unsigned (&a_off)[2], unsigned w,
+                                             int scale_d) {
+  const uint64_t db = wgmma_desc(w, 8 * KROW, WGMMA_SWIZZLE_32B);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    wgmma_m64n128k16_bf16(acc[mt], wgmma_desc(win + a_off[mt], C::PITCH, WGMMA_SWIZZLE_32B),
+                          db, scale_d);
+}
+
 template <class C>
 __device__ __forceinline__ void consume(const Params& p, unsigned base, unsigned full,
                                         unsigned empty, int x0, int n0, int i0, int nb, int b,
@@ -246,27 +319,43 @@ __device__ __forceinline__ void consume(const Params& p, unsigned base, unsigned
       wgmma_fence_acc(acc[0]);
       wgmma_fence_acc(acc[1]);
       wgmma_fence();
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          // roll: third t of the packed K, rows ky ..; halo: the window at (ky, kx = t)
-          const unsigned win = C::KIND == ROLL ? t * C::SUB_BYTES + ky * C::PITCH
-                                               : ky * C::PITCH + t * KROW;
-          const uint64_t db = wgmma_desc(w + (3 * ky + t) * TAP_BYTES, 8 * KROW,
-                                         WGMMA_SWIZZLE_32B);
-          const int scale_d = q != 0 || ky != 0 || t != 0;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            wgmma_m64n128k16_bf16(acc[mt],
-                                  wgmma_desc(a + win + a_off[mt], C::PITCH, WGMMA_SWIZZLE_32B),
-                                  db, scale_d);
+      if constexpr (C::LOOP) {
+        // the window of tap (ky, kx) at run time: ky whole tile rows, kx
+        // pixels. Each iteration opens with its own wgmma.fence; ptxas still
+        // injects one warpgroup.arrive for the loop-carried accumulators
+        // (C7519, not a serialisation), two without the fence.
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap) {
+          const int ky = tap / 3;
+          wgmma_fence();
+          tap_products<C>(acc, a + ky * C::PITCH + (tap - 3 * ky) * KROW, a_off,
+                          w + tap * TAP_BYTES, q != 0 || tap != 0);
         }
+      } else {
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int t = 0; t < 3; ++t)
+            // roll: third t of the packed K, rows ky ..; halo, band: the window
+            // at (ky, kx = t)
+            tap_products<C>(acc,
+                            a + (C::KIND == ROLL ? t * C::SUB_BYTES + ky * C::PITCH
+                                                 : ky * C::PITCH + t * KROW),
+                            a_off, w + (3 * ky + t) * TAP_BYTES, q != 0 || ky != 0 || t != 0);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_fence_acc(acc[0]);
       wgmma_fence_acc(acc[1]);
-      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if (lane == 0) {
+        if constexpr (C::CL == 1) {
+          mbar_arrive(empty + 8 * st);
+        } else {
+          // every block's producer multicasts into this slot
+#pragma unroll
+          for (int r = 0; r < C::CL; ++r) mbar_arrive_cluster(empty + 8 * st, r);
+        }
+      }
       if (++st == C::STAGES) { st = 0; ph ^= 1; }
     }
 #pragma unroll
@@ -276,34 +365,47 @@ __device__ __forceinline__ void consume(const Params& p, unsigned base, unsigned
 }
 
 // This block: image blockIdx.z, row tiles [BANDS_PER_BLOCK * blockIdx.y, ...),
-// column strip and channel tile from blockIdx.x (channel tile fastest).
+// column strip and channel tile from blockIdx.x: the channel tile fastest,
+// but for BAND the strip fastest within a channel tile, so that the blocks of
+// a cluster (consecutive blockIdx.x) share it.
 template <class C>
 __device__ __forceinline__ void conv_tma(const CUtensorMap* tmx, const CUtensorMap* tmw,
                                          const Params& p) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) unsigned long long bars[2 * C::STAGES];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warp index broadcast from lane 0, so that ptxas sees the roles'
+  // branch as warp-uniform: under a branch it must treat as divergent, a
+  // warpgroup.arrive that it injects serialises every wgmma of the kernel
+  // (C7520; conv_dma's tap loop needs one, PERF.md §6)
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
   // every box starts a swizzle pattern: the ring is 1024-byte aligned
   const unsigned base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const unsigned full = smem_u32(bars), empty = full + 8 * C::STAGES;
-  const int n0 = (blockIdx.x % p.NTILES) * BN, x0 = (blockIdx.x / p.NTILES) * C::OC;
+  const int bx = blockIdx.x;
+  const int n0 = (C::KIND == BAND ? bx / p.NSTRIPS : bx % p.NTILES) * BN;
+  const int x0 = (C::KIND == BAND ? bx % p.NSTRIPS : bx / p.NTILES) * C::OC;
   const int i0 = blockIdx.y * BANDS_PER_BLOCK, b = blockIdx.z;
   const int nb = min(BANDS_PER_BLOCK, p.NBANDS - i0);
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS * C::CL);
     }
     mbar_fence_init();
     fence_proxy_async();
   }
-  __syncthreads();
+  // the peers' barriers are ready before this block multicasts into them
+  if constexpr (C::CL > 1) cluster_sync(); else __syncthreads();
   // the two roles never meet again
   if (warp == CONSUMER_WARPS) {
-    if (lane == 0) produce<C>(tmx, tmw, p, base, full, empty, x0, n0, i0, nb, b);
+    if (lane == 0)
+      produce<C>(tmx, tmw, p, base, full, empty, x0, n0, i0, nb, b,
+                 C::CL > 1 ? cluster_rank() : 0u);
   } else {
     consume<C>(p, base, full, empty, x0, n0, i0, nb, b, warp, lane);
   }
+  // no block leaves while a peer may still arrive on its barriers
+  if constexpr (C::CL > 1) cluster_sync();
 }
 
 template <int TR, int TC>
@@ -318,6 +420,20 @@ __global__ void __launch_bounds__(NT, 1)
     conv_roll_tma_kernel(const __grid_constant__ CUtensorMap tmx,
                          const __grid_constant__ CUtensorMap tmw, const Params p) {
   conv_tma<Cfg<ROLL, TR, TC>>(&tmx, &tmw, p);
+}
+
+template <int TR, int TC, int CL>
+__global__ void __launch_bounds__(NT, 1)
+    conv_band_tma_kernel(const __grid_constant__ CUtensorMap tmx,
+                         const __grid_constant__ CUtensorMap tmw, const Params p) {
+  conv_tma<Cfg<BAND, TR, TC, CL>>(&tmx, &tmw, p);
+}
+
+template <int TR, int TC, int CL>
+__global__ void __launch_bounds__(NT, 1)
+    conv_dma_tma_kernel(const __grid_constant__ CUtensorMap tmx,
+                        const __grid_constant__ CUtensorMap tmw, const Params p) {
+  conv_tma<Cfg<BAND, TR, TC, CL, true>>(&tmx, &tmw, p);
 }
 
 // ---- the product-shift kinds: conv_prodroll and conv_e2 --------------------
@@ -561,12 +677,12 @@ __global__ void __launch_bounds__(NT, 1)
 // The packed weights (NCHUNKS, NTILES, 9, BN, KC): a (chunk, tile) block is
 // what a stage holds, W_BYTES contiguous, already in the swizzled order. The
 // map sees it as W_ROWS rows of 512 bytes and copies it as it is: long rows,
-// where a box of BN x 9 rows of 32 bytes would be 1152 requests a stage.
-constexpr int W_ROW = 256, W_ROWS = W_BYTES / (2 * W_ROW);
-CUresult encode_w(CUtensorMap* map, const void* wk, int nchunks, int np) {
+// where a box of BN x 9 rows of 32 bytes would be 1152 requests a stage. A box
+// is `rows` of them: all W_ROWS, or one cluster block's slice.
+CUresult encode_w(CUtensorMap* map, const void* wk, int nchunks, int np, int rows = W_ROWS) {
   const cuuint64_t dims[3] = {W_ROW, W_ROWS, (cuuint64_t)nchunks * (np / BN)};
   const cuuint64_t strides[2] = {2 * W_ROW, W_BYTES};
-  const cuuint32_t box[3] = {W_ROW, W_ROWS, 1};
+  const cuuint32_t box[3] = {W_ROW, (cuuint32_t)rows, 1};
   return encode(map, wk, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
@@ -576,22 +692,103 @@ bool bad_shape(int B, int H, int W, int C, int CINP, int COUT, int NP, int TH, b
          C <= 0 || C % 8 || CINP < C || CINP % KC || COUT <= 0 || NP % BN || NP < COUT;
 }
 
+// A launch of C's blocks on `stream`, in clusters of C::CL along x where
+// `cluster` (attr: storage for the attribute).
+template <class C>
+cudaLaunchConfig_t launch_config(dim3 grid, cudaStream_t stream, bool cluster,
+                                 cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C::CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster ? 1 : 0;
+  return cfg;
+}
+
+// Clusters of C that the card can hold at once (cudaOccupancyMaxActiveClusters;
+// one block an SM), or minus the error.
+template <class C, typename K>
+int active_clusters(K kernel) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(dim3(C::CL), nullptr, true, &attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 template <class C, typename K>
 int launch(K kernel, const void* x, const void* wk, void* out, int B, int H, int W, int c,
            int CINP, int COUT, int NP, cudaStream_t stream) {
   CUtensorMap tmx, tmw;
   CUresult res = encode_x(&tmx, x, B, H, W, c, C::SC, C::TH + 2);
-  if (res == CUDA_SUCCESS) res = encode_w(&tmw, wk, CINP / KC, NP);
+  if (res == CUDA_SUCCESS) res = encode_w(&tmw, wk, CINP / KC, NP, C::W_SLICE);
   if (res != CUDA_SUCCESS) return 1000 + (int)res;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
+  if constexpr (C::CL > 1) {
+    // once per configuration: a cluster that the card cannot hold is an
+    // error, not a smaller cluster
+    static const int clusters = active_clusters<C>(kernel);
+    if (clusters <= 0) return clusters < 0 ? -clusters : (int)cudaErrorInvalidConfiguration;
+  }
   const int nbands = H / C::TH;
-  Params p{static_cast<bf*>(out), H, W, COUT, nbands, CINP / KC, NP / BN};
-  const dim3 grid((W + C::OC - 1) / C::OC * (NP / BN),
-                  (nbands + BANDS_PER_BLOCK - 1) / BANDS_PER_BLOCK, B);
-  kernel<<<grid, NT, C::SMEM, stream>>>(tmx, tmw, p);
+  const int nstrips = align_up((W + C::OC - 1) / C::OC, C::CL);
+  const Params p{static_cast<bf*>(out), H, W, COUT, nbands, CINP / KC, NP / BN, nstrips};
+  const dim3 grid(nstrips * (NP / BN), (nbands + BANDS_PER_BLOCK - 1) / BANDS_PER_BLOCK, B);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(grid, stream, C::CL > 1, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, tmx, tmw, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The BAND kind's cluster at TH = 8, 16, 32: the fastest of 1, 2 and 4 at TH
+// = 8 alone (PERF.md §6: 1; sharing the weights saves L2 bytes that were not
+// the limit, and a slot waits for the slowest block of its cluster); every
+// block holds four M tiles x 128 channels at every TH, so a stage's weights
+// feed the same products at each.
+constexpr int BAND_CL[3] = {1, 1, 1};
+
+template <bool LOOP, int TR, int TC, int CL>
+int band_launch(const void* x, const void* wk, void* out, int B, int H, int W, int C, int CINP,
+                int COUT, int NP, cudaStream_t s) {
+  if constexpr (LOOP)
+    return launch<Cfg<BAND, TR, TC, CL, true>>(conv_dma_tma_kernel<TR, TC, CL>, x, wk, out, B, H,
+                                               W, C, CINP, COUT, NP, s);
+  else
+    return launch<Cfg<BAND, TR, TC, CL>>(conv_band_tma_kernel<TR, TC, CL>, x, wk, out, B, H, W,
+                                         C, CINP, COUT, NP, s);
+}
+
+// CL 0: BAND_CL's; at TH = 8 also 1, 2 or 4 (the variants it was chosen from).
+template <bool LOOP>
+int band_forward(const void* x, const void* wk, void* out, int B, int H, int W, int C, int CINP,
+                 int COUT, int NP, int TH, int CL, cudaStream_t s) {
+  if (bad_shape(B, H, W, C, CINP, COUT, NP, TH, true)) return (int)cudaErrorInvalidValue;
+  if (TH == 8) {
+    switch (CL ? CL : BAND_CL[0]) {
+      case 1: return band_launch<LOOP, 1, 4, 1>(x, wk, out, B, H, W, C, CINP, COUT, NP, s);
+      case 2: return band_launch<LOOP, 1, 4, 2>(x, wk, out, B, H, W, C, CINP, COUT, NP, s);
+      case 4: return band_launch<LOOP, 1, 4, 4>(x, wk, out, B, H, W, C, CINP, COUT, NP, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (TH == 16) {
+    if (CL && CL != BAND_CL[1]) return (int)cudaErrorInvalidValue;
+    return band_launch<LOOP, 2, 2, BAND_CL[1]>(x, wk, out, B, H, W, C, CINP, COUT, NP, s);
+  }
+  if (CL && CL != BAND_CL[2]) return (int)cudaErrorInvalidValue;
+  return band_launch<LOOP, 4, 1, BAND_CL[2]>(x, wk, out, B, H, W, C, CINP, COUT, NP, s);
 }
 
 
@@ -654,6 +851,45 @@ int conv_roll_forward_bf16(const void* x, const void* wk, void* out, int B, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (TH == 8) return HV_LAUNCH(ROLL, conv_roll_tma_kernel, 1, 4);
   return HV_LAUNCH(ROLL, conv_roll_tma_kernel, 2, 2);
+}
+
+// conv_band (taps unrolled) and conv_dma (taps in a loop): operands as for
+// conv_halo; TH: 8, 16 or 32; the cluster is BAND_CL's.
+int conv_band_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W, int C,
+                           int CINP, int COUT, int NP, int TH, void* stream) {
+  return band_forward<false>(x, wk, out, B, H, W, C, CINP, COUT, NP, TH, 0,
+                             static_cast<cudaStream_t>(stream));
+}
+
+int conv_dma_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W, int C,
+                          int CINP, int COUT, int NP, int TH, void* stream) {
+  return band_forward<true>(x, wk, out, B, H, W, C, CINP, COUT, NP, TH, 0,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Either of them (LOOP: conv_dma) in a cluster of CL blocks: 1, 2 or 4 at TH
+// = 8, BAND_CL's at 16 and 32. For timing the variants side by side.
+int conv_band_variant_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W,
+                                   int C, int CINP, int COUT, int NP, int TH, int CL, int LOOP,
+                                   void* stream) {
+  if (CL <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return LOOP ? band_forward<true>(x, wk, out, B, H, W, C, CINP, COUT, NP, TH, CL, s)
+              : band_forward<false>(x, wk, out, B, H, W, C, CINP, COUT, NP, TH, CL, s);
+}
+
+// The cluster conv_band and conv_dma launch at band height TH, 0 for another TH.
+int conv_band_cluster(int TH) {
+  return TH == 8 ? BAND_CL[0] : TH == 16 ? BAND_CL[1] : TH == 32 ? BAND_CL[2] : 0;
+}
+
+// How many clusters of CL conv_band blocks at TH = 8 the card holds at once,
+// or minus the error.
+int conv_band_active_clusters(int CL) {
+  if (CL == 1) return active_clusters<Cfg<BAND, 1, 4, 1>>(conv_band_tma_kernel<1, 4, 1>);
+  if (CL == 2) return active_clusters<Cfg<BAND, 1, 4, 2>>(conv_band_tma_kernel<1, 4, 2>);
+  if (CL == 4) return active_clusters<Cfg<BAND, 1, 4, 4>>(conv_band_tma_kernel<1, 4, 4>);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // x as for conv_halo; wk: (CINP / 16, NP / 64, 9, 64, 16) bf16, [chunk][tile][3

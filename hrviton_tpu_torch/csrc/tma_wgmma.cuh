@@ -1,7 +1,9 @@
 // Helpers for kernels built from Hopper's asynchronous units (sm_90a):
 // mbarriers, TMA tensor loads (cp.async.bulk.tensor through a CUtensorMap
-// passed as a __grid_constant__ kernel parameter) and plain bulk copies, the
-// warpgroup matrix product (wgmma.mma_async) with both operands in shared
+// passed as a __grid_constant__ kernel parameter) and plain bulk copies,
+// thread-block clusters (a block's rank, the cluster barrier, an arrival on a
+// peer's mbarrier, a tensor load multicast to every block), the warpgroup
+// matrix product (wgmma.mma_async) with both operands in shared
 // memory, and on the host the encoding of a tensor map.
 //
 // The operand layout used throughout is "K-major with the 32-byte swizzle": a
@@ -108,6 +110,50 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 // visible to the threads that wait there (bar.sync) once it completes.
 __device__ __forceinline__ void named_bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------
+
+// this block's rank in its cluster (%cluster_ctarank)
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster arrives and waits
+// (barrier.cluster.arrive / barrier.cluster.wait, release / acquire); not
+// .aligned, so a warp may reach it diverged.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+// One arrival on the barrier at the same shared-memory offset in the block of
+// rank `rank` (mapa.shared::cluster, then mbarrier.arrive.shared::cluster with
+// the default .release.cta). What it releases are reads of shared memory by
+// wgmma that wgmma.wait_group has seen complete, so no wider fence is needed:
+// .release.cluster costs a MEMBAR.ALL.GPU per arrival, which waits for every
+// global store of the thread in flight (measured, PERF.md §6).
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar, unsigned rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar), "r"(rank)
+      : "memory");
+}
+// One box of a 3-D tensor map into the shared memory of every block of the
+// cluster in `mask`, at the same offset `dst` in each, each block's barrier at
+// offset `bar` counting the box's bytes
+// (cp.async.bulk.tensor...multicast::cluster).
+__device__ __forceinline__ void tma_load_3d_multicast(unsigned dst, const CUtensorMap* map,
+                                                      unsigned bar, int c0, int c1, int c2,
+                                                      unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1),
+        "r"(c2)
+      : "memory");
 }
 
 // ---- wgmma -------------------------------------------------------------

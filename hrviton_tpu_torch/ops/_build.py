@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
            "KERNEL_DTYPES", "check_tensor", "pad_to"]
 
 # csrc/<name>.cu
-SOURCES = ("spade_block", "spade_fused", "conv3x3", "conv_exp", "conv_shift",
+SOURCES = ("spade_block", "spade_fused", "conv3x3", "conv_shift",
            "copy_probe", "conv_tma")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"

@@ -1,11 +1,11 @@
 """What the conv experiments share: seeded inputs, the library convolution,
-timing, the check against the library call, the padding, the nine-tap plain
-arithmetic, the weight packings (the K-major one re-exported from
-``ops/conv_engine.py``) and the plain product shift of the shift
-formulations, and the launcher of the kernels in ``csrc/conv_exp.cu``
-(``conv_band``, ``conv_dma``), ``csrc/conv_shift.cu`` (``conv_e``) and
-``csrc/conv_tma.cu`` (``conv_halo``, ``conv_roll``, ``conv_prodroll``,
-``conv_e2``).
+timing, the check against the library call, the padding of the plain
+versions, the nine-tap plain arithmetic, the weight packings (the K-major one
+re-exported from ``ops/conv_engine.py``) and the plain product shift of the
+shift formulations, and the launcher of the kernels in ``csrc/conv_shift.cu``
+(``conv_e``) and ``csrc/conv_tma.cu`` (``conv_halo``, ``conv_roll``,
+``conv_band``, ``conv_dma``, ``conv_prodroll``, ``conv_e2``). Every kernel
+reads x as it is.
 
 Layouts are the JAX tools': activations NHWC, weights HWIO (3, 3, Cin, Cout).
 The experiments compute a 3x3 stride-1 conv with zero padding 1, accumulate
@@ -34,12 +34,13 @@ __all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
            "pad_input", "check_conv_args", "nine_taps", "pack_taps",
            "pack_kx", "pack_ky", "pack_weights", "pack_weights_kmajor",
            "roll_p", "conv_launcher", "run_conv_exp", "conv_wrapper",
-           "tensor_map_encode_us", "CARD_TH", "SHIFT_TH"]
+           "tensor_map_encode_us", "band_cluster", "band_active_clusters",
+           "CARD_TH", "SHIFT_TH"]
 
-CARD_TH = (8, 16, 32)      # band heights the staging formulations are built for
+CARD_TH = (8, 16, 32)      # band heights of conv_halo, conv_band and conv_dma
 SHIFT_TH = (8, 16)         # and those of the shift formulations
-_KC = 32                   # the input-channel chunk of conv_exp.cu and conv_shift.cu
-_NCOL = 64                 # a multiple of their output-channel tiles (64, 32)
+_KC = 32                   # the input-channel chunk of conv_shift.cu
+_NCOL = 64                 # a multiple of its output-channel tiles (64, 32)
 # conv_tma.cu's product-shift kernels: N tiles of 64, two chunks a stage
 _SHIFT_LAYOUT = functools.partial(pack_weights_kmajor, bn=64, kpad=32)
 
@@ -123,13 +124,13 @@ def check_conv_args(name: str, x, w, th: int) -> None:
                          f"band height th = {th}")
 
 
-def pad_input(x, cinp: int | None = None):
+def pad_input(x):
     """One zero row above and below, one zero column on the left and on the
-    right up to Wp = W + 2 rounded up to 8 (every pixel row stays 16-byte
-    aligned), channels zero-padded to ``cinp``: (B, H + 2, Wp, cinp)."""
-    ww, c = x.shape[2], x.shape[3]
+    right up to Wp = W + 2 rounded up to 8, as the JAX tools pad: (B, H + 2,
+    Wp, C). The plain versions' input; no kernel reads it."""
+    ww = x.shape[2]
     wp = pad_to(ww + 2, 8)
-    return F.pad(x, (0, (cinp or c) - c, 1, wp - ww - 1, 1, 1))
+    return F.pad(x, (0, 0, 1, wp - ww - 1, 1, 1))
 
 
 def nine_taps(src, tap, rows: int, cols: int):
@@ -175,9 +176,10 @@ def roll_p(p, kx: int):
 
 
 def pack_weights(w, pack=pack_taps):
-    """w (3, 3, Cin, Cout) as a kernel reads it: bf16, ordered by ``pack``,
-    each of the nine (Cin, Cout) slices zero-padded to the kernels' chunk and
-    tile, (9, CINP, NP). All that a wrapper does to the weights per call."""
+    """w (3, 3, Cin, Cout) as ``conv_e``'s kernel reads it: bf16, ordered by
+    ``pack``, each of the nine (Cin, Cout) slices zero-padded to the kernel's
+    chunk and tile, (9, CINP, NP). All that its wrapper does to the weights
+    per call."""
     cin, cout = w.shape[2:]
     return F.pad(pack(w.to(torch.bfloat16)).reshape(9, cin, cout),
                  (0, pad_to(cout, _NCOL) - cout, 0, pad_to(cin, _KC) - cin)
@@ -186,17 +188,20 @@ def pack_weights(w, pack=pack_taps):
 
 _ENTRIES = {
     # entry point: (csrc/<source>.cu, the band heights it admits, the layout
-    # of the packed weights). All take (x, wk, out, B, H, W, the padded row
-    # width of a staged input or the channels of an unstaged one, CINP, COUT,
+    # of the packed weights). All take (x, wk, out, B, H, W, C, CINP, COUT,
     # NP, TH, stream).
-    "conv_band_forward_bf16": ("conv_exp", CARD_TH, pack_weights),
-    "conv_dma_forward_bf16": ("conv_exp", CARD_TH, pack_weights),
+    "conv_band_forward_bf16": ("conv_tma", CARD_TH, pack_weights_kmajor),
+    "conv_dma_forward_bf16": ("conv_tma", CARD_TH, pack_weights_kmajor),
     "conv_halo_forward_bf16": ("conv_tma", CARD_TH, pack_weights_kmajor),
     "conv_roll_forward_bf16": ("conv_tma", SHIFT_TH, pack_weights_kmajor),
     "conv_prodroll_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
     "conv_e_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
     "conv_e2_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
 }
+
+
+# the BAND kind of conv_tma.cu: taps unrolled, taps in a loop
+_BAND_ENTRIES = ("conv_band_forward_bf16", "conv_dma_forward_bf16")
 
 
 def _declare(lib, source: str) -> None:
@@ -209,18 +214,28 @@ def _declare(lib, source: str) -> None:
     if source == "conv_tma":
         lib.conv_tma_encode_us.argtypes = [vp] * 2 + [i] * 7
         lib.conv_tma_encode_us.restype = ctypes.c_double
+        lib.conv_band_variant_forward_bf16.argtypes = [vp] * 3 + [i] * 10 + [vp]
+        lib.conv_band_variant_forward_bf16.restype = ctypes.c_int
+        for fn in (lib.conv_band_cluster, lib.conv_band_active_clusters):
+            fn.argtypes = [i]
+            fn.restype = ctypes.c_int
 
 
 def _load(source: str):
     return _build.load(source, lambda lib: _declare(lib, source))
 
 
-def conv_launcher(entry: str, x, w, th: int, stage=None, pack=pack_taps):
+def conv_launcher(entry: str, x, w, th: int, pack=pack_taps,
+                  cluster: int | None = None):
     """What ``run_conv_exp`` does before its launch, done once: returns
-    ``(launch, out)``, where ``launch()`` calls the bare C entry point on the
-    staged input and the packed weights and writes ``out``. Arguments as for
-    ``run_conv_exp``."""
+    ``(launch, out)``, where ``launch()`` calls the bare C entry point on x
+    and the packed weights and writes ``out``. Arguments as for
+    ``run_conv_exp``; ``cluster`` (conv_band and conv_dma only) launches the
+    kernel in clusters of that many blocks instead of its own (1, 2 or 4 at
+    th = 8; to time the variants it was chosen from)."""
     source, ths, layout = _ENTRIES[entry]
+    if cluster is not None and entry not in _BAND_ENTRIES:
+        raise ValueError(f"{entry}: no cluster variants")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{entry}: the kernel takes bfloat16, got {x.dtype}")
     if th not in ths:
@@ -232,42 +247,56 @@ def conv_launcher(entry: str, x, w, th: int, stage=None, pack=pack_taps):
     check_tensor("x", x, (n, h, ww, cin), torch.bfloat16, dev)
     if w.device != dev:
         raise ValueError(f"w on {w.device}, expected {dev}")
+    if cin % 8:
+        raise ValueError(f"{entry}: Cin = {cin} is not a multiple of 8 "
+                         f"(pixels must be 16-byte aligned)")
     wk = layout(w, pack)
     if wk.dim() == 3:                       # (9, CINP, NP)
         _, cinp, np_ = wk.shape
     else:                                   # (CINP / 16, NP / bn, 9, bn, 16)
         cinp, np_ = wk.shape[0] * wk.shape[4], wk.shape[1] * wk.shape[3]
-    if stage is None:
-        if cin % 8:
-            raise ValueError(f"{entry}: Cin = {cin} is not a multiple of 8 "
-                             f"(pixels must be 16-byte aligned)")
-        src, width_or_c = x, cin
-    else:
-        src = stage(x, cinp).contiguous()
-        width_or_c = src.shape[-2]
     out = torch.empty((n, h, ww, cout), dtype=torch.bfloat16, device=dev)
-    fn = getattr(_load(source), entry)
+    lib = _load(source)
+    if cluster is None:
+        fn, extra = getattr(lib, entry), ()
+    else:
+        fn = lib.conv_band_variant_forward_bf16
+        extra = (cluster, _BAND_ENTRIES.index(entry))    # 1: the tap loop
 
     def launch():
-        err = fn(src.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww,
-                 width_or_c, cinp, cout, np_, th,
+        err = fn(x.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, ww, cin,
+                 cinp, cout, np_, th, *extra,
                  torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return launch, out
 
 
-def run_conv_exp(entry: str, x, w, th: int, stage, pack=pack_taps):
-    """Launch one conv kernel of ``csrc/conv_exp.cu``, ``csrc/conv_shift.cu``
-    or ``csrc/conv_tma.cu`` on a CUDA x (bf16, NHWC) and w (3, 3, Cin, Cout).
-    ``stage(x, cinp)`` gives the kernel's input: the padded image,
-    channels padded to ``cinp``; with ``stage=None`` the kernel reads x as it
-    is and no copy of x is made. ``pack(w)`` orders the weights as the kernel
+def run_conv_exp(entry: str, x, w, th: int, pack=pack_taps):
+    """Launch one conv kernel of ``csrc/conv_shift.cu`` or
+    ``csrc/conv_tma.cu`` on a CUDA x (bf16, NHWC, Cin % 8 == 0), read as it
+    is, and w (3, 3, Cin, Cout). ``pack(w)`` orders the weights as the kernel
     multiplies them; each of its nine (Cin, Cout) slices is zero-padded to the
     kernel's chunk and tile. Raises on what the kernels do not take."""
-    launch, out = conv_launcher(entry, x, w, th, stage, pack)
+    launch, out = conv_launcher(entry, x, w, th, pack)
     launch()
     return out
+
+
+def band_cluster(th: int) -> int:
+    """The blocks of a cluster that share each stage's weights in conv_band's
+    and conv_dma's kernels at band height ``th`` (``csrc/conv_tma.cu``'s
+    BAND_CL; builds it at first use)."""
+    return _load("conv_tma").conv_band_cluster(th)
+
+
+def band_active_clusters(cluster: int) -> int:
+    """How many clusters of ``cluster`` conv_band blocks at th = 8 the card
+    holds at once (cudaOccupancyMaxActiveClusters; one block an SM)."""
+    n = _load("conv_tma").conv_band_active_clusters(cluster)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {-n}")
+    return n
 
 
 def tensor_map_encode_us(x, w, iters: int = 1000) -> float:
@@ -285,8 +314,7 @@ def tensor_map_encode_us(x, w, iters: int = 1000) -> float:
     return us
 
 
-def conv_wrapper(wrapper, plain, entry: str, stage, x, w, th: int,
-                 pack=pack_taps):
+def conv_wrapper(wrapper, plain, entry: str, x, w, th: int, pack=pack_taps):
     """What the conv wrappers do: a CPU tensor takes ``plain``, a CUDA tensor
     launches ``entry`` (or raises) and adds one to ``wrapper.launches``."""
     check_conv_args(wrapper.__name__, x, w, th)
@@ -294,6 +322,6 @@ def conv_wrapper(wrapper, plain, entry: str, stage, x, w, th: int,
         return plain(x, w, th)
     if x.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {x.device}")
-    out = run_conv_exp(entry, x, w, th, stage, pack)
+    out = run_conv_exp(entry, x, w, th, pack)
     wrapper.launches += 1
     return out

@@ -2,13 +2,17 @@
 """The band-copy 3x3 conv beside the library conv and the port's own kernel.
 
 PyTorch counterpart of ``tools/exp_pallas_conv.py``. ``conv_band`` is the
-port's name for that script's ``conv_pallas``: the input is padded in device
-memory, row bands of TH + 2 rows go through a double buffer filled by
-asynchronous copies, and the nine shifted products are unrolled; a
-hand-written CUDA kernel for sm_90a (``csrc/conv_exp.cu:conv_band_kernel``).
-The wrapper launches it for a CUDA tensor (bf16, th in 8 / 16 / 32; or
-raises) and takes the plain version ``conv_band_ref`` only for a CPU tensor.
-``conv_band.launches`` counts kernel launches.
+port's name for that script's ``conv_pallas``, which pads the input in
+device memory, copies row bands of TH + 2 rows through a double buffer and
+unrolls the nine shifted products. Here it is a hand-written CUDA kernel for
+sm_90a (``csrc/conv_tma.cu:conv_band_tma_kernel``, the BAND kind): the input
+is not padded, a band's tile with its zero border is one TMA box of x as it
+is, the products run on ``wgmma``, and the blocks of a thread-block cluster,
+adjacent column strips of the same band, share each stage's weights by one
+multicast load. The wrapper launches it for a CUDA tensor (bf16, th in 8 /
+16 / 32, Cin % 8 == 0; or raises) and takes the plain version
+``conv_band_ref`` only for a CPU tensor. ``conv_band.launches`` counts kernel
+launches.
 
     python -m hrviton_tpu_torch.tools.exp_conv
 
@@ -46,11 +50,11 @@ def conv_band_ref(x, w, th: int = 8):
 
 
 def conv_band(x, w, th: int = 8):
-    """3x3 conv from a pre-padded input through a double-buffered band copy,
-    taps unrolled (the JAX ``conv_pallas``). x: (B, H, W, Cin), w: (3, 3,
-    Cin, Cout), H % th == 0."""
+    """3x3 conv through band tiles, taps unrolled (the JAX ``conv_pallas``).
+    x: (B, H, W, Cin), w: (3, 3, Cin, Cout), H % th == 0, Cin % 8 == 0 on the
+    card. x is read as it is: no padded copy."""
     return conv_wrapper(conv_band, conv_band_ref, "conv_band_forward_bf16",
-                        pad_input, x, w, th)
+                        x, w, th)
 
 
 conv_band.launches = 0

@@ -3,9 +3,10 @@
 and in how the taps' shifts are realised.
 
 PyTorch counterpart of ``tools/exp_pallas_conv2.py``. Its six formulations
-are hand-written CUDA kernels for sm_90a. Four are built from Hopper's copy
-engine and warpgroup products (``csrc/conv_tma.cu``: TMA tensor loads into a
-ring of stages, ``wgmma``); their wrappers hand x over as it is:
+are hand-written CUDA kernels for sm_90a, and every wrapper hands x over as
+it is: no padded or gathered copy. Five are built from Hopper's copy engine
+and warpgroup products (``csrc/conv_tma.cu``: TMA tensor loads into a ring of
+stages, ``wgmma``):
 
   * ``conv_halo`` (the JAX ``conv_halo``): a standard blocked kernel whose
     nine taps are nine windows of one halo tile. The JAX tool gathers the
@@ -23,12 +24,11 @@ ring of stages, ``wgmma``); their wrappers hand x over as it is:
     (K = 3 C), three products, the same product shift; the image's border
     columns are zero by the boxes' out-of-bounds fill. The packing is three
     boxes, one row apart.
-
-One staging formulation (``csrc/conv_exp.cu``):
-
-  * ``conv_dma`` (the JAX ``conv_dma``): pre-padded input, row bands through
-    a double buffer filled by asynchronous copies, the nine taps in a loop
-    with computed offsets.
+  * ``conv_dma`` (the JAX ``conv_dma``, which pads x and copies row bands
+    through a double buffer): the band's tile is one TMA box of the unpadded
+    x, the nine taps run in a loop with computed offsets, and the blocks of a
+    thread-block cluster share each stage's weights by one multicast load
+    (``conv_band``'s kernel with the taps in a loop).
 
 One more shift formulation (``csrc/conv_shift.cu``):
 
@@ -39,11 +39,9 @@ One more shift formulation (``csrc/conv_shift.cu``):
 
 Each wrapper launches its kernel for a CUDA tensor (bf16; th in 8 / 16 / 32
 for ``conv_halo`` and ``conv_dma``, 8 / 16 for the shift formulations; Cin % 8
-== 0 where x is read as it is, that is everywhere but ``conv_dma``; or
-raises)
-and takes its plain version (``conv_<name>_ref``, which mirrors the JAX body
-step by step in f32) only for a CPU tensor. ``<wrapper>.launches`` counts
-kernel launches.
+== 0; or raises) and takes its plain version (``conv_<name>_ref``, which
+mirrors the JAX body step by step in f32) only for a CPU tensor.
+``<wrapper>.launches`` counts kernel launches.
 
     python -m hrviton_tpu_torch.tools.exp_conv2 [halo|roll|prodroll|dma|e|e2|all]
 
@@ -203,15 +201,15 @@ def conv_halo(x, w, th: int = 8):
     % 8 == 0 on the card. x is read as it is: a tile with its zero border is
     one TMA box; the kernel is ``conv_halo_tma_kernel``."""
     return conv_wrapper(conv_halo, conv_halo_ref, "conv_halo_forward_bf16",
-                        None, x, w, th)
+                        x, w, th)
 
 
 def conv_dma(x, w, th: int = 8):
-    """3x3 conv from a pre-padded input through a double-buffered band copy,
-    taps in a loop (the JAX ``conv_dma``). Arguments as ``conv_halo``; the
-    kernel is ``conv_dma_kernel``."""
-    return conv_wrapper(conv_dma, conv_dma_ref, "conv_dma_forward_bf16",
-                        pad_input, x, w, th)
+    """3x3 conv through band tiles, taps in a loop (the JAX ``conv_dma``).
+    Arguments as ``conv_halo``. x is read as it is: no padded copy; the
+    kernel is ``conv_dma_tma_kernel``."""
+    return conv_wrapper(conv_dma, conv_dma_ref, "conv_dma_forward_bf16", x, w,
+                        th)
 
 
 def conv_roll(x, w, th: int = 8):
@@ -220,7 +218,7 @@ def conv_roll(x, w, th: int = 8):
     is: the packed tile is three TMA boxes one column apart; the kernel is
     ``conv_roll_tma_kernel``."""
     return conv_wrapper(conv_roll, conv_roll_ref, "conv_roll_forward_bf16",
-                        None, x, w, th, pack_kx)
+                        x, w, th, pack_kx)
 
 
 def conv_prodroll(x, w, th: int = 8):
@@ -229,7 +227,7 @@ def conv_prodroll(x, w, th: int = 8):
     ``conv_roll``. x is read as it is: a stage's rows are one TMA box; the
     kernel is ``conv_prodroll_tma_kernel``."""
     return conv_wrapper(conv_prodroll, conv_prodroll_ref,
-                        "conv_prodroll_forward_bf16", None, x, w, th)
+                        "conv_prodroll_forward_bf16", x, w, th)
 
 
 def conv_e(x, w, th: int = 8):
@@ -237,16 +235,15 @@ def conv_e(x, w, th: int = 8):
     products, masked product shift (the JAX ``conv_e``). Arguments as
     ``conv_roll``, Cin % 8 == 0 on the card; x is read as it is, the kernel
     is ``conv_e_kernel``."""
-    return conv_wrapper(conv_e, conv_e_ref, "conv_e_forward_bf16", None, x, w,
-                        th)
+    return conv_wrapper(conv_e, conv_e_ref, "conv_e_forward_bf16", x, w, th)
 
 
 def conv_e2(x, w, th: int = 8):
     """As ``conv_e`` with the ky rows packed into channels (the JAX
     ``conv_e2``). x is read as it is: the packed tile is three TMA boxes one
     row apart; the kernel is ``conv_e2_tma_kernel``."""
-    return conv_wrapper(conv_e2, conv_e2_ref, "conv_e2_forward_bf16", None, x,
-                        w, th, pack_ky)
+    return conv_wrapper(conv_e2, conv_e2_ref, "conv_e2_forward_bf16", x, w,
+                        th, pack_ky)
 
 
 # selector -> (wrapper, band heights main times after its checks)

@@ -227,18 +227,23 @@ def test_new_kernels_reject_bad_input():
         tsf.fused_spade_modulate(*args[:8])       # bf16: C % 8
 
 
-# The staging formulations of the conv experiments (csrc/conv_exp.cu; halo:
-# csrc/conv_tma.cu) and the band-copy probe (csrc/copy_probe.cu), bf16 only.
+# The staging formulations of the conv experiments (csrc/conv_tma.cu: halo,
+# and the BAND kind of band and dma, whose blocks share each stage's weights
+# over a cluster) and the band-copy probe (csrc/copy_probe.cu), bf16 only.
 _TOOL_CONVS = {
     "band": (exp_conv.conv_band, exp_conv.conv_band_ref),
     "halo": (exp_conv2.conv_halo, exp_conv2.conv_halo_ref),
     "dma": (exp_conv2.conv_dma, exp_conv2.conv_dma_ref),
 }
 # (b, h, w, cin, cout, th): 11 bands (a block walks 8, the next 3) and 3
-# bands, W no multiple of the 16-column segment, Cin padded to one, two and
-# one 32-channel chunks, Cout no multiple of the 64-channel tile
+# bands, W no multiple of the 32- or 16-column strip, Cin one, three and one
+# 16-channel chunks (40: the third half from the map's bounds), Cout under
+# one 128-channel tile and 130 (two tiles, so two clusters per group of
+# strips); one strip (W = 5), padded to a whole cluster; 3 strips at th = 8
+# (W = 70), an odd count
 _TOOL_SHAPES = [(2, 88, 37, 16, 24, 8), (1, 48, 45, 40, 72, 16),
-                (3, 96, 20, 8, 130, 32)]
+                (3, 96, 20, 8, 130, 32), (1, 16, 5, 16, 16, 8),
+                (2, 24, 70, 24, 40, 8)]
 
 
 def _tool_inputs(b, h, w, cin, cout):
@@ -261,6 +266,28 @@ def test_tool_conv_kernel_matches_plain(kind, shape):
     assert run.launches == before + 1
     assert tuple(got.shape) == (b, h, w, cout)
     _assert_close(got, plain(x, wt, th), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 16, 5, 16, 16, 8), (2, 24, 70, 40, 130, 8),
+                                   (1, 16, 130, 8, 24, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["band", "dma"])
+def test_band_cluster_variants_match_plain(kind, cluster, shape):
+    """conv_band and conv_dma in each cluster they were chosen from (th = 8):
+    one strip padded to a whole cluster, 3 strips (odd) x two N tiles, 5
+    strips (padded to 6 or 8)."""
+    _need_card()
+    from hrviton_tpu_torch.tools import _common
+    run, plain = _TOOL_CONVS[kind]
+    b, h, w, cin, cout, th = shape
+    x, wt = _tool_inputs(b, h, w, cin, cout)
+    launch, out = _common.conv_launcher(f"conv_{kind}_forward_bf16", x, wt, th,
+                                        cluster=cluster)
+    launch()
+    torch.cuda.synchronize()
+    _assert_close(out, plain(x, wt, th), torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -356,8 +383,9 @@ def test_shift_conv_kernel_matches_plain(kind, shape):
 
 
 # the kernels whose borders are the kernel's own work: the shift formulations
-# and conv_halo, whose zero border is the out-of-bounds fill of its TMA boxes
-_BORDER_CONVS = {**_SHIFT_CONVS, "halo": _TOOL_CONVS["halo"]}
+# and conv_halo, conv_band and conv_dma, whose zero border is the
+# out-of-bounds fill of their TMA boxes
+_BORDER_CONVS = {**_SHIFT_CONVS, **_TOOL_CONVS}
 
 
 @pytest.mark.gpu
@@ -409,8 +437,8 @@ def test_shift_kernels_reject_bad_input():
     assert counts == [f.launches for f, _ in _SHIFT_CONVS.values()]
 
 
-# The four kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
-_TMA_CONVS = {"halo": _TOOL_CONVS["halo"], "roll": _SHIFT_CONVS["roll"],
+# The six kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
+_TMA_CONVS = {**_TOOL_CONVS, "roll": _SHIFT_CONVS["roll"],
               "prodroll": _SHIFT_CONVS["prodroll"], "e2": _SHIFT_CONVS["e2"]}
 # (b, h, w, cin, cout, th). A block owns 32 / 16 / 8 columns at th 8 / 16 / 32
 # and 128 output channels, a stage 16 input channels. W below one block, one

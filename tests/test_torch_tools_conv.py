@@ -177,9 +177,6 @@ def test_halo_tiles_match_jax_gather():
     assert tuple(tiles.shape) == (2, 4, th + 2, wp, 8)
     assert np.array_equal(tiles.numpy(), xp[:, idx])
     assert np.array_equal(_common.pad_input(torch.from_numpy(xn)).numpy(), xp)
-    # channels padded for the staged kernels' 32-channel chunks
-    assert tuple(_common.pad_input(torch.from_numpy(xn), 32).shape) \
-        == (2, 32 + 2, wp, 32)
 
 
 _SHIFT = {"roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
@@ -307,20 +304,23 @@ def test_kmajor_weight_packing(pack, cin, cout, bn, kpad):
                                       ("conv_roll_forward_bf16", 16),
                                       ("conv_e_forward_bf16", 8),
                                       ("conv_prodroll_forward_bf16", 16),
-                                      ("conv_e2_forward_bf16", 8)])
+                                      ("conv_e2_forward_bf16", 8),
+                                      ("conv_band_forward_bf16", 8),
+                                      ("conv_dma_forward_bf16", 16)])
 def test_unstaged_kernels_need_16_byte_pixels(entry, th):
     """A kernel that reads x as it is needs Cin % 8 == 0; the launcher says
     so before it builds or launches anything (here on a CPU tensor)."""
     x = torch.zeros(1, 16, 16, 12, dtype=torch.bfloat16)
     w = torch.zeros(3, 3, 12, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
-        _common.run_conv_exp(entry, x, w, th, None)
+        _common.run_conv_exp(entry, x, w, th)
 
 
 @pytest.mark.parametrize("entry,source,ths", [
     ("conv_halo_forward_bf16", "conv_tma", (8, 16, 32)),
     ("conv_roll_forward_bf16", "conv_tma", (8, 16)),
-    ("conv_band_forward_bf16", "conv_exp", (8, 16, 32)),
+    ("conv_band_forward_bf16", "conv_tma", (8, 16, 32)),
+    ("conv_dma_forward_bf16", "conv_tma", (8, 16, 32)),
     ("conv_prodroll_forward_bf16", "conv_tma", (8, 16)),
     ("conv_e_forward_bf16", "conv_shift", (8, 16)),
     ("conv_e2_forward_bf16", "conv_tma", (8, 16))])
@@ -330,9 +330,21 @@ def test_band_heights_are_looked_up_per_entry(entry, source, ths):
     assert _common._ENTRIES[entry][:2] == (source, ths)
     for th in {8, 16, 24, 32} - set(ths):
         with pytest.raises(ValueError, match="built for th"):
-            _common.run_conv_exp(entry, x, w, th, None)
+            _common.run_conv_exp(entry, x, w, th)
     with pytest.raises(TypeError, match="bfloat16"):
-        _common.run_conv_exp(entry, x.float(), w, ths[0], None)
+        _common.run_conv_exp(entry, x.float(), w, ths[0])
+
+
+@pytest.mark.parametrize("entry", ["conv_halo_forward_bf16",
+                                   "conv_roll_forward_bf16",
+                                   "conv_e_forward_bf16"])
+def test_only_the_band_kind_has_cluster_variants(entry):
+    """The cluster variants are conv_band's and conv_dma's; the launcher
+    refuses a cluster for any other kernel before it builds anything."""
+    x = torch.zeros(1, 16, 16, 8, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 8, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no cluster variants"):
+        _common.conv_launcher(entry, x, w, 8, cluster=2)
 
 
 def _strip_products(kind, x, w):
@@ -380,6 +392,82 @@ def test_product_shift_strips_match_the_conv(kind, ww):
     xn, wn = _inputs(size)
     x, w = torch.from_numpy(xn), torch.from_numpy(wn)
     got = _strip_products(kind, x, w)
+    want = _common.conv_ref(x, w.to(torch.bfloat16).float())
+    _assert_close(got, want.numpy(), torch.float32)
+
+
+# The BAND kind of csrc/conv_tma.cu (conv_band, conv_dma): a block owns TH
+# rows x OC columns x 128 output channels, OC = 32, 16, 8 at TH = 8, 16, 32;
+# a stage is 16 input channels, one box of TH + 2 rows x OC + 8 columns and
+# the stage's weights as 72 rows of 256 bf16.
+_BAND_OC = {8: 32, 16: 16, 32: 8}
+_W_ROWS, _W_ROW = 72, 256
+
+
+def _band_cluster_products(x, w, th, cl):
+    """What the BAND kind computes in clusters of ``cl`` blocks, as it
+    indexes its operands, in f32: the grid with the strips fastest within an
+    N tile, their count padded to a multiple of ``cl``; a cluster's blocks
+    (consecutive in the grid) on one N tile; each block's stage weights put
+    together from the cluster's slices (rank r loads rows [r 72 / cl, (r + 1)
+    72 / cl) into every block), which cover the stage exactly once; the nine
+    windows of the box at (x0 - 1, y0 - 1) with tap = 3 ky + kx walked as
+    conv_dma's loop does (ky = tap // 3); stores masked past W and Cout."""
+    wk = torch.from_numpy(_unswizzled(_common._ENTRIES[
+        "conv_band_forward_bf16"][2](w, _common.pack_taps)))
+    nch, nt, _, bn, kc = wk.shape
+    b, h, ww, c = x.shape
+    oc = _BAND_OC[th]
+    nstrips = -(-(-(-ww // oc)) // cl) * cl
+    xp = torch.zeros(b, h + 2, nstrips * oc + 8, nch * kc)   # the zero fill
+    xp[:, 1:h + 1, 1:ww + 1, :c] = x.float()
+    out = torch.zeros(b, h, nstrips * oc, nt * bn)
+    for first in range(0, nt * nstrips, cl):
+        blocks = range(first, first + cl)
+        tiles = {bx // nstrips for bx in blocks}
+        assert len(tiles) == 1
+        tile = tiles.pop()
+        slots = []
+        for q in range(nch):
+            stage = wk[q, tile].reshape(_W_ROWS * _W_ROW)
+            slot = torch.full_like(stage, float("nan"))
+            hits = torch.zeros(stage.numel(), dtype=torch.int64)
+            for rank in range(cl):
+                rows = slice(rank * _W_ROWS // cl * _W_ROW,
+                             (rank + 1) * _W_ROWS // cl * _W_ROW)
+                slot[rows] = stage[rows]
+                hits[rows] += 1
+            assert torch.equal(hits, torch.ones_like(hits))
+            slots.append(slot.reshape(9, bn, kc))
+        for bx in blocks:
+            x0 = bx % nstrips * oc
+            for y0 in range(0, h, th):
+                acc = torch.zeros(b, th, oc, bn)
+                for q in range(nch):
+                    box = xp[:, y0:y0 + th + 2, x0:x0 + oc + 8,
+                             q * kc:(q + 1) * kc]
+                    for tap in range(9):
+                        ky = tap // 3
+                        kx = tap - 3 * ky
+                        acc += box[:, ky:ky + th, kx:kx + oc] @ slots[q][tap].T
+                out[:, y0:y0 + th, x0:x0 + oc,
+                    tile * bn:(tile + 1) * bn] = acc
+    return out[:, :, :ww, :w.shape[-1]]
+
+
+@pytest.mark.parametrize("ww,th", [(5, 8), (37, 16), (64, 8), (130, 32)],
+                         ids=["w5_th8", "w37_th16", "w64_th8", "w130_th32"])
+@pytest.mark.parametrize("cl", [1, 2, 4])
+def test_band_cluster_tiles_cover_the_conv(cl, ww, th):
+    """The BAND kind's strips, clusters, weight slices and windows give the
+    library conv (f32): one strip padded to a whole cluster (W = 5), two
+    strips and three (W = 37 at OC = 16), two whole ones, 17 at OC = 8 (an
+    odd count, padded to 18 or 20); two bands; Cin = 24 (the second chunk
+    half from the bounds), Cout = 136 (two N tiles, the second ragged)."""
+    size = (2, 2 * th, ww, 24, 136, th)
+    xn, wn = _inputs(size)
+    x, w = torch.from_numpy(xn), torch.from_numpy(wn)
+    got = _band_cluster_products(x, w, th, cl)
     want = _common.conv_ref(x, w.to(torch.bfloat16).float())
     _assert_close(got, want.numpy(), torch.float32)
 
