@@ -8,12 +8,12 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
-     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,conv_shift,
-     copy_probe,conv_tma}.cu: twelve kernels and the instance statistics;
-     conv_tma.cu holds conv_halo, conv_roll, conv_band, conv_dma,
-     conv_prodroll and conv_e2, conv_shift.cu conv_e), one nvcc process each,
-     all started together, with ptxas's report of registers and spills; a
-     kernel whose wgmma ptxas serialised (C7518, C7520) fails it;
+     (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,copy_probe,
+     conv_tma}.cu: twelve kernels and the instance statistics; conv_tma.cu
+     holds conv_halo, conv_roll, conv_band, conv_dma, conv_prodroll, conv_e2
+     and conv_e), one nvcc process each, all started together, with ptxas's
+     report of registers and spills; a kernel whose wgmma ptxas serialised
+     (C7518, C7520) fails it;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
      every shape its main path gives it, batch 4, in bf16 and f32, with times
      beside the bound:
@@ -43,8 +43,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      packed; the times of the unit, the modulation and both convs are
      printed beside those of the designs they replaced (PERF.md); and the
      SASS of every kernel on wgmma (cuobjdump -sass: the engine's and the
-     six of conv_tma.cu) must hold HGMMA and no HMMA, and that of conv_band
-     and conv_dma in a cluster of 2 or 4 the multicast form of the TMA load;
+     seven of conv_tma.cu) must hold HGMMA and no HMMA, that of conv_band
+     and conv_dma in a cluster of 2 or 4 the multicast form of the TMA load,
+     and that of the band-copy probe the TMA load and store and no store of
+     a thread to device memory;
   4. first path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
      ngf=64 'most' at 1024x768, bf16, random seeded weights) with its default
      configuration answers 3 requests of batch 4; the unit kernel must launch
@@ -68,19 +70,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      height its entry point times, and at one ragged small size (the probe
      bit for bit), with times beside the library call (F.conv2d;
      Tensor.copy_), conv3x3_wide at the same shape and the bound. Every conv
-     (conv_halo, conv_roll, conv_band, conv_dma, conv_prodroll and conv_e2 on
-     TMA tensor loads and wgmma, csrc/conv_tma.cu, and conv_e) reads x as it
+     (conv_halo, conv_roll, conv_band, conv_dma, conv_prodroll, conv_e2 and
+     conv_e on TMA tensor loads and wgmma, csrc/conv_tma.cu) reads x as it
      is: its wrapper may allocate the output and the packed weights only,
      and may take no longer than the kernel alone and the weight packing.
-     The times of the six conv_tma.cu kernels are printed beside those of
-     the designs they replaced, with the time the host takes to encode a
-     call's tensor maps and, for conv_band and conv_dma, the cluster each
-     launch shares its weights over; conv_band, conv_dma, conv_prodroll and
-     conv_e2 are also timed alone by CUDA events around the bare C entry
-     point (weights packed beforehand), beside the profiler's time, and the
-     bound of the product-shift kernels with the products of the strips'
-     overlapping columns is printed beside the conv's. No kernel pays the
-     JAX tools' gather of halo tiles; it is timed alone for reference.
+     The times of the seven conv_tma.cu kernels and of the probe are printed
+     beside those of the designs they replaced, with the time the host takes
+     to encode a call's tensor maps and, for conv_band and conv_dma, the
+     cluster each launch shares its weights over; conv_band, conv_dma,
+     conv_prodroll, conv_e2, conv_e and the probe are also timed alone by
+     CUDA events around the bare C entry point (weights packed beforehand),
+     beside the profiler's time; the bound of conv_prodroll and conv_e2 with
+     the products of their strips' overlapping columns is printed beside the
+     conv's (conv_e walks whole rows: it has no overlap), and the probe's
+     line gives the bytes its halo rows read again. No kernel pays the JAX
+     tools' gather of halo tiles; it is timed alone for reference.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
@@ -88,8 +92,9 @@ phase 5 and prints only the last line: it is how two checkouts are timed in
 turns (a copy of this script in each, see README). With --alone it times
 the engine's model kernels at their main-path shapes by CUDA events (the
 modulation and the small conv around their bare entry points, the unit and
-the wide conv through their wrappers) and the tools' conv_prodroll and
-conv_e2, and conv_band and conv_dma in clusters of 1, 2 and 4 in turns (the
+the wide conv through their wrappers) and the tools' conv_prodroll, conv_e2,
+conv_e and the probe in turns with F.conv2d and Tensor.copy_, and conv_band
+and conv_dma in clusters of 1, 2 and 4 in turns (the
 variants the shipped cluster was chosen from; the tap loop against the
 unrolled taps, whose outputs alone are checked), and prints only the last
 line: it is how two builds of the engine, a checkout and a copy of it with
@@ -177,7 +182,12 @@ WGMMA_KERNELS = {"spade_fused": ("spade_modulate_kernel",),
                  "spade_block": ("spade_unit_gb_kernel", "spade_unit_conv_kernel"),
                  "conv_tma": ("conv_halo_tma_kernel", "conv_roll_tma_kernel",
                               "conv_band_tma_kernel", "conv_dma_tma_kernel",
-                              "conv_prodroll_tma_kernel", "conv_e2_tma_kernel")}
+                              "conv_prodroll_tma_kernel", "conv_e2_tma_kernel",
+                              "conv_e_tma_kernel")}
+# the kernels that move bytes by TMA in both directions, whose SASS must hold
+# the tensor load (UTMALDG) and store (UTMASTG) and no store of a thread to
+# device memory (STG)
+TMA_COPY_KERNELS = {"copy_probe": ("band_copy_probe_kernel",)}
 # the BAND kind's template arguments (TR, TC, CL) in a mangled kernel name
 BAND_ARGS = re.compile(r"conv_(?:band|dma)_tma_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
 # the SASS of a TMA load multicast over the cluster
@@ -190,32 +200,37 @@ TOOL_CONVS = [("conv_band", "conv_band_tma_kernel", (8, 16, 32)),
               ("conv_dma", "conv_dma_tma_kernel", (8,)),
               ("conv_roll", "conv_roll_tma_kernel", (8, 16)),
               ("conv_prodroll", "conv_prodroll_tma_kernel", (8, 16)),
-              ("conv_e", "conv_e_kernel", (8, 16)),
+              ("conv_e", "conv_e_tma_kernel", (8, 16)),
               ("conv_e2", "conv_e2_tma_kernel", (8, 16))]
 # wrappers that make no copy of x
 UNSTAGED = ("conv_halo", "conv_roll", "conv_band", "conv_dma", "conv_prodroll",
             "conv_e", "conv_e2")
 # how each tool wrapper orders the taps before it packs them
 TAP_ORDER = {"conv_roll": "pack_kx", "conv_e2": "pack_ky"}
-# the product-shift kernels on TMA and wgmma: bound with their strips' extra
+# the product-shift kernels in strips: bound with their strips' extra
 # products
 PRODUCT_SHIFT = ("conv_prodroll", "conv_e2")
+# and all three product-shift kernels (conv_e walks whole rows)
+SHIFT_KINDS = PRODUCT_SHIFT + ("conv_e",)
 # the BAND kind (conv_band, conv_dma): launched in clusters
 BAND_KIND = ("conv_band", "conv_dma")
 # also timed alone by CUDA events around the bare entry point
-EVENTS_ALONE = BAND_KIND + PRODUCT_SHIFT
-# What the six conv_tma.cu kernels took before they read x by TMA and
-# multiplied on wgmma (cp.async / mma.sync kernels, after a gather or a pad
-# in device memory for all but conv_e2): {band height: (wrapper ms, kernel
-# alone ms)} as PERF.md records them, at TOOLS_X on an NVIDIA H100 80GB HBM3
-# at 700 W. Printed beside this run's times; those kernels no longer exist to
-# be timed again.
+EVENTS_ALONE = BAND_KIND + SHIFT_KINDS
+# What the seven conv_tma.cu kernels and the probe took before they read x by
+# TMA (cp.async / mma.sync kernels, after a gather or a pad in device memory
+# for all but conv_e2 and conv_e; the probe's bulk copies into two slots and
+# 16-byte stores of every thread): {band height: (wrapper ms, kernel alone
+# ms)} as PERF.md records them, at TOOLS_X on an NVIDIA H100 80GB HBM3 at 700
+# W. Printed beside this run's times; those kernels no longer exist to be
+# timed again.
 EARLIER = {"conv_halo": {8: (7.62, 4.04), 16: (8.44, 5.07)},
            "conv_roll": {8: (8.63, 5.05)},
            "conv_band": {8: (4.78, 3.42), 16: (4.24, 2.94), 32: (3.99, 2.68)},
            "conv_dma": {8: (4.83, 3.48)},
            "conv_prodroll": {8: (7.87, 4.19), 16: (7.86, 4.45)},
-           "conv_e2": {8: (4.88, 4.68), 16: (5.42, 5.20)}}
+           "conv_e2": {8: (4.88, 4.68), 16: (5.42, 5.20)},
+           "conv_e": {8: (4.12, 3.90), 16: (4.58, 4.56)},
+           "copy_probe": {16: (0.572, 0.577)}}
 PROBE_TH = 16
 
 
@@ -469,7 +484,8 @@ def alone_phase():
     entry points (statistics computed and weights packed beforehand); the
     unit and the wide conv through their wrappers (weights packed once).
     Then the tools' product-shift kernels around their bare entry points at
-    TOOLS_X, TH 8 and 16 (weights packed beforehand), and conv_band and
+    TOOLS_X, TH 8 and 16 (weights packed beforehand), and the probe at
+    PROBE_TH, in turns with F.conv2d and Tensor.copy_, and conv_band and
     conv_dma at TH=8 in clusters of 1, 2 and 4 (band_variants)."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.ops import spade_block as sb
@@ -505,12 +521,27 @@ def alone_phase():
     from hrviton_tpu_torch.tools import _common
     x = _randn(gen, *TOOLS_X).to(bf)
     wt = _randn(gen, 3, 3, TOOLS_X[-1], TOOLS_X[-1], scale=0.1).to(bf)
-    for key in PRODUCT_SHIFT:
-        order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
-        for th in (8, 16):
-            launch, _ = _common.conv_launcher(f"{key}_forward_bf16", x, wt, th,
-                                              order)
-            log(f"alone {key} TH={th} {TOOLS_X}: {_events_ms(launch, 10):.3f} ms")
+    # in turns (forward, then backward), beside the library conv: the card
+    # slows as it heats, so a fixed order would favour the first
+    launches = {f"{key} TH={th}": _common.conv_launcher(
+        f"{key}_forward_bf16", x, wt, th,
+        getattr(_common, TAP_ORDER.get(key, "pack_taps")))[0]
+        for key in SHIFT_KINDS for th in (8, 16)}
+    xa = x.permute(0, 3, 1, 2)
+    wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    launches["library F.conv2d"] = lambda: F.conv2d(xa, wl, None, 1, 1)
+    from hrviton_tpu_torch.tools import exp_copy_probe
+    out = torch.empty_like(x)
+    launches[f"copy_probe TH={PROBE_TH}"] = exp_copy_probe.probe_launcher(x, PROBE_TH)[0]
+    launches["library Tensor.copy_"] = lambda: out.copy_(x)
+    times = {k: [] for k in launches}
+    for keys in (list(launches), list(launches)[::-1]):
+        for k in keys:
+            times[k].append(_events_ms(launches[k], 10))
+    for k, ms in times.items():
+        log(f"alone {k} {TOOLS_X}: " + ", ".join(f"{t:.3f}" for t in ms)
+            + f" ms, best {min(ms):.3f}")
+    del launches, out
     band_variants(x, wt)
 
 
@@ -593,24 +624,43 @@ def band_variants(x, wt, rounds=2):
     return times
 
 
+def _sass_functions(src, names):
+    """(kernel name, mangled name, SASS) of every function of csrc/<src>.cu's
+    library (cuobjdump -sass) whose name contains one of ``names``; raises
+    if one of them has none."""
+    from hrviton_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_build.build(src))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found = []
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        fname = func.split("\n", 1)[0].strip()
+        hit = next((n for n in names if n in fname), None)
+        if hit is not None:
+            found.append((hit, fname, func))
+    missing = set(names) - {hit for hit, _, _ in found}
+    if missing:
+        raise RuntimeError(f"{src}.cu: no SASS of {sorted(missing)}")
+    return found
+
+
 def sass_phase():
     """Every instantiation of the kernels on wgmma (the conv engine's and
     conv_tma.cu's): its SASS (cuobjdump -sass of the built library) must hold
     HGMMA (wgmma) and no HMMA (mma.sync); conv_band's and conv_dma's in a
     cluster of 2 or 4 the multicast TMA load too, and in a cluster of 1
-    none."""
-    from hrviton_tpu_torch.ops import _build
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    none. The probe's: the TMA load and store, and no STG."""
+    for src, names in TMA_COPY_KERNELS.items():
+        for hit, fname, func in _sass_functions(src, names):
+            counts = {op: len(re.findall(rf"\b{op}\b", func))
+                      for op in ("UTMALDG", "UTMASTG", "STG")}
+            log(f"sass {hit}: " + ", ".join(f"{k} x{v}" for k, v in counts.items()))
+            if not counts["UTMALDG"] or not counts["UTMASTG"] or counts["STG"]:
+                raise RuntimeError(f"{fname}: not TMA in both directions: {counts}")
     for src, names in WGMMA_KERNELS.items():
-        text = subprocess.run([tool, "-sass", str(_build.build(src))],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
         seen = {n: 0 for n in names}
-        for func in re.split(r"\n\s*Function : ", text)[1:]:
-            fname = func.split("\n", 1)[0].strip()
-            hit = next((n for n in names if n in fname), None)
-            if hit is None:
-                continue
+        for hit, fname, func in _sass_functions(src, names):
             seen[hit] += 1
             hgmma = len(re.findall(r"\bHGMMA\b", func))
             hmma = len(re.findall(r"\bHMMA\b", func))
@@ -624,8 +674,6 @@ def sass_phase():
                 if (cl > 1) != (casts > 0):
                     raise RuntimeError(f"{fname}: a cluster of {cl} with "
                                        f"{casts} multicast loads")
-        if not all(seen.values()):
-            raise RuntimeError(f"{src}.cu: no SASS of {seen}")
         log(f"sass {src}.cu: " + ", ".join(f"{n} x{k}" for n, k in seen.items())
             + ": HGMMA in each, no HMMA")
 
@@ -1237,6 +1285,18 @@ def tools_phase(card):
                 lambda: out.copy_(x), "band_copy_probe_kernel", 0,
                 2 * x.numel() * x.element_size(), exact=True, per_call=1)
     totals["copy_probe"] = {dtype: tot}
+    launch, _ = exp_copy_probe.probe_launcher(x, PROBE_TH)
+    ev, alone = _events_ms(launch, 10), tot["kernel_alone_ms"]
+    was = EARLIER["copy_probe"][PROBE_TH]
+    log(f"copy_probe TH={PROBE_TH}: wrapper {tot['ms']:.3f} ms, kernel alone by "
+        f"CUDA events around the bare entry point {ev:.3f} ms, by the profiler "
+        + ("not measured" if alone is None else f"{alone:.3f} ms")
+        + f" (TMA loads and stores); bound {tot['bound_ms']:.4f} ms (x read once, "
+        f"out written once: {2 * x.numel() * x.element_size() / 1e6:.0f} MB), the "
+        f"halo rows read again {2 * x.numel() * x.element_size() / PROBE_TH / 1e6:.1f} "
+        f"MB more (2/TH of x); the earlier design {was[0]:.3f} ms, kernel alone "
+        f"{was[1]:.3f} ms (PERF.md)")
+    del launch
     log(f"tools: {card}")
     del x, xa, out
     torch.cuda.empty_cache()
@@ -1277,15 +1337,18 @@ KERNELS = [
      "16)",
      "conv_tma.cu", "tools/exp_pallas_conv2.py:197"),
     ("conv_e", "conv_e (tools/exp_conv2.main('all') and main('e') under "
-     "SKIP_CHECK: the same x, unpadded, and w; times at TH=8, launches at "
-     "TH=8, 16)", "conv_shift.cu", "tools/exp_pallas_conv2.py:352"),
+     "SKIP_CHECK: the same x, unpadded, and w; one TMA box a chunk, nine "
+     "products a chunk on wgmma, the kx shift on three accumulators carried "
+     "along each row's 64-column tiles; times at TH=8, launches at TH=8, 16)",
+     "conv_tma.cu", "tools/exp_pallas_conv2.py:352"),
     ("conv_e2", "conv_e2 (tools/exp_conv2.main('all') and main('e2') under "
      "SKIP_CHECK: the same x, unpadded, and w; three TMA boxes a chunk (ky "
      "packed into channels), wgmma, the kx shift on three accumulators; "
      "times at TH=8, launches at TH=8, 16)", "conv_tma.cu",
      "tools/exp_pallas_conv2.py:438"),
     ("copy_probe", "band-copy probe (tools/exp_copy_probe.main: the same x, "
-     "TH=16)", "copy_probe.cu", "tools/exp_dma_probe.py:67"),
+     "TH=16; a TMA box a band into a ring of slots, its interior rows back by "
+     "a TMA store)", "copy_probe.cu", "tools/exp_dma_probe.py:67"),
     # a helper of kernels 1 and 2, no TPU kernel's counterpart: the JAX
     # package computes the statistics with XLA outside its Pallas kernels
     ("instance_stats", "instance_stats (one-pass statistics of the six units "

@@ -510,17 +510,6 @@ struct BiasEpilogue : PlainEpilogue {
 
 // ---- host ------------------------------------------------------------------
 
-inline int sm_count() {
-  static int n = [] {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      v = 132;
-    return v;
-  }();
-  return n;
-}
-
 // Launch one engine kernel over the input `a` (B, H, W, CA) bf16, contiguous,
 // 16-byte aligned, with the packed weights wk (NCHUNKS, NTILES, TAPS, BN, 16)
 // bf16. CA % 8 == 0; or, for a narrow Cfg, CA < 15 with W * CA % 8 == 0 and

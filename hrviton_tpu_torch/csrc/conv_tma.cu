@@ -1,9 +1,9 @@
-// Six formulations of the 3x3 stride-1 pad-1 convolution experiment designed
+// Seven formulations of the 3x3 stride-1 pad-1 convolution experiment designed
 // for Hopper's asynchronous units (sm_90a): the input tile with its halo and
 // its zero border arrives by TMA straight from the unpadded x, and the
-// products run on wgmma. All compute what csrc/conv_shift.cu's conv_e computes
-// (bf16 in, f32 accumulation over all nine taps and all of Cin, one rounding
-// to bf16, no bias, no activation).
+// products run on wgmma. All compute the same conv (bf16 in, f32 accumulation
+// over all nine taps and all of Cin, one rounding to bf16, no bias, no
+// activation).
 //
 //   conv_halo_tma_kernel replaces the TPU kernel
 //     tools/exp_pallas_conv2.py:_kernel_halo (through conv_halo, pl.pallas_call
@@ -43,6 +43,18 @@
 //     and product kx walks its K over the thirds into acc[kx]. The TPU
 //     kernel's border mask is the boxes' out-of-bounds fill: the products of
 //     a zero column are zero.
+//   conv_e_tma_kernel replaces tools/exp_pallas_conv2.py:_kernel_e (through
+//     conv_e, pl.pallas_call at exp_pallas_conv2.py:352): nine products of
+//     unshifted rows of the unpadded x and the kx shift on the f32 products,
+//     masked at the image's border (p0 adds nothing into column 0, p2 nothing
+//     into column W - 1). The TPU kernel holds a whole-width band and rolls
+//     whole products along it; its three band cases (a zero row above the
+//     first band, below the last) are the box's out-of-bounds fill here. What
+//     it keeps of the whole width: the shift is carried along the row. A
+//     warpgroup walks its row's 64-column tiles left to right, each box at
+//     image column 64 t with no halo column, and each tile hands the next,
+//     in registers, p0 of its last column and its last output column's sum
+//     so far; no product is computed twice.
 //   conv_band_tma_kernel replaces tools/exp_pallas_conv.py:_kernel (through
 //     conv_pallas, pl.pallas_call at exp_pallas_conv.py:93) and
 //     conv_dma_tma_kernel tools/exp_pallas_conv2.py:_kernel_dma (through
@@ -114,36 +126,60 @@
 // clusters of 4 (120 SMs). So BAND_CL is 1 at every TH, and clusters of 2 and
 // 4 are kept as variants to measure against.
 //
-// conv_prodroll and conv_e2 keep three accumulators of unshifted products and
-// shift them along the pixels, which an 8 x 8-pixel M tile would cut every 8
-// columns. So their M tile is 64 consecutive pixels of one row (64 rows of 32
-// bytes, core-matrix groups 256 bytes apart): warp w of a warpgroup holds
-// columns 16 w .. 16 w + 15, lane 4 g + t columns g and g + 8, so column c + 1
-// is lane + 4 or the lane's own second half (__shfl_sync), and only the three
-// warp boundaries of a tile pass a column through shared memory (behind the
-// warpgroup's named barrier). A tile's 64 product columns (image columns x0 - 1
-// .. x0 + 62) give 62 outputs; the strips of a row overlap by 2 columns (13
-// strips, 832 product columns at W = 768: 8.3% more products). Three
-// accumulators at N = 64 are 96 registers a thread; a block is two such tiles,
-// one row per warpgroup, x 64 output channels, and walks 64 rows of its strip
-// two at a time. One stage is (two rows, 32 input channels), two chunks of
-// 16: 16 KB of A for prodroll, 24 KB for e2 (x read three times over), 18
-// products of a warpgroup between two waits (one chunk a stage, half as
-// many, was 7-9% slower: PERF.md). Their weights, nine K = 16 x 64 slices a
-// chunk, would be 18 KB a chunk more than A, too many bytes from L2 for 2.4
-// MFLOP (90 FLOP a byte); so the block's N tile of weights stays in shared
-// memory for the whole walk where it fits (9 CINP x 64 x 2 bytes: 144 KB at
-// Cin = 128, CINP = Cin padded to 32), loaded chunk by chunk (one
-// bulk copy each) with the first two rows' stages, as the TPU kernels keep
-// all of w in VMEM. A larger Cin streams each stage's weights with its A, as
-// conv_halo does. The consumers wait for a stage's products before they
-// release it, as conv_halo's do, and shift, round and store a row's tile
-// once, after its last chunk, with conv_halo's 16-byte stores.
+// conv_prodroll, conv_e2 and conv_e keep three accumulators of unshifted
+// products and shift them along the pixels, which an 8 x 8-pixel M tile would
+// cut every 8 columns. So their tile is 64 consecutive pixels of one row (64
+// rows of 32 bytes, core-matrix groups 256 bytes apart). In prodroll and e2
+// it is the M tile: warp w of a warpgroup holds columns 16 w .. 16 w + 15,
+// lane 4 g + t columns g and g + 8, so column c + 1 is lane + 4 or the lane's
+// own second half (__shfl_sync), and only the three warp boundaries of a tile
+// pass a column through shared memory (behind the warpgroup's named
+// barrier); e's layout follows below. Three accumulators at N = 64
+// are 96 registers a thread; a block is two such tiles, one row per
+// warpgroup, x 64 output channels, and walks row pairs. One stage is (two
+// rows, 32 input channels), two chunks of 16: 16 KB of A for prodroll and e,
+// 24 KB for e2 (x read three times over), 18 products of a warpgroup between
+// two waits (one chunk a stage, half as many, was 7-9% slower: PERF.md).
+// Their weights, nine K = 16 x 64 slices a chunk, would be 18 KB a chunk more
+// than A, too many bytes from L2 for 2.4 MFLOP (90 FLOP a byte); so the
+// block's N tile of weights stays in shared memory for the whole walk where
+// it fits (9 CINP x 64 x 2 bytes: 144 KB at Cin = 128, CINP = Cin padded to
+// 32), loaded chunk by chunk (one bulk copy each) with the first tile's
+// stages, as the TPU kernels keep all of w in VMEM. A larger Cin streams each
+// stage's weights with its A, as conv_halo does. The consumers wait for a
+// stage's products before they release it, as conv_halo's do, and shift,
+// round and store a tile once, after its last chunk, with conv_halo's 16-byte
+// stores.
+//
+// prodroll and e2 cut a row into strips: a tile's 64 product columns (image
+// columns x0 - 1 .. x0 + 62) give 62 outputs, the strips overlap by 2
+// columns (13 strips, 832 product columns at W = 768: 8.3% more products),
+// and a block walks 64 rows of one strip. e walks whole rows: a block is one
+// N tile and a run of the batch's row pairs (the grid one wave, the pairs
+// split evenly), a warpgroup each row's ceil(W / 64) tiles left to right at
+// x0 = 64 t (768 product columns at W = 768, the conv's own work). Its
+// products are transposed: the weights are wgmma's A operand and the box its
+// B, so that a lane holds 16 pixels of two channels, and a pixel's
+// neighbours lie in its own registers or in the next lanes of its quad: the
+// shift takes 36 shuffles a lane and no shared memory (prodroll's 64 and
+// three warp boundaries passed through shared memory behind a barrier).
+// Output column x0 + 63 needs p2 of the next tile's column 0: the tile keeps
+// p0[63] and p0[62] + p1[63] in registers, and the next tile adds its p2[0]
+// to the one and takes the other into its column 0. The outputs leave
+// through a staging tile in shared memory (stmatrix transposes the
+// accumulator's 8 x 8 blocks into pixel rows), 16 bytes a store: columns
+// x0 - 1 .. x0 + 62 of each tile, and column x0 + 63 of a row's last tile
+// where the image has it (W a multiple of 64), with no p2 term: that is the
+// mask at column W - 1. A first build in prodroll's layout (the carry
+// through shared memory, the previous tile's column stored by warp 0) was
+// slower than prodroll: its epilogue, which both warpgroups run while the
+// tensor cores wait, had grown well past prodroll's (PERF.md).
 //
 // Plain C interface for ctypes; the entry points return cudaGetLastError(),
 // cudaErrorInvalidValue for a shape they do not take, or 1000 + the CUresult
 // if a tensor map cannot be encoded.
 
+#include <algorithm>
 #include <chrono>
 
 #include "conv_engine.cuh"   // engine::store_words and engine::pack2 (the shift kinds)
@@ -163,7 +199,7 @@ constexpr int TAP_BYTES = BN * KROW;
 // the weights' map copies a stage as W_ROWS rows of W_ROW bf16 (512 bytes)
 constexpr int W_ROW = 256, W_ROWS = W_BYTES / (2 * W_ROW);
 
-enum Kind { ROLL, HALO, PRODROLL, E2, BAND };
+enum Kind { ROLL, HALO, PRODROLL, E2, E, BAND };
 
 struct Params {
   bf* out;            // (B, H, W, COUT)
@@ -436,79 +472,100 @@ __global__ void __launch_bounds__(NT, 1)
   conv_tma<Cfg<BAND, TR, TC, CL, true>>(&tmx, &tmw, p);
 }
 
-// ---- the product-shift kinds: conv_prodroll and conv_e2 --------------------
+// ---- the product-shift kinds: conv_prodroll, conv_e2 and conv_e -------------
 
 namespace shift {
 
 constexpr int BN = 64;                       // output channels of a block
 constexpr int MW = 64;                       // product columns of an M tile: one row
-constexpr int OW = MW - 2;                   // its output columns
+constexpr int OW = MW - 2;                   // prodroll, e2: a strip's output columns
 constexpr int ROW_BYTES = MW * KROW;         // one image row of a box: 2 KB
 constexpr int TAP_BYTES = BN * KROW;
 constexpr int W_BYTES = 9 * TAP_BYTES;       // a chunk's weights: 18 KB
-constexpr int ROWS_PER_BLOCK = 64;           // rows a block walks, two at a time
+constexpr int ROWS_PER_BLOCK = 64;           // prodroll, e2: rows a block walks, two at a time
 constexpr int CPS = 2;                       // chunks of 16 input channels a stage
-// the columns passed across warp boundaries: [warpgroup][row parity][acc0 to
-// the next warp, acc2 to the previous][boundary][channel]
+// prodroll, e2: the columns a tile passes across its warps' boundaries
+// through shared memory, per warpgroup and row parity: acc0 at column 15 of
+// warp w to warp w + 1, acc2 at column 0 of warp w to warp w - 1; BN
+// channels each
 constexpr int XB_FLOATS = 2 * 2 * 2 * 3 * BN;
-// dynamic shared memory a block may take beside xbuf and the barriers
-constexpr int DYN_LIMIT = 232448 - 4 * XB_FLOATS - 256;
+// e: a warpgroup's tile of outputs in shared memory before its stores, image
+// columns x0 - 1 .. x0 + 63 (65 pixels of BN channels, 128 bytes each, the
+// 16-byte chunks of pixel s at chunk ^ (s & 7): conflict-free both ways)
+constexpr int PIX_BYTES = BN * 2, SLOTS = MW + 1, STAGING_BYTES = SLOTS * PIX_BYTES;
 
 struct Params {
   const unsigned char* wk;   // (NCHUNKS, NTILES, 9, BN, 16) bf16, swizzled
   bf* out;                   // (B, H, W, COUT)
   int H, W, COUT, NCHUNKS, NTILES, TH, NBANDS, BPB;   // BPB: bands a block walks
   int resident;              // the block's weights stay in shared memory
+  int NTW, PAIRS;            // e: 64-column tiles of a row, row pairs of the batch
 };
 
 template <int KIND_>
 struct Cfg {
   static constexpr int KIND = KIND_;
-  // per chunk, prodroll: one box of the rows y - 1 .. y + 2; e2: three
+  // per chunk, prodroll and e: one box of the rows y - 1 .. y + 2; e2: three
   // boxes of two rows at y - 1, y, y + 1, one per third of the packed K
   static constexpr int NBOX = KIND == E2 ? 3 : 1;
   static constexpr int BOX_BYTES = (KIND == E2 ? 2 : 4) * ROW_BYTES;
   static constexpr int CHUNK_BYTES = NBOX * BOX_BYTES;
   static constexpr int A_BYTES = CPS * CHUNK_BYTES;             // a stage's A: 16 or 24 KB
   static constexpr int STAGES = KIND == E2 ? 3 : 4;
-  static_assert(KIND == PRODROLL || KIND == E2, "a product-shift kind");
+  // e has no warp boundaries to pass, and both warpgroups' staging tiles in
+  // dynamic shared memory after the weights
+  static constexpr int XB = KIND == E ? 1 : XB_FLOATS;
+  static constexpr int EPI_BYTES = KIND == E ? 2 * STAGING_BYTES : 0;
+  // dynamic shared memory a block may take beside xbuf and the barriers
+  static constexpr int DYN_LIMIT = 232448 - 4 * XB - 256;
+  static_assert(KIND == PRODROLL || KIND == E2 || KIND == E, "a product-shift kind");
 };
 
-// The producer's lane: one stage per (two rows, CPS chunks), in the
-// consumers' order; the weights with the stages of the first two rows if
-// they stay (chunk q in slot q), else with every stage (in the stage's
-// slots).
+// What a block walks: row pairs [p0, p0 + np) of the batch (pair k: rows 2 k
+// and 2 k + 1 of the B H rows in order, so image 2 k / H; warpgroup wg takes
+// row 2 k + wg), each row in ntw tiles, tile t's box at image column xc + MW t.
+struct Walk {
+  int p0, np, ntw, xc;
+};
+
+// The producer's lane: one stage per (two rows, tile, CPS chunks), in the
+// consumers' order; the weights with the stages of the first tile if they
+// stay (chunk q in slot q), else with every stage (in the stage's slots).
 template <class C>
-__device__ __forceinline__ void produce(const CUtensorMap* tmx, const Params& p, unsigned ring,
-                                        unsigned wbase, unsigned full, unsigned empty, int x0,
-                                        int ntile, int r0, int pairs, int b) {
+__device__ __forceinline__ void produce(const CUtensorMap* tmx, const Params& p, const Walk& w,
+                                        unsigned ring, unsigned wbase, unsigned full,
+                                        unsigned empty, int ntile) {
   int st = 0;
   unsigned ph = 0;
-  for (int i = 0; i < pairs; ++i) {
-    const int y = r0 + 2 * i - 1;
-    const bool wl = !p.resident || i == 0;
-    for (int q = 0; q < p.NCHUNKS; q += CPS) {
-      mbar_wait(empty + 8 * st, ph ^ 1);
-      const unsigned bar = full + 8 * st, a = ring + st * C::A_BYTES;
-      mbar_expect_tx(bar, C::A_BYTES + (wl ? CPS * W_BYTES : 0));
+  for (int i = 0; i < w.np; ++i) {
+    const int row = 2 * (w.p0 + i), b = row / p.H, y = row % p.H - 1;
+    for (int t = 0; t < w.ntw; ++t) {
+      const bool wl = !p.resident || (i == 0 && t == 0);
+      const int xc = w.xc + MW * t;
+      for (int q = 0; q < p.NCHUNKS; q += CPS) {
+        mbar_wait(empty + 8 * st, ph ^ 1);
+        const unsigned bar = full + 8 * st, a = ring + st * C::A_BYTES;
+        mbar_expect_tx(bar, C::A_BYTES + (wl ? CPS * W_BYTES : 0));
 #pragma unroll
-      for (int c = 0; c < CPS; ++c) {
+        for (int c = 0; c < CPS; ++c) {
 #pragma unroll
-        for (int k = 0; k < C::NBOX; ++k)
-          tma_load_4d(a + c * C::CHUNK_BYTES + k * C::BOX_BYTES, tmx, bar, (q + c) * KC, x0 - 1,
-                      y + k, b);
-        if (wl)
-          bulk_load(wbase + (p.resident ? q + c : CPS * st + c) * W_BYTES,
-                    p.wk + ((size_t)(q + c) * p.NTILES + ntile) * W_BYTES, W_BYTES, bar);
+          for (int k = 0; k < C::NBOX; ++k)
+            tma_load_4d(a + c * C::CHUNK_BYTES + k * C::BOX_BYTES, tmx, bar, (q + c) * KC, xc,
+                        y + k, b);
+          if (wl)
+            bulk_load(wbase + (p.resident ? q + c : CPS * st + c) * W_BYTES,
+                      p.wk + ((size_t)(q + c) * p.NTILES + ntile) * W_BYTES, W_BYTES, bar);
+        }
+        if (++st == C::STAGES) { st = 0; ph ^= 1; }
       }
-      if (++st == C::STAGES) { st = 0; ph ^= 1; }
     }
   }
 }
 
-// A row's tile after its last chunk: o[m] = acc0[m - 1] + acc1[m] + acc2[m + 1]
-// at product column m (image column x0 - 1 + m), rounded once, stored for m
-// = 1 .. OW inside the image. Lane 4 g + t of warp w4 holds columns 16 w4 + g
+// prodroll and e2, a row's tile after its last chunk: o[m] = acc0[m - 1] +
+// acc1[m] + acc2[m + 1] at product column m (image column xc + m), rounded
+// once, stored for m = 1 .. OW inside the image (the tile's own edge columns
+// reach no kept output). Lane 4 g + t of warp w4 holds columns 16 w4 + g
 // (acc[.][4 j + e]) and + 8 (acc[.][4 j + 2 + e]), channels 8 j + 2 t + e.
 // Column g - 1 is lane - 4, or for g = 0 the previous warp's column 15 (from
 // xb); column g + 1 is lane + 4, or for g = 7 that lane's second half; the
@@ -519,14 +576,12 @@ __device__ __forceinline__ void produce(const CUtensorMap* tmx, const Params& p,
 // it again only after the next row's barrier, which every reader of this row
 // has passed.
 __device__ __forceinline__ void shift_store(float (&acc)[3][BN / 2], float* xb, const Params& p,
-                                            int b, int y, int x0, int n0, int lane, int w4,
+                                            int b, int y, int xc, int n0, int lane, int w4,
                                             int wg) {
   const int g = lane >> 2, t = lane & 3;
   const int up = (lane + 4) & 31, dn = (lane + 28) & 31;
   float* to_next = xb;              // acc0 at column 15 of warps 0 .. 2
   float* to_prev = xb + 3 * BN;     // acc2 at column 0 of warps 1 .. 3, at w4 - 1
-  // the neighbours inside the warp; the tile's own edge columns (m = -1, 64)
-  // reach no kept output
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -555,7 +610,7 @@ __device__ __forceinline__ void shift_store(float (&acc)[3][BN / 2], float* xb, 
     }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int m = 16 * w4 + g + 8 * h, col = x0 - 1 + m;
+    const int m = 16 * w4 + g + 8 * h, col = xc + m;
     const bool ok = m >= 1 && m <= OW && col < p.W;
     const size_t pix = ok ? (size_t)(b * p.H + y) * p.W + col : 0;
     unsigned wd[BN / 8];
@@ -566,10 +621,114 @@ __device__ __forceinline__ void shift_store(float (&acc)[3][BN / 2], float* xb, 
   }
 }
 
-// One stage's products: per chunk nine m64n64k16 of this warpgroup, one A
-// descriptor per ky (box row ky + wg of prodroll's box, row wg of e2's box
-// ky) for the three kx; w: the stage's first chunk's weights, the next
-// chunk's W_BYTES on. Committed as one group.
+// e, a row's tile after its last chunk. Its products are transposed (rows the
+// block's 64 output channels, columns the tile's 64 pixels), so lane 4 g + t
+// of warp w4 holds channels 16 w4 + 8 h + g (acc[.][4 j + 2 h + e]) at
+// pixels 8 j + 2 t + e: every neighbour of a pixel lies in the lane's own
+// registers or in the lanes t - 1 and t + 1 of its quad, and the shift needs
+// no shared memory and no barrier. o[m] = acc0[m - 1] + acc1[m] + acc2[m + 1]
+// at pixel m (image column xc + m); acc0[-1] is the previous tile's p0[63]
+// (lp: none at image column 0, the mask of p0), the image's last column takes
+// nothing of p2 (the mask of p2, applied in the tile that holds the column),
+// and o[63] lacks its p2 term, which the next tile's p2[0] completes: kept in
+// registers across the row's tiles (carry: p0[63]; part: o[63] so far, of
+// lane t = 3). The tile's outputs go to the warpgroup's staging tile at slot
+// m + 1 (stmatrix, transposing 8 x 8 blocks into pixel rows), with o[-1] =
+// part + p2[0] at slot 0, and from there by 16-byte stores: slot 0 if there
+// is a tile on the left, slots 1 .. 63 inside the image, slot 64 in the row's
+// last tile where the image has the column. Every lane reads the
+// accumulators first in the shuffles, which all lanes run.
+__device__ __forceinline__ void walk_store(float (&acc)[3][BN / 2], float (&carry)[2],
+                                           float (&part)[2], unsigned stage, const Params& p,
+                                           int b, int y, int xc, int n0, int lane, int w4,
+                                           int wg) {
+  const int g = lane >> 2, t = lane & 3;
+  const int lsrc = (lane & ~3) | ((t + 3) & 3), rsrc = (lane & ~3) | ((t + 1) & 3);
+  const bool left = xc > 0, last = xc + MW >= p.W;
+  const int cut = p.W - 1 - xc;                     // the image's last column, as a pixel
+  // the previous tile has stored its slots
+  named_bar_sync(1 + wg, 128);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lp = __shfl_sync(0xffffffffu, carry[h], lsrc);
+    const float pp = __shfl_sync(0xffffffffu, part[h], lsrc);
+    float L[8], R[8], rt[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      L[j] = __shfl_sync(0xffffffffu, acc[0][4 * j + 2 * h + 1], lsrc);
+      R[j] = __shfl_sync(0xffffffffu, acc[2][4 * j + 2 * h], rsrc);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      rt[2 * j] = acc[2][4 * j + 2 * h + 1];
+      rt[2 * j + 1] = t < 3 ? R[j] : j < 7 ? R[j + 1] : 0.f;
+    }
+    if (cut < MW - 1) {                             // the image ends in this tile
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (8 * (k >> 1) + 2 * t + (k & 1) == cut) rt[k] = 0.f;
+    }
+    unsigned wd[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float l0 = t > 0 ? L[j] : j > 0 ? L[j - 1] : left ? lp : 0.f;
+      const float o0 = l0 + acc[1][4 * j + 2 * h] + rt[2 * j];
+      const float o1 = acc[0][4 * j + 2 * h] + acc[1][4 * j + 2 * h + 1] + rt[2 * j + 1];
+      wd[j] = engine::pack2(o0, o1);
+      if (j == 7) part[h] = o1;
+    }
+    carry[h] = acc[0][4 * 7 + 2 * h + 1];
+    // pixel rows 8 j + r at slot 8 j + r + 1; lane 8 k + r gives row r of block k
+    const int chunk = 2 * w4 + h;
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += 4) {
+      const int s = 8 * (j0 + (lane >> 3)) + (lane & 7) + 1;
+      stmatrix_x4_trans(stage + s * PIX_BYTES + ((chunk ^ (s & 7)) << 4), wd[j0], wd[j0 + 1],
+                        wd[j0 + 2], wd[j0 + 3]);
+    }
+    if (left && t == 0) {                           // slot 0: o[-1] = part + p2[0]
+      const __nv_bfloat16 v = __float2bfloat16_rn(pp + acc[2][2 * h]);
+      st_shared_u16(stage + (chunk << 4) + 2 * g, __bfloat16_as_ushort(v));
+    }
+  }
+  named_bar_sync(1 + wg, 128);
+  // the slots' 16-byte chunks over the warpgroup: every load first, so that
+  // their latencies overlap, then the stores
+  constexpr int ITERS = (SLOTS * 8 + 127) / 128;
+  const int tid = 32 * w4 + lane;
+  const size_t row = (size_t)(b * p.H + y) * p.W;
+  uint4 v[ITERS];
+  bool ok[ITERS];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int k = tid + 128 * it, s = k >> 3, c = k & 7, col = xc - 1 + s;
+    ok[it] = k < SLOTS * 8 && (s == 0 ? left : col < p.W && (s < MW || last)) &&
+             n0 + 8 * c < p.COUT;
+    if (ok[it]) v[it] = ld_shared_v4(stage + s * PIX_BYTES + ((c ^ (s & 7)) << 4));
+  }
+  const bool wide = (p.COUT & 7) == 0;
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    if (!ok[it]) continue;
+    const int k = tid + 128 * it, s = k >> 3, co = n0 + 8 * (k & 7);
+    bf* o = p.out + (row + xc - 1 + s) * p.COUT + co;
+    if (wide) {
+      *reinterpret_cast<uint4*>(o) = v[it];
+    } else {
+      const unsigned wv[4] = {v[it].x, v[it].y, v[it].z, v[it].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (co + e < p.COUT)
+          o[e] = __ushort_as_bfloat16((unsigned short)(wv[e >> 1] >> (16 * (e & 1))));
+    }
+  }
+}
+
+// One stage's products: per chunk nine m64n64k16 of this warpgroup, one
+// descriptor of x per ky (box row ky + wg of prodroll's and e's box, row wg
+// of e2's box ky) for the three kx; w: the stage's first chunk's weights, the
+// next chunk's W_BYTES on. prodroll, e2: x the A operand (rows the pixels),
+// e: the weights (rows the output channels). Committed as one group.
 template <class C>
 __device__ __forceinline__ void stage_products(float (&acc)[3][BN / 2], unsigned a, unsigned w,
                                                int q, int wg) {
@@ -582,68 +741,99 @@ __device__ __forceinline__ void stage_products(float (&acc)[3][BN / 2], unsigned
     for (int ky = 0; ky < 3; ++ky) {
       const unsigned rows =
           c * C::CHUNK_BYTES + (C::KIND == E2 ? ky * C::BOX_BYTES : ky * ROW_BYTES);
-      const uint64_t da = wgmma_desc(a + rows + wg * ROW_BYTES, 8 * KROW, WGMMA_SWIZZLE_32B);
+      const uint64_t dx = wgmma_desc(a + rows + wg * ROW_BYTES, 8 * KROW, WGMMA_SWIZZLE_32B);
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
-        // prodroll: tap 3 ky + kx; e2: [kx][third ky] of the packed K
+        // prodroll, e: tap 3 ky + kx; e2: [kx][third ky] of the packed K
         const int slice = C::KIND == E2 ? 3 * kx + ky : 3 * ky + kx;
-        Wgmma<BN>::mma(acc[kx], da,
-                       wgmma_desc(w + c * W_BYTES + slice * TAP_BYTES, 8 * KROW,
-                                  WGMMA_SWIZZLE_32B),
-                       q != 0 || c != 0 || ky != 0);
+        const uint64_t dw = wgmma_desc(w + c * W_BYTES + slice * TAP_BYTES, 8 * KROW,
+                                       WGMMA_SWIZZLE_32B);
+        const int scale = q != 0 || c != 0 || ky != 0;
+        if constexpr (C::KIND == E)
+          Wgmma<BN>::mma(acc[kx], dw, dx, scale);
+        else
+          Wgmma<BN>::mma(acc[kx], dx, dw, scale);
       }
     }
   wgmma_commit();
 }
 
-// The consumers: warpgroup wg computes row r0 + 2 i + wg. Each stage's
-// products are waited for before the stage is released, and the accumulators
-// are read only after a row's last stage: ptxas serialises every wgmma of
-// the kernel if a wait or an accumulator's first read lies on a path that
-// not every row takes (a last chunk peeled off, a wait_group 1 kept across
-// stages: PERF.md).
+// The consumers: warpgroup wg computes row 2 k + wg of each pair k, tile by
+// tile. Each stage's products are waited for before the stage is released,
+// and the accumulators are read only after a tile's last stage: ptxas
+// serialises every wgmma of the kernel if a wait or an accumulator's first
+// read lies on a path that not every tile takes (a last chunk peeled off, a
+// wait_group 1 kept across stages: PERF.md).
 template <class C>
-__device__ __forceinline__ void consume(const Params& p, float* xbuf, unsigned ring,
-                                        unsigned wbase, unsigned full, unsigned empty, int x0,
-                                        int ntile, int r0, int pairs, int b, int warp,
+__device__ __forceinline__ void consume(const Params& p, const Walk& w, float* xbuf,
+                                        unsigned ring, unsigned wbase, unsigned staging,
+                                        unsigned full, unsigned empty, int ntile, int warp,
                                         int lane) {
   const int wg = warp >> 2, w4 = warp & 3;
   float acc[3][BN / 2] = {};
+  float carry[2] = {}, part[2] = {};          // e: across the tiles of a row
   int st = 0;
   unsigned ph = 0;
-  for (int i = 0; i < pairs; ++i) {
-    for (int q = 0; q < p.NCHUNKS; q += CPS) {
-      mbar_wait(full + 8 * st, ph);
-      stage_products<C>(acc, ring + st * C::A_BYTES,
-                        wbase + (p.resident ? q : CPS * st) * W_BYTES, q, wg);
-      wgmma_wait<0>();
+  for (int i = 0; i < w.np; ++i) {
+    const int row = 2 * (w.p0 + i) + wg, b = row / p.H, y = row % p.H;
+    for (int t = 0; t < w.ntw; ++t) {
+      for (int q = 0; q < p.NCHUNKS; q += CPS) {
+        mbar_wait(full + 8 * st, ph);
+        stage_products<C>(acc, ring + st * C::A_BYTES,
+                          wbase + (p.resident ? q : CPS * st) * W_BYTES, q, wg);
+        wgmma_wait<0>();
 #pragma unroll
-      for (int k = 0; k < 3; ++k) wgmma_fence_acc(acc[k]);
-      if (lane == 0) mbar_arrive(empty + 8 * st);
-      if (++st == C::STAGES) { st = 0; ph ^= 1; }
+        for (int k = 0; k < 3; ++k) wgmma_fence_acc(acc[k]);
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+        if (++st == C::STAGES) { st = 0; ph ^= 1; }
+      }
+      if constexpr (C::KIND == E)
+        walk_store(acc, carry, part, staging + wg * STAGING_BYTES, p, b, y, w.xc + MW * t,
+                   ntile * BN, lane, w4, wg);
+      else
+        shift_store(acc, xbuf + (2 * wg + (i & 1)) * (XB_FLOATS / 4), p, b, y, w.xc, ntile * BN,
+                    lane, w4, wg);
     }
-    shift_store(acc, xbuf + (2 * wg + (i & 1)) * (XB_FLOATS / 4), p, b, r0 + 2 * i + wg, x0,
-                ntile * BN, lane, w4, wg);
   }
 }
 
-// This block: image blockIdx.z, bands [BPB * blockIdx.y, ...) (64 rows),
-// column strip and channel tile from blockIdx.x (channel tile fastest: the
-// blocks that read one box run side by side).
+// This block. prodroll, e2: image blockIdx.z, bands [BPB * blockIdx.y, ...)
+// (64 rows), column strip and channel tile from blockIdx.x (channel tile
+// fastest: the blocks that read one box run side by side). e: channel tile
+// blockIdx.x, the blockIdx.y-th of gridDim.y even runs of the batch's row
+// pairs, whole rows.
 template <class C>
 __device__ __forceinline__ void conv_shift_tma(const CUtensorMap* tmx, const Params& p) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) unsigned long long bars[2 * C::STAGES];
-  __shared__ __align__(16) float xbuf[XB_FLOATS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __shared__ __align__(16) float xbuf[C::XB];
+  // the warp index broadcast from lane 0: the roles' branch warp-uniform to
+  // ptxas (the tap loop's C7520, PERF.md §6)
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
   // every box starts a swizzle pattern: the ring is 1024-byte aligned, and
-  // so are its boxes and the weights' slots after it
+  // so are its boxes and the weights' slots after it; e's staging tiles
+  // follow the weights
   const unsigned ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const unsigned wbase = ring + C::STAGES * C::A_BYTES;
+  const unsigned staging =
+      wbase + (p.resident ? p.NCHUNKS : C::STAGES * CPS) * (unsigned)W_BYTES;
   const unsigned full = smem_u32(bars), empty = full + 8 * C::STAGES;
-  const int ntile = blockIdx.x % p.NTILES, x0 = (blockIdx.x / p.NTILES) * OW;
-  const int i0 = blockIdx.y * p.BPB, b = blockIdx.z;
-  const int r0 = i0 * p.TH, pairs = min(p.BPB, p.NBANDS - i0) * p.TH / 2;
+  int ntile;
+  Walk w;
+  if constexpr (C::KIND == E) {
+    ntile = blockIdx.x;
+    w.p0 = (int)((long long)blockIdx.y * p.PAIRS / gridDim.y);
+    w.np = (int)((long long)(blockIdx.y + 1) * p.PAIRS / gridDim.y) - w.p0;
+    w.ntw = p.NTW;
+    w.xc = 0;
+  } else {
+    ntile = blockIdx.x % p.NTILES;
+    const int i0 = blockIdx.y * p.BPB;
+    w.p0 = (blockIdx.z * p.H + i0 * p.TH) / 2;
+    w.np = min(p.BPB, p.NBANDS - i0) * p.TH / 2;
+    w.ntw = 1;
+    w.xc = (blockIdx.x / p.NTILES) * OW - 1;
+  }
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -654,9 +844,9 @@ __device__ __forceinline__ void conv_shift_tma(const CUtensorMap* tmx, const Par
   }
   __syncthreads();
   if (warp == CONSUMER_WARPS) {
-    if (lane == 0) produce<C>(tmx, p, ring, wbase, full, empty, x0, ntile, r0, pairs, b);
+    if (lane == 0) produce<C>(tmx, p, w, ring, wbase, full, empty, ntile);
   } else {
-    consume<C>(p, xbuf, ring, wbase, full, empty, x0, ntile, r0, pairs, b, warp, lane);
+    consume<C>(p, w, xbuf, ring, wbase, staging, full, empty, ntile, warp, lane);
   }
 }
 
@@ -670,6 +860,11 @@ __global__ void __launch_bounds__(NT, 1)
 __global__ void __launch_bounds__(NT, 1)
     conv_e2_tma_kernel(const __grid_constant__ CUtensorMap tmx, const shift::Params p) {
   shift::conv_shift_tma<shift::Cfg<E2>>(&tmx, p);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    conv_e_tma_kernel(const __grid_constant__ CUtensorMap tmx, const shift::Params p) {
+  shift::conv_shift_tma<shift::Cfg<E>>(&tmx, p);
 }
 
 // ---- host ----------------------------------------------------------------
@@ -793,8 +988,8 @@ int band_forward(const void* x, const void* wk, void* out, int B, int H, int W, 
 
 
 // The product-shift kinds: x (B, H, W, C) with C % 8 == 0, wk (CINP / 16, NP /
-// 64, 9, 64, 16), CINP % 32 == 0; TH 8 or 16 (a block walks 64 rows whatever
-// TH is).
+// 64, 9, 64, 16), CINP % 32 == 0; TH 8 or 16 (the walk is the same whatever
+// TH is: the box's out-of-bounds fill is every band's border).
 template <class C, typename K>
 int launch_shift(K kernel, const void* x, const void* wk, void* out, int B, int H, int W, int Cx,
                  int CINP, int COUT, int NP, int TH, cudaStream_t stream) {
@@ -805,18 +1000,26 @@ int launch_shift(K kernel, const void* x, const void* wk, void* out, int B, int 
   const CUresult res = encode_x(&tmx, x, B, H, W, Cx, shift::MW, C::BOX_BYTES / shift::ROW_BYTES);
   if (res != CUDA_SUCCESS) return 1000 + (int)res;
   const int nchunks = CINP / KC;
-  const size_t kept = (size_t)C::STAGES * C::A_BYTES + (size_t)nchunks * shift::W_BYTES + 1024;
-  const bool resident = kept <= (size_t)shift::DYN_LIMIT;
-  const size_t smem =
-      resident ? kept : (size_t)C::STAGES * (C::A_BYTES + shift::CPS * shift::W_BYTES) + 1024;
+  const size_t kept =
+      (size_t)C::STAGES * C::A_BYTES + (size_t)nchunks * shift::W_BYTES + C::EPI_BYTES + 1024;
+  const bool resident = kept <= (size_t)C::DYN_LIMIT;
+  const size_t smem = resident ? kept
+                               : (size_t)C::STAGES * (C::A_BYTES + shift::CPS * shift::W_BYTES) +
+                                     C::EPI_BYTES + 1024;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nbands = H / TH, bpb = shift::ROWS_PER_BLOCK / TH;
+  const int nbands = H / TH, bpb = shift::ROWS_PER_BLOCK / TH, ntiles = NP / shift::BN;
+  const int pairs = B * (H / 2);
   const shift::Params p{static_cast<const unsigned char*>(wk), static_cast<bf*>(out), H, W, COUT,
-                        nchunks, NP / shift::BN, TH, nbands, bpb, resident};
-  const dim3 grid((W + shift::OW - 1) / shift::OW * (NP / shift::BN), (nbands + bpb - 1) / bpb,
-                  B);
+                        nchunks, ntiles, TH, nbands, bpb, resident,
+                        (W + shift::MW - 1) / shift::MW, pairs};
+  // e: one block an SM in all, a run of row pairs each; prodroll, e2: 64
+  // rows of a strip each
+  const int runs = std::max(1, std::min(pairs, (sm_count() + ntiles - 1) / ntiles));
+  const dim3 grid = C::KIND == E ? dim3(ntiles, runs, 1)
+                                 : dim3((W + shift::OW - 1) / shift::OW * ntiles,
+                                        (nbands + bpb - 1) / bpb, B);
   kernel<<<grid, NT, smem, stream>>>(tmx, p);
   return (int)cudaGetLastError();
 }
@@ -908,6 +1111,13 @@ int conv_e2_forward_bf16(const void* x, const void* wk, void* out, int B, int H,
                          int CINP, int COUT, int NP, int TH, void* stream) {
   return launch_shift<shift::Cfg<E2>>(conv_e2_tma_kernel, x, wk, out, B, H, W, C, CINP, COUT,
                                       NP, TH, static_cast<cudaStream_t>(stream));
+}
+
+// As conv_prodroll, operands and all.
+int conv_e_forward_bf16(const void* x, const void* wk, void* out, int B, int H, int W, int C,
+                        int CINP, int COUT, int NP, int TH, void* stream) {
+  return launch_shift<shift::Cfg<E>>(conv_e_tma_kernel, x, wk, out, B, H, W, C, CINP, COUT, NP,
+                                     TH, static_cast<cudaStream_t>(stream));
 }
 
 // Microseconds the host takes to encode one call's two tensor maps (the x map

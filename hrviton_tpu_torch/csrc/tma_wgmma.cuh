@@ -1,10 +1,12 @@
 // Helpers for kernels built from Hopper's asynchronous units (sm_90a):
-// mbarriers, TMA tensor loads (cp.async.bulk.tensor through a CUtensorMap
-// passed as a __grid_constant__ kernel parameter) and plain bulk copies,
+// mbarriers, TMA tensor loads and stores (cp.async.bulk.tensor through a
+// CUtensorMap passed as a __grid_constant__ kernel parameter; a store's
+// completion tracked by bulk groups) and plain bulk copies,
 // thread-block clusters (a block's rank, the cluster barrier, an arrival on a
 // peer's mbarrier, a tensor load multicast to every block), the warpgroup
 // matrix product (wgmma.mma_async) with both operands in shared
-// memory, and on the host the encoding of a tensor map.
+// memory, the transposing store of accumulator fragments (stmatrix), and on
+// the host the card's SM count and the encoding of a tensor map.
 //
 // The operand layout used throughout is "K-major with the 32-byte swizzle": a
 // matrix row (an M or N index) holds 16 bf16 values of K in 32 contiguous
@@ -89,6 +91,30 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of a 4-D tensor map from shared memory at `src` (128-byte aligned,
+// laid out as the load of the same box lays it) to the tensor, as a bulk
+// group of this thread (cp.async.bulk.tensor shared -> global): what lies
+// outside the tensor is not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, unsigned src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// closes this thread's bulk group of the stores issued since the last one
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's bulk groups still read shared memory
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// waits until at most N of this thread's bulk groups are not yet complete
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned) into
@@ -230,7 +256,40 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// ---- host: tensor maps ---------------------------------------------------
+// Four 8 x 8 b16 matrices of a warp's accumulator fragments (lane 4 g + t
+// holds row g, columns 2 t, 2 t + 1 of matrix k in r_k), each transposed into
+// shared memory: row r of matrix k (the fragments' column r) as 16 bytes at
+// the address that lane 8 k + r gives.
+__device__ __forceinline__ void stmatrix_x4_trans(unsigned addr, unsigned r0, unsigned r1,
+                                                  unsigned r2, unsigned r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+__device__ __forceinline__ void st_shared_u16(unsigned addr, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared_v4(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// ---- host ------------------------------------------------------------------
+
+// the card's streaming multiprocessors (132 if the runtime cannot say)
+inline int sm_count() {
+  static int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+// tensor maps
 
 typedef CUresult (*EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

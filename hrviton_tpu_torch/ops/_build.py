@@ -29,8 +29,7 @@ __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
            "KERNEL_DTYPES", "check_tensor", "pad_to"]
 
 # csrc/<name>.cu
-SOURCES = ("spade_block", "spade_fused", "conv3x3", "conv_shift",
-           "copy_probe", "conv_tma")
+SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

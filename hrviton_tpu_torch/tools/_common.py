@@ -1,11 +1,11 @@
 """What the conv experiments share: seeded inputs, the library convolution,
 timing, the check against the library call, the padding of the plain
-versions, the nine-tap plain arithmetic, the weight packings (the K-major one
-re-exported from ``ops/conv_engine.py``) and the plain product shift of the
-shift formulations, and the launcher of the kernels in ``csrc/conv_shift.cu``
-(``conv_e``) and ``csrc/conv_tma.cu`` (``conv_halo``, ``conv_roll``,
-``conv_band``, ``conv_dma``, ``conv_prodroll``, ``conv_e2``). Every kernel
-reads x as it is.
+versions, the nine-tap plain arithmetic, the tap orders and the K-major weight
+packing (re-exported from ``ops/conv_engine.py``), the plain product shift of
+the shift formulations, and the launcher of the kernels in
+``csrc/conv_tma.cu`` (``conv_halo``, ``conv_roll``, ``conv_band``,
+``conv_dma``, ``conv_prodroll``, ``conv_e2``, ``conv_e``). Every kernel reads
+x as it is.
 
 Layouts are the JAX tools': activations NHWC, weights HWIO (3, 3, Cin, Cout).
 The experiments compute a 3x3 stride-1 conv with zero padding 1, accumulate
@@ -32,15 +32,13 @@ from hrviton_tpu_torch.ops.conv_engine import pack_weights_kmajor
 
 __all__ = ["env_int", "problem_size", "arr", "conv_ref", "timeit", "check",
            "pad_input", "check_conv_args", "nine_taps", "pack_taps",
-           "pack_kx", "pack_ky", "pack_weights", "pack_weights_kmajor",
+           "pack_kx", "pack_ky", "pack_weights_kmajor",
            "roll_p", "conv_launcher", "run_conv_exp", "conv_wrapper",
            "tensor_map_encode_us", "band_cluster", "band_active_clusters",
            "CARD_TH", "SHIFT_TH"]
 
 CARD_TH = (8, 16, 32)      # band heights of conv_halo, conv_band and conv_dma
 SHIFT_TH = (8, 16)         # and those of the shift formulations
-_KC = 32                   # the input-channel chunk of conv_shift.cu
-_NCOL = 64                 # a multiple of its output-channel tiles (64, 32)
 # conv_tma.cu's product-shift kernels: N tiles of 64, two chunks a stage
 _SHIFT_LAYOUT = functools.partial(pack_weights_kmajor, bn=64, kpad=32)
 
@@ -175,17 +173,6 @@ def roll_p(p, kx: int):
     return r
 
 
-def pack_weights(w, pack=pack_taps):
-    """w (3, 3, Cin, Cout) as ``conv_e``'s kernel reads it: bf16, ordered by
-    ``pack``, each of the nine (Cin, Cout) slices zero-padded to the kernel's
-    chunk and tile, (9, CINP, NP). All that its wrapper does to the weights
-    per call."""
-    cin, cout = w.shape[2:]
-    return F.pad(pack(w.to(torch.bfloat16)).reshape(9, cin, cout),
-                 (0, pad_to(cout, _NCOL) - cout, 0, pad_to(cin, _KC) - cin)
-                 ).contiguous()
-
-
 _ENTRIES = {
     # entry point: (csrc/<source>.cu, the band heights it admits, the layout
     # of the packed weights). All take (x, wk, out, B, H, W, C, CINP, COUT,
@@ -195,7 +182,7 @@ _ENTRIES = {
     "conv_halo_forward_bf16": ("conv_tma", CARD_TH, pack_weights_kmajor),
     "conv_roll_forward_bf16": ("conv_tma", SHIFT_TH, pack_weights_kmajor),
     "conv_prodroll_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
-    "conv_e_forward_bf16": ("conv_shift", SHIFT_TH, pack_weights),
+    "conv_e_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
     "conv_e2_forward_bf16": ("conv_tma", SHIFT_TH, _SHIFT_LAYOUT),
 }
 
@@ -250,11 +237,8 @@ def conv_launcher(entry: str, x, w, th: int, pack=pack_taps,
     if cin % 8:
         raise ValueError(f"{entry}: Cin = {cin} is not a multiple of 8 "
                          f"(pixels must be 16-byte aligned)")
-    wk = layout(w, pack)
-    if wk.dim() == 3:                       # (9, CINP, NP)
-        _, cinp, np_ = wk.shape
-    else:                                   # (CINP / 16, NP / bn, 9, bn, 16)
-        cinp, np_ = wk.shape[0] * wk.shape[4], wk.shape[1] * wk.shape[3]
+    wk = layout(w, pack)                    # (CINP / 16, NP / bn, 9, bn, 16)
+    cinp, np_ = wk.shape[0] * wk.shape[4], wk.shape[1] * wk.shape[3]
     out = torch.empty((n, h, ww, cout), dtype=torch.bfloat16, device=dev)
     lib = _load(source)
     if cluster is None:
@@ -273,11 +257,11 @@ def conv_launcher(entry: str, x, w, th: int, pack=pack_taps,
 
 
 def run_conv_exp(entry: str, x, w, th: int, pack=pack_taps):
-    """Launch one conv kernel of ``csrc/conv_shift.cu`` or
-    ``csrc/conv_tma.cu`` on a CUDA x (bf16, NHWC, Cin % 8 == 0), read as it
-    is, and w (3, 3, Cin, Cout). ``pack(w)`` orders the weights as the kernel
-    multiplies them; each of its nine (Cin, Cout) slices is zero-padded to the
-    kernel's chunk and tile. Raises on what the kernels do not take."""
+    """Launch one conv kernel of ``csrc/conv_tma.cu`` on a CUDA x (bf16,
+    NHWC, Cin % 8 == 0), read as it is, and w (3, 3, Cin, Cout). ``pack(w)``
+    orders the weights as the kernel multiplies them; each of its nine (Cin,
+    Cout) slices is zero-padded to the kernel's chunk and tile. Raises on
+    what the kernels do not take."""
     launch, out = conv_launcher(entry, x, w, th, pack)
     launch()
     return out

@@ -4,9 +4,9 @@ and in how the taps' shifts are realised.
 
 PyTorch counterpart of ``tools/exp_pallas_conv2.py``. Its six formulations
 are hand-written CUDA kernels for sm_90a, and every wrapper hands x over as
-it is: no padded or gathered copy. Five are built from Hopper's copy engine
-and warpgroup products (``csrc/conv_tma.cu``: TMA tensor loads into a ring of
-stages, ``wgmma``):
+it is: no padded or gathered copy. All six are built from Hopper's copy
+engine and warpgroup products (``csrc/conv_tma.cu``: TMA tensor loads into a
+ring of stages, ``wgmma``):
 
   * ``conv_halo`` (the JAX ``conv_halo``): a standard blocked kernel whose
     nine taps are nine windows of one halo tile. The JAX tool gathers the
@@ -29,13 +29,11 @@ stages, ``wgmma``):
     x, the nine taps run in a loop with computed offsets, and the blocks of a
     thread-block cluster share each stage's weights by one multicast load
     (``conv_band``'s kernel with the taps in a loop).
-
-One more shift formulation (``csrc/conv_shift.cu``):
-
-  * ``conv_e`` (the JAX ``conv_e``): the unpadded x through a double-buffered
-    band copy in three cases (first, middle, last band), nine unshifted
-    products, the product shift with the image's border columns masked. The
-    wrapper makes no padded or gathered copy of x.
+  * ``conv_e`` (the JAX ``conv_e``): nine unshifted products of the unpadded
+    x and the product shift with the image's border columns masked. The JAX
+    kernel's three band cases are the boxes' out-of-bounds fill; the shift
+    is carried along each row, tile to tile, so no product column is
+    computed twice.
 
 Each wrapper launches its kernel for a CUDA tensor (bf16; th in 8 / 16 / 32
 for ``conv_halo`` and ``conv_dma``, 8 / 16 for the shift formulations; Cin % 8
@@ -233,8 +231,8 @@ def conv_prodroll(x, w, th: int = 8):
 def conv_e(x, w, th: int = 8):
     """3x3 conv from the unpadded x: three-case band copy, unshifted
     products, masked product shift (the JAX ``conv_e``). Arguments as
-    ``conv_roll``, Cin % 8 == 0 on the card; x is read as it is, the kernel
-    is ``conv_e_kernel``."""
+    ``conv_roll``, Cin % 8 == 0 on the card. x is read as it is: a stage's
+    rows are one TMA box; the kernel is ``conv_e_tma_kernel``."""
     return conv_wrapper(conv_e, conv_e_ref, "conv_e_forward_bf16", x, w, th)
 
 

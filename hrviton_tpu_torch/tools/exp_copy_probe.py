@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Probe: what does the double-buffered halo-band copy cost by itself?
+"""Probe: what does the halo-band copy cost by itself?
 
 PyTorch counterpart of ``tools/exp_dma_probe.py``: the band copy of the fused
 SPADE modulation with all arithmetic taken out, a passthrough of x. Band i
@@ -7,11 +7,12 @@ of an unpadded image is its rows [i * th - 1, i * th + th + 1) clipped to the
 image (the first and the last band have one row less than a middle band),
 copied into a slot of th + 2 rows; the th interior rows are written out.
 ``probe`` is a hand-written CUDA kernel for sm_90a
-(``csrc/copy_probe.cu:band_copy_probe_kernel``: asynchronous bulk copies
-into two shared-memory slots, an mbarrier per slot). The wrapper launches it
-for a CUDA tensor (bf16, C % 8 == 0; or raises) and takes the plain version
-``probe_ref`` only for a CPU tensor. ``probe.launches`` counts kernel
-launches.
+(``csrc/copy_probe.cu:band_copy_probe_kernel``: one TMA box of the unpadded
+x a band into a ring of shared-memory slots, its interior rows back by one
+TMA store, one thread issuing both; the rows outside the image arrive as
+zeros and are never stored). The wrapper launches it for a CUDA tensor
+(bf16, C % 8 == 0; or raises) and takes the plain version ``probe_ref`` only
+for a CPU tensor. ``probe.launches`` counts kernel launches.
 
     python -m hrviton_tpu_torch.tools.exp_copy_probe
 
@@ -33,7 +34,7 @@ from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import check_tensor
 from hrviton_tpu_torch.tools._common import arr, env_int, problem_size, timeit
 
-__all__ = ["probe", "probe_ref", "main"]
+__all__ = ["probe", "probe_ref", "probe_launcher", "main"]
 
 
 def _check_args(x, th: int) -> None:
@@ -68,28 +69,44 @@ def _declare(lib) -> None:
     lib.band_copy_probe_bf16.restype = ctypes.c_int
 
 
+def probe_launcher(x, th: int = 16):
+    """What ``probe`` does before its launch, done once: returns ``(launch,
+    out)``, where ``launch()`` calls the bare C entry point on the CUDA x
+    (bf16, C % 8 == 0, th + 2 <= 256) and writes ``out``. Raises on what the
+    kernel does not take."""
+    _check_args(x, th)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"probe: the kernel takes bfloat16, got {x.dtype}")
+    n, h, ww, c = x.shape
+    if c % 8:
+        raise ValueError(f"probe: the kernel's boxes are whole 16-byte pixels "
+                         f"and take C % 8 == 0, got C = {c}")
+    if th + 2 > 256:
+        raise ValueError(f"probe: a band of th + 2 rows is one box of at most "
+                         f"256 rows, got th = {th}")
+    check_tensor("x", x, (n, h, ww, c), torch.bfloat16, x.device)
+    out = torch.empty_like(x)
+    lib = _build.load("copy_probe", _declare)
+
+    def launch():
+        err = lib.band_copy_probe_bf16(
+            x.data_ptr(), out.data_ptr(), n, h, ww, c, th,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"band_copy_probe_bf16 launch failed: cudaError {err}")
+    return launch, out
+
+
 def probe(x, th: int = 16):
-    """x through the double-buffered halo-band copy (the JAX ``probe``). x:
-    (B, H, W, C), H % th == 0; returns a tensor equal to x bit for bit."""
+    """x through the halo-band copy (the JAX ``probe``). x: (B, H, W, C), H %
+    th == 0; returns a tensor equal to x bit for bit."""
     _check_args(x, th)
     if x.device.type == "cpu":
         return probe_ref(x, th)
     if x.device.type != "cuda":
         raise ValueError(f"probe: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"probe: the kernel takes bfloat16, got {x.dtype}")
-    n, h, ww, c = x.shape
-    if c % 8:
-        raise ValueError(f"probe: the kernel copies 16 bytes at a time and "
-                         f"takes C % 8 == 0, got C = {c}")
-    check_tensor("x", x, (n, h, ww, c), torch.bfloat16, x.device)
-    out = torch.empty_like(x)
-    lib = _build.load("copy_probe", _declare)
-    err = lib.band_copy_probe_bf16(
-        x.data_ptr(), out.data_ptr(), n, h, ww, c, th,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"band_copy_probe_bf16 launch failed: cudaError {err}")
+    launch, out = probe_launcher(x, th)
+    launch()
     probe.launches += 1
     return out
 

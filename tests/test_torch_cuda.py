@@ -229,7 +229,8 @@ def test_new_kernels_reject_bad_input():
 
 # The staging formulations of the conv experiments (csrc/conv_tma.cu: halo,
 # and the BAND kind of band and dma, whose blocks share each stage's weights
-# over a cluster) and the band-copy probe (csrc/copy_probe.cu), bf16 only.
+# over a cluster) and the band-copy probe (csrc/copy_probe.cu: TMA loads
+# and stores), bf16 only.
 _TOOL_CONVS = {
     "band": (exp_conv.conv_band, exp_conv.conv_band_ref),
     "halo": (exp_conv2.conv_halo, exp_conv2.conv_halo_ref),
@@ -304,10 +305,16 @@ def test_tool_conv_kernel_edge_rows(kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [
     (2, 88, 37, 16, 8), (1, 48, 45, 8, 16), (3, 96, 70, 24, 32),
-    (1, 16, 5, 128, 16)], ids=lambda s: "x".join(map(str, s)))
+    (1, 16, 5, 128, 16), (2, 32, 333, 128, 16), (1, 8, 300, 8, 8),
+    (1, 24, 19, 264, 8), (4, 256, 160, 128, 8)],
+    ids=lambda s: "x".join(map(str, s)))
 def test_probe_kernel_is_bit_exact(shape):
-    """Odd band counts (11: a block walks 8, the next 3), one band that is
-    first and last at once, W no multiple of the column segment."""
+    """Odd band counts (11), one band that is first and last at once (W = 5
+    inside one segment; W = 300 at C = 8: two segments of up to 256 columns,
+    the second ragged), W no multiple of the column segment (45, 70, 333 at
+    segments of 10 columns at C = 128 and TH = 16), C = 8 (16-byte pixels),
+    C = 264 (two channel boxes of 136, the second 8 past C), and more items
+    than a block's ring of slots holds (the ring wraps)."""
     _need_card()
     b, h, w, c, th = shape
     x = _a(np.random.default_rng(3), (b, h, w, c)).to(torch.bfloat16)
@@ -349,21 +356,24 @@ def test_tool_kernels_reject_bad_input():
         + [exp_copy_probe.probe.launches]
 
 
-# The shift formulations (conv_e: csrc/conv_shift.cu; roll, prodroll, e2:
-# csrc/conv_tma.cu), bf16, th 8 or 16.
+# The shift formulations (roll, prodroll, e2, e: csrc/conv_tma.cu), bf16, th
+# 8 or 16.
 _SHIFT_CONVS = {
     "roll": (exp_conv2.conv_roll, exp_conv2.conv_roll_ref),
     "prodroll": (exp_conv2.conv_prodroll, exp_conv2.conv_prodroll_ref),
     "e": (exp_conv2.conv_e, exp_conv2.conv_e_ref),
     "e2": (exp_conv2.conv_e2, exp_conv2.conv_e2_ref),
 }
-# (b, h, w, cin, cout, th): 11 bands (a block of e / e2 walks 8, the next 3),
-# Cin half a chunk, W = 37 (two column blocks of 30 or 32, the second ragged);
-# 3 bands, Cin = 40 (the second chunk's tail is zero-filled), W = 45 (four
-# blocks of 14 or three of 16), Cout = 72 (three channel tiles, the last
-# ragged); one band that is first and last at once, W = 70, Cout = 130
+# (b, h, w, cin, cout, th): 11 bands, Cin half a chunk, W = 37 (under one
+# tile of e, one strip of prodroll and e2); 3 bands, Cin = 40 (the second
+# chunk's tail is zero-filled), W = 45, Cout = 72 (two channel tiles of 64,
+# the second ragged); one band that is first and last at once, W = 70 (e: a
+# second tile of 6 columns), Cout = 130; W = 64 k, whose last column is the
+# last of a tile of e (stored by that tile, no p2 term), at k = 2; W = 64 k +
+# 1, whose last tile of e holds one column, at k = 1 and 2
 _SHIFT_SHAPES = [(2, 88, 37, 16, 24, 8), (1, 48, 45, 40, 72, 16),
-                 (3, 8, 70, 8, 130, 8)]
+                 (3, 8, 70, 8, 130, 8), (2, 16, 128, 24, 72, 8),
+                 (1, 32, 65, 40, 24, 16), (1, 16, 129, 16, 130, 8)]
 
 
 @pytest.mark.gpu
@@ -437,9 +447,8 @@ def test_shift_kernels_reject_bad_input():
     assert counts == [f.launches for f, _ in _SHIFT_CONVS.values()]
 
 
-# The six kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
-_TMA_CONVS = {**_TOOL_CONVS, "roll": _SHIFT_CONVS["roll"],
-              "prodroll": _SHIFT_CONVS["prodroll"], "e2": _SHIFT_CONVS["e2"]}
+# The seven kernels of csrc/conv_tma.cu: x by TMA boxes, products on wgmma.
+_TMA_CONVS = {**_TOOL_CONVS, **_SHIFT_CONVS}
 # (b, h, w, cin, cout, th). A block owns 32 / 16 / 8 columns at th 8 / 16 / 32
 # and 128 output channels, a stage 16 input channels. W below one block, one
 # band (H == th), Cin = 8 (half a chunk, from the map's bounds), Cout = 130
@@ -471,17 +480,18 @@ def test_tma_conv_kernel_matches_plain(kind, shape):
     _assert_close(got, plain(x, wt, th), torch.bfloat16)
 
 
-# The product-shift kernels of csrc/conv_tma.cu (prodroll, e2): a block owns
-# one strip of 62 output columns (64 product columns) x 64 output channels
-# and walks 64 rows, two at a time, 32 input channels a stage. (b, h, w, cin,
-# cout, th): 11 bands at th 8 (a block walks 8, the next 3), W = 40 below one
-# strip, Cin = 16 (one stage, its second chunk zero), Cout = 24 (under one N
-# tile); one band at th 16, W = 130 (two strips and 6 columns of a third),
-# Cin = 136 (CINP = 160: too many chunks to stay in shared memory, the
-# weights come with every stage), Cout = 72 (the second N tile ragged); Cin =
-# 72 (three stages, the last half from the map's bounds and half zero; the
-# weights stay), Cout = 130; the tools' width (13 strips); W one strip
-# exactly, Cin = Cout = 8.
+# The product-shift kernels of csrc/conv_tma.cu (prodroll, e2, e): 64 output
+# channels a block, 32 input channels a stage; prodroll and e2 walk 64 rows
+# of one strip of 62 output columns (64 product columns), two at a time, e
+# a run of the batch's row pairs, each row in tiles of 64 columns. (b, h, w,
+# cin, cout, th): 11 bands at th 8, W = 40 below one strip or tile, Cin = 16
+# (one stage, its second chunk zero), Cout = 24 (under one N tile); one band
+# at th 16, W = 130 (two strips and 6 columns of a third; e: two tiles and 2
+# columns of a third), Cin = 136 (CINP = 160: too many chunks to stay in
+# shared memory, the weights come with every stage), Cout = 72 (the second N
+# tile ragged); Cin = 72 (three stages, the last half from the map's bounds
+# and half zero; the weights stay), Cout = 130; the tools' width (13 strips,
+# 12 tiles); W one strip exactly, Cin = Cout = 8.
 _PRODUCT_SHIFT_SHAPES = [(2, 88, 40, 16, 24, 8), (1, 16, 130, 136, 72, 16),
                          (2, 16, 70, 72, 130, 8), (1, 24, 768, 128, 128, 8),
                          (3, 32, 62, 8, 8, 16)]
@@ -490,7 +500,7 @@ _PRODUCT_SHIFT_SHAPES = [(2, 88, 40, 16, 24, 8), (1, 16, 130, 136, 72, 16),
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", _PRODUCT_SHIFT_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("kind", ["prodroll", "e2"])
+@pytest.mark.parametrize("kind", ["prodroll", "e2", "e"])
 def test_product_shift_tma_kernel_matches_plain(kind, shape):
     _need_card()
     run, plain = _SHIFT_CONVS[kind]

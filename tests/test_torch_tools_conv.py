@@ -293,11 +293,6 @@ def test_kmajor_weight_packing(pack, cin, cout, bn, kpad):
         .float().numpy()
     want = want.reshape(9, nch, 16, nt, bn).transpose(1, 3, 0, 4, 2)
     assert np.array_equal(_unswizzled(wk), want)
-    # the same nine slices as the (9, CINP, NP) layout, chunk by chunk
-    flat = _common.pack_weights(w, pack).float().numpy()
-    assert np.array_equal(want[0, 0, :, :min(cout, 64), :min(cin, 16)],
-                          flat[:, :min(cin, 16), :min(cout, 64)]
-                          .transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("entry,th", [("conv_halo_forward_bf16", 8),
@@ -322,7 +317,7 @@ def test_unstaged_kernels_need_16_byte_pixels(entry, th):
     ("conv_band_forward_bf16", "conv_tma", (8, 16, 32)),
     ("conv_dma_forward_bf16", "conv_tma", (8, 16, 32)),
     ("conv_prodroll_forward_bf16", "conv_tma", (8, 16)),
-    ("conv_e_forward_bf16", "conv_shift", (8, 16)),
+    ("conv_e_forward_bf16", "conv_tma", (8, 16)),
     ("conv_e2_forward_bf16", "conv_tma", (8, 16))])
 def test_band_heights_are_looked_up_per_entry(entry, source, ths):
     x = torch.zeros(1, 96, 16, 8, dtype=torch.bfloat16)
@@ -392,6 +387,74 @@ def test_product_shift_strips_match_the_conv(kind, ww):
     xn, wn = _inputs(size)
     x, w = torch.from_numpy(xn), torch.from_numpy(wn)
     got = _strip_products(kind, x, w)
+    want = _common.conv_ref(x, w.to(torch.bfloat16).float())
+    _assert_close(got, want.numpy(), torch.float32)
+
+
+def _row_walk_products(x, w):
+    """What the kernel of ``csrc/conv_tma.cu`` behind conv_e (kind E)
+    computes, as it indexes its operands, in f32: the weights as its wrapper
+    packs them (K-major, N tiles of 64, unswizzled here); each row walked in
+    tiles of 64 product columns at x0 = 64 t (image columns x0 .. x0 + 63,
+    no halo column; rows outside the image zero, columns past W filled with
+    noise here, so that only the masks and the stores' bounds keep them
+    out); three accumulators acc[kx] = sum over ky and chunks of the rows ky
+    - 1 away times slice 3 ky + kx; in each tile o[m] = acc0[m - 1] + acc1[m]
+    + acc2[m + 1], acc0[-1] the previous tile's p0[63] (none into image
+    column 0), acc2's term dropped at image column W - 1; o[0 .. 62] stored,
+    o[63] less its p2 term carried to the next tile, which adds its p2[0]
+    and stores column x0 - 1, or stored by the row's last tile as it is.
+    Every output column is stored exactly once."""
+    wk = torch.from_numpy(_unswizzled(_common._ENTRIES["conv_e_forward_bf16"][2](
+        w, _common.pack_taps)))
+    nch, nt, _, bn, kc = wk.shape
+    taps = wk.permute(2, 0, 4, 1, 3).reshape(9, nch * kc, nt * bn)
+    b, h, ww, c = x.shape
+    ntw = -(-ww // 64)
+    noise = np.random.default_rng(9).standard_normal((b, h, ntw * 64 - ww, c))
+    xp = torch.zeros(b, h + 2, ntw * 64, nch * kc)
+    xp[:, 1:h + 1, :ww, :c] = x.float()
+    xp[:, 1:h + 1, ww:, :c] = torch.from_numpy(noise.astype(np.float32))
+    out = torch.zeros(b, h, ntw * 64, nt * bn)
+    stores = torch.zeros(ntw * 64, dtype=torch.int64)
+    for t in range(ntw):
+        x0 = 64 * t
+        acc = [0.0, 0.0, 0.0]
+        for ky in range(3):
+            rows = xp[:, ky:ky + h, x0:x0 + 64]
+            for kx in range(3):
+                acc[kx] = acc[kx] + rows @ taps[3 * ky + kx]
+        left, right = torch.zeros_like(acc[0]), torch.zeros_like(acc[2])
+        left[:, :, 1:] = acc[0][:, :, :-1]
+        right[:, :, :-1] = acc[2][:, :, 1:]
+        right[:, :, (x0 + torch.arange(64)) == ww - 1] = 0.0
+        if x0 > 0:
+            left[:, :, 0] = carry
+            out[:, :, x0 - 1] = part + acc[2][:, :, 0]
+            stores[x0 - 1] += 1
+        o = left + acc[1] + right
+        out[:, :, x0:x0 + 63] = o[:, :, :63]
+        stores[x0:x0 + 63] += 1
+        carry, part = acc[0][:, :, 63], o[:, :, 63]
+        if x0 + 64 >= ww:                         # the row's last tile
+            out[:, :, x0 + 63] = part
+            stores[x0 + 63] += 1
+    assert torch.equal(stores[:ww], torch.ones(ww, dtype=torch.int64))
+    return out[:, :, :ww, :w.shape[-1]]
+
+
+@pytest.mark.parametrize("ww", [5, 63, 64, 65, 129, 192])
+def test_product_shift_row_walk_matches_the_conv(ww):
+    """conv_e's row walk, its packed weights, the carry across tiles and the
+    masks at columns 0 and W - 1 give the library conv (f32): W below one
+    tile, one column short of it, exactly one, one column into the second
+    (the last tile holds one column), two and one column, three exactly;
+    Cin = 24 (the second chunk half zero), Cout = 72 (two N tiles of 64, the
+    second ragged)."""
+    size = (2, 4, ww, 24, 72, 4)
+    xn, wn = _inputs(size)
+    x, w = torch.from_numpy(xn), torch.from_numpy(wn)
+    got = _row_walk_products(x, w)
     want = _common.conv_ref(x, w.to(torch.bfloat16).float())
     _assert_close(got, want.numpy(), torch.float32)
 
