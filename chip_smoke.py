@@ -2,7 +2,7 @@
 """Drive the PyTorch / CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py --paths    # phases 1, 2, 4 and 5 only
+    python3 chip_smoke.py --paths    # phases 1, 2, 4, 5 and 6 only
     python3 chip_smoke.py --alone    # phases 1, 2 and kernels' times alone
 
 Phases (any failure exits non-zero, and no result line is printed):
@@ -60,7 +60,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      and the fused unit never; one request is compared with the same pipeline
      with the knobs off, and both are timed in turns; the layout copies
      around the modulation (models/spade.py:_nhwc) are timed in one request;
-  6. tools: the conv-experiment entry points hrviton_tpu_torch/tools/
+  6. the inference CLI's path (hrviton_tpu_torch/cli/test_generator.py) at
+     its own configuration and full size (fine 1024x768, condition 256x192,
+     tocg ngf=96, SPADE ngf=64 'most', batch 1, random weights from seed 0):
+     the fused unit's wrapper at the six unit shapes at batch 1, in f32 (the
+     FMA kernel, the CLI's default) and bf16 (the conv engine), against
+     spade_conv_ref with TF32 off, with times beside the bound; 26 compact
+     uint8 batches, each made with numpy from its own seed in the wire
+     format of VitonHDDataset(compact=True); expand_compact on the card bit
+     for bit against its CPU run; then the CLI's per-batch step (tryon_step)
+     on every batch in f32 (the CLI's default, with torch's default TF32
+     settings restored explicitly) and with --bf16: the fused unit exactly 6
+     launches a forward and the statistics 6, rgb finite in [-1, 1]; the
+     first 3 equal to a TryOnPipeline built directly on the same expanded
+     batch (f32 1e-4 x max|ref|, bf16 2 ulps); the first against the same
+     weights with the fused unit off, fed inputs built from the raw batch
+     with numpy (f32 1e-4 x max|ref|, bf16 the first path's limits); the 12
+     panels' grid and to_uint8 of the expected shapes; ms per image by CUDA
+     events over the 25 batches after the first (median, quartiles, min,
+     max); and an f32 batch again with TF32 off for the process, equal to
+     the default-settings run within 1e-4 x max|ref|, beside the difference
+     a forward with TF32 on gives (the check's teeth);
+  7. tools: the conv-experiment entry points hrviton_tpu_torch/tools/
      {exp_conv,exp_conv2,exp_copy_probe}.main at their full size (x (4, 1024,
      768, 128), w (3, 3, 128, 128), bf16), exp_conv2.main once with 'all'
      and, as the JAX script times them, with 'e' and 'e2' under SKIP_CHECK,
@@ -88,7 +109,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
-phase 5 and prints only the last line: it is how two checkouts are timed in
+phase 6 and prints only the last line: it is how two checkouts are timed in
 turns (a copy of this script in each, see README). With --alone it times
 the engine's model kernels at their main-path shapes by CUDA events (the
 modulation and the small conv around their bare entry points, the unit and
@@ -102,6 +123,7 @@ one change, are timed in turns. Imports nothing of JAX.
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -1099,6 +1121,276 @@ def second_path_phase(card):
     return counts
 
 
+CLI_TIMED = 25              # compact batches timed per dtype, after a warm-up
+CLI_CHECKED = 3             # of them, compared with TryOnPipeline
+
+
+def _compact_batch(h, w, seed):
+    """One loader batch of the CLI (batch 1) in the wire format of
+    VitonHDDataset(compact=True), made with numpy from ``seed``: uint8
+    images, 0/1 cloth masks, 13-group label maps in blocks of 16x16 pixels,
+    nested paired/unpaired cloth, and the name lists."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    u8 = lambda: rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8)
+
+    def labels():
+        small = rng.integers(0, 13, (1, h // 16, w // 16), dtype=np.uint8)
+        return small.repeat(16, axis=1).repeat(16, axis=2)
+
+    def mask():
+        m = np.zeros((1, h, w, 1), np.uint8)
+        m[:, h // 5:h // 2, w // 4:3 * w // 4] = 1
+        return m
+    names = [f"{seed:05d}_00.jpg"], [f"{seed + 1:05d}_00.jpg"]
+    return {"c_name": {"paired": names[0], "unpaired": names[1]},
+            "im_name": names[0],
+            "cloth": {"paired": u8(), "unpaired": u8()},
+            "cloth_mask": {"paired": mask(), "unpaired": mask()},
+            "parse_idx": labels(), "parse_agnostic_idx": labels(),
+            "densepose": u8(), "pose": u8(), "image": u8(), "agnostic": u8()}
+
+
+def _reference_inputs(raw, dtype):
+    """The pipeline's inputs built from a raw compact batch with numpy, apart
+    from the port's data path: the unpaired cloth and mask, u8 * (2/255) - 1
+    in f32, the 13-way one-hot of the agnostic parse; on the card in
+    ``dtype``."""
+    import numpy as np
+    img = lambda u8: u8.astype(np.float32) * np.float32(2 / 255) - np.float32(1)
+    arrays = {"cloth": img(raw["cloth"]["unpaired"]),
+              "cloth_mask": raw["cloth_mask"]["unpaired"].astype(np.float32),
+              "parse_agnostic": np.eye(13, dtype=np.float32)[
+                  raw["parse_agnostic_idx"]],
+              "densepose": img(raw["densepose"]),
+              "agnostic": img(raw["agnostic"])}
+    return {k: torch.from_numpy(v).to("cuda").to(dtype)
+            for k, v in arrays.items()}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _tf32(cudnn, matmul):
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def _within(label, got, want, dtype):
+    """got against want: f32 1e-4 x max|want|, bf16 2 ulps of max|want|."""
+    scale = want.float().abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else 2 * 2 ** -7) * scale
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"{label}: max_abs {err:.3e} (tol {tol:.3e}) "
+        f"{'ok' if err <= tol else 'FAIL'}")
+    if got.shape != want.shape or err > tol:
+        raise RuntimeError(f"{label}: disagree")
+
+
+def _spread(ms):
+    """median, quartiles, min and max of a list of times, as one string."""
+    import statistics
+    q1, med, q3 = statistics.quantiles(ms, n=4)
+    return (f"median {med:.2f} ms (quartiles {q1:.2f}-{q3:.2f}, min "
+            f"{min(ms):.2f}, max {max(ms):.2f}, n {len(ms)})")
+
+
+def _cli_units(gen):
+    """Kernel 1 at the CLI's batch 1, at the six unit shapes, in f32 (the
+    FMA kernel, the CLI's default) and bf16 (the conv engine), each unit
+    against spade_conv_ref on the same inputs, TF32 off. Returns {dtype:
+    totals over one forward's six units}."""
+    from hrviton_tpu_torch.ops import spade_block as sb
+    totals = {}
+    _tf32(False, False)
+    for dtype in (torch.float32, torch.bfloat16):
+        elem = torch.empty(0, dtype=dtype).element_size()
+        tot = totals[dtype] = {}
+        for name, h, w, c, cout, ks, act, residual in UNITS:
+            args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual,
+                                     batch=1)
+            _check_site(
+                tot, f"cli unit {name} batch 1", dtype, 1,
+                lambda: sb.spade_conv_unit(act, *args, res),
+                lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
+                None, ("spade_unit", "instance_stats"),
+                sb.unit_flops(1, h, w, c, cout, ks),
+                sb.unit_bytes(1, h, w, c, cout, ks, elem=elem,
+                              residual=residual))
+            del args, res
+        fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+        log(f"cli unit, one batch-1 forward's six units, {str(dtype)[6:]}: "
+            f"wrapper {tot['ms']:.3f} ms, kernel alone "
+            f"{fmt(tot['kernel_alone_ms'])}, plain {tot['plain_ms']:.3f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return totals
+
+
+def cli_phase(card):
+    """The inference CLI's path: its own configuration at full size, batch
+    1, random weights from seed 0, f32 and --bf16 (module docstring, phase
+    6). Returns ({dtype: kernel 1's totals at batch 1}, {dtype: launches of
+    each kernel over the CLI's steps in that dtype})."""
+    import warnings
+    from hrviton_tpu_torch import TryOnPipeline
+    from hrviton_tpu_torch.cli import test_generator as tg
+    from hrviton_tpu_torch.core.precision import bf16_params
+    from hrviton_tpu_torch.data.device import expand_compact, to_device
+    from hrviton_tpu_torch.pipelines.tryon import tryon_forward
+    from hrviton_tpu_torch.utils.vis import make_image_grid, to_uint8
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    base = ["--tocg_checkpoint", "", "--gen_checkpoint", "", "--device", "cuda"]
+    opt = tg.get_opt(base)
+    fh, fw = opt.fine_height, opt.fine_width
+    raws, expand_ms = [], []
+    for seed in range(1 + CLI_TIMED):
+        raw = _compact_batch(fh, fw, seed)
+        raw.pop("c_name")
+        raw.pop("im_name")
+        raws.append(raw)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = expand_compact(to_device(raw, "cuda"))
+        e1.record()
+        torch.cuda.synchronize()
+        expand_ms.append(e0.elapsed_time(e1))
+        want = dict(_leaves(expand_compact(to_device(raw, "cpu"))))
+        for key, t in _leaves(got):
+            w = want[key]
+            if t.dtype != w.dtype or not torch.equal(t.cpu(), w):
+                raise RuntimeError(f"expand_compact {key}: the card's result "
+                                   f"differs from the CPU's")
+    log(f"cli: expand_compact of {len(raws)} compact batches at {fh}x{fw} on "
+        f"the card equals its CPU run bit for bit ({len(list(_leaves(got)))} "
+        f"tensors each); the copy to the card and the expansion, batch 1, "
+        f"CUDA events: {_spread(expand_ms[1:])} after the first "
+        f"{expand_ms[0]:.2f} ms")
+
+    wrappers = _wrappers()
+    expect = {k: v for k, v in FIRST_PATH.items() if k in wrappers}
+    no_launch = dict.fromkeys(expect, 0)
+    grid_shape = (3 * (fh + 2) + 2, 4 * (fw + 2) + 2, 3)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    launches, ms_per_image = {}, {}
+    try:
+        units = _cli_units(gen)
+        ref = TryOnPipeline(device="cuda", seed=opt.seed, noise_seed=opt.seed + 1)
+        for bf16 in (False, True):
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            tag = f"cli {'bf16' if bf16 else 'f32'}"
+            pipe = tg.build_pipeline(tg.get_opt(base + (["--bf16"] if bf16
+                                                        else [])))
+            if bf16:
+                bf16_params(ref.tocg)
+                bf16_params(ref.generator)
+                ref.dtype = torch.bfloat16
+            _tf32(True, False)                  # torch's defaults, explicitly
+            n_total = dict(no_launch)
+            times, steps = [], []
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for i, raw in enumerate(raws):
+                    before = {k: w.launches for k, w in wrappers.items()}
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    step = tg.tryon_step(pipe, raw)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    n = {k: w.launches - before[k] for k, w in wrappers.items()}
+                    for k in n:
+                        n_total[k] += n[k]
+                    if n != expect:
+                        raise RuntimeError(f"{tag} batch {i}: launches {n}, "
+                                           f"expected {expect}")
+                    rgb = step.output
+                    if rgb.dtype != dtype or tuple(rgb.shape) != (1, fh, fw, 3):
+                        raise RuntimeError(f"{tag}: rgb {rgb.dtype} "
+                                           f"{tuple(rgb.shape)}")
+                    if not torch.isfinite(rgb).all() or rgb.abs().max().item() > 1.0:
+                        raise RuntimeError(f"{tag}: rgb not finite or outside [-1, 1]")
+                    times.append(e0.elapsed_time(e1))
+                    if i < CLI_CHECKED:
+                        steps.append(step)
+                        log(f"{tag} batch {i}: {times[-1]:.1f} ms, launches "
+                            f"{n}, rgb mean {rgb.float().mean().item():.4f} "
+                            f"std {rgb.float().std().item():.4f}")
+                    del step, rgb
+            launches[dtype] = n_total
+            tf32_warn = [str(w.message) for w in caught
+                         if "tf32" in str(w.message).lower()
+                         or "fp32_precision" in str(w.message)]
+            log(f"{tag}: warnings about TF32 settings while it ran: "
+                f"{tf32_warn or 'none'}")
+            grid = make_image_grid(tg.grid_panels(steps[0], 0), nrow=4)
+            u8 = to_uint8(steps[0].output.float().cpu())
+            if grid.shape != grid_shape or u8.shape != (1, fh, fw, 3) or \
+                    u8.dtype.name != "uint8":
+                raise RuntimeError(f"{tag}: grid {grid.shape}, to_uint8 "
+                                   f"{u8.shape} {u8.dtype}")
+            for i, step in enumerate(steps):
+                want, _ = ref(step.batch)
+                _within(f"{tag} batch {i}: the CLI's step against "
+                        f"TryOnPipeline on the same expanded batch",
+                        step.output, want, dtype)
+            # a reference apart from the port's data path and kernels: the
+            # inputs built from the raw batch with numpy, the same weights
+            # with the fused unit off (cuDNN's convs in its place)
+            before = {k: w.launches for k, w in wrappers.items()}
+            pipe.generator.set_fused(False)
+            plain, _ = pipe(_reference_inputs(raws[0], dtype))
+            pipe.generator.set_fused(True)
+            if {k: w.launches - before[k] for k, w in wrappers.items()} != no_launch:
+                raise RuntimeError(f"{tag}: the unfused pipeline launched a kernel")
+            label = (f"{tag} batch 0: the CLI's step against the unfused "
+                     f"pipeline on inputs built with numpy from the raw batch")
+            if bf16:
+                _compare(label, steps[0].output, plain)
+            else:
+                _within(label, steps[0].output, plain, dtype)
+            if not bf16:
+                # the same f32 request with TF32 off for the process; then
+                # the same forward with TF32 on, outside the pipeline's guard
+                _tf32(False, False)
+                off = tg.tryon_step(pipe, raws[0]).output
+                _within("cli f32: torch's default TF32 settings against TF32 "
+                        "off", steps[0].output, off, dtype)
+                _tf32(True, True)
+                noise = torch.Generator(device=pipe.device).manual_seed(
+                    pipe.noise_seed)
+                with torch.inference_mode():
+                    on, _ = tryon_forward(
+                        pipe.tocg, lambda x, seg: pipe.generator(x, seg, noise),
+                        steps[0].batch, pipe.cfg)
+                d = (on.float() - off.float()).abs()
+                log(f"cli f32: a forward with TF32 on (outside the guard) "
+                    f"against TF32 off: max_abs {d.max().item():.3e} mean_abs "
+                    f"{d.mean().item():.3e} (the limit above: "
+                    f"{1e-4 * off.abs().max().item():.3e})")
+                _tf32(True, False)
+            profile_phase(tag, pipe, steps[-1].batch)
+            ms_per_image[tag] = _spread(times[1:])
+            log(f"{tag}: grid {grid.shape}, to_uint8 {u8.shape}; ms per image "
+                f"(batch 1, CUDA events around tryon_step, after the first "
+                f"batch, each batch from its own seed): {ms_per_image[tag]}; "
+                f"first batch {times[0]:.1f} ms | {card}")
+            del pipe, steps
+            torch.cuda.empty_cache()
+    finally:
+        _tf32(*saved)
+    for tag, s in ms_per_image.items():
+        log(f"cli: {tag} ms per image {s} | {card}")
+    return units, launches
+
+
 def _hold(label, wrapper, call, plain, exact):
     """One call of a wrapper at a small size against its plain version: one
     launch, finite, within 2 bf16 ulps of max|ref| (or bit for bit)."""
@@ -1309,6 +1601,16 @@ KERNELS = [
      "norm_s/norm_0/norm_1, bf16; per unit the gamma|beta and consumer "
      "launches on the TMA / wgmma conv engine and the one-pass statistics)",
      "spade_block.cu", "hrviton_tpu/ops/spade_block.py:337"),
+    ("spade_unit_cli_f32", "spade_unit on the inference CLI's path, f32 (its "
+     "default): the six units of one batch-1 forward at 1024x768, per unit "
+     "the CUDA-core FMA kernel (spade_unit_kernel) and the one-pass "
+     "statistics; launches over the CLI's f32 batches",
+     "spade_block.cu", "hrviton_tpu/ops/spade_block.py:337"),
+    ("spade_unit_cli_bf16", "spade_unit on the inference CLI's path, --bf16: "
+     "the six units of one batch-1 forward at 1024x768, per unit the "
+     "gamma|beta and consumer launches on the conv engine and the one-pass "
+     "statistics; launches over the CLI's bf16 batches",
+     "spade_block.cu", "hrviton_tpu/ops/spade_block.py:337"),
     ("spade_modulate", "spade_modulate (nine norms of one batch-4 request: "
      "up_2, up_3, up_4 x norm_s/norm_0/norm_1, bf16)", "spade_fused.cu",
      "hrviton_tpu/ops/spade_fused.py:249"),
@@ -1352,7 +1654,8 @@ KERNELS = [
     # a helper of kernels 1 and 2, no TPU kernel's counterpart: the JAX
     # package computes the statistics with XLA outside its Pallas kernels
     ("instance_stats", "instance_stats (one-pass statistics of the six units "
-     "of one batch-4 request, bf16; also one per norm of the second path)",
+     "of one batch-4 request, bf16; launches also one per norm of the second "
+     "path)",
      "spade_fused.cu", "hrviton_tpu/ops/spade_block.py:270"),
 ]
 
@@ -1370,6 +1673,10 @@ def main():
         first_path_phase(card)
         torch.cuda.empty_cache()
         second_path_phase(card)
+        torch.cuda.empty_cache()
+        # a parent checkout from before the CLI (timed in turns) has none
+        if importlib.util.find_spec("hrviton_tpu_torch.cli") is not None:
+            cli_phase(card)
         _contract_line()
         return
     if sys.argv[1:] == ["--alone"]:
@@ -1384,17 +1691,26 @@ def main():
     first = first_path_phase(card)
     torch.cuda.empty_cache()
     second = second_path_phase(card)
-    # the statistics run on both paths; every other kernel on one of them
+    torch.cuda.empty_cache()
+    cli_units, cli_launches = cli_phase(card)
+    # the statistics run on both paths, every other kernel on one of them;
+    # the CLI's launches of the unit go to its own rows, with its batch-1
+    # times (the statistics' launches there are inside those rows' times)
     launches = {k: first.get(k, 0) + second.get(k, 0)
                 for k in set(first) | set(second)}
+    rows = {k: v[torch.bfloat16] for k, v in totals.items()}
+    for dtype, key in ((torch.float32, "spade_unit_cli_f32"),
+                       (torch.bfloat16, "spade_unit_cli_bf16")):
+        rows[key] = cli_units[dtype]
+        launches[key] = cli_launches[dtype]["spade_unit"]
     torch.cuda.empty_cache()
     tool_totals, tool_launches = tools_phase(card)
-    totals.update(tool_totals)
+    rows.update({k: v[torch.bfloat16] for k, v in tool_totals.items()})
     launches.update(tool_launches)
     record = {"kernels": []}
     ths = {key: t for key, _, t in TOOL_CONVS}
     for key, name, source, replaces in KERNELS:
-        t = totals[key][torch.bfloat16]
+        t = rows[key]
         if launches[key] <= 0:
             raise RuntimeError(f"{key}: no launch on its main path")
         if key in BAND_KIND:

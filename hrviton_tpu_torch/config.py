@@ -1,8 +1,9 @@
 """Typed configuration of the try-on path.
 
 The port's own copy of ``hrviton_tpu/config.py``'s ``TOCGConfig``,
-``SPADEGenConfig`` and ``PipelineConfig`` (same fields and defaults, less the
-training-only ``remat``), so the port imports nothing of the JAX package.
+``SPADEGenConfig``, ``PipelineConfig`` and ``DataConfig`` (same fields and
+defaults, less the training-only ``remat``), so the port imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -74,3 +75,16 @@ class PipelineConfig:
     # normalization constants (96, 128) (test_generator.py:208).
     flow_norm_w: float = (96 - 1.0) / 2.0
     flow_norm_h: float = (128 - 1.0) / 2.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """VITON-HD dataset layout (reference cp_dataset.py contract)."""
+    dataroot: str = "./data/zalando-hd-resize"
+    datamode: str = "train"
+    data_list: str = "train_pairs.txt"
+    fine_height: int = 256
+    fine_width: int = 192
+    semantic_nc: int = 13
+    shuffle: bool = True
+    workers: int = 4

@@ -645,3 +645,44 @@ def test_engine_kernels_reject_bad_input():
     with pytest.raises(TypeError):
         tsf.norm_stats(x, torch.zeros(1, 8, 8, 1, device="cuda"),
                        torch.zeros(4, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_f32_pipeline_is_free_of_tf32():
+    """An f32 TryOnPipeline gives the same rgb under torch's default TF32
+    settings (cuDNN's on) as with TF32 off, within the f32 limit 1e-4 x
+    max|ref|: its forward runs with TF32 off and restores the caller's
+    settings. Prints what a forward with TF32 on gives, for comparison."""
+    _need_card()
+    from hrviton_tpu_torch import (PipelineConfig, SPADEGenConfig, TOCGConfig,
+                                   TryOnPipeline)
+    from hrviton_tpu_torch.pipelines.tryon import tryon_forward
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    pipe = TryOnPipeline(
+        PipelineConfig(fine_height=256, fine_width=128, cond_height=64,
+                       cond_width=64),
+        TOCGConfig(ngf=16), SPADEGenConfig(ngf=16, fine_height=256,
+                                           fine_width=128), seed=3)
+    rng = np.random.default_rng(5)
+    batch = {"cloth": _a(rng, (1, 256, 128, 3)),
+             "cloth_mask": _a(rng, (1, 256, 128, 1)).sigmoid(),
+             "parse_agnostic": _a(rng, (1, 256, 128, 13)),
+             "densepose": _a(rng, (1, 256, 128, 3)),
+             "agnostic": _a(rng, (1, 256, 128, 3))}
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = True, False     # torch's defaults
+        default, _ = pipe(batch)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, False)
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        off, _ = pipe(batch)
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        noise = torch.Generator(device="cuda").manual_seed(pipe.noise_seed)
+        with torch.inference_mode():
+            on, _ = tryon_forward(pipe.tocg,
+                                  lambda x, s: pipe.generator(x, s, noise),
+                                  batch, pipe.cfg)
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    print(f"TF32 on against off: max_abs "
+          f"{(on - off).abs().max().item():.3e}")
+    _assert_close(default, off, torch.float32)

@@ -71,3 +71,50 @@ def test_package_imports_with_jax_unimportable(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def _chip_smoke_modules():
+    """The port modules chip_smoke.py imports, at any depth of the script."""
+    names = {name for _, name in _imports(ROOT / "chip_smoke.py")
+             if name.split(".")[0] == "hrviton_tpu_torch"}
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):              # from hrviton_tpu_torch.x import y
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                (node.module or "").startswith("hrviton_tpu_torch"):
+            names |= {f"{node.module}.{a.name}" for a in node.names}
+    return sorted(names)
+
+
+def test_card_side_imports_need_no_pil_or_msgpack(tmp_path):
+    """The machine with the card has neither PIL nor msgpack: chip_smoke.py's
+    port imports, data.device, utils.vis and cli.test_generator load in a
+    fresh interpreter where importing either raises."""
+    mods = _chip_smoke_modules() + ["hrviton_tpu_torch.data",
+                                    "hrviton_tpu_torch.data.device",
+                                    "hrviton_tpu_torch.utils.vis",
+                                    "hrviton_tpu_torch.cli.test_generator"]
+    assert "hrviton_tpu_torch.cli.test_generator" in _chip_smoke_modules()
+    (tmp_path / "sitecustomize.py").write_text(
+        "import sys\n"
+        "class _Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top in ('PIL', 'msgpack', 'jax', 'flax', 'hrviton_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, _Block())\n")
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    try:\n"
+            "        importlib.import_module(m)\n"
+            "    except ModuleNotFoundError:\n"
+            "        parent, _, attr = m.rpartition('.')\n"
+            "        getattr(importlib.import_module(parent), attr)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'msgpack')]\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
