@@ -1,24 +1,36 @@
 """Shared CLI plumbing: flag groups mirroring the reference argparse surfaces
-(the same flags and defaults as ``hrviton_tpu/cli/common.py``) and the
-checkpoint loaders onto the port's modules."""
+(the same flags and defaults as ``hrviton_tpu/cli/common.py``), the
+checkpoint loaders onto the port's modules, and the condition stage's models
+as the rejection CLIs build them (``build_tocg``, ``build_cond_discriminator``,
+``condition_inputs``)."""
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+from typing import Mapping, Tuple
 
+import numpy as np
+import torch
 import torch.nn as nn
 
-from hrviton_tpu_torch.config import DataConfig
+from hrviton_tpu_torch.config import (CondDiscriminatorConfig, DataConfig,
+                                      TOCGConfig)
 from hrviton_tpu_torch.convert import load_jax_variables
-from hrviton_tpu_torch.train.checkpoint import (convert_spade_gen,
+from hrviton_tpu_torch.models.condition import ConditionGenerator
+from hrviton_tpu_torch.models.discriminators import CondMultiscaleDiscriminator
+from hrviton_tpu_torch.nn.layers import init_weights
+from hrviton_tpu_torch.train.checkpoint import (convert_cond_discriminator,
+                                                convert_spade_gen,
                                                 convert_tocg, load_pytree,
                                                 load_torch_state_dict)
 
 __all__ = ["add_data_flags", "add_tocg_flags", "add_spade_flags",
-           "add_ignored_reference_flags", "load_tocg_variables",
-           "load_gen_variables", "data_cfg_from_args",
-           "check_pretrained_backbone"]
+           "add_d_flags", "add_ignored_reference_flags",
+           "load_tocg_variables", "load_gen_variables", "load_d_variables",
+           "data_cfg_from_args", "check_pretrained_backbone", "build_tocg",
+           "build_cond_discriminator", "condition_inputs"]
 
 
 def check_pretrained_backbone(weights_path: str, *, what: str, flag: str,
@@ -35,7 +47,7 @@ def check_pretrained_backbone(weights_path: str, *, what: str, flag: str,
     msg = (f"{what} weights were not provided ({flag} is empty) — the "
            f"backbone will be RANDOMLY initialized. For the reference "
            f"objective/metric, convert pretrained weights to a .ckpt "
-           f"(hrviton_tpu.cli.convert_checkpoint) and pass {flag}. "
+           f"(hrviton_tpu_torch.cli.convert_checkpoint) and pass {flag}. "
            f"To proceed anyway, pass {allow_flag}.")
     if allowed or not refuse:
         print(f"WARNING: {msg}", file=sys.stderr, flush=True)
@@ -99,6 +111,16 @@ def add_spade_flags(p: argparse.ArgumentParser):
     p.add_argument("--init_variance", type=float, default=0.02)
 
 
+def add_d_flags(p: argparse.ArgumentParser):
+    """The condition discriminator's flags (get_norm_const, test_condition)."""
+    p.add_argument("--tocg_checkpoint", default="")
+    p.add_argument("--D_checkpoint", default="")
+    p.add_argument("--Ddownx2", action="store_true")
+    p.add_argument("--Ddropout", action="store_true")
+    p.add_argument("--num_D", type=int, default=2)
+    p.add_argument("--spectral", action="store_true")
+
+
 def data_cfg_from_args(args, mode=None, data_list=None) -> DataConfig:
     return DataConfig(
         dataroot=args.dataroot,
@@ -139,3 +161,56 @@ def load_gen_variables(path: str, module: nn.Module,
         tree = load_pytree(path)
     load_jax_variables(module, tree)
     return module
+
+
+def load_d_variables(path: str, module: nn.Module,
+                     num_d: int = 2) -> nn.Module:
+    """As ``load_tocg_variables``, for the condition discriminator (a
+    reference ``D_*.pth`` goes through ``convert_cond_discriminator``)."""
+    if _is_torch_ckpt(path):
+        tree = convert_cond_discriminator(load_torch_state_dict(path), num_d)
+    else:
+        tree = load_pytree(path)
+    load_jax_variables(module, tree)
+    return module
+
+
+def build_tocg(opt) -> nn.Module:
+    """The rejection CLIs' ConditionGenerator (ngf=96, the flags'
+    warp_feature / out_layer / upsample) on ``opt.device``, eval mode:
+    weights from ``--tocg_checkpoint`` where the file exists, else random
+    from ``--seed``."""
+    tocg = ConditionGenerator(TOCGConfig(
+        ngf=96, warp_feature=opt.warp_feature, out_layer=opt.out_layer,
+        upsample=opt.upsample), device=opt.device).eval()
+    init_weights(tocg, torch.Generator().manual_seed(opt.seed))
+    if opt.tocg_checkpoint and os.path.exists(opt.tocg_checkpoint):
+        load_tocg_variables(opt.tocg_checkpoint, tocg, opt.out_layer)
+    return tocg
+
+
+def build_cond_discriminator(opt) -> nn.Module:
+    """The condition discriminator of the rejection CLIs: input_nc = 4 +
+    semantic_nc + 3 + output_nc, the flags' num_D / Ddownx2 / Ddropout /
+    spectral, on ``opt.device``, eval mode, weights from ``--D_checkpoint``
+    where the file exists, else random from ``--seed``."""
+    cfg = CondDiscriminatorConfig(
+        input_nc=4 + opt.semantic_nc + 3 + opt.output_nc, num_d=opt.num_D,
+        ddownx2=opt.Ddownx2, ddropout=opt.Ddropout, spectral=opt.spectral)
+    d = CondMultiscaleDiscriminator(cfg, device=opt.device).eval()
+    init_weights(d, torch.Generator().manual_seed(opt.seed + 1))
+    if opt.D_checkpoint and os.path.exists(opt.D_checkpoint):
+        load_d_variables(opt.D_checkpoint, d, opt.num_D)
+    return d
+
+
+def condition_inputs(raw: Mapping, datasetting: str,
+                     device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tocg's inputs from a loader batch (f32 NHWC numpy, the full
+    format): input1 = cloth + (cloth mask > 0.5), input2 = parse-agnostic +
+    densepose, on ``device``."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    cloth = t(raw["cloth"][datasetting])
+    cm = (t(raw["cloth_mask"][datasetting]) > 0.5).float()
+    return (torch.cat([cloth, cm], dim=-1),
+            torch.cat([t(raw["parse_agnostic"]), t(raw["densepose"])], dim=-1))

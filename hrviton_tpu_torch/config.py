@@ -1,9 +1,9 @@
 """Typed configuration of the try-on path.
 
 The port's own copy of ``hrviton_tpu/config.py``'s ``TOCGConfig``,
-``SPADEGenConfig``, ``PipelineConfig`` and ``DataConfig`` (same fields and
-defaults, less the training-only ``remat``), so the port imports nothing of
-the JAX package.
+``SPADEGenConfig``, ``CondDiscriminatorConfig``, ``PipelineConfig`` and
+``DataConfig`` (same fields and defaults, less the training-only ``remat``),
+so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -58,6 +58,22 @@ class SPADEGenConfig:
     def latent_hw(self) -> Tuple[int, int]:
         f = 2 ** self.num_up_layers
         return self.fine_height // f, self.fine_width // f
+
+
+@dataclass(frozen=True)
+class CondDiscriminatorConfig:
+    """pix2pixHD-style multiscale PatchGAN for the condition stage
+    (reference networks.py:302-408, define_D at :445)."""
+    input_nc: int = 33            # input1(4) + input2(16) + segmap(13)
+    ndf: int = 64
+    n_layers: int = 3
+    num_d: int = 2
+    norm: str = "instance"
+    use_sigmoid: bool = False
+    get_interm_feat: bool = False
+    ddownx2: bool = False
+    ddropout: bool = False
+    spectral: bool = False
 
 
 @dataclass(frozen=True)

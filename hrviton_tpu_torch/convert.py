@@ -4,13 +4,15 @@
 nested dicts of numpy arrays (collections ``params``, ``batch_stats`` and
 ``aux``) and copies each leaf into the port module at the same path:
 
-  * ``params``: conv kernels HWIO -> OIHW, biases, BatchNorm scale/bias,
-    SPADENorm ``noise_scale``;
+  * ``params``: conv kernels HWIO -> OIHW, dense kernels (in, out) ->
+    (out, in), biases, BatchNorm scale/bias, SPADENorm ``noise_scale``;
   * ``batch_stats``: BatchNorm running ``mean``/``var``;
   * ``aux``: the spectral-norm ``u``/``v`` vectors.
 
 The JAX ``Conv2d`` wraps its kernel in an inner module named ``conv``; the
-port's ``Conv2d`` holds it directly, so that level is skipped.
+port's ``Conv2d`` holds it directly, so that level is skipped. The trees of
+every model the port has load this way: the tocg, the SPADE generator, the
+condition discriminator, the four backbones, LPIPS and InceptionV3.
 """
 
 from __future__ import annotations
@@ -67,6 +69,8 @@ def load_jax_variables(module: nn.Module, variables: Mapping,
             src = torch.from_numpy(np.array(arr, dtype=np.float32))
             if src.dim() == 4:                       # HWIO -> OIHW
                 src = src.permute(3, 2, 0, 1)
+            elif src.dim() == 2:                     # dense (in, out) -> (out, in)
+                src = src.t()
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{coll}/{'/'.join(path)}: shape "
                                  f"{tuple(src.shape)} vs port {tuple(dst.shape)}")

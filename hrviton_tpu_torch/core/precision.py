@@ -12,7 +12,13 @@ matmuls, and restores the caller's settings after it: torch leaves cuDNN's
 TF32 on by default, which would run an f32 forward's library convs at TF32
 precision. It sets torch's ``allow_tf32`` flags, the same API as the blur's
 ``torch.backends.cudnn.flags`` (``ops/blur.py``), so one process never mixes
-them with the ``fp32_precision`` API.
+them with the ``fp32_precision`` API. ``exact(dtype)`` is the guard every
+library conv and matmul of the port's f32 math is issued under
+(``nn/layers.py:conv_forward``, the spectral norm's sigma, the kernels'
+plain versions in ``ops/``, the evaluation models' own products): TF32 off
+for float32, nothing changed for any other dtype. So an f32 forward is f32
+in every product whatever its entry point, and a bf16 one leaves the flags
+alone.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import contextlib
 import torch
 import torch.nn as nn
 
-__all__ = ["cast_floating", "bf16_params", "f32_params", "no_tf32"]
+__all__ = ["cast_floating", "bf16_params", "f32_params", "no_tf32", "exact"]
 
 
 def cast_floating(module: nn.Module, dtype) -> nn.Module:
@@ -53,3 +59,9 @@ def no_tf32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def exact(dtype):
+    """``no_tf32()`` for float32 math, a context that changes nothing for
+    any other dtype."""
+    return no_tf32() if dtype == torch.float32 else contextlib.nullcontext()

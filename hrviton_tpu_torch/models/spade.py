@@ -8,8 +8,8 @@ block, and within a block norm_s, norm_0, norm_1.
 
 Dispatch inside a block follows the JAX package. With ``fused_block``, at
 eligible scales (``ops/spade_block.fused_spade_conv_eligible``: the up_3 and
-up_4 blocks on a CUDA device) each {SPADENorm -> act -> conv} pair runs as one
-fused CUDA unit. Otherwise a block in the space-to-depth domain
+up_4 blocks on a CUDA device, in bf16) each {SPADENorm -> act -> conv} pair
+runs as one fused CUDA unit. Otherwise a block in the space-to-depth domain
 (``s2d_tail``) runs the ``ops/s2d.py`` formulation; a norm that
 ``fast_spade`` admits (``ops/spade_fused.fused_spade_eligible``) runs the
 fused modulation kernel; and everything else runs the plain modules, whose

@@ -7,7 +7,8 @@ u/v without a power iteration (training waits for the training slice).
 
 Every module takes ``device`` (default 'cuda', which raises without a card)
 and ``dtype``. Weights are drawn by ``init_weights`` from an explicit
-``torch.Generator``.
+``torch.Generator``. Every library conv and matmul of an f32 forward runs
+with TF32 off (``core/precision.exact``).
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.ops import conv3x3 as c3
 from hrviton_tpu_torch.ops import s2d
 from hrviton_tpu_torch.ops.conv3x3 import activation
 
-__all__ = ["Conv2d", "BatchNorm2d", "InstanceNorm2d", "SpectralNorm2d",
+__all__ = ["Conv2d", "Dense", "BatchNorm2d", "InstanceNorm2d", "SpectralNorm2d",
            "instance_norm", "activation", "conv_forward", "init_weights"]
 
 
@@ -34,7 +36,8 @@ def conv_forward(x, weight, bias, stride: int = 1, padding: int = 0,
 
     A 3x3 stride-1 pad-1 conv goes to the hand-written kernel whose gate
     admits it (``ops/conv3x3.kernel_for``), with the pre-activation fused;
-    every other conv, and every conv no gate admits, is the library's. With
+    every other conv, and every conv no gate admits, is the library's, issued
+    with TF32 off when x is float32 (``core/precision.exact``). With
     ``s2d_domain`` x is a space-to-depth tensor (4 * Cin channels,
     ``ops/s2d.py``) while ``weight`` keeps the plain Cin: the same parameters
     serve both domains."""
@@ -60,7 +63,8 @@ def conv_forward(x, weight, bias, stride: int = 1, padding: int = 0,
             # a channels_last view, so the next library conv does not copy
             return run(xs.contiguous(), weight, bias, pre_act).permute(0, 3, 1, 2)
     b = None if bias is None else bias.to(x.dtype)
-    return F.conv2d(activation(x, pre_act), weight, b, stride, padding)
+    with precision.exact(x.dtype):
+        return F.conv2d(activation(x, pre_act), weight, b, stride, padding)
 
 
 def _std(init: str, weight: torch.Tensor) -> float:
@@ -69,30 +73,55 @@ def _std(init: str, weight: torch.Tensor) -> float:
     if init == "xavier":                       # xavier_normal_(gain=0.02)
         o, i, kh, kw = weight.shape
         return 0.02 * (2.0 / ((i + o) * kh * kw)) ** 0.5
+    if init == "kaiming":                      # kaiming_normal_(fan_in)
+        return (2.0 / weight[0].numel()) ** 0.5
     raise ValueError(init)
 
 
 class Conv2d(nn.Module):
     """Conv with torch padding/stride semantics and an optional pre-activation
     ('relu' | 'leaky0.2') applied to the input; ``s2d=True`` takes a
-    space-to-depth tensor (see ``conv_forward``)."""
+    space-to-depth tensor (see ``conv_forward``). ``kernel_size`` and
+    ``padding`` are an int or an (h, w) pair."""
 
     _jax_names = {"kernel": "weight", "bias": "bias"}
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = True,
+    def __init__(self, in_ch: int, out_ch: int, kernel_size,
+                 stride: int = 1, padding=0, bias: bool = True,
                  init: str = "normal", device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.stride, self.padding, self.init = stride, padding, init
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
         self.weight = nn.Parameter(torch.zeros(
-            out_ch, in_ch, kernel_size, kernel_size, device=dev, dtype=dtype))
+            out_ch, in_ch, kh, kw, device=dev, dtype=dtype))
         self.bias = (nn.Parameter(torch.zeros(out_ch, device=dev, dtype=dtype))
                      if bias else None)
 
     def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False):
         return conv_forward(x, self.weight.to(x.dtype), self.bias, self.stride,
                             self.padding, pre_act, s2d)
+
+
+class Dense(nn.Module):
+    """A fully connected layer (flax ``nn.Dense``): x @ W^T + b on the last
+    axis, W held (out, in) as torch holds it."""
+
+    _jax_names = {"kernel": "weight", "bias": "bias"}
+
+    def __init__(self, in_features: int, out_features: int, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features,
+                                               device=dev, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=dev,
+                                             dtype=dtype))
+
+    def forward(self, x):
+        with precision.exact(x.dtype):
+            return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class BatchNorm2d(nn.Module):
@@ -160,8 +189,9 @@ class SpectralNorm2d(nn.Module):
 
     def normalized_weight(self, dtype) -> torch.Tensor:
         w = self.weight
-        sigma = torch.dot(self.u.float(),
-                          w.float().reshape(w.shape[0], -1) @ self.v.float())
+        with precision.no_tf32():                # sigma is f32 math always
+            sigma = torch.dot(self.u.float(),
+                              w.float().reshape(w.shape[0], -1) @ self.v.float())
         return (w / sigma.to(w.dtype)).to(dtype)
 
     def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False):
@@ -173,9 +203,10 @@ class SpectralNorm2d(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Random initialisation with the JAX package's distributions, drawn on
     the CPU from ``generator`` (so a seed gives the same weights on every
-    device): conv kernels N(0, 0.02) or xavier-normal(0.02), biases 0,
-    BatchNorm scale 1 / shift 0 / running stats (0, 1), spectral u ~ N(0, 1)
-    normalized and v = normalize(u W)."""
+    device): conv kernels N(0, 0.02), xavier-normal(0.02) or kaiming-normal,
+    dense kernels lecun-normal, biases 0, BatchNorm scale 1 / shift 0 /
+    running stats (0, 1), spectral u ~ N(0, 1) normalized and v =
+    normalize(u W)."""
     def normal(shape, std):
         return torch.randn(shape, generator=generator) * std
 
@@ -191,6 +222,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             v = u @ w
             m.u.copy_(u)
             m.v.copy_(v / (v.norm() + m.eps))
+        if isinstance(m, Dense):               # lecun normal, bias 0
+            m.weight.copy_(normal(m.weight.shape, m.weight.shape[1] ** -0.5))
+            m.bias.zero_()
         if isinstance(m, BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.zero_()

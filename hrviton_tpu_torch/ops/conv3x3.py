@@ -39,6 +39,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
                                           check_tensor, pad_to)
@@ -105,13 +106,16 @@ def _is_3x3_s1_p1(w_shape, stride, padding) -> bool:
 
 
 def _on_card(dtype, device) -> bool:
-    return torch.device(device).type == "cuda" and dtype in KERNEL_DTYPES
+    """A CUDA device and bfloat16: the JAX gates take bf16 only, so an f32
+    conv stays the library's and the f32 kernels are reached by a direct
+    call of their wrappers alone."""
+    return torch.device(device).type == "cuda" and dtype == torch.bfloat16
 
 
 def conv3x3_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
     """Gate of the wide kernel: ``fast_conv`` on, and the JAX gate's shape
     rules (h % 8 == 0, w % 8 == 0, h > 8, h >= 128, w >= 96, Cin % 128 == 0)
-    on a CUDA device in float32 or bfloat16. Always false on the CPU."""
+    on a CUDA device in bfloat16. Always false on the CPU."""
     if not _ENABLED or not _is_3x3_s1_p1(w_shape, stride, padding):
         return False
     _, h, w, cin = x_shape
@@ -124,7 +128,7 @@ def conv3x3_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
 def _views_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
     """Gate of the small-channel kernel: ``_VIEWS`` on, and the JAX gate's
     shape rules (h % 8 == 0, w % 128 == 0, h > 8, h >= 512, 3 * Cin <= 128,
-    3 * Cout <= 128) on a CUDA device in float32 or bfloat16."""
+    3 * Cout <= 128) on a CUDA device in bfloat16."""
     if not _VIEWS or not _is_3x3_s1_p1(w_shape, stride, padding):
         return False
     _, h, w, cin = x_shape
@@ -147,9 +151,11 @@ def conv3x3_ref(x, w, bias=None, pre_act=None, fused_bias: bool = False):
     a = activation(x, pre_act).permute(0, 3, 1, 2)
     wd = w.to(dtype)
     if not fused_bias or dtype == torch.float32:
-        y = F.conv2d(a, wd, None, 1, 1).permute(0, 2, 3, 1)
+        with precision.exact(dtype):
+            y = F.conv2d(a, wd, None, 1, 1).permute(0, 2, 3, 1)
         return y if bias is None else y + bias.to(dtype)
-    y = F.conv2d(a.float(), wd.float(), None, 1, 1).permute(0, 2, 3, 1)
+    with precision.no_tf32():               # the f32 sum of the bf16 chain
+        y = F.conv2d(a.float(), wd.float(), None, 1, 1).permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.to(dtype).float()
     return y.to(dtype)

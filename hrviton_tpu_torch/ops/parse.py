@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from hrviton_tpu_torch.core import precision
+
 __all__ = [
     "LABELS_20_TO_13", "LABELS_13_TO_7", "remap_matrix", "onehot",
     "remap_parse", "parse20_to_13", "parse13_to_7", "group_index_of_label20",
@@ -86,7 +88,8 @@ def remap_parse(parse_onehot: torch.Tensor, spec_name: str) -> torch.Tensor:
     """(N, H, W, src) one-hot(ish) map -> grouped (N, H, W, dst) map."""
     mat = torch.from_numpy(remap_matrix(spec_name)).to(
         parse_onehot.device, parse_onehot.dtype)
-    return torch.einsum("ds,nhws->nhwd", mat, parse_onehot)
+    with precision.exact(parse_onehot.dtype):
+        return torch.einsum("ds,nhws->nhwd", mat, parse_onehot)
 
 
 def parse20_to_13(labels20: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import precision
+
 __all__ = ["to_s2d", "from_s2d", "conv3x3_s2d", "conv1x1_s2d",
            "instance_norm_s2d", "upsample2x_s2d", "concat_s2d"]
 
@@ -100,8 +102,9 @@ def conv3x3_s2d(x2: torch.Tensor, k, b=None, dtype=None) -> torch.Tensor:
     outs = []
     for a in (0, 1):
         for bb in (0, 1):
-            y = F.conv2d(F.pad(xc, (1 - bb, bb, 1 - a, a)),
-                         _phase_kernel(k, a, bb))
+            with precision.exact(dtype):
+                y = F.conv2d(F.pad(xc, (1 - bb, bb, 1 - a, a)),
+                             _phase_kernel(k, a, bb))
             if b is not None:
                 y = y + b.to(dtype).view(1, -1, 1, 1)
             outs.append(y)
@@ -115,7 +118,8 @@ def conv1x1_s2d(x2: torch.Tensor, k, b=None, dtype=None) -> torch.Tensor:
     k = k.reshape(k.shape[0], k.shape[1]).to(dtype)
     n, hh, ww, _ = x2.shape
     cout, cin = k.shape
-    y = torch.matmul(x2.to(dtype).reshape(n, hh, ww, 4, cin), k.t())
+    with precision.exact(dtype):
+        y = torch.matmul(x2.to(dtype).reshape(n, hh, ww, 4, cin), k.t())
     if b is not None:
         y = y + b.to(dtype)
     return y.reshape(n, hh, ww, 4 * cout)

@@ -18,7 +18,8 @@ engine: (a) gamma|beta with the modulation in its epilogue, storing act(mod)
 (plain version ``gamma_beta_stage_ref``), then (b) the consumer conv with
 the bias and the residual (``consumer_stage_ref``); their weights are packed
 once per weight tensor (``ops/conv_engine.py``). f32 runs one fused kernel
-on plain FMA loops. The statistics come from ``spade_fused.norm_stats`` (a
+on plain FMA loops; no path reaches it, since the gate takes bf16 only, as
+the JAX gate does: it serves direct calls. The statistics come from ``spade_fused.norm_stats`` (a
 one-pass kernel on the card). ``spade_conv_unit`` launches the kernels for
 CUDA tensors and takes the plain formulation ``spade_conv_ref`` only for CPU
 tensors; a CUDA tensor never reaches the plain version through it.
@@ -35,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import ACT_CODES as _ACTS
 from hrviton_tpu_torch.ops._build import KERNEL_DTYPES as _DTYPES
@@ -71,9 +73,11 @@ def fused_spade_conv_eligible(h: int, w: int, nh: int, dtype,
                               device) -> bool:
     """Shape gate: the JAX gate's shape rules (h % 8 == 0, w % 128 == 0,
     nh % 128 == 0, h >= 256), which admit up_3 and up_4 at 1024x768 and
-    nothing else, on a CUDA device, in float32 or bfloat16. Always false on
-    the CPU, where the unfused plain path runs."""
-    return (torch.device(device).type == "cuda" and dtype in _DTYPES
+    nothing else, on a CUDA device, in bfloat16 only, as the JAX gate takes
+    bf16 only: an f32 forward runs the unfused plain path, and the f32
+    kernel is reached by a direct call of ``spade_conv_unit`` alone. Always
+    false on the CPU, where the unfused plain path runs."""
+    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
             and h % 8 == 0 and w % 128 == 0 and nh % 128 == 0
             and h >= _MIN_H)
 
@@ -103,10 +107,11 @@ def gamma_beta_stage_ref(x, noise, nscale, mu, rsig, actv, wg, bg, wb, bb,
     normalized = ((xn.float() - mu[:, None, None, :])
                   * rsig[:, None, None, :]).to(dtype)
     a = F.relu(actv).permute(0, 3, 1, 2)
-    gamma = F.conv2d(a, wg.to(dtype), padding=1).permute(0, 2, 3, 1) \
-        + bg.to(dtype)
-    beta = F.conv2d(a, wb.to(dtype), padding=1).permute(0, 2, 3, 1) \
-        + bb.to(dtype)
+    with precision.exact(dtype):
+        gamma = F.conv2d(a, wg.to(dtype), padding=1).permute(0, 2, 3, 1) \
+            + bg.to(dtype)
+        beta = F.conv2d(a, wb.to(dtype), padding=1).permute(0, 2, 3, 1) \
+            + bb.to(dtype)
     return activation(normalized * (1.0 + gamma) + beta, pre_act)
 
 
@@ -114,8 +119,9 @@ def consumer_stage_ref(mod, wc, bc=None, residual=None):
     """Plain version of the unit's consumer: conv(mod, wc) (3x3 pad 1 or
     1x1) rounded to mod's dtype, + bc in that dtype, + residual."""
     pad = wc.shape[-1] // 2
-    y = F.conv2d(mod.permute(0, 3, 1, 2), wc.to(mod.dtype),
-                 padding=pad).permute(0, 2, 3, 1)
+    with precision.exact(mod.dtype):
+        y = F.conv2d(mod.permute(0, 3, 1, 2), wc.to(mod.dtype),
+                     padding=pad).permute(0, 2, 3, 1)
     if bc is not None:
         y = y + bc.to(y.dtype)
     if residual is not None:

@@ -14,7 +14,8 @@ on the TMA / wgmma conv engine (``csrc/conv_engine.cuh``) as the fused
 unit's gamma|beta stage, with the modulation in the epilogue
 (``csrc/spade_mod.cuh``) and its weights packed once per weight tensor
 (``gb_weights``, shared with ``ops/spade_block.py``); f32 inputs run on plain
-FMA loops. gamma, beta and ``normalized`` never reach device memory.
+FMA loops, reached by direct calls only (the gate takes bf16, as the JAX
+gate does). gamma, beta and ``normalized`` never reach device memory.
 ``fused_spade_modulate`` launches it for CUDA tensors (or raises) and takes
 the plain version ``modulate_ref`` only for CPU tensors. The instance
 statistics are a pass of their own, as in the JAX package: ``norm_stats``, a
@@ -33,6 +34,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import KERNEL_DTYPES, check_tensor, pad_to
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
@@ -73,8 +75,9 @@ def fast_spade(on: bool = True):
 def fused_spade_eligible(x_shape, nhidden: int, dtype, device) -> bool:
     """Gate of the kernel: ``fast_spade`` on, and the JAX gate's shape rules
     (h % 16 == 0, w % 8 == 0, h > 16, nhidden % 128 == 0, h >= 256, w >= 96)
-    on a CUDA device in float32 or bfloat16. At 1024x768 they admit the norms
-    of up_2, up_3 and up_4. Always false on the CPU."""
+    on a CUDA device in bfloat16 only, as the JAX gate (the f32 kernel is
+    reached by a direct call alone). At 1024x768 they admit the norms of
+    up_2, up_3 and up_4. Always false on the CPU."""
     if not _ENABLED:
         return False
     _, h, w, _ = x_shape
@@ -82,7 +85,7 @@ def fused_spade_eligible(x_shape, nhidden: int, dtype, device) -> bool:
         return False
     if nhidden % 128 != 0:
         return False
-    return (torch.device(device).type == "cuda" and dtype in KERNEL_DTYPES
+    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
             and h >= _MIN_H and w >= 96)
 
 
@@ -151,10 +154,11 @@ def modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb):
     var = (xnf - mu).square().mean(dim=(1, 2), keepdim=True)
     normalized = ((xnf - mu) * torch.rsqrt(var + _EPS)).to(dtype)
     a = F.relu(actv).permute(0, 3, 1, 2)
-    gamma = F.conv2d(a, wg.to(dtype), padding=1).permute(0, 2, 3, 1) \
-        + bg.to(dtype)
-    beta = F.conv2d(a, wb.to(dtype), padding=1).permute(0, 2, 3, 1) \
-        + bb.to(dtype)
+    with precision.exact(dtype):
+        gamma = F.conv2d(a, wg.to(dtype), padding=1).permute(0, 2, 3, 1) \
+            + bg.to(dtype)
+        beta = F.conv2d(a, wb.to(dtype), padding=1).permute(0, 2, 3, 1) \
+            + bb.to(dtype)
     return normalized * (1.0 + gamma) + beta
 
 

@@ -13,13 +13,11 @@ configs and answers ``pipeline(batch) -> (rgb, ConditionOutputs)``.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from hrviton_tpu_torch.config import PipelineConfig, SPADEGenConfig, TOCGConfig
-from hrviton_tpu_torch.core.precision import no_tf32
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.condition import ConditionGenerator
 from hrviton_tpu_torch.models.spade import NoiseArg, SPADEGenerator
@@ -135,10 +133,10 @@ class TryOnPipeline:
     fused unit on. Weights are random from ``seed`` until loaded
     (``convert.load_jax_variables`` on ``.tocg`` / ``.generator``). Each call
     draws the SPADE noise from a generator seeded with ``noise_seed``, as the
-    JAX CLI uses one fixed noise key. An f32 pipeline runs its forward with
-    TF32 off (``core/precision.no_tf32``): f32 means f32 in every library
-    conv and matmul too, as in the JAX package; the caller's settings are
-    restored after the call. bf16 leaves them as they are.
+    JAX CLI uses one fixed noise key. An f32 forward is f32 in every library
+    conv and matmul too, as in the JAX package: each is issued with TF32 off
+    (``core/precision.exact``) and the caller's settings are restored after
+    it. bf16 leaves them as they are.
     """
 
     def __init__(self, pipeline_cfg: Optional[PipelineConfig] = None,
@@ -166,9 +164,6 @@ class TryOnPipeline:
         if noise is None:
             noise = torch.Generator(device=self.device).manual_seed(
                 self.noise_seed)
-        exact = no_tf32() if self.dtype == torch.float32 else \
-            contextlib.nullcontext()
-        with exact:
-            return tryon_forward(self.tocg,
-                                 lambda x, seg: self.generator(x, seg, noise),
-                                 batch, self.cfg)
+        return tryon_forward(self.tocg,
+                             lambda x, seg: self.generator(x, seg, noise),
+                             batch, self.cfg)

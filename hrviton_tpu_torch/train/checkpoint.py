@@ -1,8 +1,7 @@
-"""Checkpoint reading: the JAX package's msgpack ``.ckpt`` files and the
-reference's torch ``.pth`` files, as variable trees for
-``convert.load_jax_variables``.
+"""Checkpoints: the JAX package's msgpack ``.ckpt`` files and the reference's
+torch ``.pth`` files, as variable trees for ``convert.load_jax_variables``.
 
-Counterpart of the reading half of ``hrviton_tpu/train/checkpoint.py``:
+Counterpart of ``hrviton_tpu/train/checkpoint.py``:
 
   * ``load_pytree`` / ``restore_into``: a ``.ckpt`` written by the JAX
     package's ``save_pytree`` (flax's msgpack format: arrays as extension
@@ -11,29 +10,82 @@ Counterpart of the reading half of ``hrviton_tpu/train/checkpoint.py``:
     ``__msgpack_chunked_array__`` dicts). Decoded with the ``msgpack``
     package, imported when a file is read. bfloat16 arrays come back as
     float32 arrays of the same values (numpy has no bfloat16).
-  * ``convert_tocg`` (mtviton.pth, ConditionGenerator) and
+  * ``save_pytree``: writes a tree of numpy arrays in the same format, byte
+    for byte as the JAX function writes it (``cli/convert_checkpoint.py``);
+  * ``convert_tocg`` (mtviton.pth, ConditionGenerator),
     ``convert_spade_gen`` (gen.pth, including the legacy key remap
-    'ace'->'alias', '.Spade'->'', reference test_generator.py:77-86): torch
-    state dicts to the JAX variable layout (conv kernels OIHW -> HWIO).
-
-The trainer half (``save_pytree``, ``convert_cond_discriminator``, the
-backbones' converters) is not ported yet.
+    'ace'->'alias', '.Spade'->'', reference test_generator.py:77-86),
+    ``convert_cond_discriminator`` (D_*.pth) and the backbones'
+    ``convert_vgg19`` / ``convert_alexnet`` / ``convert_vgg16`` /
+    ``convert_squeezenet`` / ``convert_lpips_alex`` (torchvision and LPIPS
+    v0.1 keys): torch state dicts to the JAX variable layout (conv kernels
+    OIHW -> HWIO).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
 
-__all__ = ["load_pytree", "restore_into", "load_torch_state_dict",
-           "convert_tocg", "convert_spade_gen"]
+__all__ = ["save_pytree", "load_pytree", "restore_into",
+           "load_torch_state_dict", "convert_tocg", "convert_spade_gen",
+           "convert_cond_discriminator", "convert_vgg19", "convert_alexnet",
+           "convert_vgg16", "convert_squeezenet", "convert_lpips_alex"]
 
 
 # ----------------------------------------------------------------- file I/O
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_CHUNK = 2 ** 30       # flax's limit of bytes in one array leaf
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    import msgpack
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(x):
+    import msgpack
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+    if isinstance(x, complex):
+        return msgpack.ExtType(_EXT_COMPLEX, msgpack.packb((x.real, x.imag)))
+    return x
+
+
+def _state(tree):
+    """flax's state dict of nested dicts as the JAX ``save_pytree`` builds
+    it: string keys in sorted order (a JAX pytree rebuilds a dict so), numpy
+    scalars as 0-d arrays (``jax.device_get``), oversized arrays split into
+    chunks."""
+    if isinstance(tree, Mapping):
+        return {str(k): _state(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, np.generic):
+        return np.asarray(tree)
+    if isinstance(tree, np.ndarray) and tree.nbytes > _MAX_CHUNK:
+        flat = tree.reshape(-1)
+        step = max(1, _MAX_CHUNK // tree.dtype.itemsize)
+        chunks = [flat[i:i + step] for i in range(0, flat.size, step)]
+        return {_CHUNKED: True,
+                "shape": {str(i): d for i, d in enumerate(tree.shape)},
+                "chunks": {str(i): c for i, c in enumerate(chunks)}}
+    return tree
+
+
+def save_pytree(tree: Mapping, path: str) -> None:
+    """Write ``tree`` (nested dicts of numpy arrays and scalars) as the JAX
+    package's ``save_pytree`` writes it: flax's msgpack state dict."""
+    import msgpack
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(_state(tree), default=_ext_pack,
+                              strict_types=True))
 
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
@@ -226,4 +278,99 @@ def convert_spade_gen(sd: Dict[str, np.ndarray],
     for name in blocks:
         _spade_resblock(b, sd, name, name)
     b.conv(sd, "conv_img", "conv_img")
+    return b.variables()
+
+
+# ------------------------------------------------------- cond discriminator
+
+def convert_cond_discriminator(sd: Dict[str, np.ndarray], num_d: int = 2,
+                               n_layers: int = 3) -> Dict:
+    """D_*.pth (define_D's default flags: no spectral norm or dropout,
+    instance norm, getIntermFeat=False) -> CondMultiscaleDiscriminator
+    variables. torch flattens each sub-D to the Sequential indices
+    {0, 2, 5, 8, 11} (networks.py:351-398)."""
+    b = _TreeBuilder()
+    seq_idx = [0] + [2 + 3 * (n - 1) for n in range(1, n_layers)] + \
+        [2 + 3 * (n_layers - 1), 2 + 3 * (n_layers - 1) + 3]
+    for d in range(num_d):
+        for j, si in enumerate(seq_idx):
+            b.conv(sd, f"layer{d}.{si}", f"discriminator_{d}", f"layer{j}_conv")
+    return b.variables()
+
+
+# ------------------------------------------------------------- backbones
+
+_VGG19_CONVS = [
+    ("features.0", "conv1_1"), ("features.2", "conv1_2"),
+    ("features.5", "conv2_1"), ("features.7", "conv2_2"),
+    ("features.10", "conv3_1"), ("features.12", "conv3_2"),
+    ("features.14", "conv3_3"), ("features.16", "conv3_4"),
+    ("features.19", "conv4_1"), ("features.21", "conv4_2"),
+    ("features.23", "conv4_3"), ("features.25", "conv4_4"),
+    ("features.28", "conv5_1"),
+]
+
+_ALEX_CONVS = [("features.0", "conv1"), ("features.3", "conv2"),
+               ("features.6", "conv3"), ("features.8", "conv4"),
+               ("features.10", "conv5")]
+
+_VGG16_CONVS = [
+    ("features.0", "conv1_1"), ("features.2", "conv1_2"),
+    ("features.5", "conv2_1"), ("features.7", "conv2_2"),
+    ("features.10", "conv3_1"), ("features.12", "conv3_2"),
+    ("features.14", "conv3_3"),
+    ("features.17", "conv4_1"), ("features.19", "conv4_2"),
+    ("features.21", "conv4_3"),
+    ("features.24", "conv5_1"), ("features.26", "conv5_2"),
+    ("features.28", "conv5_3"),
+]
+
+# torchvision squeezenet1_1 feature indices -> fire modules
+_SQUEEZE_FIRES = [(3, "fire2"), (4, "fire3"), (6, "fire4"), (7, "fire5"),
+                  (9, "fire6"), (10, "fire7"), (11, "fire8"), (12, "fire9")]
+
+
+def _convs(sd, table, prefix=()) -> Dict:
+    b = _TreeBuilder()
+    for tkey, fkey in table:
+        b.conv(sd, tkey, *prefix, fkey)
+    return b.variables()
+
+
+def convert_vgg19(sd: Dict[str, np.ndarray]) -> Dict:
+    """torchvision vgg19 state_dict -> Vgg19Features variables."""
+    return _convs(sd, _VGG19_CONVS)
+
+
+def convert_alexnet(sd: Dict[str, np.ndarray], prefix=()) -> Dict:
+    return _convs(sd, _ALEX_CONVS, prefix)
+
+
+def convert_vgg16(sd: Dict[str, np.ndarray], prefix=()) -> Dict:
+    return _convs(sd, _VGG16_CONVS, prefix)
+
+
+def convert_squeezenet(sd: Dict[str, np.ndarray], prefix=()) -> Dict:
+    b = _TreeBuilder()
+    b.conv(sd, "features.0", *prefix, "conv1")
+    for idx, name in _SQUEEZE_FIRES:
+        b.conv(sd, f"features.{idx}.squeeze", *prefix, name, "squeeze")
+        b.conv(sd, f"features.{idx}.expand1x1", *prefix, name, "expand1x1")
+        b.conv(sd, f"features.{idx}.expand3x3", *prefix, name, "expand3x3")
+    return b.variables()
+
+
+def convert_lpips_alex(lin_sd: Dict[str, np.ndarray],
+                       alexnet_sd: Dict[str, np.ndarray]) -> Dict:
+    """LPIPS v0.1 alex.pth lin heads + torchvision alexnet -> LPIPSAlex
+    variables. alex.pth keys: lin{i}.model.1.weight (1x1 conv, no bias;
+    networks_basic.py:104-120)."""
+    b = _TreeBuilder()
+    for tkey, fkey in _ALEX_CONVS:
+        b.conv(alexnet_sd, tkey, "alexnet", fkey)
+    for i in range(5):
+        key = f"lin{i}.model.1.weight"
+        if key not in lin_sd:  # some exports drop the dropout module
+            key = f"lin{i}.model.0.weight"
+        b._set(b.params, (f"lin{i}", "conv", "kernel"), _k(lin_sd[key]))
     return b.variables()

@@ -1,4 +1,5 @@
-"""The port's checkpoint readers against the JAX package's, on the CPU.
+"""The port's checkpoint readers and writer against the JAX package's, on
+the CPU.
 
 * ``.ckpt``: a file written by the JAX package's ``save_pytree`` reads back
   bit for bit through the port's msgpack reader (f32, int32, a numpy scalar,
@@ -100,6 +101,24 @@ def test_ckpt_reads_back_bit_for_bit(tmp_path, monkeypatch, chunked):
     got = tckpt.load_pytree(path)
     assert type(got["s"]) is np.float32 and got["s"] == np.float32(0.25)
     assert type(got["t"]) is np.int64 and got["t"] == -3
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_save_pytree_writes_the_jax_bytes(tmp_path, monkeypatch, chunked):
+    """The port's writer (cli/convert_checkpoint.py's) gives the JAX
+    package's file byte for byte: keys sorted, numpy scalars as 0-d arrays,
+    bf16, complex, and arrays over the chunk size in chunks (both sizes
+    lowered for the test)."""
+    if chunked:
+        monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 64)
+        monkeypatch.setattr(tckpt, "_MAX_CHUNK", 64)
+    tree = _tree()
+    tree["params"]["norm"]["scale"] = np.asarray(tree["params"]["norm"]["scale"])
+    jckpt.save_pytree(tree, str(tmp_path / "j.ckpt"))
+    tckpt.save_pytree(tree, str(tmp_path / "p" / "p.ckpt"))
+    raw = (tmp_path / "p" / "p.ckpt").read_bytes()
+    assert (b"__msgpack_chunked_array__" in raw) == chunked
+    assert raw == (tmp_path / "j.ckpt").read_bytes()
 
 
 def test_restore_into_semantics(tmp_path):

@@ -648,12 +648,15 @@ def test_engine_kernels_reject_bad_input():
 
 
 @pytest.mark.gpu
-def test_f32_pipeline_is_free_of_tf32():
+def test_f32_pipeline_is_free_of_tf32(monkeypatch):
     """An f32 TryOnPipeline gives the same rgb under torch's default TF32
     settings (cuDNN's on) as with TF32 off, within the f32 limit 1e-4 x
-    max|ref|: its forward runs with TF32 off and restores the caller's
-    settings. Prints what a forward with TF32 on gives, for comparison."""
+    max|ref|: every library conv and matmul of its forward runs with TF32
+    off and the caller's settings come back. Prints what a forward with
+    TF32 on (the guard taken out) gives, for comparison."""
     _need_card()
+    import contextlib
+    from hrviton_tpu_torch.core import precision
     from hrviton_tpu_torch import (PipelineConfig, SPADEGenConfig, TOCGConfig,
                                    TryOnPipeline)
     from hrviton_tpu_torch.pipelines.tryon import tryon_forward
@@ -676,13 +679,88 @@ def test_f32_pipeline_is_free_of_tf32():
         cudnn.allow_tf32 = matmul.allow_tf32 = False
         off, _ = pipe(batch)
         cudnn.allow_tf32 = matmul.allow_tf32 = True
+        monkeypatch.setattr(precision, "no_tf32", contextlib.nullcontext)
         noise = torch.Generator(device="cuda").manual_seed(pipe.noise_seed)
         with torch.inference_mode():
             on, _ = tryon_forward(pipe.tocg,
                                   lambda x, s: pipe.generator(x, s, noise),
                                   batch, pipe.cfg)
     finally:
+        monkeypatch.undo()
         cudnn.allow_tf32 = matmul.allow_tf32 = False
     print(f"TF32 on against off: max_abs "
           f"{(on - off).abs().max().item():.3e}")
     _assert_close(default, off, torch.float32)
+
+
+@pytest.mark.gpu
+def test_discriminator_is_free_of_tf32(monkeypatch):
+    """The condition discriminator called directly in f32 (33 channels at
+    256x192, spectral norm on, so its sigma's matmul runs too) gives the
+    same logits under torch's default TF32 settings as with TF32 off, within
+    1e-4 x max|ref|, and leaves the caller's settings as they were. Prints
+    what a forward with TF32 on (the guard taken out) gives."""
+    _need_card()
+    import contextlib
+    from hrviton_tpu_torch.config import CondDiscriminatorConfig
+    from hrviton_tpu_torch.core import precision
+    from hrviton_tpu_torch.models.discriminators import \
+        CondMultiscaleDiscriminator
+    from hrviton_tpu_torch.nn.layers import init_weights
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    d = CondMultiscaleDiscriminator(CondDiscriminatorConfig(spectral=True))
+    init_weights(d, torch.Generator().manual_seed(0))
+    x = _a(np.random.default_rng(6), (2, 256, 192, 33))
+    run = lambda: torch.cat([s[-1].flatten() for s in d(x)])
+    try:
+        with torch.inference_mode():
+            cudnn.allow_tf32, matmul.allow_tf32 = True, False   # torch's defaults
+            default = run()
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, False)
+            cudnn.allow_tf32 = matmul.allow_tf32 = False
+            off = run()
+            cudnn.allow_tf32 = matmul.allow_tf32 = True
+            monkeypatch.setattr(precision, "no_tf32", contextlib.nullcontext)
+            on = run()
+    finally:
+        monkeypatch.undo()
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    print(f"discriminator, TF32 on against off: max_abs "
+          f"{(on - off).abs().max().item():.3e}")
+    _assert_close(default, off, torch.float32)
+
+
+@pytest.mark.gpu
+def test_f32_pipeline_launches_no_kernel():
+    """The gates take bf16 only, as the JAX gates do: an f32 TryOnPipeline
+    at a size whose up_3 and up_4 pass the unit's shape rules (fine
+    512x256) launches no hand-written kernel; the same pipeline in bf16
+    launches the fused unit 6 times (and its statistics 6)."""
+    _need_card()
+    from hrviton_tpu_torch import (PipelineConfig, SPADEGenConfig, TOCGConfig,
+                                   TryOnPipeline)
+    from hrviton_tpu_torch.core.precision import bf16_params
+    wrappers = (tsb.spade_conv_unit, tsf.norm_stats, tsf.fused_spade_modulate,
+                tc3.conv3x3_wide, tc3.conv3x3_small)
+    pipe = TryOnPipeline(
+        PipelineConfig(fine_height=512, fine_width=256, cond_height=128,
+                       cond_width=64),
+        TOCGConfig(ngf=16), SPADEGenConfig(ngf=16, fine_height=512,
+                                           fine_width=256), seed=3)
+    rng = np.random.default_rng(7)
+    batch = {"cloth": _a(rng, (1, 512, 256, 3)),
+             "cloth_mask": _a(rng, (1, 512, 256, 1)).sigmoid(),
+             "parse_agnostic": _a(rng, (1, 512, 256, 13)),
+             "densepose": _a(rng, (1, 512, 256, 3)),
+             "agnostic": _a(rng, (1, 512, 256, 3))}
+    counts = lambda: [w.launches for w in wrappers]
+    before = counts()
+    rgb, _ = pipe(batch)
+    torch.cuda.synchronize()
+    assert counts() == before and torch.isfinite(rgb).all()
+    bf16_params(pipe.tocg)
+    bf16_params(pipe.generator)
+    pipe.dtype = torch.bfloat16
+    pipe(batch)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [6, 6, 0, 0, 0]

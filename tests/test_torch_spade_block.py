@@ -82,12 +82,13 @@ def test_unit_wide_channels():
 
 def test_gate_admits_up3_up4_only():
     """At 1024x768 the gate admits the JAX gate's blocks (up_3 512x384 and
-    up_4 1024x768) on a CUDA device; never up_2 (256x192, w % 128) or a
-    smaller block, another dtype, or the CPU."""
+    up_4 1024x768) on a CUDA device in bf16; never up_2 (256x192, w % 128)
+    or a smaller block, another dtype (f32 included: the JAX gate takes
+    bf16 only), or the CPU."""
     gate = tsb.fused_spade_conv_eligible
     for h, w in ((512, 384), (1024, 768)):
         assert gate(h, w, 128, torch.bfloat16, "cuda")
-        assert gate(h, w, 128, torch.float32, "cuda")
+        assert not gate(h, w, 128, torch.float32, "cuda")
         assert not gate(h, w, 128, torch.bfloat16, "cpu")
         assert not gate(h, w, 128, torch.float16, "cuda")
     for h, w in ((256, 192), (128, 96), (64, 48)):
