@@ -133,7 +133,37 @@ Phases (any failure exits non-zero, and no result line is printed):
      against the test images, with a torchvision-keyed inception_v3 .pth
      of seeded random weights: SSIM, MSE, LPIPS and IS finite, eval.txt
      and lpips.txt written; and no hand-written kernel launched in the
-     whole phase (every counter unchanged).
+     whole phase (every counter unchanged);
+  9. training: (a) the four model-path kernels' autograd.Functions
+     (spade_conv_unit at up_3 / up_4's six units, fused_spade_modulate at
+     the nine fast_spade norms, conv3x3_wide and conv3x3_small at their
+     sites), batch 2 at 1024x768, bf16: the output within 2 bf16 ulps of
+     max|ref| of the plain version and every input gradient within 2 bf16
+     ulps of max|ref| of the plain version's autograd; the wide kernel
+     reads its weight anew after an SGD step on it; (b) stage 1 through
+     cli/train_condition.main: tocg ngf=96 at 256x192, batch 8, f32, the
+     condition discriminator (33 channels, ndf 64, 3 layers, 2 scales), 12
+     steps on a synthetic tree of 64 pairs a split (make_synthetic_dataset,
+     random VGG19 from seed 0 under --allow_random_vgg), IoU validation,
+     under torch's default TF32 settings and cuDNN's autotuning off (torch's
+     default; the paths' phases leave it on): finite losses every step, ms/step
+     by CUDA events (median and quartiles after the first), peak
+     torch.cuda.max_memory_allocated, the TF32 flags a hook on every logit
+     map reads in backward (all False), no kernel launched; its
+     tocg_final.ckpt and D_final.ckpt load into cli/test_condition (64
+     rejection scores); (c) stage 2 through cli/train_generator.main: SPADE
+     ngf=64 'most' at 1024x768, batch 2, --bf16, the CLI's defaults (fused
+     unit off, remat, D remat, taps wgrad), the SPADE discriminator (ndf
+     64, 3 layers, 2 scales), the frozen tocg from stage 1's checkpoint, 8
+     steps with in-train LPIPS (random alex) and the TensorBoard grids'
+     generate_debug: the same figures, the hinge D loss at init within 0.05
+     of 2.0, no kernel launched; (d) stage 2 with --fused_block, 4 steps:
+     the fused unit and the statistics exactly 18 launches a step (6 in the
+     G loss's forward, 6 when backward recomputes up_3 and up_4, 6 in the D
+     step's regeneration), the counts set to 0 just before and read just
+     after; those launches join the record's rows of the unit and the
+     statistics; (e) stage 2 with --no_taps_wgrad, 4 steps: ms/step beside
+     (c)'s, the tap-product weight gradient's cost against cuDNN's.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
@@ -1694,6 +1724,301 @@ def rejection_phase(card):
     torch.cuda.empty_cache()
 
 
+TRAIN_PAIRS = 64            # pairs per split of phase 9's synthetic trees
+STAGE1 = dict(hw=(256, 192), batch=8, steps=12)    # bench_train.py:7-11,77
+STAGE2 = dict(hw=(1024, 768), batch=2, steps=8, fused_steps=4)
+# the fused unit's launches per stage-2 step with --fused_block (remat on):
+# up_3 and up_4 run 3 units each in the G loss's forward, again when
+# backward recomputes those two checkpointed blocks, and once more in the
+# D step's regeneration (no gradient, no recompute); the statistics kernel
+# launches once per unit
+UNITS_PER_FUSED_STEP = 6 + 6 + 6
+
+
+def _grad_site(label, kernel, plain_fwd, plain_grad, args, diff, gen):
+    """One kernel's autograd.Function against its plain version's autograd
+    on the same inputs: the output within 2 bf16 ulps of max|ref| (the
+    kernel check's limit) and every input gradient within 2 bf16 ulps of its
+    max|ref| (the Function's backward is the plain version's autograd on
+    the saved inputs: the same computation)."""
+    def leaves():
+        return [None if a is None else a.detach().clone().requires_grad_(i in diff)
+                for i, a in enumerate(args)]
+    lk, lp = leaves(), leaves()
+    out = kernel(*lk)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    gk = torch.autograd.grad(out, [lk[i] for i in diff], g)
+    with torch.no_grad():
+        ref = plain_fwd(*[None if a is None else a.detach() for a in lp])
+    gp = torch.autograd.grad(plain_grad(*lp), [lp[i] for i in diff], g)
+    _within(f"training: {label} output", out.detach(), ref, torch.bfloat16)
+    worst = 0.0
+    for i, a, b in zip(diff, gk, gp):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, err / max(scale * 2 ** -7, 1e-30))
+        if a.shape != b.shape or not torch.isfinite(a).all() or \
+                err > 2 * 2 ** -7 * scale:
+            raise RuntimeError(f"training: {label} gradient of input {i}: "
+                               f"{err} > 2 ulps of {scale}")
+    log(f"training: {label} gradients of {len(diff)} inputs within "
+        f"{worst:.2f} bf16 ulps of max|ref| (limit 2) ok")
+
+
+def _function_grads():
+    """Part 1 of phase 9: the four Functions' gradients at the main-path
+    shapes, batch 2 (the training batch), bf16; and the weight-pack cache
+    after an optimizer step."""
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    from hrviton_tpu_torch.ops import spade_block as sb
+    from hrviton_tpu_torch.ops import spade_fused as sf
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    b = STAGE2["batch"]
+    for name, h, w, c, cout, ks, act, residual in UNITS:
+        args, res = _unit_inputs(gen, bf, h, w, c, cout, ks, residual, batch=b)
+        args = args + [res]
+        diff = [i for i, a in enumerate(args) if a is not None]
+        unit = lambda *a, act=act: sb.spade_conv_unit(act, *a)
+        ref = lambda *a, act=act: sb.spade_conv_ref(*a[:10], pre_act=act,
+                                                    residual=a[10])
+        _grad_site(f"spade_conv_unit {name} b{b}", unit, ref, ref, args, diff,
+                   gen)
+        del args
+        torch.cuda.empty_cache()
+    for name, h, w, c, _ in MODULATE_SITES:
+        args, _ = _unit_inputs(gen, bf, h, w, c, c, 3, False, batch=b)
+        args = args[:8]
+        _grad_site(f"fused_spade_modulate {name} b{b}", sf.fused_spade_modulate,
+                   sf.modulate_ref, sf.modulate_ref, args, list(range(8)), gen)
+    for kind, sites in (("wide", WIDE_SITES), ("small", SMALL_SITES)):
+        wrapper = c3.conv3x3_wide if kind == "wide" else c3.conv3x3_small
+        for name, h, w, cin, cout, act, _ in sites:
+            args = [_randn(gen, b, h, w, cin).to(bf),
+                    _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5
+                           ).to(bf), _randn(gen, cout, scale=0.1)]
+            fwd = lambda x, w_, b_, act=act, k=kind: c3.conv3x3_ref(
+                x, w_, b_, act, fused_bias=k == "wide")
+            grad = lambda x, w_, b_, act=act: c3.conv3x3_ref(x, w_, b_, act)
+            _grad_site(f"conv3x3_{kind} {name} b{b}",
+                       lambda x, w_, b_, act=act, f=wrapper: f(x, w_, b_, act),
+                       fwd, grad, args, [0, 1, 2], gen)
+    # the engine's weight-pack cache after an optimizer step: the kernel
+    # must read the updated weights
+    name, h, w, cin, cout, act, _ = WIDE_SITES[2]
+    x = _randn(gen, b, h, w, cin).to(bf)
+    wt = torch.nn.Parameter(_randn(gen, cout, cin, 3, 3, scale=0.02).to(bf))
+    opt = torch.optim.SGD([wt], lr=10.0)
+    c3.conv3x3_wide(x, wt, None, act).float().square().mean().backward()
+    before = c3.conv3x3_wide(x, wt.detach(), None, act)
+    opt.step()
+    after = c3.conv3x3_wide(x, wt.detach(), None, act)
+    ref = c3.conv3x3_ref(x, wt.detach(), None, act, fused_bias=True)
+    moved = (after.float() - before.float()).abs().max().item()
+    _within(f"training: conv3x3_wide {name} after an SGD step on its weight "
+            f"(output moved by {moved:.3e}) against the plain version with "
+            f"the new weight", after, ref, bf)
+    if moved == 0.0:
+        raise RuntimeError("training: the kernel read the old weights")
+
+
+def _tf32_spy(module, name, seen):
+    """``module.name`` (a GAN loss) wrapped so that a hook on each logit map
+    records cuDNN's and the matmul's TF32 flags when backward reaches it."""
+    from unittest import mock
+    real = getattr(module, name)
+
+    def flags(g):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return g
+
+    def spy(pred, *a, **k):
+        for p in pred:
+            t = p[-1] if isinstance(p, (list, tuple)) else p
+            if t.requires_grad:
+                t.register_hook(flags)
+        return real(pred, *a, **k)
+    return mock.patch.object(module, name, spy)
+
+
+def _run_cli(label, main, argv, spy_module, spy_name, card):
+    """One training CLI's main under torch's default TF32 settings, with
+    the TF32 spy; prints its losses, ms/step and peak memory."""
+    import numpy as np
+    seen = []
+    _tf32(True, False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _tf32_spy(spy_module, spy_name, seen):
+        rec = main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(rec["metrics"]):
+        log(f"training: {label} step {i + 1}: " +
+            " ".join(f"{k}={v:.6g}" for k, v in sorted(m.items())))
+        if not np.isfinite(list(m.values())).all():
+            raise RuntimeError(f"training: {label}: non-finite loss at step {i + 1}")
+    ms = rec["step_ms"]
+    log(f"training: {label} ms/step by CUDA events after the first step: "
+        f"{_spread(ms[1:])}, first {ms[0]:.2f} ms; peak "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB; main {wall:.1f} s "
+        f"| {card}")
+    flags = sorted(set(seen))
+    log(f"training: {label} TF32 flags (cudnn, matmul) seen in backward at "
+        f"{len(seen)} logit maps: {flags}")
+    if not seen or flags != [(False, False)]:
+        raise RuntimeError(f"training: {label}: TF32 in backward {flags}")
+    return rec
+
+
+def training_phase(card):
+    """Phase 9 (module docstring): the four Functions' gradients, then both
+    training CLIs at full width on synthetic data. Returns the fused unit's
+    and the statistics' launches of part 4."""
+    import tempfile
+    from hrviton_tpu_torch.cli import test_condition as tc
+    from hrviton_tpu_torch.cli import train_condition as t1
+    from hrviton_tpu_torch.cli import train_generator as t2
+    from hrviton_tpu_torch.data.synthetic import make_synthetic_dataset
+    from hrviton_tpu_torch.train import condition_trainer, generator_trainer
+
+    _function_grads()
+    torch.cuda.empty_cache()
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    # the CLIs run as a user runs them: cuDNN's autotuning off, torch's
+    # default (the paths' phases turn it on and leave it so)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_training_")
+    try:
+        t0 = time.perf_counter()
+        (h1, w1), (h2, w2) = STAGE1["hw"], STAGE2["hw"]
+        r1 = make_synthetic_dataset(os.path.join(tmp, "d1"), n=TRAIN_PAIRS,
+                                    w=w1, h=h1, modes=("train", "test"))
+        r2 = make_synthetic_dataset(os.path.join(tmp, "d2"), n=TRAIN_PAIRS,
+                                    w=w2, h=h2, modes=("train", "test"))
+        log(f"training: synthetic trees of {TRAIN_PAIRS} pairs a split at "
+            f"{h1}x{w1} and {h2}x{w2} in {time.perf_counter() - t0:.1f} s")
+        ck, tb = os.path.join(tmp, "ck"), os.path.join(tmp, "tb")
+        before = _all_launches()
+
+        # part 2: stage 1, f32, through the CLI
+        n1 = STAGE1["steps"]
+        rec1 = _run_cli(
+            f"stage 1 (tocg ngf=96 {h1}x{w1}, batch {STAGE1['batch']}, f32, "
+            f"condition D 33 ch ndf 64 3 layers 2 scales)", t1.main,
+            ["--name", "s1", "--dataroot", r1, "--test_dataroot", r1,
+             "--fine_height", str(h1), "--fine_width", str(w1),
+             "-b", str(STAGE1["batch"]), "-j", "4", "--keep_step", str(n1),
+             "--display_count", "1", "--tensorboard_count", str(n1),
+             "--val_count", str(n1), "--val_samples", "16",
+             "--save_count", str(n1), "--checkpoint_dir", ck,
+             "--tensorboard_dir", tb, "--allow_random_vgg", "--device", "cuda"],
+            condition_trainer, "lsgan_loss", card)
+        if len(rec1["metrics"]) != n1 or len(rec1["val_iou"]) != 1:
+            raise RuntimeError(f"training: stage 1 gave {len(rec1['metrics'])} "
+                               f"steps, val/iou {rec1['val_iou']}")
+        s1 = os.path.join(ck, "s1")
+        out = tc.main(["--dataroot", r1, "--datamode", "test",
+                       "--data_list", "test_pairs.txt", "--fine_height", str(h1),
+                       "--fine_width", str(w1), "-b", "8", "-j", "4",
+                       "--tocg_checkpoint", os.path.join(s1, "tocg_final.ckpt"),
+                       "--D_checkpoint", os.path.join(s1, "D_final.ckpt"),
+                       "--norm_const", "1.0", "--output_dir",
+                       os.path.join(tmp, "tc"), "--device", "cuda"])
+        n_scores = len(open(os.path.join(out, "rejection_prob.txt")).readlines())
+        if n_scores != TRAIN_PAIRS:
+            raise RuntimeError(f"training: test_condition on stage 1's "
+                               f"checkpoints gave {n_scores} scores")
+        log(f"training: stage 1's tocg_final.ckpt and D_final.ckpt "
+            f"({', '.join(sorted(os.listdir(s1)))}) load into "
+            f"cli/test_condition: {n_scores} rejection scores")
+        mid = _all_launches()
+        if mid != before:
+            raise RuntimeError(f"training: stage 1 launched a kernel: "
+                               f"{ {k: mid[k] - before[k] for k in mid} }")
+        torch.cuda.empty_cache()
+
+        # part 3: stage 2 with the CLI's defaults, bf16
+        common = ["--dataroot", r2, "--test_dataroot", r2, "-b",
+                  str(STAGE2["batch"]), "-j", "4", "--decay_step", "0",
+                  "--display_count", "1", "--save_count", "100000",
+                  "--checkpoint_dir", ck, "--tensorboard_dir", tb,
+                  "--allow_random_vgg", "--bf16", "--tocg_checkpoint",
+                  os.path.join(s1, "tocg_final.ckpt"), "--device", "cuda"]
+        n2 = STAGE2["steps"]
+        rec2 = _run_cli(
+            f"stage 2 (SPADE ngf=64 'most' {h2}x{w2}, batch "
+            f"{STAGE2['batch']}, bf16, fused unit off, remat, d_remat, taps "
+            f"wgrad; SPADE D ndf 64 3 layers 2 scales; frozen tocg ngf=96 from "
+            f"stage 1)", t2.main,
+            ["--name", "s2", "--keep_step", str(n2), "--tensorboard_count",
+             str(n2), "--lpips_count", str(n2), "--lpips_samples", "4",
+             "--lpips_batch", "2"] + common,
+            generator_trainer, "gan_loss", card)
+        d0 = rec2["metrics"][0]["loss/dis"]
+        log(f"training: stage 2 hinge D loss at init {d0:.6f} (expect ~2.0), "
+            f"LPIPS {rec2['lpips']}, checkpoints "
+            f"{sorted(os.listdir(os.path.join(ck, 's2')))}")
+        if abs(d0 - 2.0) > 0.05 or len(rec2["metrics"]) != n2 or \
+                len(rec2["lpips"]) != 1:
+            raise RuntimeError(f"training: stage 2: D loss {d0}, "
+                               f"{len(rec2['metrics'])} steps, LPIPS {rec2['lpips']}")
+        after2 = _all_launches()
+        if after2 != mid:
+            raise RuntimeError(f"training: stage 2 (fused unit off) launched a "
+                               f"kernel: { {k: after2[k] - mid[k] for k in mid} }")
+        torch.cuda.empty_cache()
+
+        # part 4: stage 2 with --fused_block: the unit's exact launches, the
+        # counts set to 0 just before and read just after
+        n4 = STAGE2["fused_steps"]
+        wrappers = _wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        rec4 = _run_cli(
+            f"stage 2 --fused_block ({n4} steps)", t2.main,
+            ["--name", "s2f", "--keep_step", str(n4), "--tensorboard_count",
+             "100000", "--lpips_count", "100000", "--fused_block"] + common,
+            generator_trainer, "gan_loss", card)
+        got = {k: w.launches for k, w in wrappers.items()}
+        want = {k: 0 for k in got}
+        want["spade_unit"] = want["instance_stats"] = UNITS_PER_FUSED_STEP * n4
+        log(f"training: stage 2 --fused_block launches over {n4} steps: "
+            f"{ {k: v for k, v in got.items() if v} } (expect spade_unit and "
+            f"instance_stats {UNITS_PER_FUSED_STEP} a step: 6 in the G loss's "
+            f"forward, 6 in the remat recompute, 6 in the D step's "
+            f"regeneration)")
+        if got != want:
+            raise RuntimeError(f"training: --fused_block launches {got}, "
+                               f"expected {want}")
+        if len(rec4["metrics"]) != n4:
+            raise RuntimeError("training: --fused_block steps missing")
+        torch.cuda.empty_cache()
+
+        # part 5: stage 2 with the library's weight gradient in place of
+        # the tap products (--no_taps_wgrad), for the taps' cost
+        rec5 = _run_cli(
+            f"stage 2 --no_taps_wgrad ({n4} steps)", t2.main,
+            ["--name", "s2n", "--keep_step", str(n4), "--tensorboard_count",
+             "100000", "--lpips_count", "100000", "--no_taps_wgrad"] + common,
+            generator_trainer, "gan_loss", card)
+        import statistics
+        taps = statistics.median(rec2["step_ms"][1:])
+        lib = statistics.median(rec5["step_ms"][1:])
+        log(f"training: stage 2 median ms/step with the taps weight gradient "
+            f"{taps:.2f} against cuDNN's {lib:.2f} ({taps - lib:+.2f} ms) | "
+            f"{card}")
+    finally:
+        _tf32(*saved)
+        torch.backends.cudnn.benchmark = benchmark
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"spade_unit": got["spade_unit"],
+            "instance_stats": got["instance_stats"]}
+
+
 def _hold(label, wrapper, call, plain, exact):
     """One call of a wrapper at a small size against its plain version: one
     launch, finite, within 2 bf16 ulps of max|ref| (or bit for bit)."""
@@ -2007,6 +2332,10 @@ def main():
     launches.update(tool_launches)
     torch.cuda.empty_cache()
     rejection_phase(card)
+    # phase 9's --fused_block steps are a main path of the unit and the
+    # statistics: their launches join those rows
+    for key, n in training_phase(card).items():
+        launches[key] += n
     record = {"kernels": []}
     ths = {key: t for key, _, t in TOOL_CONVS}
     for key, name, source, replaces in KERNELS:

@@ -30,7 +30,9 @@ __all__ = ["add_data_flags", "add_tocg_flags", "add_spade_flags",
            "add_d_flags", "add_ignored_reference_flags",
            "load_tocg_variables", "load_gen_variables", "load_d_variables",
            "data_cfg_from_args", "check_pretrained_backbone", "build_tocg",
-           "build_cond_discriminator", "condition_inputs"]
+           "build_cond_discriminator", "condition_inputs",
+           "add_multihost_flags", "check_single_process", "batch_to_device",
+           "StepEvents"]
 
 
 def check_pretrained_backbone(weights_path: str, *, what: str, flag: str,
@@ -214,3 +216,65 @@ def condition_inputs(raw: Mapping, datasetting: str,
     cm = (t(raw["cloth_mask"][datasetting]) > 0.5).float()
     return (torch.cat([cloth, cm], dim=-1),
             torch.cat([t(raw["parse_agnostic"]), t(raw["densepose"])], dim=-1))
+
+
+def add_multihost_flags(p: argparse.ArgumentParser):
+    """The JAX training CLIs' multi-host flags, parsed; a non-default value
+    raises (``check_single_process``) until the data-parallel slice ports
+    ``core/mesh.py``."""
+    p.add_argument("--coordinator", default="",
+                   help="coordinator address host:port for multi-host runs "
+                        "(not ported: raises)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+
+
+def check_single_process(opt) -> None:
+    """Raise NotImplementedError for a multi-host flag set away from its
+    default: one process drives one card until the data-parallel slice
+    (``core/mesh.py``: DDP with SyncBatchNorm) is ported."""
+    set_flags = [f for f, v in (("--coordinator", opt.coordinator),
+                                ("--num_processes", opt.num_processes),
+                                ("--process_id", opt.process_id)) if v]
+    if set_flags:
+        raise NotImplementedError(
+            f"{', '.join(set_flags)}: multi-host training waits for the "
+            f"data-parallel slice (core/mesh.py, DDP with SyncBatchNorm); "
+            f"the port trains on one device")
+
+
+def batch_to_device(batch: Mapping, device, compact: bool,
+                    semantic_nc: int = 13) -> dict:
+    """A loader batch without its name lists, as tensors on ``device``, the
+    compact format expanded there (``data/device.py``)."""
+    from hrviton_tpu_torch.data.device import expand_compact, to_device
+    batch = {k: v for k, v in batch.items() if k not in ("im_name", "c_name")}
+    batch = to_device(batch, device)
+    return expand_compact(batch, semantic_nc=semantic_nc) if compact else batch
+
+
+class StepEvents:
+    """CUDA events around each training step on a card (nothing on the
+    CPU); ``ms()`` gives the steps' times, after a synchronize."""
+
+    def __init__(self, device):
+        self.on = torch.device(device).type == "cuda"
+        self.pairs = []
+
+    def start(self):
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.pairs.append([e, None])
+
+    def stop(self):
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.pairs[-1][1] = e
+
+    def ms(self):
+        if not self.on:
+            return []
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]

@@ -2,8 +2,9 @@
 
 The port's own copy of ``hrviton_tpu/config.py``'s ``TOCGConfig``,
 ``SPADEGenConfig``, ``CondDiscriminatorConfig``, ``PipelineConfig`` and
-``DataConfig`` (same fields and defaults, less the training-only ``remat``),
-so the port imports nothing of the JAX package.
+``DataConfig``, ``SPADEDiscriminatorConfig``, ``ConditionTrainConfig`` and
+``GeneratorTrainConfig`` (same fields and defaults), so the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ class SPADEGenConfig:
     norm_g: str = "spectralaliasinstance"
     fine_height: int = 1024
     fine_width: int = 768
+    remat: bool = True            # recompute each SPADE block in backward
+                                  # (torch.utils.checkpoint) instead of
+                                  # keeping its activations; no effect on a
+                                  # forward without gradients
     s2d_tail: bool = False        # run up_3, up_4 and conv_img of 'most' in the
                                   # space-to-depth domain (ops/s2d.py: plain
                                   # tensor code, no kernel)
@@ -77,6 +82,22 @@ class CondDiscriminatorConfig:
 
 
 @dataclass(frozen=True)
+class SPADEDiscriminatorConfig:
+    """SPADE-style multiscale discriminator (reference
+    network_generator.py:250-316)."""
+    gen_semantic_nc: int = 7
+    ndf: int = 64
+    n_layers_d: int = 3
+    num_d: int = 2
+    norm_d: str = "spectralinstance"
+    no_gan_feat_loss: bool = False
+
+    @property
+    def input_nc(self) -> int:
+        return self.gen_semantic_nc + 3
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end try-on pipeline (reference test_generator.py path)."""
     fine_height: int = 1024
@@ -91,6 +112,68 @@ class PipelineConfig:
     # normalization constants (96, 128) (test_generator.py:208).
     flow_norm_w: float = (96 - 1.0) / 2.0
     flow_norm_h: float = (128 - 1.0) / 2.0
+
+
+@dataclass(frozen=True)
+class ConditionTrainConfig:
+    """Stage-1 loop hyperparameters (reference train_condition.py)."""
+    batch_size: int = 8
+    keep_step: int = 300000
+    g_lr: float = 2e-4
+    d_lr: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    ce_lambda: float = 10.0
+    gan_lambda: float = 1.0
+    tv_lambda: float = 2.0
+    l1_lambda: float = 10.0
+    no_gan_loss: bool = False
+    g_d_separate: bool = False
+    lasttvonly: bool = False
+    interflowloss: bool = False
+    edgeawaretv: str = "no_edge"  # 'no_edge' | 'last_only' | 'weighted'
+    add_lasttv: bool = False
+    occlusion: bool = False
+    clothmask_composition: str = "warp_grad"
+    val_count: int = 1000
+    display_count: int = 100
+    save_count: int = 10000
+    tensorboard_count: int = 100
+    load_step: int = 0
+    bf16: bool = False            # bf16 compute, f32 parameters and Adam state
+
+
+@dataclass(frozen=True)
+class GeneratorTrainConfig:
+    """Stage-2 loop hyperparameters (reference train_generator.py)."""
+    batch_size: int = 4
+    keep_step: int = 100000
+    decay_step: int = 100000
+    g_lr: float = 1e-4
+    d_lr: float = 4e-4            # TTUR (train_generator.py:73-74)
+    beta1: float = 0.0
+    beta2: float = 0.9
+    lambda_feat: float = 10.0
+    lambda_vgg: float = 10.0
+    no_gan_feat_loss: bool = False
+    no_vgg_loss: bool = False
+    gt_mode: bool = False         # --GT: condition on the ground-truth parse
+    occlusion: bool = False
+    clothmask_composition: str = "warp_grad"
+    lpips_count: int = 1000
+    display_count: int = 100
+    save_count: int = 10000
+    tensorboard_count: int = 100
+    load_step: int = 0
+    bf16: bool = False            # bf16 compute, f32 parameters and Adam state
+    taps_wgrad: bool = True       # 3x3 conv weight gradients as nine tap
+                                  # products over row chunks (ops/conv3x3.py)
+    d_remat: bool = True          # recompute the discriminator's forward in
+                                  # backward
+    split_d_batch: bool = False   # the discriminator judges fake and real in
+                                  # two calls instead of one concatenated
+                                  # batch (the same result for its per-sample
+                                  # instance norms)
 
 
 @dataclass(frozen=True)

@@ -11,8 +11,13 @@ nested dicts of numpy arrays (collections ``params``, ``batch_stats`` and
 
 The JAX ``Conv2d`` wraps its kernel in an inner module named ``conv``; the
 port's ``Conv2d`` holds it directly, so that level is skipped. The trees of
-every model the port has load this way: the tocg, the SPADE generator, the
-condition discriminator, the four backbones, LPIPS and InceptionV3.
+every model the port has load this way: the tocg, the SPADE generator, both
+discriminators, the four backbones, LPIPS and InceptionV3.
+
+``export_jax_variables(module)`` is the inverse: the module's state as the
+JAX variable tree (float32 numpy arrays, the ``conv`` level put back), what
+the JAX training loops save with ``train/checkpoint.py:save_pytree`` and its
+inference CLIs read.
 """
 
 from __future__ import annotations
@@ -25,7 +30,11 @@ import torch.nn as nn
 
 from hrviton_tpu_torch.nn.layers import Conv2d
 
-__all__ = ["load_jax_variables"]
+__all__ = ["load_jax_variables", "export_jax_variables"]
+
+# the collection of each JAX leaf name
+_COLLECTION = {"mean": "batch_stats", "var": "batch_stats", "u": "aux",
+               "v": "aux"}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -84,3 +93,32 @@ def load_jax_variables(module: nn.Module, variables: Mapping,
         if missing:
             raise KeyError(f"{len(missing)} port tensors not filled: {missing[:8]}")
     return filled
+
+
+def export_jax_variables(module: nn.Module) -> Dict:
+    """``module``'s parameters and buffers as the JAX package's variable
+    tree: {'params': ..., 'batch_stats': ..., 'aux': ...} (the collections
+    the module has), conv kernels OIHW -> HWIO, dense (out, in) -> (in,
+    out), every leaf a float32 numpy array."""
+    tree: Dict = {}
+    for name, m in module.named_modules():
+        names = getattr(type(m), "_jax_names", None)
+        if not names:
+            continue
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(m, Conv2d):
+            path = path + ("conv",)
+        for leaf, attr in names.items():
+            t = getattr(m, attr, None)
+            if t is None:
+                continue
+            arr = t.detach().float().cpu().clone()   # no alias of the module
+            if arr.dim() == 4:                       # OIHW -> HWIO
+                arr = arr.permute(2, 3, 1, 0)
+            elif arr.dim() == 2:                     # (out, in) -> (in, out)
+                arr = arr.t()
+            node = tree.setdefault(_COLLECTION.get(leaf, "params"), {})
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = np.ascontiguousarray(arr.numpy())
+    return tree

@@ -19,6 +19,17 @@ plain versions in ``ops/``, the evaluation models' own products): TF32 off
 for float32, nothing changed for any other dtype. So an f32 forward is f32
 in every product whatever its entry point, and a bf16 one leaves the flags
 alone.
+
+``param_dtype(dtype)`` is the training loops' bf16 policy (JAX: a
+differentiable cast of every floating leaf, f32 master weights): inside it
+every layer reads each parameter through ``policy``, rounded to ``dtype``
+where it is used, whatever dtype it computes in (the image stage's
+discriminator computes in f32 on bf16-rounded weights, as the JAX one does,
+its input promoted by the f32 parse map). Gradients reach the f32
+parameters through the cast. ``rounded_buffers(module, dtype)`` rounds a
+module's floating buffers (BatchNorm statistics, spectral u/v) in place for
+a block and puts them back after it, where the JAX loops cast a network's
+state along with its parameters.
 """
 
 from __future__ import annotations
@@ -28,7 +39,10 @@ import contextlib
 import torch
 import torch.nn as nn
 
-__all__ = ["cast_floating", "bf16_params", "f32_params", "no_tf32", "exact"]
+__all__ = ["cast_floating", "bf16_params", "f32_params", "no_tf32", "exact",
+           "param_dtype", "policy", "rounded_buffers"]
+
+_PARAM_DTYPE = None
 
 
 def cast_floating(module: nn.Module, dtype) -> nn.Module:
@@ -65,3 +79,41 @@ def exact(dtype):
     """``no_tf32()`` for float32 math, a context that changes nothing for
     any other dtype."""
     return no_tf32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def param_dtype(dtype):
+    """Parameters read through ``policy`` are rounded to ``dtype`` inside
+    the block (None: as they are)."""
+    global _PARAM_DTYPE
+    prev = _PARAM_DTYPE
+    _PARAM_DTYPE = dtype
+    try:
+        yield
+    finally:
+        _PARAM_DTYPE = prev
+
+
+def policy(p: torch.Tensor) -> torch.Tensor:
+    """A floating parameter as the precision policy holds it: cast to the
+    ``param_dtype`` in force (a differentiable cast), else as it is."""
+    if _PARAM_DTYPE is None or not p.is_floating_point() or p.dtype == _PARAM_DTYPE:
+        return p
+    return p.to(_PARAM_DTYPE)
+
+
+@contextlib.contextmanager
+def rounded_buffers(module: nn.Module, dtype):
+    """``module``'s floating buffers rounded through ``dtype`` in place for
+    the block, restored after it."""
+    saved = [(b, b.detach().clone()) for b in module.buffers()
+             if b.is_floating_point()]
+    with torch.no_grad():
+        for b, _ in saved:
+            b.copy_(b.to(dtype))
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)

@@ -1,1 +1,2 @@
-"""Perceptual distances (LPIPS) for evaluation."""
+"""Losses: LPIPS for evaluation (``lpips.py``) and the training objectives
+(``gan.py``, ``matching.py``, ``tv.py``, ``seg.py``, ``perceptual.py``)."""

@@ -1,7 +1,9 @@
 """Try-On Condition Generator (tocg): joint appearance flow + segmentation.
 
 Counterpart of ``hrviton_tpu/models/condition.py`` (reference
-networks.py:13-159), eval mode. Submodule names follow the JAX parameter
+networks.py:13-159). ``forward(..., train=True)`` is the training mode:
+its BatchNorms normalize with the batch's statistics and stage their
+running ones (``nn/layers.commit_state``). Submodule names follow the JAX parameter
 tree, so ``convert.load_jax_variables`` maps one onto the other.
 
 Forward contract (NHWC in and out, like the JAX package):
@@ -70,12 +72,15 @@ class ResBlock(nn.Module):
         else:
             raise ValueError(norm)
 
-    def forward(self, x):
+    def _norm(self, norm, h, train):
+        return norm(h, train=train) if isinstance(norm, BatchNorm2d) else norm(h)
+
+    def forward(self, x, train: bool = False):
         if self.scale == "up":
             x = interpolate_nchw(x, scale_factor=2, mode="bilinear")
         residual = self.scale_conv(x)
-        y = F.relu(self.norm1(self.conv1(residual)))
-        y = self.norm2(self.conv2(y))
+        y = F.relu(self._norm(self.norm1, self.conv1(residual), train))
+        y = self._norm(self.norm2, self.conv2(y), train)
         return F.relu(residual + y)
 
 
@@ -120,8 +125,9 @@ class ConditionGenerator(nn.Module):
             self.out_layer_res = ResBlock(head_in, ngf, "same", cfg.norm, **kw)
             self.out_layer_conv = Conv2d(ngf, cfg.output_nc, 1, **kw)
 
-    def forward(self, input1, input2):
-        """NHWC in, NHWC out (see module docstring)."""
+    def forward(self, input1, input2, train: bool = False):
+        """NHWC in, NHWC out (see module docstring); ``train``: batch
+        statistics in the BatchNorms."""
         cfg = self.cfg
         up = cfg.upsample
         i1 = input1.permute(0, 3, 1, 2).contiguous(memory_format=_CL)
@@ -129,8 +135,8 @@ class ConditionGenerator(nn.Module):
         e1, e2 = [], []
         h1, h2 = i1, i2
         for i in range(5):
-            h1 = getattr(self, f"ClothEncoder_{i}")(h1)
-            h2 = getattr(self, f"PoseEncoder_{i}")(h2)
+            h1 = getattr(self, f"ClothEncoder_{i}")(h1, train)
+            h2 = getattr(self, f"PoseEncoder_{i}")(h2, train)
             e1.append(h1)
             e2.append(h2)
 
@@ -141,7 +147,7 @@ class ConditionGenerator(nn.Module):
             if i == 0:
                 t1, t2 = feat1, feat2
                 flow = self.flow_conv_0(torch.cat([t1, t2], dim=1))
-                x = self.SegDecoder_0(self.conv(t2))
+                x = self.SegDecoder_0(self.conv(t2, train), train)
             else:
                 t1 = interpolate_nchw(t1, scale_factor=2, mode=up) + \
                     getattr(self, f"conv1_{4 - i}")(feat1)
@@ -158,7 +164,7 @@ class ConditionGenerator(nn.Module):
                 warped = (warped_t1 if cfg.warp_feature == "T1"
                           else _sample(feat1, grid))
                 x = getattr(self, f"SegDecoder_{i}")(
-                    torch.cat([x, feat2, warped], dim=1))
+                    torch.cat([x, feat2, warped], dim=1), train)
             flows.append(flow)
 
         ih, iw = i1.shape[2:]
@@ -168,9 +174,9 @@ class ConditionGenerator(nn.Module):
         warped_input1 = _sample(i1, grid)
         head_in = torch.cat([x, i2, warped_input1], dim=1)
         if cfg.out_layer == "relu":
-            seg = self.out_layer(head_in)
+            seg = self.out_layer(head_in, train)
         else:
-            seg = self.out_layer_conv(self.out_layer_res(head_in))
+            seg = self.out_layer_conv(self.out_layer_res(head_in, train))
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         return ([nhwc(f) for f in flows], nhwc(seg),
                 nhwc(warped_input1[:, :-1]), nhwc(warped_input1[:, -1:]))

@@ -1,4 +1,4 @@
-"""SPADE (ALIAS) image generator: stage 2 of HR-VITON, eval mode.
+"""SPADE (ALIAS) image generator: stage 2 of HR-VITON.
 
 Counterpart of ``hrviton_tpu/models/spade.py`` (reference
 network_generator.py:75-245). Submodule names follow the JAX parameter
@@ -18,6 +18,16 @@ small-channel switch admits them. ``SPADEGenerator.forward`` enters
 ``fast_conv``, ``fast_spade`` and ``merge_gamma_beta`` from its config for the
 length of the call and restores them after, so a knob of one generator never
 reaches another model.
+
+Training, as the JAX generator trains: ``forward(..., update_sn=True)``
+runs one power iteration in every spectral conv (staged, see
+``nn/layers.commit_state``); every parameter is read through
+``core/precision.policy`` where it is used (the bf16 policy). With
+``SPADEGenConfig.remat`` and gradients wanted, each block runs under
+``torch.utils.checkpoint`` and is recomputed in backward. The recompute is
+pure: the block's noise fields are drawn before it (in the same order) and
+handed in, the staged spectral state is read from unchanged buffers, and
+the config's knobs are entered again around it.
 """
 
 from __future__ import annotations
@@ -27,8 +37,10 @@ from typing import Callable, Sequence, Union
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from hrviton_tpu_torch.config import SPADEGenConfig
+from hrviton_tpu_torch.core.precision import policy
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.nn.layers import (Conv2d, SpectralNorm2d, conv_forward,
                                          instance_norm)
@@ -134,7 +146,8 @@ class SPADENorm(nn.Module):
             # full-res shape, so its values match the plain path's.
             nc = c // 4
             noise2 = to_s2d(draw((b, 2 * h, 2 * w, 1)))
-            noise = noise2.repeat_interleave(nc, dim=-1) * self.noise_scale.repeat(4)
+            noise = noise2.repeat_interleave(nc, dim=-1) * \
+                policy(self.noise_scale).repeat(4)
             xn = x + _nchw(noise).to(x.dtype)
             normalized = _nchw(instance_norm_s2d(_nhwc_view(xn), nc))
             actv = self.conv_shared(seg, s2d=True)
@@ -148,18 +161,20 @@ class SPADENorm(nn.Module):
             # and parameters; conv_shared's output stays pre-relu
             actv = self.conv_shared(seg)
             return _nchw(fused_spade_modulate(
-                _nhwc(x), noise, self.noise_scale, _nhwc(actv),
-                self.conv_gamma.weight, self.conv_gamma.bias,
-                self.conv_beta.weight, self.conv_beta.bias))
+                _nhwc(x), noise, policy(self.noise_scale), _nhwc(actv),
+                policy(self.conv_gamma.weight), policy(self.conv_gamma.bias),
+                policy(self.conv_beta.weight), policy(self.conv_beta.bias)))
 
-        xn = x + (_nchw(noise) * self.noise_scale.view(1, -1, 1, 1)).to(x.dtype)
+        xn = x + (_nchw(noise) * policy(self.noise_scale).view(1, -1, 1, 1)
+                  ).to(x.dtype)
         normalized = instance_norm(xn)
         actv = self.conv_shared(seg)
         if _MERGE_GB:
             gb = conv_forward(
                 actv,
-                torch.cat([self.conv_gamma.weight, self.conv_beta.weight]).to(x.dtype),
-                torch.cat([self.conv_gamma.bias, self.conv_beta.bias]),
+                policy(torch.cat([self.conv_gamma.weight,
+                                  self.conv_beta.weight])).to(x.dtype),
+                policy(torch.cat([self.conv_gamma.bias, self.conv_beta.bias])),
                 1, 1, pre_act="relu")
             gamma, beta = gb[:, :c], gb[:, c:]
         else:
@@ -168,10 +183,16 @@ class SPADENorm(nn.Module):
         return normalized * (1.0 + gamma) + beta
 
 
-def _conv_weight(conv, dtype):
+def _conv_weight(conv, dtype, update_sn: bool = False):
     if isinstance(conv, SpectralNorm2d):
-        return conv.normalized_weight(dtype)
-    return conv.weight.to(dtype)
+        return conv.normalized_weight(dtype, update_sn)
+    return policy(conv.weight).to(dtype)
+
+
+def _apply_conv(conv, h, pre_act=None, s2d=False, update_sn=False):
+    if isinstance(conv, SpectralNorm2d):
+        return conv(h, pre_act=pre_act, s2d=s2d, update=update_sn)
+    return conv(h, pre_act=pre_act, s2d=s2d)
 
 
 class SPADEResBlock(nn.Module):
@@ -203,40 +224,57 @@ class SPADEResBlock(nn.Module):
         self.conv_1 = conv(middle_nc, output_nc, 3, padding=1, init="xavier",
                            **kw)
 
-    def _unit(self, norm, conv, xin, seg, draw, pre_act, residual=None):
+    def noise_shapes(self, x_shape, s2d: bool = False):
+        """The (B, H, W, 1) noise fields one call on x of ``x_shape`` (NCHW)
+        draws, in order: norm_s (with a learned shortcut), norm_0, norm_1;
+        at the plain full-res shape in the s2d domain."""
+        b, _, h, w = x_shape
+        shape = (b, 2 * h, 2 * w, 1) if s2d else (b, h, w, 1)
+        return [shape] * (3 if self.learned_shortcut else 2)
+
+    def _unit(self, norm, conv, xin, seg, draw, pre_act, residual=None,
+              update_sn=False):
         """One fused {SPADENorm, conv} pair (ops/spade_block.py)."""
         b, _, h, w = xin.shape
+        dt = xin.dtype
         noise = draw((b, h, w, 1))
         actv = norm.conv_shared(seg)                       # pre-relu
+        bc = None if conv.bias is None else policy(conv.bias)
         out = spade_conv_unit(
-            pre_act, _nhwc(xin), noise, norm.noise_scale, _nhwc(actv),
-            norm.conv_gamma.weight, norm.conv_gamma.bias,
-            norm.conv_beta.weight, norm.conv_beta.bias,
-            _conv_weight(conv, xin.dtype), conv.bias,
+            pre_act, _nhwc(xin), noise, policy(norm.noise_scale), _nhwc(actv),
+            policy(norm.conv_gamma.weight).to(dt), policy(norm.conv_gamma.bias),
+            policy(norm.conv_beta.weight).to(dt), policy(norm.conv_beta.bias),
+            _conv_weight(conv, dt, update_sn), bc,
             None if residual is None else _nhwc(residual))
         return _nchw(out)
 
-    def forward(self, x, seg, draw, s2d: bool = False):
+    def forward(self, x, seg, draw, s2d: bool = False,
+                update_sn: bool = False):
         """x: (B, C, H, W); seg: (B, label_nc, h, w) float; draw: noise
         source. With ``s2d`` both arrive as space-to-depth tensors on one
-        grid (the caller resizes seg)."""
+        grid (the caller resizes seg). ``update_sn``: one power iteration in
+        each spectral conv (staged)."""
         if not s2d:
             seg = interpolate_nchw(seg, size=x.shape[2:], mode="nearest")
         if self.fused and not s2d and fused_spade_conv_eligible(
                 x.shape[2], x.shape[3], _NHIDDEN, x.dtype, x.device):
-            xs = (self._unit(self.norm_s, self.conv_s, x, seg, draw, None)
+            u = update_sn
+            xs = (self._unit(self.norm_s, self.conv_s, x, seg, draw, None,
+                             update_sn=u)
                   if self.learned_shortcut else x)
-            dx = self._unit(self.norm_0, self.conv_0, x, seg, draw, "leaky0.2")
+            dx = self._unit(self.norm_0, self.conv_0, x, seg, draw, "leaky0.2",
+                            update_sn=u)
             return self._unit(self.norm_1, self.conv_1, dx, seg, draw,
-                              "leaky0.2", residual=xs)
+                              "leaky0.2", residual=xs, update_sn=u)
         if self.learned_shortcut:
-            xs = self.conv_s(self.norm_s(x, seg, draw, s2d), s2d=s2d)
+            xs = _apply_conv(self.conv_s, self.norm_s(x, seg, draw, s2d),
+                             s2d=s2d, update_sn=update_sn)
         else:
             xs = x
-        dx = self.conv_0(self.norm_0(x, seg, draw, s2d), pre_act="leaky0.2",
-                         s2d=s2d)
-        dx = self.conv_1(self.norm_1(dx, seg, draw, s2d), pre_act="leaky0.2",
-                         s2d=s2d)
+        dx = _apply_conv(self.conv_0, self.norm_0(x, seg, draw, s2d),
+                         "leaky0.2", s2d, update_sn)
+        dx = _apply_conv(self.conv_1, self.norm_1(dx, seg, draw, s2d),
+                         "leaky0.2", s2d, update_sn)
         return xs + dx
 
 
@@ -244,6 +282,7 @@ class SPADEGenerator(nn.Module):
     def __init__(self, cfg: SPADEGenConfig = SPADEGenConfig(), device="cuda",
                  dtype=torch.float32):
         super().__init__()
+        self._update_sn = False
         if cfg.num_upsampling_layers not in ("more", "most"):
             raise ValueError(
                 "num_upsampling_layers must be 'more' or 'most' ('normal' is "
@@ -279,12 +318,11 @@ class SPADEGenerator(nn.Module):
         for name in self.block_names:
             getattr(self, name).fused = bool(on)
 
-    def forward(self, x, seg, noise: NoiseArg):
-        """x: (N, H, W, input_nc) NHWC; seg: (N, H, W, 7) float one-hot or
-        (N, H, W) int labels in [0, 7); noise: see ``noise_source``.
-        Returns (N, H, W, 3) in [-1, 1]."""
-        # the config's dispatch knobs hold for this call and are restored
-        # after it (the ops-level switches stay available to experiments)
+    @contextlib.contextmanager
+    def _knobs(self):
+        """The config's dispatch knobs for the length of a call (and of a
+        block's recompute), restored after it (the ops-level switches stay
+        available to experiments)."""
         with contextlib.ExitStack() as stack:
             if self.cfg.fast_conv:
                 stack.enter_context(fast_conv(True))
@@ -292,10 +330,38 @@ class SPADEGenerator(nn.Module):
                 stack.enter_context(fast_spade(True))
             if self.cfg.merge_gamma_beta:
                 stack.enter_context(merge_gamma_beta(True))
-            return self._forward(x, seg, noise)
+            yield
+
+    def forward(self, x, seg, noise: NoiseArg, update_sn: bool = False):
+        """x: (N, H, W, input_nc) NHWC; seg: (N, H, W, 7) float one-hot or
+        (N, H, W) int labels in [0, 7); noise: see ``noise_source``;
+        ``update_sn``: one power iteration in every spectral conv, staged
+        (the JAX ``update_sn``). Returns (N, H, W, 3) in [-1, 1]."""
+        self._update_sn = update_sn
+        try:
+            with self._knobs():
+                return self._forward(x, seg, noise)
+        finally:
+            self._update_sn = False
+
+    def _block(self, block, h, seg, draw, update_sn, s2d=False):
+        """One SPADEResBlock; under ``remat`` with gradients wanted, a
+        checkpointed call whose recompute is pure (module docstring)."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return block(h, seg, draw, s2d=s2d, update_sn=update_sn)
+        noises = [draw(shape) for shape in block.noise_shapes(h.shape, s2d)]
+
+        def run(h_, seg_, *fields):
+            with self._knobs():
+                return block(h_, seg_, noise_source(fields, h_.device),
+                             s2d=s2d, update_sn=update_sn)
+        return torch.utils.checkpoint.checkpoint(
+            run, h, seg, *noises, use_reentrant=False,
+            preserve_rng_state=False)
 
     def _forward(self, x, seg, noise: NoiseArg):
         cfg = self.cfg
+        update_sn = self._update_sn
         nf = cfg.ngf
         draw = noise_source(noise, x.device)
         sh, sw = cfg.latent_hw
@@ -331,11 +397,13 @@ class SPADEGenerator(nn.Module):
         def up(t):
             return interpolate_nchw(t, scale_factor=2, mode="nearest")
 
-        h = self.head_0(features[0], seg_at(*features[0].shape[2:]), draw)
+        h = self._block(self.head_0, features[0],
+                        seg_at(*features[0].shape[2:]), draw, update_sn)
         for i, name in enumerate(self.block_names[1:n_plain], start=1):
             h = up(h)
             h = torch.cat([h, features[i]], dim=1).contiguous(memory_format=_CL)
-            h = getattr(self, name)(h, seg_at(*features[i].shape[2:]), draw)
+            h = self._block(getattr(self, name), h,
+                            seg_at(*features[i].shape[2:]), draw, update_sn)
 
         if use_s2d:
             # the nearest downscales of the input pyramid are stride-2 slices,
@@ -348,10 +416,10 @@ class SPADEGenerator(nn.Module):
             seg7 = _nchw(to_s2d(_nhwc_view(seg_at(fh, fw))))
             h = upsample2x_s2d(_nhwc_view(h))                 # up to 512x384
             h = concat_s2d([h, _nhwc_view(feat6)], [nf * 2, 16])
-            h = self.up_3(_nchw(h), seg6, draw, s2d=True)
+            h = self._block(self.up_3, _nchw(h), seg6, draw, update_sn, True)
             h = upsample2x_s2d(from_s2d(_nhwc_view(h), nf))   # up to 1024x768
             h = concat_s2d([h, _nhwc_view(feat7)], [nf, 16])
-            h = self.up_4(_nchw(h), seg7, draw, s2d=True)
+            h = self._block(self.up_4, _nchw(h), seg7, draw, update_sn, True)
             h = self.conv_img(h, pre_act="leaky0.2", s2d=True)
             return torch.tanh(from_s2d(_nhwc_view(h), 3))
 

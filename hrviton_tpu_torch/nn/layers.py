@@ -1,14 +1,34 @@
 """Layer library with the JAX package's semantics (``hrviton_tpu/nn/layers.py``).
 
 Modules run on (channels_last) NCHW tensors and hold torch-layout (OIHW)
-weights. Only the eval-mode forward is ported: BatchNorm uses its running
-statistics, and SpectralNorm divides by sigma = u . (W v) from its stored
-u/v without a power iteration (training waits for the training slice).
+weights. A module computes in its input's dtype and reads each parameter
+through ``core/precision.policy`` where it uses it: under the training
+loops' bf16 policy (``precision.param_dtype``) an f32 module computes what
+the JAX package computes on a bf16 cast of its variables, and its
+gradients come back in f32 through the cast. Statistics stay f32.
+
+Training modes, as in the JAX package:
+
+  * ``BatchNorm2d(x, train=True)`` normalizes with the batch's biased
+    two-pass variance and stages the running mean and the *unbiased*
+    variance, momentum 0.1;
+  * ``SpectralNorm2d(x, update=True)`` runs one power iteration from the
+    stored u in f32 (v <- l2(W^T u), u <- l2(W v), sigma = u . W v) and
+    stages the new u and v. The gradient flows through u and v, as in the
+    JAX package (``torch.nn.utils.spectral_norm`` computes them without
+    gradient).
+
+A staged update is not written into the module's buffers by the forward:
+``commit_state(module)`` writes it, ``drop_state(module)`` forgets it. So a
+forward that runs again (a block recomputed by ``torch.utils.checkpoint``,
+or the second of two discriminator calls that must start from the same u)
+reads the same stored state and stages the same values.
 
 Every module takes ``device`` (default 'cuda', which raises without a card)
 and ``dtype``. Weights are drawn by ``init_weights`` from an explicit
 ``torch.Generator``. Every library conv and matmul of an f32 forward runs
-with TF32 off (``core/precision.exact``).
+with TF32 off (``core/precision.exact``); the training loops run their whole
+step (backward included) under ``precision.no_tf32``.
 """
 
 from __future__ import annotations
@@ -26,7 +46,8 @@ from hrviton_tpu_torch.ops import s2d
 from hrviton_tpu_torch.ops.conv3x3 import activation
 
 __all__ = ["Conv2d", "Dense", "BatchNorm2d", "InstanceNorm2d", "SpectralNorm2d",
-           "instance_norm", "activation", "conv_forward", "init_weights"]
+           "instance_norm", "activation", "conv_forward", "init_weights",
+           "commit_state", "drop_state"]
 
 
 def conv_forward(x, weight, bias, stride: int = 1, padding: int = 0,
@@ -63,6 +84,10 @@ def conv_forward(x, weight, bias, stride: int = 1, padding: int = 0,
             # a channels_last view, so the next library conv does not copy
             return run(xs.contiguous(), weight, bias, pre_act).permute(0, 3, 1, 2)
     b = None if bias is None else bias.to(x.dtype)
+    if is_3x3 and c3.taps_wgrad_enabled() and torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad):
+        # the same forward, with the im2col-free weight gradient
+        return c3.conv3x3_taps(x, weight, b, pre_act)
     with precision.exact(x.dtype):
         return F.conv2d(activation(x, pre_act), weight, b, stride, padding)
 
@@ -100,8 +125,9 @@ class Conv2d(nn.Module):
                      if bias else None)
 
     def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False):
-        return conv_forward(x, self.weight.to(x.dtype), self.bias, self.stride,
-                            self.padding, pre_act, s2d)
+        b = None if self.bias is None else precision.policy(self.bias)
+        return conv_forward(x, precision.policy(self.weight).to(x.dtype), b,
+                            self.stride, self.padding, pre_act, s2d)
 
 
 class Dense(nn.Module):
@@ -121,14 +147,20 @@ class Dense(nn.Module):
 
     def forward(self, x):
         with precision.exact(x.dtype):
-            return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+            return F.linear(x, precision.policy(self.weight).to(x.dtype),
+                            precision.policy(self.bias).to(x.dtype))
 
 
 class BatchNorm2d(nn.Module):
-    """torch BatchNorm2d in eval mode: running statistics, f32 math."""
+    """torch BatchNorm2d, f32 math. Eval (``train=False``): the running
+    statistics. Training: the batch's mean and biased two-pass variance
+    normalize; the running mean and unbiased variance are staged with
+    momentum 0.1 (``commit_state`` writes them)."""
 
     _jax_names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                   "var": "running_var"}
+
+    _MOMENTUM = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5, device="cuda",
                  dtype=torch.float32):
@@ -141,12 +173,32 @@ class BatchNorm2d(nn.Module):
                              torch.zeros(features, device=dev, dtype=dtype))
         self.register_buffer("running_var",
                              torch.ones(features, device=dev, dtype=dtype))
+        self._pending = None
 
-    def forward(self, x):
-        v = lambda t: t.float().view(1, -1, 1, 1)
-        y = (x.float() - v(self.running_mean)) * torch.rsqrt(
-            v(self.running_var) + self.eps)
+    def forward(self, x, train: bool = False):
+        v = lambda t: precision.policy(t).float().view(1, -1, 1, 1)
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            with torch.no_grad():
+                m = self._MOMENTUM
+                self._pending = (
+                    (1 - m) * self.running_mean.float() + m * mean,
+                    (1 - m) * self.running_var.float()
+                    + m * var * (n / max(n - 1, 1)))
+            y = (xf - mean.view(1, -1, 1, 1)) * torch.rsqrt(
+                var.view(1, -1, 1, 1) + self.eps)
+        else:
+            s = lambda t: t.float().view(1, -1, 1, 1)
+            y = (xf - s(self.running_mean)) * torch.rsqrt(
+                s(self.running_var) + self.eps)
         return (y * v(self.weight) + v(self.bias)).to(x.dtype)
+
+    def _commit(self, pending):
+        self.running_mean.copy_(pending[0])
+        self.running_var.copy_(pending[1])
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -167,8 +219,12 @@ class InstanceNorm2d(nn.Module):
 
 
 class SpectralNorm2d(nn.Module):
-    """Spectrally normalized conv, eval mode: W / sigma, sigma = u . (W v)
-    with W reshaped to (O, I*kh*kw) and u/v the stored vectors."""
+    """Spectrally normalized conv: W / sigma in the dtype the precision
+    policy holds W in, W reshaped to (O, I*kh*kw). Eval: sigma = u . (W v)
+    from the stored u/v. ``update=True``: one power iteration from the
+    stored u, in f32 (v <- l2(W^T u), u <- l2(W v), sigma = u . W v, the
+    gradient flowing through u and v), the new u/v staged for
+    ``commit_state``."""
 
     _jax_names = {"kernel": "weight", "bias": "bias", "u": "u", "v": "v"}
 
@@ -186,17 +242,51 @@ class SpectralNorm2d(nn.Module):
         self.register_buffer("u", torch.zeros(out_ch, device=dev, dtype=dtype))
         self.register_buffer("v", torch.zeros(
             in_ch * kernel_size * kernel_size, device=dev, dtype=dtype))
+        self._pending = None
 
-    def normalized_weight(self, dtype) -> torch.Tensor:
-        w = self.weight
+    def _l2(self, t):
+        return t / (torch.linalg.vector_norm(t) + self.eps)
+
+    def normalized_weight(self, dtype, update: bool = False) -> torch.Tensor:
+        w = precision.policy(self.weight)
+        wm = w.float().reshape(w.shape[0], -1)
         with precision.no_tf32():                # sigma is f32 math always
-            sigma = torch.dot(self.u.float(),
-                              w.float().reshape(w.shape[0], -1) @ self.v.float())
+            if update:
+                v = self._l2(self.u.float() @ wm)
+                u = self._l2(wm @ v)
+                self._pending = (u.detach(), v.detach())
+            else:
+                u, v = self.u.float(), self.v.float()
+            sigma = torch.dot(u, wm @ v)
         return (w / sigma.to(w.dtype)).to(dtype)
 
-    def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False):
-        return conv_forward(x, self.normalized_weight(x.dtype), self.bias,
-                            self.stride, self.padding, pre_act, s2d)
+    def forward(self, x, pre_act: Optional[str] = None, s2d: bool = False,
+                update: bool = False):
+        b = None if self.bias is None else precision.policy(self.bias)
+        return conv_forward(x, self.normalized_weight(x.dtype, update),
+                            b, self.stride, self.padding, pre_act, s2d)
+
+    def _commit(self, pending):
+        self.u.copy_(pending[0])
+        self.v.copy_(pending[1])
+
+
+@torch.no_grad()
+def commit_state(module: nn.Module) -> None:
+    """Write every update staged in ``module`` (BatchNorm running
+    statistics, spectral u/v) into its buffers and clear it."""
+    for m in module.modules():
+        pending = getattr(m, "_pending", None)
+        if pending is not None:
+            m._commit(pending)
+            m._pending = None
+
+
+def drop_state(module: nn.Module) -> None:
+    """Forget every update staged in ``module``."""
+    for m in module.modules():
+        if getattr(m, "_pending", None) is not None:
+            m._pending = None
 
 
 @torch.no_grad()

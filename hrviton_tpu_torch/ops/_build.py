@@ -9,7 +9,9 @@ unchanged one is not. Nothing but the CUDA toolkit is needed.
 
 ``build_all`` compiles several sources at once, one ``nvcc`` process each.
 The argument checks that every kernel wrapper makes before it hands raw
-pointers to a kernel live here too.
+pointers to a kernel live here too, and ``ref_grads``, the backward that
+every wrapper's ``torch.autograd.Function`` shares: autograd of its plain
+version on the saved inputs.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Callable, Dict, Sequence
 import torch
 
 __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
-           "KERNEL_DTYPES", "check_tensor", "pad_to"]
+           "KERNEL_DTYPES", "check_tensor", "pad_to", "ref_grads"]
 
 # csrc/<name>.cu
 SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma")
@@ -127,3 +129,19 @@ def check_tensor(name, t, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous (NHWC)")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def ref_grads(need: Sequence[bool], g: torch.Tensor, inputs: Sequence,
+              fn: Callable):
+    """Gradients of ``fn(*inputs)`` against the output gradient ``g`` for
+    the inputs whose ``need`` is true (None for the others and for None
+    inputs), by autograd of ``fn`` on detached copies: the backward of a
+    kernel whose plain version is ``fn``."""
+    leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip(inputs, need)]
+    with torch.enable_grad():
+        y = fn(*leaves)
+        wrt = [t for t, n in zip(leaves, need) if t is not None and n]
+        got = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+    return [next(got) if t is not None and n else None
+            for t, n in zip(leaves, need)]

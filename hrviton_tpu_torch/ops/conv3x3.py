@@ -22,8 +22,19 @@ tensor. ``conv3x3`` sends a call to the kernel its gate admits, as the JAX
 ``conv3x3`` does: the small-channel gate (``_views_eligible``, under the
 module switch ``_VIEWS``) is asked first, then ``conv3x3_eligible`` (under
 ``fast_conv``). The layers ask the same gates through ``kernel_for`` and keep
-their library convolution where neither admits the call. The backward pieces
-of the JAX module are not ported yet.
+their library convolution where neither admits the call.
+
+Gradients, as the JAX custom VJPs give them: each wrapper is a
+``torch.autograd.Function`` whose forward launches the kernel (the plain
+version on the CPU) and whose backward is autograd of the plain version
+``conv3x3_ref`` (round, then add the bias, as the JAX ``_conv3x3_ref``) on
+the saved inputs (JAX ``_cvjp_bwd``, the backward of both Pallas kernels).
+Under the ``taps_wgrad`` switch (JAX ``_conv3x3_taps``), a library 3x3 conv
+that needs a gradient runs ``conv3x3_taps``: the library forward, the input
+gradient as the library's transposed conv, and the weight gradient as nine
+tap products summed in f32 over chunks of rows (``wgrad_taps``), with no
+im2col buffer. The dispatch keeps the JAX order: the small-channel gate,
+then the wide gate, then taps, then the library.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout), so a gate's ``w_shape`` is (Cout, Cin, 3, 3).
@@ -42,14 +53,15 @@ import torch.nn.functional as F
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
-                                          check_tensor, pad_to)
+                                          check_tensor, pad_to, ref_grads)
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed, pick_bn
 
 __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "conv3x3_eligible", "kernel_for", "enable_fast_conv",
            "fast_conv_enabled", "fast_conv", "activation", "leaky_slope",
            "small_tiles", "small_weights", "narrow_box", "small_channels",
-           "small_launcher",
+           "small_launcher", "conv3x3_taps", "wgrad_taps", "taps_wgrad",
+           "taps_wgrad_enabled",
            "conv_flops", "conv_bytes"]
 
 _TH = 8          # the JAX kernels' rows per grid step: their gates' row rule
@@ -57,6 +69,7 @@ _WIDE_BN = (32, 64, 96, 128, 136)   # the N tiles conv3x3_wide is built for
 _SMALL_BN = (8, 16, 32)             # and conv3x3_small
 _HALO_COLS = 34  # columns of the engine's halo tile that its products read
 _ENABLED = False
+_TAPS_WGRAD = False
 # The small-channel kernel's switch: a module switch with no config knob and
 # off by default, as in the JAX package. Callers set it and restore it.
 _VIEWS = False
@@ -80,6 +93,23 @@ def fast_conv(on: bool = True):
         yield
     finally:
         _ENABLED = prev
+
+
+def taps_wgrad_enabled() -> bool:
+    return _TAPS_WGRAD
+
+
+@contextlib.contextmanager
+def taps_wgrad(on: bool = True):
+    """Inside the block, the weight gradient of a library 3x3/s1/p1 conv
+    is the tap products' (``conv3x3_taps``); the forward is unchanged."""
+    global _TAPS_WGRAD
+    prev = _TAPS_WGRAD
+    _TAPS_WGRAD = bool(on)
+    try:
+        yield
+    finally:
+        _TAPS_WGRAD = prev
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,13 +362,36 @@ def _run(wrapper, kind: str, fused_bias: bool, x, w, bias, pre_act):
     return out
 
 
+class _KernelConv(torch.autograd.Function):
+    """One of the two kernels as a differentiable op: the forward is the
+    wrapper's launch, the backward autograd of ``conv3x3_ref`` (JAX
+    ``_cvjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, kind, x, w, bias, pre_act):
+        wrapper = conv3x3_wide if kind == "wide" else conv3x3_small
+        out = _run(wrapper, kind, kind == "wide", x, w, bias, pre_act)
+        ctx.pre_act = pre_act
+        ctx.save_for_backward(x, w, bias)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        pre_act = ctx.pre_act
+        grads = ref_grads(ctx.needs_input_grad[1:4], g, (x, w, bias),
+                          lambda x_, w_, b_: conv3x3_ref(x_, w_, b_, pre_act))
+        return (None, *grads, None)
+
+
 def conv3x3_wide(x, w, bias=None, pre_act=None):
     """The wide kernel: pre_act -> 3x3/s1/p1 conv -> + bias in f32 -> one
     round. x: (N, H, W, Cin) contiguous; w: (Cout, Cin, 3, 3); bias: (Cout,)
     or None. CUDA tensors launch the kernel (or raise; bfloat16 needs Cin %
     8 == 0); CPU tensors take ``conv3x3_ref`` with ``fused_bias=True``.
-    ``conv3x3_wide.launches`` counts kernel launches."""
-    return _run(conv3x3_wide, "wide", True, x, w, bias, pre_act)
+    Differentiable (``_KernelConv``). ``conv3x3_wide.launches`` counts
+    kernel launches."""
+    return _KernelConv.apply("wide", x, w, bias, pre_act)
 
 
 def conv3x3_small(x, w, bias=None, pre_act=None):
@@ -347,12 +400,87 @@ def conv3x3_small(x, w, bias=None, pre_act=None):
     ``conv3x3_wide``. CUDA tensors launch the kernel (or raise; in bfloat16
     a Cin below 15 that is no multiple of 8 needs W * Cin % 8 == 0, and a
     Cin from 15 to 42 that is none is read from a zero-padded copy of x);
-    CPU tensors take ``conv3x3_ref``. ``conv3x3_small.launches`` counts kernel launches."""
-    return _run(conv3x3_small, "small", False, x, w, bias, pre_act)
+    CPU tensors take ``conv3x3_ref``. Differentiable (``_KernelConv``).
+    ``conv3x3_small.launches`` counts kernel launches."""
+    return _KernelConv.apply("small", x, w, bias, pre_act)
 
 
 conv3x3_wide.launches = 0
 conv3x3_small.launches = 0
+
+
+def _row_chunk(h: int) -> int:
+    for r in (128, 64, 32, 16, 8, 4, 2):
+        if h % r == 0 and h > r:
+            return r
+    return h
+
+
+def wgrad_taps(x, g, pre_act=None):
+    """dW of a 3x3/s1/p1 conv as nine tap products over chunks of rows (JAX
+    ``_wgrad_taps``): dW[co, ci, ky, kx] = sum over n, h, w of act(x)[n, h +
+    ky - 1, w + kx - 1, ci] * g[n, h, w, co], zero outside. x (N, H, W, Cin)
+    and g (N, H, W, Cout) NHWC; each chunk holds only (N, R + 2, W + 2, Cin)
+    of x, and every product and the sum are f32. Returns (Cout, Cin, 3, 3)
+    f32."""
+    n, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    r = _row_chunk(h)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(9, cin, cout, dtype=torch.float32, device=x.device)
+    with precision.no_tf32():
+        for j in range(h // r):
+            # relu / leaky keep the zero padding zero
+            rows = activation(xp[:, j * r:j * r + r + 2], pre_act).float()
+            gc = g[:, j * r:(j + 1) * r].float().reshape(-1, cout)
+            for ky in range(3):
+                for kx in range(3):
+                    xs = rows[:, ky:ky + r, kx:kx + wd].reshape(-1, cin)
+                    acc[3 * ky + kx] += xs.t() @ gc
+    return acc.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+class _Taps(torch.autograd.Function):
+    """The library 3x3 conv with the tap-product weight gradient (JAX
+    ``_conv3x3_taps``). x NCHW (channels_last); w OIHW in x's dtype; b in
+    x's dtype or None."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, pre_act):
+        with precision.exact(x.dtype):
+            y = F.conv2d(activation(x, pre_act), w, b, 1, 1)
+        ctx.pre_act = pre_act
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        pre_act = ctx.pre_act
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            with precision.exact(g.dtype):
+                da = torch.nn.grad.conv2d_input(x.shape, w, g, padding=1)
+            if pre_act == "relu":
+                da = da * (x > 0).to(da.dtype)
+            elif pre_act == "leaky0.2":
+                da = da * torch.where(x > 0, 1.0, leaky_slope(da.dtype)).to(da.dtype)
+            elif pre_act is not None:
+                raise ValueError(pre_act)
+            gx = da.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = wgrad_taps(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1),
+                            pre_act).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = g.float().sum(dim=(0, 2, 3)).to(w.dtype)
+        return gx, gw, gb, None
+
+
+def conv3x3_taps(x, w, b=None, pre_act=None):
+    """pre_act -> 3x3/s1/p1 library conv (+ b) on NCHW x, whose weight
+    gradient is ``wgrad_taps`` and input gradient the library's transposed
+    conv (JAX ``_conv3x3_taps``). w and b in x's dtype."""
+    return _Taps.apply(x, w, b, pre_act)
 
 
 def kernel_for(x_shape, w_shape, stride, padding, dtype,
@@ -368,16 +496,21 @@ def kernel_for(x_shape, w_shape, stride, padding, dtype,
 
 
 def conv3x3(x, w, bias=None, pre_act=None):
-    """Fused pre_act -> 3x3/s1/p1 conv -> bias through the kernel its gate
-    admits. x: (N, H, W, Cin); w: (Cout, Cin, 3, 3); bias: (Cout,) or None;
-    pre_act: None | 'relu' | 'leaky0.2', applied to x before the conv.
-
-    A CPU tensor takes ``conv3x3_ref`` (no gate admits it). A CUDA tensor
-    that no gate admits raises: callers with a library path of their own ask
-    ``kernel_for`` first."""
+    """Fused pre_act -> 3x3/s1/p1 conv -> bias, in the JAX ``conv3x3``'s
+    order: the kernel a gate admits, else under ``taps_wgrad`` (where a
+    gradient is wanted) ``conv3x3_taps``, else on the CPU ``conv3x3_ref``.
+    x: (N, H, W, Cin); w: (Cout, Cin, 3, 3); bias: (Cout,) or None;
+    pre_act: None | 'relu' | 'leaky0.2', applied to x before the conv. A
+    CUDA tensor that none of these takes raises: callers with a library
+    path of their own ask ``kernel_for`` first."""
     run = kernel_for(x.shape, w.shape, (1, 1), (1, 1), x.dtype, x.device)
     if run is not None:
         return run(x, w, bias, pre_act)
+    if _TAPS_WGRAD and torch.is_grad_enabled():
+        # round, then add the bias, as conv3x3_ref and the JAX taps op
+        y = conv3x3_taps(x.permute(0, 3, 1, 2), w.to(x.dtype), None,
+                         pre_act).permute(0, 2, 3, 1)
+        return y if bias is None else y + bias.to(x.dtype)
     if x.device.type == "cpu":
         return conv3x3_ref(x, w, bias, pre_act)
     raise ValueError(

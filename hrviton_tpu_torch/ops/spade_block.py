@@ -22,7 +22,9 @@ on plain FMA loops; no path reaches it, since the gate takes bf16 only, as
 the JAX gate does: it serves direct calls. The statistics come from ``spade_fused.norm_stats`` (a
 one-pass kernel on the card). ``spade_conv_unit`` launches the kernels for
 CUDA tensors and takes the plain formulation ``spade_conv_ref`` only for CPU
-tensors; a CUDA tensor never reaches the plain version through it.
+tensors; a CUDA tensor never reaches the plain version through its forward.
+Its gradient is autograd of ``spade_conv_ref`` on the saved inputs, the
+meaning of the JAX custom VJP.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout). ``noise`` is (B, H, W, 1) float32, as the JAX package draws it.
@@ -42,6 +44,7 @@ from hrviton_tpu_torch.ops._build import ACT_CODES as _ACTS
 from hrviton_tpu_torch.ops._build import KERNEL_DTYPES as _DTYPES
 from hrviton_tpu_torch.ops._build import check_tensor as _check
 from hrviton_tpu_torch.ops._build import pad_to as _pad_to
+from hrviton_tpu_torch.ops._build import ref_grads
 from hrviton_tpu_torch.ops.conv3x3 import activation
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
 from hrviton_tpu_torch.ops.spade_fused import (gb_tiles, gb_weights,
@@ -237,22 +240,51 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     return out
 
 
+class _Unit(torch.autograd.Function):
+    """The fused unit as a differentiable op (JAX ``spade_conv_unit``'s
+    custom VJP, ``_unit_bwd``): the forward launches the kernels (the plain
+    version on the CPU), the backward is autograd of ``spade_conv_ref`` on
+    the saved inputs; ``bc`` and ``residual`` may be None."""
+
+    @staticmethod
+    def forward(ctx, pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
+                residual):
+        if x.device.type == "cpu":
+            out = spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc,
+                                 bc, pre_act=pre_act, residual=residual)
+        elif x.device.type != "cuda":
+            raise ValueError(f"spade_conv_unit: unsupported device {x.device}")
+        else:
+            out = _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb,
+                              wc, bc, residual)
+        ctx.pre_act = pre_act
+        ctx.save_for_backward(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
+                              residual)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pre_act = ctx.pre_act
+
+        def plain(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc, residual):
+            return spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc,
+                                  bc, pre_act=pre_act, residual=residual)
+        return (None, *ref_grads(ctx.needs_input_grad[1:], g,
+                                 ctx.saved_tensors, plain))
+
+
 def spade_conv_unit(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                     residual: Optional[torch.Tensor] = None):
     """Fused unit (argument order of the JAX ``spade_conv_unit``).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    formulation. ``spade_conv_unit.launches`` counts kernel launches.
+    formulation. Differentiable (``_Unit``). ``spade_conv_unit.launches``
+    counts kernel launches.
     """
     if pre_act not in _ACTS:
         raise ValueError(pre_act)
-    if x.device.type == "cpu":
-        return spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
-                              pre_act=pre_act, residual=residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"spade_conv_unit: unsupported device {x.device}")
-    return _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
-                       residual)
+    return _Unit.apply(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc,
+                       bc, residual)
 
 
 spade_conv_unit.launches = 0

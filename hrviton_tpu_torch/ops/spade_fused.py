@@ -15,7 +15,9 @@ unit's gamma|beta stage, with the modulation in the epilogue
 (``csrc/spade_mod.cuh``) and its weights packed once per weight tensor
 (``gb_weights``, shared with ``ops/spade_block.py``); f32 inputs run on plain
 FMA loops, reached by direct calls only (the gate takes bf16, as the JAX
-gate does). gamma, beta and ``normalized`` never reach device memory.
+gate does). gamma, beta and ``normalized`` never reach device memory. Its
+gradient is autograd of the plain version on the saved inputs, as the JAX
+custom VJP's backward is XLA autodiff of its reference.
 ``fused_spade_modulate`` launches it for CUDA tensors (or raises) and takes
 the plain version ``modulate_ref`` only for CPU tensors. The instance
 statistics are a pass of their own, as in the JAX package: ``norm_stats``, a
@@ -36,7 +38,8 @@ import torch.nn.functional as F
 
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.ops import _build
-from hrviton_tpu_torch.ops._build import KERNEL_DTYPES, check_tensor, pad_to
+from hrviton_tpu_torch.ops._build import (KERNEL_DTYPES, check_tensor, pad_to,
+                                          ref_grads)
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
 
 __all__ = ["fused_spade_modulate", "modulate_ref", "fused_spade_eligible",
@@ -279,21 +282,41 @@ def modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb):
     return launch, out
 
 
+class _Modulate(torch.autograd.Function):
+    """The kernel as a differentiable op (JAX ``fused_spade_modulate``'s
+    custom VJP): the forward launches it (the plain version on the CPU),
+    the backward is autograd of ``modulate_ref`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, noise, nscale, actv, wg, bg, wb, bb):
+        if x.device.type == "cpu":
+            out = modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb)
+        elif x.device.type != "cuda":
+            raise ValueError(f"fused_spade_modulate: unsupported device {x.device}")
+        else:
+            launch, out = modulate_launcher(x, noise, nscale, actv, wg, bg,
+                                            wb, bb)
+            launch()
+            fused_spade_modulate.launches += 1
+        ctx.save_for_backward(x, noise, nscale, actv, wg, bg, wb, bb)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(ref_grads(ctx.needs_input_grad, g, ctx.saved_tensors,
+                               modulate_ref))
+
+
 def fused_spade_modulate(x, noise, nscale, actv, wg, bg, wb, bb):
     """instance_norm(x + noise*nscale) * (1 + conv(relu(actv), wg) + bg)
     + conv(relu(actv), wb) + bb (argument order of the JAX function).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    formulation. ``fused_spade_modulate.launches`` counts kernel launches.
+    formulation. Differentiable: the backward is autograd of
+    ``modulate_ref`` (``_Modulate``). ``fused_spade_modulate.launches``
+    counts kernel launches.
     """
-    if x.device.type == "cpu":
-        return modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_spade_modulate: unsupported device {x.device}")
-    launch, out = modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb)
-    launch()
-    fused_spade_modulate.launches += 1
-    return out
+    return _Modulate.apply(x, noise, nscale, actv, wg, bg, wb, bb)
 
 
 fused_spade_modulate.launches = 0

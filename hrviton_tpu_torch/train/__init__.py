@@ -1,2 +1,3 @@
-"""Checkpoint reading (``train/checkpoint.py``); the trainers are not ported
-yet."""
+"""Training: checkpoints (``train/checkpoint.py``), the two stages' trainers
+(``condition_trainer.py``, ``generator_trainer.py``), Adam with the decay
+schedule (``optim.py``) and the train-state containers (``state.py``)."""

@@ -15,7 +15,8 @@ Counterpart of ``hrviton_tpu/train/checkpoint.py``:
   * ``convert_tocg`` (mtviton.pth, ConditionGenerator),
     ``convert_spade_gen`` (gen.pth, including the legacy key remap
     'ace'->'alias', '.Spade'->'', reference test_generator.py:77-86),
-    ``convert_cond_discriminator`` (D_*.pth) and the backbones'
+    ``convert_cond_discriminator`` (D_*.pth), ``convert_spade_discriminator``
+    (the image stage's D.pth) and the backbones'
     ``convert_vgg19`` / ``convert_alexnet`` / ``convert_vgg16`` /
     ``convert_squeezenet`` / ``convert_lpips_alex`` (torchvision and LPIPS
     v0.1 keys): torch state dicts to the JAX variable layout (conv kernels
@@ -31,7 +32,8 @@ import numpy as np
 
 __all__ = ["save_pytree", "load_pytree", "restore_into",
            "load_torch_state_dict", "convert_tocg", "convert_spade_gen",
-           "convert_cond_discriminator", "convert_vgg19", "convert_alexnet",
+           "convert_cond_discriminator", "convert_spade_discriminator",
+           "convert_vgg19", "convert_alexnet",
            "convert_vgg16", "convert_squeezenet", "convert_lpips_alex"]
 
 
@@ -295,6 +297,25 @@ def convert_cond_discriminator(sd: Dict[str, np.ndarray], num_d: int = 2,
     for d in range(num_d):
         for j, si in enumerate(seq_idx):
             b.conv(sd, f"layer{d}.{si}", f"discriminator_{d}", f"layer{j}_conv")
+    return b.variables()
+
+
+def convert_spade_discriminator(sd: Dict[str, np.ndarray], num_d: int = 2,
+                                n_layers_d: int = 3) -> Dict:
+    """The image stage's D.pth (SPADE's MultiscaleDiscriminator with
+    norm_D 'spectralinstance') -> SPADEMultiscaleDiscriminator variables.
+    Each sub-D groups its layers as ``model{n}`` Sequentials
+    (network_generator.py:250-288): model0.0 the first conv, model{n}.0.0
+    the spectral conv of the middle layer n (weight_orig, weight_u,
+    weight_v, no bias), model{n_layers_d}.0 the logit conv."""
+    b = _TreeBuilder()
+    for d in range(num_d):
+        pre, sub = f"discriminator_{d}", f"discriminator_{d}"
+        b.conv(sd, f"{pre}.model0.0", sub, "layer0_conv")
+        for n in range(1, n_layers_d):
+            b.conv(sd, f"{pre}.model{n}.0.0", sub, f"layer{n}_conv",
+                   spectral=True)
+        b.conv(sd, f"{pre}.model{n_layers_d}.0", sub, f"layer{n_layers_d}_conv")
     return b.variables()
 
 

@@ -1,0 +1,218 @@
+"""Stage-2 training: the SPADE image generator and its multiscale
+discriminator beside a frozen tocg (``hrviton_tpu/train/generator_trainer.py``,
+reference train_generator.py:184-360):
+
+  conditioning (no gradient: the tocg at the condition size, lifted to the
+  full size, train_generator.py:201-275),
+  G loss = hinge + 10 feature matching + 10 VGG, then the D hinge step on a
+  fresh output of the updated G, with no gradient.
+
+TTUR Adam(0, 0.9) with the linear decay after keep_step, stepped per 1000
+updates. As in the JAX step: the G loss's forward runs one power iteration
+in every spectral conv of G (written after the G update, so the D step's
+regeneration reads the new u/v and updates none); the discriminator forwards
+inside the G loss update nothing and keep no gradient (the G gradient is
+taken with respect to G's parameters alone); the D step's forward updates
+D's u/v once, and with ``split_d_batch`` its fake and real calls start from
+the same stored u. The VGG loss runs under ``torch.utils.checkpoint`` (both
+towers), the generator's blocks under ``SPADEGenConfig.remat`` and the
+discriminator under ``d_remat``; ``taps_wgrad`` holds for the whole step
+(``ops/conv3x3.taps_wgrad``). The step runs with TF32 off.
+
+bf16 (``GeneratorTrainConfig.bf16``): f32 parameters and Adam state, the
+batch cast to bf16, every parameter read rounded to bf16
+(``core/precision.param_dtype``); the frozen tocg's statistics and, in the
+G step, D's u/v are rounded too, as the JAX step casts those trees.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.utils.checkpoint
+
+from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
+                                      SPADEDiscriminatorConfig, SPADEGenConfig,
+                                      TOCGConfig)
+from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.device import resolve_device
+from hrviton_tpu_torch.losses.gan import gan_loss
+from hrviton_tpu_torch.losses.matching import feature_matching_loss
+from hrviton_tpu_torch.losses.perceptual import vgg_perceptual_loss
+from hrviton_tpu_torch.models.discriminators import SPADEMultiscaleDiscriminator
+from hrviton_tpu_torch.models.spade import NoiseArg, SPADEGenerator
+from hrviton_tpu_torch.nn.layers import commit_state, init_weights
+from hrviton_tpu_torch.ops.conv3x3 import taps_wgrad
+from hrviton_tpu_torch.ops.parse import group_index_of_label13, lut_lookup
+from hrviton_tpu_torch.pipelines.tryon import condition_forward
+from hrviton_tpu_torch.train.condition_trainer import apply_grads, cast_batch
+from hrviton_tpu_torch.train.optim import adam, lambda_decay_schedule
+from hrviton_tpu_torch.train.state import GANState, NetState
+
+__all__ = ["GeneratorTrainer"]
+
+
+class GeneratorTrainer:
+    def __init__(self, gen_cfg: SPADEGenConfig, d_cfg: SPADEDiscriminatorConfig,
+                 tcfg: GeneratorTrainConfig, pcfg: PipelineConfig,
+                 tocg_cfg: Optional[TOCGConfig] = None, device="cuda"):
+        """tocg_cfg: the frozen condition generator's architecture; None in
+        --GT mode (train_generator.py:102,253-256). Its module is passed per
+        step, with the VGG's, in ``frozen``."""
+        self.device = resolve_device(device)
+        self.gen_cfg, self.d_cfg, self.tcfg, self.pcfg = gen_cfg, d_cfg, tcfg, pcfg
+        self.tocg_cfg = tocg_cfg
+        self.dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
+        self.schedule = lambda_decay_schedule(tcfg.keep_step, tcfg.decay_step,
+                                              tcfg.load_step)
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: int = 0) -> GANState:
+        tcfg = self.tcfg
+        g = torch.Generator().manual_seed(seed)
+        gen = SPADEGenerator(self.gen_cfg, device=self.device)
+        d = SPADEMultiscaleDiscriminator(self.d_cfg, device=self.device)
+        init_weights(gen, g)
+        init_weights(d, g)
+        return GANState(
+            step=0,
+            g=NetState(gen, adam(gen.parameters(), tcfg.g_lr, tcfg.beta1,
+                                 tcfg.beta2, self.schedule)),
+            d=NetState(d, adam(d.parameters(), tcfg.d_lr, tcfg.beta1,
+                               tcfg.beta2, self.schedule)))
+
+    # ---------------------------------------------------------- conditioning
+    @torch.no_grad()
+    def _condition(self, batch, tocg):
+        """(fake_parse labels, warped cloth, fake_parse_gauss)."""
+        if self.tcfg.gt_mode or tocg is None:
+            # the reference's GT-mode grid names an undefined
+            # fake_parse_gauss; the GT parse stands in for it
+            return (batch["parse"].argmax(dim=-1), batch["parse_cloth"],
+                    batch["parse"])
+        cond = condition_forward(lambda i1, i2: tocg(i1, i2), batch, self.pcfg)
+        return cond.fake_parse, cond.warped_cloth, cond.fake_parse_gauss
+
+    @torch.no_grad()
+    def conditioning(self, batch, tocg=None):
+        """No-gradient conditioning (train_generator.py:201-275): the
+        9-channel generator input, the 7-channel parse (f32, for the D) and
+        the 7-way int label map."""
+        fake_parse, warped_cloth, _ = self._condition(batch, tocg)
+        glabel = lut_lookup(fake_parse, group_index_of_label13())
+        parse7 = (glabel[..., None] == torch.arange(
+            7, dtype=torch.int32, device=glabel.device)).float()
+        gen_in = torch.cat([batch["agnostic"], batch["densepose"],
+                            warped_cloth], dim=-1)
+        return gen_in, parse7, glabel
+
+    def _d_forward(self, d, parse7, fake, real, update_sn: bool = False):
+        """The concatenated-batch D forward (train_generator.py:281-295), or
+        two calls with ``split_d_batch``: the instance-norm D gives the
+        same per-sample maps either way, and both calls start from the same
+        stored u (a staged update is written by the caller)."""
+        fake_concat = torch.cat([parse7, fake], dim=-1)
+        real_concat = torch.cat([parse7, real], dim=-1)
+
+        def d_fwd(x):
+            return d(x, update_sn=update_sn)
+
+        if self.tcfg.d_remat and torch.is_grad_enabled():
+            run = lambda x: torch.utils.checkpoint.checkpoint(
+                d_fwd, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            run = d_fwd
+        if self.tcfg.split_d_batch:
+            return run(fake_concat), run(real_concat)
+        out = run(torch.cat([fake_concat, real_concat], dim=0))
+        n = fake.shape[0]
+        return ([[t[:n] for t in scale] for scale in out],
+                [[t[n:] for t in scale] for scale in out])
+
+    # ------------------------------------------------------------- train step
+    def train_step(self, state: GANState, batch, noise_g: NoiseArg,
+                   noise_d: NoiseArg, frozen: Dict) -> Tuple[GANState, Dict]:
+        """One G update, then one D update on a regenerated output.
+        ``frozen``: {'vgg': Vgg19Features, 'tocg': ConditionGenerator or
+        None in GT mode}; ``noise_g`` / ``noise_d``: the SPADE noise of the
+        G-loss forward and of the regeneration. Returns (state, metrics of
+        0-d tensors); the last updates' gradients stay in ``.grad``."""
+        with taps_wgrad(self.tcfg.taps_wgrad), precision.no_tf32():
+            return self._train_step_body(state, batch, noise_g, noise_d, frozen)
+
+    def _train_step_body(self, state, batch, noise_g, noise_d, frozen):
+        tcfg = self.tcfg
+        bf16 = torch.bfloat16 if tcfg.bf16 else None
+        batch = cast_batch(batch, self.dtype)
+        gen, d = state.g.module, state.d.module
+        tocg = frozen.get("tocg")
+        with precision.param_dtype(bf16):
+            tocg_state = (precision.rounded_buffers(tocg, bf16)
+                          if bf16 and tocg is not None
+                          else contextlib.nullcontext())
+            with tocg_state:
+                gen_in, parse7, labels = self.conditioning(batch, tocg)
+            im = batch["image"]
+            vgg = frozen.get("vgg")
+
+            # ---- G update
+            with (precision.rounded_buffers(d, bf16) if bf16
+                  else contextlib.nullcontext()):
+                output = gen(gen_in, labels, noise_g, update_sn=True)
+                pred_fake, pred_real = self._d_forward(d, parse7, output, im)
+                losses = {"GAN": gan_loss(pred_fake, True, "hinge",
+                                          for_discriminator=False)}
+                if not tcfg.no_gan_feat_loss:
+                    losses["GAN_Feat"] = feature_matching_loss(
+                        pred_fake, pred_real, tcfg.lambda_feat)
+                if not tcfg.no_vgg_loss:
+                    # both towers recomputed in backward, as the JAX step
+                    losses["VGG"] = torch.utils.checkpoint.checkpoint(
+                        vgg_perceptual_loss, vgg, output, im,
+                        use_reentrant=False, preserve_rng_state=False
+                    ) * tcfg.lambda_vgg
+                loss_g = sum(losses.values())
+                apply_grads(loss_g, state.g)
+            commit_state(gen)
+
+            # ---- D update on a fresh no-gradient output of the updated G
+            # (train_generator.py:327-334)
+            with torch.no_grad():
+                output_ng = gen(gen_in, labels, noise_d)
+            pred_fake, pred_real = self._d_forward(d, parse7, output_ng, im,
+                                                   update_sn=True)
+            l_fake = gan_loss(pred_fake, False, "hinge", for_discriminator=True)
+            l_real = gan_loss(pred_real, True, "hinge", for_discriminator=True)
+            loss_d = l_fake + l_real
+            apply_grads(loss_d, state.d)
+            commit_state(d)
+
+        metrics = {f"loss/gen/{k}": v.detach() for k, v in losses.items()}
+        metrics.update({"loss/gen": loss_g.detach(), "loss/dis": loss_d.detach(),
+                        "loss/dis/adv_fake": l_fake.detach(),
+                        "loss/dis/adv_real": l_real.detach()})
+        state.step += 1
+        return state, metrics
+
+    # ------------------------------------------------------------- inference
+    @torch.no_grad()
+    def generate(self, state: GANState, batch, noise: NoiseArg, tocg=None):
+        gen_in, _, labels = self.conditioning(batch, tocg)
+        with precision.no_tf32():
+            return state.g.module(gen_in, labels, noise)
+
+    @torch.no_grad()
+    def generate_debug(self, state: GANState, batch, noise: NoiseArg,
+                       tocg=None):
+        """``generate`` and the conditioning's intermediates for the
+        reference's TensorBoard grids (train_generator.py:366-476):
+        (output, warped cloth, fake_parse_gauss 13 channels)."""
+        fake_parse, warped_cloth, fpg = self._condition(batch, tocg)
+        glabel = lut_lookup(fake_parse, group_index_of_label13())
+        gen_in = torch.cat([batch["agnostic"], batch["densepose"],
+                            warped_cloth], dim=-1)
+        with precision.no_tf32():
+            out = state.g.module(gen_in, glabel, noise)
+        return out, warped_cloth, fpg

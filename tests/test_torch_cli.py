@@ -186,3 +186,83 @@ def test_main_matches_jax_cli(cli_root, tmp_path, monkeypatch, fmt):
         assert np.abs(_blocks(a) - _blocks(b)).max() <= 4.0, n
     img = np.asarray(Image.open(runs["port"] / "out" / names[0]))
     assert img.shape == (FH, FW, 3) and 20 < img.std() < 120
+
+
+# ----------------------------------------------------- the training CLIs
+
+from hrviton_tpu.cli import train_condition as jtc  # noqa: E402
+from hrviton_tpu.cli import train_generator as jtg  # noqa: E402
+from hrviton_tpu_torch.cli import train_condition as ttc  # noqa: E402
+from hrviton_tpu_torch.cli import train_generator as ttg  # noqa: E402
+
+_TRAIN_COMMON = ["--dataroot", "/d", "--datamode", "val", "--data_list", "l.txt",
+                 "--fine_width", "64", "--fine_height", "96", "-b", "3", "-j",
+                 "2", "--worker_processes", "--shuffle", "--semantic_nc", "16",
+                 "--no_device_preprocess", "--warp_feature", "encoder",
+                 "--out_layer", "conv", "--output_nc", "12",
+                 "--clothmask_composition", "detach", "--occlusion",
+                 "--upsample", "nearest", "--cuda", "--gpu_ids", "0,1",
+                 "--tensorboard_dir", "tb", "--checkpoint_dir", "c",
+                 "--tocg_checkpoint", "a.ckpt", "--vgg_weights", "v.ckpt",
+                 "--allow_random_vgg", "--tensorboard_count", "5",
+                 "--display_count", "6", "--save_count", "7", "--load_step",
+                 "8", "--keep_step", "9", "--test_dataroot", "/t",
+                 "--test_data_list", "t.txt", "--G_lr", "0.5", "--D_lr", "0.25",
+                 "--fp16", "--seed", "4", "--coordinator", "h:1",
+                 "--num_processes", "2", "--process_id", "1",
+                 "--num_test_visualize", "2", "--num_D", "3",
+                 "--test_datasetting", "x"]
+_TRAIN_FULL = {
+    "train_condition": (jtc, ttc, _TRAIN_COMMON + [
+        "--name", "n", "--Ddownx2", "--Ddropout", "--spectral",
+        "--G_D_seperate", "--no_GAN_loss", "--lasttvonly", "--interflowloss",
+        "--edgeawaretv", "weighted", "--add_lasttv", "--no_test_visualize",
+        "--CElamda", "3", "--GANlambda", "2", "--tvlambda", "1",
+        "--val_count", "11", "--val_samples", "12"]),
+    "train_generator": (jtg, ttg, _TRAIN_COMMON + [
+        "--name", "n", "--GMM_const", "--grid_size", "5", "--lambda_l1", "1",
+        "--netD_subarch", "n", "--radius", "3", "--norm_G", "aliasbatch",
+        "--ngf", "32", "--gen_semantic_nc", "8", "--num_upsampling_layers",
+        "more", "--init_type", "normal", "--init_variance", "0.1",
+        "--gen_checkpoint", "g.ckpt", "--dis_checkpoint", "d.ckpt",
+        "--lpips_weights", "l.ckpt", "--no_taps_wgrad", "--fused_block",
+        "--no_remat", "--no_d_remat", "--decay_step", "13",
+        "--lpips_count", "14", "--lpips_samples", "15", "--lpips_batch", "5",
+        "--no_ganFeat_loss", "--no_vgg_loss", "--lambda_feat", "2",
+        "--lambda_vgg", "3", "--n_layers_D", "4", "--ndf", "32",
+        "--norm_D", "spectralbatch", "--GT", "--cond_height", "128",
+        "--cond_width", "96"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TRAIN_FULL))
+@pytest.mark.parametrize("every", [False, True], ids=["defaults", "every_flag"])
+def test_training_get_opt_matches_jax(name, every):
+    jmod, tmod, full = _TRAIN_FULL[name]
+    argv = full if every else ["--name", "n"]
+    got = vars(tmod.get_opt(argv))
+    assert got.pop("device") == "cuda"
+    assert got == vars(jmod.get_opt(argv))
+
+
+@pytest.mark.parametrize("name", sorted(_TRAIN_FULL))
+def test_training_get_opt_registers_every_jax_flag(name):
+    """Every option string of the JAX CLI's parser is the port's too."""
+    import argparse
+    jmod, tmod, _ = _TRAIN_FULL[name]
+
+    def flags(mod):
+        seen = set()
+        real = argparse.ArgumentParser.parse_args
+
+        def grab(self, *a, **k):
+            seen.update(s for act in self._actions for s in act.option_strings)
+            return real(self, ["--name", "n"])
+        argparse.ArgumentParser.parse_args = grab
+        try:
+            mod.get_opt([])
+        finally:
+            argparse.ArgumentParser.parse_args = real
+        return seen
+    assert flags(jmod) <= flags(tmod)
+    assert flags(tmod) - flags(jmod) == {"--device"}

@@ -764,3 +764,48 @@ def test_f32_pipeline_launches_no_kernel():
     pipe(batch)
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(counts(), before)] == [6, 6, 0, 0, 0]
+
+
+def _grads(fn, args, g):
+    leaves = [None if a is None else a.detach().clone().requires_grad_(True)
+              for a in args]
+    out = fn(*leaves)
+    idx = [i for i, a in enumerate(leaves) if a is not None]
+    return out, torch.autograd.grad(out, [leaves[i] for i in idx], g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residual", [False, True])
+def test_unit_function_grads_are_the_plain_autograd(residual):
+    """The fused unit's autograd.Function on the card: its backward is the
+    plain version's autograd on the saved inputs (2 bf16 ulps)."""
+    _need_card()
+    args, res = _inputs(torch.bfloat16, 2, 256, 128, 40, 24, 3, residual)
+    args = args + [res]
+    g = torch.randn(2, 256, 128, 24, device="cuda").bfloat16()
+    before = tsb.spade_conv_unit.launches
+    out, gk = _grads(lambda *a: tsb.spade_conv_unit("leaky0.2", *a), args, g)
+    assert tsb.spade_conv_unit.launches == before + 1
+    ref, gp = _grads(lambda *a: tsb.spade_conv_ref(
+        *a[:10], pre_act="leaky0.2", residual=a[10]), args, g)
+    _assert_close(out, ref.detach(), torch.bfloat16)
+    for a, b in zip(gk, gp):
+        _assert_close(a, b, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_wide_kernel_reads_weights_after_an_optimizer_step():
+    """The engine's weight-pack cache: after an in-place optimizer update
+    the kernel packs and reads the new weights."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    x = _a(rng, (2, 128, 96, 128)).bfloat16()
+    w = torch.nn.Parameter(_a(rng, (64, 128, 3, 3), 0.02).bfloat16())
+    opt = torch.optim.SGD([w], lr=10.0)
+    tc3.conv3x3_wide(x, w, None, "relu").float().square().mean().backward()
+    before = tc3.conv3x3_wide(x, w.detach(), None, "relu")
+    opt.step()
+    after = tc3.conv3x3_wide(x, w.detach(), None, "relu")
+    assert not torch.equal(before, after)
+    _assert_close(after, tc3.conv3x3_ref(x, w.detach(), None, "relu",
+                                         fused_bias=True), torch.bfloat16)

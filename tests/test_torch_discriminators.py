@@ -146,3 +146,87 @@ def test_convert_cond_discriminator_matches_jax():
     for k in want_l:
         assert np.array_equal(got_l[k], want_l[k]), k
         assert np.array_equal(got_l[k], src[k]), k
+
+
+# ------------------------------------------------------- SPADE discriminator
+
+from hrviton_tpu.config import SPADEDiscriminatorConfig as JSpadeDConfig  # noqa: E402
+from hrviton_tpu.models import SPADEMultiscaleDiscriminator as JSpadeD  # noqa: E402
+from hrviton_tpu_torch.config import SPADEDiscriminatorConfig  # noqa: E402
+from hrviton_tpu_torch.convert import export_jax_variables  # noqa: E402
+from hrviton_tpu_torch.models.discriminators import \
+    SPADEMultiscaleDiscriminator  # noqa: E402
+
+
+@pytest.mark.parametrize("update_sn", [False, True])
+@pytest.mark.parametrize("no_feat", [False, True])
+def test_spade_discriminator_matches_jax(update_sn, no_feat):
+    """Forward, without and with the power iteration (u/v after it
+    compared too), and the input gradient."""
+    cfg = dict(ndf=8, no_gan_feat_loss=no_feat)
+    m = JSpadeD(JSpadeDConfig(**cfg))
+    v = random_variables(m, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 10)),
+                         train=False)
+    x = np.random.default_rng(3).standard_normal((2, 32, 24, 10)).astype(
+        np.float32)
+
+    def f(a):
+        out = m.apply(v, a, update_sn=update_sn,
+                      mutable=["aux"] if update_sn else False)
+        out, new = out if update_sn else (out, None)
+        return sum(jnp.sum(jnp.sin(s[-1])) for s in out), (out, new)
+
+    (_, (want, new)), gx = jax.jit(jax.value_and_grad(f, has_aux=True))(x)
+    port = SPADEMultiscaleDiscriminator(SPADEDiscriminatorConfig(**cfg),
+                                        device="cpu")
+    load_jax_variables(port, v)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = port(xt, update_sn=update_sn)
+    assert len(got) == len(want) == 2
+    for gs, ws in zip(got, want):
+        assert len(gs) == len(ws) == (1 if no_feat else 4)
+        for g, w in zip(gs, ws):
+            _close(g, w)
+    sum(torch.sin(s[-1]).sum() for s in got).backward()
+    _close(xt.grad, gx)
+    lin = [n for n, _ in port.named_parameters() if "layer1_conv" in n]
+    assert lin == ["discriminator_0.layer1_conv.weight",
+                   "discriminator_1.layer1_conv.weight"]   # bias-free
+    from hrviton_tpu_torch.nn.layers import commit_state
+    commit_state(port)
+    aux = export_jax_variables(port)["aux"]
+    ref = new["aux"] if update_sn else v["aux"]
+    for d in ref:
+        for layer in ref[d]:
+            for k in ("u", "v"):
+                _close(torch.from_numpy(aux[d][layer][k]), ref[d][layer][k])
+
+
+def test_convert_spade_discriminator_reference_keys():
+    """A D.pth under SPADE's keys (model{n}.0[.0] Sequentials, spectral
+    weight_orig / weight_u / weight_v) gives the port's variables back."""
+    port = SPADEMultiscaleDiscriminator(SPADEDiscriminatorConfig(ndf=8),
+                                        device="cpu")
+    from hrviton_tpu_torch.nn.layers import init_weights
+    init_weights(port, torch.Generator().manual_seed(4))
+    sd = {}
+    for i in range(2):
+        sub = getattr(port, f"discriminator_{i}")
+        p = f"discriminator_{i}"
+        sd[f"{p}.model0.0.weight"] = sub.layer0_conv.weight
+        sd[f"{p}.model0.0.bias"] = sub.layer0_conv.bias
+        for n in (1, 2):
+            conv = getattr(sub, f"layer{n}_conv")
+            sd[f"{p}.model{n}.0.0.weight_orig"] = conv.weight
+            sd[f"{p}.model{n}.0.0.weight_u"] = conv.u
+            sd[f"{p}.model{n}.0.0.weight_v"] = conv.v
+        sd[f"{p}.model3.0.weight"] = sub.layer3_conv.weight
+        sd[f"{p}.model3.0.bias"] = sub.layer3_conv.bias
+    sd = {k: t.detach().numpy() for k, t in sd.items()}
+    tree = tckpt.convert_spade_discriminator(sd)
+    again = SPADEMultiscaleDiscriminator(SPADEDiscriminatorConfig(ndf=8),
+                                         device="cpu")
+    load_jax_variables(again, tree)
+    for (n, a), (_, b) in zip(port.state_dict().items(),
+                              again.state_dict().items()):
+        assert torch.equal(a, b), n

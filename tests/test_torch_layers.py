@@ -153,3 +153,119 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.Conv2d(3, 4, 3)
+
+
+# ------------------------------------------------------------ training modes
+
+def test_batchnorm_train_output_stats_and_grads():
+    """Training mode: the batch's statistics normalize (biased two-pass
+    variance), the running mean and unbiased variance are staged with
+    momentum 0.1 and written by commit_state; the input and affine
+    gradients match jax.grad."""
+    jx, tx = _x((3, 6, 5, 4))
+    jx, tx = jx * 2 + 0.5, tx * 2 + 0.5
+    m = jl.BatchNorm2d(4)
+    v = m.init(jax.random.PRNGKey(0), jx, use_running_average=True)
+    v = {"params": _rand_like_tree(v["params"]),
+         "batch_stats": _rand_like_tree(v["batch_stats"], positive=("var",))}
+    r = _rng.standard_normal((3, 6, 5, 4)).astype(np.float32)
+
+    def f(params, x):
+        y, new = m.apply({"params": params, "batch_stats": v["batch_stats"]},
+                         x, use_running_average=False, mutable=["batch_stats"])
+        return jnp.sum(jnp.sin(y) * r), (y, new)
+
+    (_, (want, new)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1),
+                                                    has_aux=True)(v["params"], jx)
+    port = tl.BatchNorm2d(4, device="cpu")
+    load_jax_variables(port, v)
+    xt = tx.clone().requires_grad_(True)
+    y = port(xt, train=True)
+    _close(y, want)
+    stats = (port.running_mean.clone(), port.running_var.clone())
+    torch.testing.assert_close(stats[0], torch.from_numpy(
+        np.asarray(v["batch_stats"]["mean"])))          # staged, not written
+    (torch.sin(y.permute(0, 2, 3, 1)) * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), gx,
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(port.weight.grad.numpy(), gp["scale"],
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(port.bias.grad.numpy(), gp["bias"], atol=1e-5,
+                               rtol=1e-4)
+    tl.commit_state(port)
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               new["batch_stats"]["mean"], atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               new["batch_stats"]["var"], atol=1e-6, rtol=1e-5)
+    assert port._pending is None
+    port(tx, train=True)
+    tl.drop_state(port)                                 # forgotten
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               new["batch_stats"]["var"], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,pad,bias", [(3, 1, True), (4, 2, False)])
+def test_spectralnorm_power_iteration(k, pad, bias):
+    """update=True: one power iteration from the stored u in f32, u and v
+    staged (commit_state writes them), sigma from the new u and v, and the
+    gradient through u and v as jax.grad gives it (the JAX package does not
+    stop it, unlike torch.nn.utils.spectral_norm)."""
+    jx, tx = _x((2, 8, 7, 6))
+    m = jl.SpectralNorm2d(4, k, padding=pad, use_bias=bias)
+    v = m.init(jax.random.PRNGKey(0), jx)
+    v = {"params": _rand_like_tree(v["params"]),
+         "aux": _rand_like_tree(v["aux"], 1.0)}
+    r = _rng.standard_normal(np.shape(m.apply(v, jx))).astype(np.float32)
+
+    def f(params, x):
+        y, new = m.apply({"params": params, "aux": v["aux"]}, x,
+                         update_stats=True, pre_act="leaky0.2", mutable=["aux"])
+        return jnp.sum(y * r), (y, new)
+
+    (_, (want, new)), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1),
+                                                    has_aux=True)(v["params"], jx)
+    port = tl.SpectralNorm2d(6, 4, k, padding=pad, bias=bias, device="cpu")
+    load_jax_variables(port, v)
+    u0 = port.u.clone()
+    xt = tx.clone().requires_grad_(True)
+    y = port(xt, pre_act="leaky0.2", update=True)
+    _close(y, want, atol=1e-4)
+    assert torch.equal(port.u, u0)                      # staged only
+    (y.permute(0, 2, 3, 1) * torch.from_numpy(r)).sum().backward()
+    wgrad = port.weight.grad.permute(2, 3, 1, 0).numpy()
+    np.testing.assert_allclose(wgrad, gp["kernel"], atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), gx,
+                               atol=1e-5, rtol=1e-4)
+    tl.commit_state(port)
+    np.testing.assert_allclose(port.u.numpy(), new["aux"]["u"], atol=1e-6)
+    np.testing.assert_allclose(port.v.numpy(), new["aux"]["v"], atol=1e-6)
+    # the gradient through u and v is real: stopping it changes the kernel's
+    port2 = tl.SpectralNorm2d(6, 4, k, padding=pad, bias=bias, device="cpu")
+    load_jax_variables(port2, v)
+    with torch.no_grad():
+        w = port2.weight.reshape(4, -1)
+        vv = port2._l2(port2.u @ w)
+        uu = port2._l2(w @ vv)
+    sigma = torch.dot(uu, port2.weight.reshape(4, -1) @ vv)
+    y2 = tl.conv_forward(tx, port2.weight / sigma, port2.bias, 1, pad, "leaky0.2")
+    (y2.permute(0, 2, 3, 1) * torch.from_numpy(r)).sum().backward()
+    assert not torch.allclose(port2.weight.grad, port.weight.grad, atol=1e-6)
+
+
+def test_param_dtype_policy_rounds_parameters():
+    """Under precision.param_dtype(bf16) an f32 module reads its weights
+    rounded to bf16 where it uses them, whatever dtype it computes in, and
+    gradients reach the f32 parameters."""
+    from hrviton_tpu_torch.core import precision
+    conv = tl.Conv2d(4, 3, 3, padding=1, device="cpu")
+    tl.init_weights(conv, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 4, 6, 6)
+    with precision.param_dtype(torch.bfloat16):
+        y = conv(x)
+    want = F.conv2d(x, conv.weight.bfloat16().float(), conv.bias.bfloat16().float(),
+                    1, 1)
+    torch.testing.assert_close(y, want, atol=1e-6, rtol=1e-6)
+    y.sum().backward()
+    assert conv.weight.grad.dtype == torch.float32
+    assert not torch.equal(conv(x), y)                   # policy gone after

@@ -145,3 +145,74 @@ def assert_within_ulps(got, want, max_ulps, mean_ulps):
     assert np.isfinite(a).all()
     assert d.max() <= max_ulps * ulp and d.mean() <= mean_ulps * ulp, (
         d.max() / ulp, d.mean() / ulp)
+
+
+def _tree_max(tree):
+    return max(_tree_max(v) if isinstance(v, dict)
+               else float(np.abs(np.asarray(jnp.asarray(v).astype(jnp.float32))).max())
+               for v in tree.values())
+
+
+def close_per_tensor(got, want, rel, noise=None, path="", zero=None):
+    """Every leaf of the nested dict ``got`` (numpy) within ``rel`` x
+    max|want| of the same leaf of ``want``, or within four times the leaf
+    of ``noise`` where that is larger: ``noise`` holds how far the
+    reference itself moves between two evaluations that are equal in exact
+    arithmetic (one reordering of its sums among the many another
+    implementation makes, so a lower bound of its rounding noise), below
+    which no implementation can be held. A
+    leaf whose reference is below 1e-5 of the tree's largest value is zero
+    in exact arithmetic (a conv bias ahead of an affine-free instance norm):
+    both sides must stay below that. Both trees hold the same keys."""
+    if zero is None:
+        zero = 1e-5 * _tree_max(want)
+    assert set(got) == set(want), (path, sorted(set(got) ^ set(want)))
+    for k in want:
+        sub = None if noise is None else noise[k]
+        if isinstance(want[k], dict):
+            close_per_tensor(got[k], want[k], rel, sub, f"{path}/{k}", zero)
+            continue
+        a = np.asarray(got[k], np.float32)
+        b = np.asarray(jnp.asarray(want[k]).astype(jnp.float32))
+        assert a.shape == b.shape, (path, k, a.shape, b.shape)
+        if float(np.abs(b).max()) < zero:
+            assert float(np.abs(a).max()) < zero, (f"{path}/{k}", zero)
+            continue
+        lim = rel * max(float(np.abs(b).max()), 1e-30)
+        if sub is not None:
+            lim = max(lim, 4.0 * float(np.abs(np.asarray(sub)).max()))
+        d = float(np.abs(a - b).max())
+        assert d <= lim, (f"{path}/{k}", d, lim)
+
+
+def tree_diff(a, b):
+    """|a - b| leaf by leaf (nested dicts of arrays)."""
+    return {k: tree_diff(a[k], b[k]) if isinstance(a[k], dict)
+            else np.abs(np.asarray(a[k], np.float32) - np.asarray(b[k], np.float32))
+            for k in a}
+
+
+def reverse_batch(tree):
+    """Every array of a (nested) batch dict with its samples in reverse
+    order."""
+    return {k: reverse_batch(v) if isinstance(v, dict) else np.asarray(v)[::-1].copy()
+            for k, v in tree.items()}
+
+
+def grad_tree(module):
+    """The ``.grad`` of every parameter of a port module (zeros where it
+    has none) as the JAX params tree (``convert.export_jax_variables``'s
+    layout)."""
+    import torch
+    from hrviton_tpu_torch.convert import export_jax_variables
+    params = list(module.parameters())
+    saved = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p in params:
+            p.copy_(torch.zeros_like(p) if p.grad is None else p.grad)
+    try:
+        return export_jax_variables(module)["params"]
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)

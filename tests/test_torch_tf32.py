@@ -109,3 +109,102 @@ def test_bf16_forward_leaves_the_flags_alone(spy, name):
     with torch.no_grad():
         model.eval()(*args)
     assert len(spy) >= 5 and set(spy) == {(True, True)}, name
+
+
+# ------------------------------------------------------------------ training
+# The autograd engine runs a step's backward convs and matmuls after the
+# forward's guards have closed, so each trainer runs its whole step (forward,
+# backward and optimizer) with TF32 off. A hook on every logit map that
+# reaches the GAN loss records both flags when backward gets there.
+
+def _train_spy(monkeypatch, module, name, seen):
+    real = getattr(module, name)
+
+    def flags(g):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return g
+
+    def spy(pred, *a, **k):
+        for p in pred:
+            t = p[-1] if isinstance(p, (list, tuple)) else p
+            if t.requires_grad:
+                t.register_hook(flags)
+        return real(pred, *a, **k)
+    monkeypatch.setattr(module, name, spy)
+
+
+def _condition_step():
+    import numpy as np
+    from hrviton_tpu_torch.config import ConditionTrainConfig
+    from hrviton_tpu_torch.losses.perceptual import make_vgg_loss
+    from hrviton_tpu_torch.train.condition_trainer import ConditionTrainer
+    trainer = ConditionTrainer(TOCGConfig(ngf=8),
+                               CondDiscriminatorConfig(input_nc=33, ndf=8),
+                               ConditionTrainConfig(), device="cpu")
+    state = trainer.init(0)
+    rng = np.random.default_rng(0)
+    f = lambda c: torch.from_numpy(rng.standard_normal((2, 64, 64, c),
+                                                       dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, 13, (2, 64, 64)))
+    parse = torch.nn.functional.one_hot(labels, 13).float()
+    batch = {"cloth": {"paired": f(3)}, "cloth_mask": {"paired": f(1)},
+             "parse_agnostic": f(13), "densepose": f(3), "parse_onehot": labels,
+             "parse": parse, "pcm": parse[..., 3:4], "parse_cloth": f(3)}
+    return lambda: trainer.train_step(state, batch,
+                                      make_vgg_loss(device="cpu").vgg)
+
+
+def _generator_step():
+    import numpy as np
+    from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
+                                          SPADEDiscriminatorConfig)
+    from hrviton_tpu_torch.losses.perceptual import make_vgg_loss
+    from hrviton_tpu_torch.train.generator_trainer import GeneratorTrainer
+    trainer = GeneratorTrainer(
+        SPADEGenConfig(ngf=8, num_upsampling_layers="more", fine_height=128,
+                       fine_width=64),
+        SPADEDiscriminatorConfig(ndf=8), GeneratorTrainConfig(gt_mode=True),
+        PipelineConfig(fine_height=128, fine_width=64), None, device="cpu")
+    state = trainer.init(0)
+    rng = np.random.default_rng(0)
+    f = lambda c: torch.from_numpy(rng.standard_normal((2, 128, 64, c),
+                                                       dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, 13, (2, 128, 64)))
+    batch = {"agnostic": f(3), "densepose": f(3), "image": f(3),
+             "parse": torch.nn.functional.one_hot(labels, 13).float(),
+             "parse_cloth": f(3)}
+    frozen = {"vgg": make_vgg_loss(device="cpu").vgg, "tocg": None}
+    return lambda: trainer.train_step(state, batch, torch.Generator(),
+                                      torch.Generator(), frozen)
+
+
+@pytest.mark.parametrize("stage", ["condition", "generator"])
+@pytest.mark.parametrize("guard", [True, False])
+def test_f32_training_backward_runs_without_tf32(monkeypatch, stage, guard):
+    """guard=False takes the step's guard out (precision.no_tf32 made a
+    no-op): the hooks then see TF32 on, the check's teeth."""
+    import contextlib
+    from hrviton_tpu_torch.core import precision
+    from hrviton_tpu_torch.train import condition_trainer, generator_trainer
+    seen = []
+    if stage == "condition":
+        _train_spy(monkeypatch, condition_trainer, "lsgan_loss", seen)
+        step = _condition_step()
+    else:
+        _train_spy(monkeypatch, generator_trainer, "gan_loss", seen)
+        step = _generator_step()
+    if not guard:
+        monkeypatch.setattr(precision, "no_tf32", contextlib.nullcontext)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        step()
+        flags = set(seen)
+        after = cudnn.allow_tf32, matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    assert len(seen) >= 4
+    assert flags == ({(False, False)} if guard else {(True, True)})
+    assert after == (True, True)
