@@ -163,7 +163,27 @@ Phases (any failure exits non-zero, and no result line is printed):
      step's regeneration), the counts set to 0 just before and read just
      after; those launches join the record's rows of the unit and the
      statistics; (e) stage 2 with --no_taps_wgrad, 4 steps: ms/step beside
-     (c)'s, the tap-product weight gradient's cost against cuDNN's.
+     (c)'s, the tap-product weight gradient's cost against cuDNN's;
+ 10. data parallel, the alias norms, LPIPS head training, on phase 9's
+     synthetic trees, cuDNN deterministic for (a): (a) both training CLIs
+     through --coordinator 127.0.0.1:<free port> --num_processes 1
+     --process_id 0 (core/mesh.py over NCCL: one rank, whose reductions
+     are real collectives) and, the same seed and data, without the flags:
+     stage 1 at phase 9's configuration for 4 steps, its first-step losses
+     within 1e-5 relative; stage 2 with --fused_block, bf16, 3 steps,
+     exactly 18 unit and 18 statistics launches a step (the counts set to
+     0 just before and read just after; they join the record's rows), the
+     G losses of the first step within 1e-5 and the D losses (after the G
+     update) within 1e-3; finite losses, TF32 off in backward, ms/step
+     beside the run without the flags and phase 9's, the group torn down
+     after each CLI; (b) stage 2 with --norm_G spectralaliasbatch, fused
+     unit off, 2 steps: finite losses, no kernel launched, every
+     'aliasbatch' running mean moved from 0 in gen_model_final.ckpt; and
+     SPADEResBlock with use_mask_norm at up_4's shape (80 -> 32, 1024x768,
+     batch 1, f32, seeded weights and misalign mask) on the card against
+     the same module on the CPU within 1e-4 x max|ref|; (c) 10 steps of
+     LPIPSHeadTrainer (alex, 64x64, batch 8): finite losses, every lin
+     kernel >= 0 after each step, ms/step by CUDA events.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
@@ -180,14 +200,17 @@ line: it is how two builds of the engine, a checkout and a copy of it with
 one change, are timed in turns. Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1262,7 +1285,8 @@ def _within(label, got, want, dtype):
 
 def _spread(ms):
     """median, quartiles, min and max of a list of times, as one string."""
-    import statistics
+    if len(ms) < 2:
+        return f"{', '.join(f'{t:.2f}' for t in ms)} ms (n {len(ms)})"
     q1, med, q3 = statistics.quantiles(ms, n=4)
     return (f"median {med:.2f} ms (quartiles {q1:.2f}-{q3:.2f}, min "
             f"{min(ms):.2f}, max {max(ms):.2f}, n {len(ms)})")
@@ -1872,34 +1896,50 @@ def _run_cli(label, main, argv, spy_module, spy_name, card):
     return rec
 
 
-def training_phase(card):
+def training_trees(tmp):
+    """Phase 9's and phase 10's synthetic trees under ``tmp``: (stage 1's,
+    stage 2's) roots."""
+    from hrviton_tpu_torch.data.synthetic import make_synthetic_dataset
+    t0 = time.perf_counter()
+    (h1, w1), (h2, w2) = STAGE1["hw"], STAGE2["hw"]
+    r1 = make_synthetic_dataset(os.path.join(tmp, "d1"), n=TRAIN_PAIRS,
+                                w=w1, h=h1, modes=("train", "test"))
+    r2 = make_synthetic_dataset(os.path.join(tmp, "d2"), n=TRAIN_PAIRS,
+                                w=w2, h=h2, modes=("train", "test"))
+    log(f"training: synthetic trees of {TRAIN_PAIRS} pairs a split at "
+        f"{h1}x{w1} and {h2}x{w2} in {time.perf_counter() - t0:.1f} s")
+    return r1, r2
+
+
+@contextlib.contextmanager
+def _as_a_user_runs():
+    """The CLIs run as a user runs them: cuDNN's autotuning off, torch's
+    default (the paths' phases turn it on and leave it so); the TF32 flags
+    restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        _tf32(*saved)
+        torch.backends.cudnn.benchmark = benchmark
+        torch.cuda.empty_cache()
+
+
+def training_phase(card, tmp, r1, r2):
     """Phase 9 (module docstring): the four Functions' gradients, then both
-    training CLIs at full width on synthetic data. Returns the fused unit's
-    and the statistics' launches of part 4."""
-    import tempfile
+    training CLIs at full width on the synthetic trees. Returns the fused
+    unit's and the statistics' launches of part 4 and stage 2's ms/step."""
     from hrviton_tpu_torch.cli import test_condition as tc
     from hrviton_tpu_torch.cli import train_condition as t1
     from hrviton_tpu_torch.cli import train_generator as t2
-    from hrviton_tpu_torch.data.synthetic import make_synthetic_dataset
     from hrviton_tpu_torch.train import condition_trainer, generator_trainer
 
     _function_grads()
     torch.cuda.empty_cache()
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    # the CLIs run as a user runs them: cuDNN's autotuning off, torch's
-    # default (the paths' phases turn it on and leave it so)
-    benchmark = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_training_")
-    try:
-        t0 = time.perf_counter()
+    with _as_a_user_runs():
         (h1, w1), (h2, w2) = STAGE1["hw"], STAGE2["hw"]
-        r1 = make_synthetic_dataset(os.path.join(tmp, "d1"), n=TRAIN_PAIRS,
-                                    w=w1, h=h1, modes=("train", "test"))
-        r2 = make_synthetic_dataset(os.path.join(tmp, "d2"), n=TRAIN_PAIRS,
-                                    w=w2, h=h2, modes=("train", "test"))
-        log(f"training: synthetic trees of {TRAIN_PAIRS} pairs a split at "
-            f"{h1}x{w1} and {h2}x{w2} in {time.perf_counter() - t0:.1f} s")
         ck, tb = os.path.join(tmp, "ck"), os.path.join(tmp, "tb")
         before = _all_launches()
 
@@ -2004,16 +2044,234 @@ def training_phase(card):
             ["--name", "s2n", "--keep_step", str(n4), "--tensorboard_count",
              "100000", "--lpips_count", "100000", "--no_taps_wgrad"] + common,
             generator_trainer, "gan_loss", card)
-        import statistics
         taps = statistics.median(rec2["step_ms"][1:])
         lib = statistics.median(rec5["step_ms"][1:])
         log(f"training: stage 2 median ms/step with the taps weight gradient "
             f"{taps:.2f} against cuDNN's {lib:.2f} ({taps - lib:+.2f} ms) | "
             f"{card}")
-    finally:
-        _tf32(*saved)
-        torch.backends.cudnn.benchmark = benchmark
-        shutil.rmtree(tmp, ignore_errors=True)
+    return ({"spade_unit": got["spade_unit"],
+             "instance_stats": got["instance_stats"]},
+            {"stage 1": statistics.median(rec1["step_ms"][1:]),
+             "stage 2 --fused_block": statistics.median(rec4["step_ms"][1:])})
+
+
+# phase 10: data parallel through the multi-host flags (one NCCL rank), the
+# alias norms, LPIPS head training
+DP_STEPS = {"stage 1": 4, "stage 2": 3}
+ALIAS_STEPS = 2
+LPIPS_TRAIN = dict(net="alex", hw=64, batch=8, steps=10)
+# SPADEResBlock with use_mask_norm at up_4's shape: (batch, h, w, cin, cout)
+MASK_BLOCK = (1, 1024, 768, 80, 32)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _same_first_step(label, plain, grouped, after_update=()):
+    """The first step's losses of a run through the multi-host flags
+    against the same CLI run without them: 1e-5 relative; a loss in
+    ``after_update`` (computed after the step's G update, whose gradient
+    cuDNN may sum in another order from run to run) 1e-3."""
+    worst = {}
+    for k, want in plain["metrics"][0].items():
+        got = grouped["metrics"][0][k]
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        lim = 1e-3 if k in after_update else 1e-5
+        worst[k] = rel
+        if rel > lim:
+            raise RuntimeError(f"data parallel: {label} first-step {k} "
+                               f"{got} against {want} without the flags "
+                               f"(relative {rel:.3g} > {lim})")
+    log(f"data parallel: {label} first-step losses against the run without "
+        f"the flags, relative: " + " ".join(
+            f"{k}={v:.3g}" for k, v in sorted(worst.items())) +
+        " (limit 1e-5" + (f"; {', '.join(after_update)} after the G update "
+                          f"1e-3" if after_update else "") + ") ok")
+
+
+def _mask_block_check(card):
+    """SPADEResBlock with use_mask_norm at up_4's shape, f32: the card
+    against the same module on the CPU within 1e-4 x max|ref|."""
+    from hrviton_tpu_torch.core.precision import no_tf32
+    from hrviton_tpu_torch.models.spade import SPADEResBlock, noise_source
+    from hrviton_tpu_torch.nn.layers import init_weights
+    b, h, w, cin, cout = MASK_BLOCK
+    gen = torch.Generator().manual_seed(21)
+    blocks = {}
+    for dev in ("cpu", "cuda"):
+        blocks[dev] = SPADEResBlock(cin, cout, "spectralaliasinstance",
+                                    use_mask_norm=True, device=dev)
+    init_weights(blocks["cpu"], gen)
+    blocks["cuda"].load_state_dict(blocks["cpu"].state_dict())
+    x = torch.randn(b, cin, h, w, generator=gen)
+    seg = torch.rand(b, 8, h // 2, w // 2, generator=gen)
+    mask = (torch.rand(b, 1, h // 2, w // 2, generator=gen) > 0.5).float()
+    fields = [torch.randn(b, h, w, 1, generator=gen) for _ in range(3)]
+    out = {}
+    for dev, blk in blocks.items():
+        with torch.no_grad(), no_tf32():
+            out[dev] = blk(x.to(dev), seg.to(dev),
+                           noise_source([f.to(dev) for f in fields], dev),
+                           misalign_mask=mask.to(dev)).cpu()
+    _within(f"alias norms: SPADEResBlock use_mask_norm {cin}->{cout} at "
+            f"{h}x{w} batch {b}, f32, card against the CPU", out["cuda"],
+            out["cpu"], torch.float32)
+
+
+def _lpips_head_training(card):
+    """Part (c): LPIPSHeadTrainer steps on the card."""
+    from hrviton_tpu_torch.cli.common import StepEvents
+    from hrviton_tpu_torch.losses.lpips_train import LPIPSHeadTrainer
+    cfg = LPIPS_TRAIN
+    trainer = LPIPSHeadTrainer(net=cfg["net"], lr=1e-4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    shape = (cfg["batch"], cfg["hw"], cfg["hw"], 3)
+    events, losses, accs = StepEvents("cuda"), [], []
+    for step in range(cfg["steps"]):
+        ref = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+        p0 = (ref + 0.05 * torch.randn(shape, generator=gen, device="cuda")
+              ).clamp(-1, 1)
+        p1 = (ref + 0.5 * torch.randn(shape, generator=gen, device="cuda")
+              ).clamp(-1, 1)
+        judge = torch.rand(cfg["batch"], generator=gen, device="cuda")
+        events.start()
+        loss, acc = trainer.train_step(ref, p0, p1, judge)
+        events.stop()
+        low = min(float(h.weight.detach().min()) for h in trainer.heads)
+        if not (low >= 0.0 and loss == loss and abs(loss) < float("inf")):
+            raise RuntimeError(f"LPIPS head training: step {step + 1} loss "
+                               f"{loss}, smallest head weight {low}")
+        losses.append(loss)
+        accs.append(acc)
+    ms = events.ms()
+    log(f"LPIPS head training ({cfg['net']}, {cfg['hw']}x{cfg['hw']}, batch "
+        f"{cfg['batch']}, {cfg['steps']} steps on the card): losses "
+        f"{' '.join(f'{v:.5g}' for v in losses)}, acc {accs[-1]:.3f}, every "
+        f"lin kernel >= 0 after each step; ms/step by CUDA events after the "
+        f"first: {_spread(ms[1:])} | {card}")
+
+
+def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
+    """Phase 10 (module docstring). Returns the fused unit's and the
+    statistics' launches of its --fused_block run."""
+    import torch.distributed as dist
+    from hrviton_tpu_torch.cli import train_condition as t1
+    from hrviton_tpu_torch.cli import train_generator as t2
+    from hrviton_tpu_torch.train import condition_trainer, generator_trainer
+    from hrviton_tpu_torch.train.checkpoint import load_pytree
+
+    ck, tb = os.path.join(tmp, "ck10"), os.path.join(tmp, "tb10")
+    (h1, w1), (h2, w2) = STAGE1["hw"], STAGE2["hw"]
+    flags = lambda: ["--coordinator", f"127.0.0.1:{_free_port()}",
+                     "--num_processes", "1", "--process_id", "0"]
+    with _as_a_user_runs():
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            # (a) stage 1, f32, without and with the flags
+            n1 = DP_STEPS["stage 1"]
+            argv1 = ["--dataroot", r1, "--test_dataroot", r1,
+                     "--fine_height", str(h1), "--fine_width", str(w1),
+                     "-b", str(STAGE1["batch"]), "-j", "4", "--keep_step",
+                     str(n1), "--display_count", "1", "--tensorboard_count",
+                     "100000", "--val_count", "100000", "--save_count",
+                     "100000", "--checkpoint_dir", ck, "--tensorboard_dir",
+                     tb, "--allow_random_vgg", "--device", "cuda"]
+            label1 = (f"stage 1 (tocg ngf=96 {h1}x{w1}, batch "
+                      f"{STAGE1['batch']}, f32, condition D, {n1} steps)")
+            plain1 = _run_cli(f"data parallel: {label1} without the flags",
+                              t1.main, ["--name", "p1"] + argv1,
+                              condition_trainer, "lsgan_loss", card)
+            dp1 = _run_cli(f"data parallel: {label1} with --coordinator "
+                           f"--num_processes 1 --process_id 0 (NCCL)",
+                           t1.main, ["--name", "q1"] + argv1 + flags(),
+                           condition_trainer, "lsgan_loss", card)
+            if dist.is_initialized():
+                raise RuntimeError("data parallel: stage 1 left its group")
+            _same_first_step("stage 1", plain1, dp1)
+
+            # stage 2 --fused_block, bf16: the unit's launches a step
+            n2 = DP_STEPS["stage 2"]
+            common2 = ["--dataroot", r2, "--test_dataroot", r2, "-b",
+                       str(STAGE2["batch"]), "-j", "4", "--decay_step", "0",
+                       "--display_count", "1", "--save_count", "100000",
+                       "--checkpoint_dir", ck, "--tensorboard_dir", tb,
+                       "--allow_random_vgg", "--bf16", "--tocg_checkpoint",
+                       os.path.join(tmp, "ck", "s1", "tocg_final.ckpt"),
+                       "--device", "cuda", "--tensorboard_count", "100000",
+                       "--lpips_count", "100000"]
+            argv2 = common2 + ["--keep_step", str(n2)]
+            label2 = (f"stage 2 --fused_block (SPADE ngf=64 'most' {h2}x{w2}, "
+                      f"batch {STAGE2['batch']}, bf16, {n2} steps)")
+            wrappers = _wrappers()
+            for w in wrappers.values():
+                w.launches = 0
+            dp2 = _run_cli(f"data parallel: {label2} with the flags (NCCL)",
+                           t2.main, ["--name", "q2", "--fused_block"] + argv2
+                           + flags(), generator_trainer, "gan_loss", card)
+            got = {k: w.launches for k, w in wrappers.items()}
+            want = {k: 0 for k in got}
+            want["spade_unit"] = want["instance_stats"] = \
+                UNITS_PER_FUSED_STEP * n2
+            log(f"data parallel: {label2} launches over {n2} steps: "
+                f"{ {k: v for k, v in got.items() if v} } (expect spade_unit "
+                f"and instance_stats {UNITS_PER_FUSED_STEP} a step)")
+            if got != want:
+                raise RuntimeError(f"data parallel: --fused_block launches "
+                                   f"{got}, expected {want}")
+            if dist.is_initialized():
+                raise RuntimeError("data parallel: stage 2 left its group")
+            plain2 = _run_cli(f"data parallel: {label2} without the flags",
+                              t2.main, ["--name", "p2", "--fused_block"]
+                              + argv2, generator_trainer, "gan_loss", card)
+            _same_first_step("stage 2 --fused_block", plain2, dp2,
+                             after_update=("loss/dis", "loss/dis/adv_fake",
+                                           "loss/dis/adv_real"))
+            for label, rec_dp, rec_plain, key in (
+                    ("stage 1", dp1, plain1, "stage 1"),
+                    ("stage 2 --fused_block", dp2, plain2,
+                     "stage 2 --fused_block")):
+                log(f"data parallel: {label} median ms/step after the first: "
+                    f"{statistics.median(rec_dp['step_ms'][1:]):.2f} with the "
+                    f"flags (one NCCL rank), "
+                    f"{statistics.median(rec_plain['step_ms'][1:]):.2f} "
+                    f"without, {earlier_ms[key]:.2f} in phase 9 | {card}")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+
+        # (b) the alias norms: 'spectralaliasbatch' launches no kernel and
+        # its running statistics move
+        before = _all_launches()
+        rec = _run_cli(f"alias norms: stage 2 --norm_G spectralaliasbatch "
+                       f"({ALIAS_STEPS} steps, fused unit off)", t2.main,
+                       ["--name", "a2", "--norm_G", "spectralaliasbatch",
+                        "--keep_step", str(ALIAS_STEPS)] + common2,
+                       generator_trainer, "gan_loss", card)
+        after = _all_launches()
+        if after != before or len(rec["metrics"]) != ALIAS_STEPS:
+            raise RuntimeError(f"alias norms: launches "
+                               f"{ {k: after[k] - before[k] for k in after} }, "
+                               f"{len(rec['metrics'])} steps")
+        stats = load_pytree(os.path.join(ck, "a2", "gen_model_final.ckpt")
+                            )["batch_stats"]
+        means = [sub["param_free_norm"]["mean"] for norms in stats.values()
+                 for sub in norms.values()]
+        moved = sum(float(abs(m).max()) > 0 for m in means)
+        log(f"alias norms: no kernel launched; the running means of "
+            f"{moved} of {len(means)} 'aliasbatch' norms moved from 0 in "
+            f"gen_model_final.ckpt")
+        if not means or moved != len(means):
+            raise RuntimeError("alias norms: running statistics did not move")
+        _mask_block_check(card)
+        torch.cuda.empty_cache()
+
+        # (c) LPIPS head training
+        _lpips_head_training(card)
     torch.cuda.empty_cache()
     return {"spade_unit": got["spade_unit"],
             "instance_stats": got["instance_stats"]}
@@ -2332,10 +2590,18 @@ def main():
     launches.update(tool_launches)
     torch.cuda.empty_cache()
     rejection_phase(card)
-    # phase 9's --fused_block steps are a main path of the unit and the
-    # statistics: their launches join those rows
-    for key, n in training_phase(card).items():
-        launches[key] += n
+    # phase 9's and phase 10's --fused_block steps are main paths of the
+    # unit and the statistics: their launches join those rows
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_training_")
+    try:
+        trees = training_trees(tmp)
+        trained, step_ms = training_phase(card, tmp, *trees)
+        for key, n in trained.items():
+            launches[key] += n
+        for key, n in data_parallel_phase(card, tmp, *trees, step_ms).items():
+            launches[key] += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     record = {"kernels": []}
     ths = {key: t for key, _, t in TOOL_CONVS}
     for key, name, source, replaces in KERNELS:

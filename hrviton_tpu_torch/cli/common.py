@@ -18,6 +18,8 @@ import torch.nn as nn
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig, DataConfig,
                                       TOCGConfig)
 from hrviton_tpu_torch.convert import load_jax_variables
+from hrviton_tpu_torch.core.mesh import Mesh, init_distributed, make_mesh
+from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.condition import ConditionGenerator
 from hrviton_tpu_torch.models.discriminators import CondMultiscaleDiscriminator
 from hrviton_tpu_torch.nn.layers import init_weights
@@ -31,7 +33,7 @@ __all__ = ["add_data_flags", "add_tocg_flags", "add_spade_flags",
            "load_tocg_variables", "load_gen_variables", "load_d_variables",
            "data_cfg_from_args", "check_pretrained_backbone", "build_tocg",
            "build_cond_discriminator", "condition_inputs",
-           "add_multihost_flags", "check_single_process", "batch_to_device",
+           "add_multihost_flags", "start_mesh", "batch_to_device",
            "StepEvents"]
 
 
@@ -219,28 +221,28 @@ def condition_inputs(raw: Mapping, datasetting: str,
 
 
 def add_multihost_flags(p: argparse.ArgumentParser):
-    """The JAX training CLIs' multi-host flags, parsed; a non-default value
-    raises (``check_single_process``) until the data-parallel slice ports
-    ``core/mesh.py``."""
+    """The training CLIs' multi-host flags: one process a device,
+    ``--num_processes`` of them, each with its own ``--process_id`` and
+    the same ``--coordinator`` (host:port where rank 0 listens)."""
     p.add_argument("--coordinator", default="",
-                   help="coordinator address host:port for multi-host runs "
-                        "(not ported: raises)")
+                   help="coordinator address host:port for multi-process "
+                        "runs (rank 0's)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
 
 
-def check_single_process(opt) -> None:
-    """Raise NotImplementedError for a multi-host flag set away from its
-    default: one process drives one card until the data-parallel slice
-    (``core/mesh.py``: DDP with SyncBatchNorm) is ported."""
-    set_flags = [f for f, v in (("--coordinator", opt.coordinator),
-                                ("--num_processes", opt.num_processes),
-                                ("--process_id", opt.process_id)) if v]
-    if set_flags:
-        raise NotImplementedError(
-            f"{', '.join(set_flags)}: multi-host training waits for the "
-            f"data-parallel slice (core/mesh.py, DDP with SyncBatchNorm); "
-            f"the port trains on one device")
+def start_mesh(opt) -> Mesh:
+    """The data-parallel layout of a training CLI: with ``--coordinator``,
+    this process joins the group (``core/mesh.init_distributed``: NCCL on
+    ``cuda:{process_id % device count}``, gloo with ``--device cpu``);
+    without it one process drives ``--device``. ``--num_processes`` or
+    ``--process_id`` without ``--coordinator`` raises."""
+    if not opt.coordinator and (opt.num_processes is not None
+                                or opt.process_id is not None):
+        raise ValueError("--num_processes / --process_id need --coordinator")
+    dev = init_distributed(opt.coordinator, opt.num_processes,
+                           opt.process_id, opt.device)
+    return make_mesh(dev if dev is not None else resolve_device(opt.device))
 
 
 def batch_to_device(batch: Mapping, device, compact: bool,

@@ -5,15 +5,21 @@ same flags and defaults, plus ``--device`` (default ``cuda``)::
     python -m hrviton_tpu_torch.cli.train_condition --name run \\
         --dataroot ROOT --test_dataroot ROOT --vgg_weights vgg19.ckpt
 
-Runs ``ConditionTrainer.train_step`` on one device, with in-train IoU
-validation every --val_count steps, TensorBoard panels every
---tensorboard_count and checkpoints every --save_count, written as the JAX
-CLI writes them (``tocg_*.ckpt``, ``D_*.ckpt``: the JAX variable trees in
-its msgpack format, readable by both packages' test_condition).
-``--coordinator`` / ``--num_processes`` / ``--process_id`` raise until the
-data-parallel slice is ported. ``main`` returns the run's record: the
-metrics of every displayed step, the steps' CUDA-event times on a card and
-the checkpoint directory.
+Runs ``ConditionTrainer.train_step``, with in-train IoU validation every
+--val_count steps, TensorBoard panels every --tensorboard_count and
+checkpoints every --save_count, written as the JAX CLI writes them
+(``tocg_*.ckpt``, ``D_*.ckpt``: the JAX variable trees in its msgpack
+format, readable by both packages' test_condition).
+
+Data parallel: start one process a device, each with the same
+``--coordinator host:port`` and ``--num_processes N`` and its own
+``--process_id`` (``cli/common.start_mesh``); -b stays the global batch, of
+which each rank loads its rows (the validation batch too). The metrics and
+the IoU printed are the ranks' averages; rank 0 alone writes the
+checkpoints, the board and the panels. ``main`` returns the run's record:
+the metrics of every displayed step, the IoU values, the steps' CUDA-event
+times on a card and the checkpoint directory (rank 0's files), and tears
+the group down.
 """
 
 from __future__ import annotations
@@ -31,11 +37,11 @@ from hrviton_tpu_torch.cli.common import (StepEvents, add_data_flags,
                                           add_multihost_flags, add_tocg_flags,
                                           batch_to_device,
                                           check_pretrained_backbone,
-                                          check_single_process,
                                           data_cfg_from_args,
-                                          load_tocg_variables)
+                                          load_tocg_variables, start_mesh)
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
                                       ConditionTrainConfig, TOCGConfig)
+from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.losses.perceptual import make_vgg_loss
 from hrviton_tpu_torch.train.checkpoint import load_pytree, save_pytree
 from hrviton_tpu_torch.train.condition_trainer import ConditionTrainer
@@ -121,18 +127,27 @@ def _panels(vb_raw, vis, i):
 
 
 def main(argv=None):
-    from hrviton_tpu_torch.data.dataset import VitonHDDataset
-    from hrviton_tpu_torch.data.loader import Loader
-
     opt = get_opt(argv)
     print(opt)
     # fail fast, before dataset construction
-    check_single_process(opt)
     check_pretrained_backbone(opt.vgg_weights, what="VGG19 (perceptual loss)",
                               flag="--vgg_weights",
                               allowed=opt.allow_random_vgg,
                               allow_flag="--allow_random_vgg")
-    dev = opt.device
+    mesh = start_mesh(opt)
+    try:
+        return _train(opt, mesh)
+    finally:
+        if opt.coordinator:            # the group this run joined
+            mesh_lib.shutdown_distributed()
+
+
+def _train(opt, mesh):
+    from hrviton_tpu_torch.data.dataset import VitonHDDataset
+    from hrviton_tpu_torch.data.loader import Loader
+
+    dev = mesh.device
+    rows = dict(process_id=mesh.rank, num_processes=mesh.world_size)
 
     tcfg = ConditionTrainConfig(
         batch_size=opt.batch_size, keep_step=opt.keep_step, g_lr=opt.G_lr,
@@ -158,7 +173,7 @@ def main(argv=None):
                               compact=compact)
     train_loader = Loader(train_ds, opt.batch_size, shuffle=True,
                           num_workers=opt.workers, seed=opt.seed,
-                          worker_processes=opt.worker_processes)
+                          worker_processes=opt.worker_processes, **rows)
     val_loader = test_loader = None
     if not opt.no_test_visualize:
         test_cfg = dataclasses.replace(
@@ -167,19 +182,25 @@ def main(argv=None):
         test_ds = VitonHDDataset(test_cfg, mode="test")
         val_loader = Loader(test_ds, opt.batch_size, shuffle=False,
                             num_workers=opt.workers,
-                            indices=range(min(opt.val_samples, len(test_ds))))
+                            indices=range(min(opt.val_samples, len(test_ds))),
+                            **rows)
         test_loader = Loader(test_ds, opt.num_test_visualize, shuffle=False,
                              num_workers=1)
 
     # models and trainer
     vgg = make_vgg_loss(load_pytree(opt.vgg_weights) if opt.vgg_weights
                         else None, device=dev).vgg
-    trainer = ConditionTrainer(tocg_cfg, d_cfg, tcfg, device=dev)
+    trainer = ConditionTrainer(tocg_cfg, d_cfg, tcfg, device=dev, mesh=mesh)
     state = trainer.init(opt.seed)
     if opt.tocg_checkpoint and os.path.exists(opt.tocg_checkpoint):
         load_tocg_variables(opt.tocg_checkpoint, state.g.module, opt.out_layer)
+    # every rank starts from rank 0's weights
+    mesh_lib.broadcast_module(state.g.module, mesh)
+    mesh_lib.broadcast_module(state.d.module, mesh)
 
-    board = Board(os.path.join(opt.tensorboard_dir, opt.name))
+    main_rank = mesh.is_main
+    board = Board(os.path.join(opt.tensorboard_dir, opt.name) if main_rank
+                  else None)
     ckpt_dir = os.path.join(opt.checkpoint_dir, opt.name)
     events = StepEvents(dev)
     record = {"metrics": [], "val_iou": [], "ckpt_dir": ckpt_dir}
@@ -201,7 +222,7 @@ def main(argv=None):
                 print(f"step {step + 1} t={time.time() - t0:.1f}s " +
                       " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())),
                       flush=True)
-            if (step + 1) % tcfg.tensorboard_count == 0:
+            if (step + 1) % tcfg.tensorboard_count == 0 and main_rank:
                 board.scalars({k: float(v) for k, v in metrics.items()},
                               step + 1)
                 if test_loader is not None:
@@ -214,13 +235,15 @@ def main(argv=None):
                                          make_image_grid(_panels(vb_raw, vis, i),
                                                          nrow=4), step + 1)
             if val_loader is not None and (step + 1) % tcfg.val_count == 0:
-                ious = [float(trainer.eval_iou(state, batch_to_device(
-                            val_loader.next_batch(), dev, False)))
+                ious = [float(trainer.eval_iou(state, mesh_lib.shard_eval_batch(
+                            mesh, batch_to_device(val_loader.next_batch(), dev,
+                                                  False))))
                         for _ in range(max(1, opt.val_samples // opt.batch_size))]
-                board.scalar("val/iou", float(np.mean(ious)), step + 1)
-                record["val_iou"].append(float(np.mean(ious)))
-                print(f"val/iou {np.mean(ious):.4f}", flush=True)
-            if (step + 1) % tcfg.save_count == 0:
+                iou = mesh_lib.all_mean(np.mean(ious), mesh)
+                board.scalar("val/iou", iou, step + 1)
+                record["val_iou"].append(iou)
+                print(f"val/iou {iou:.4f}", flush=True)
+            if (step + 1) % tcfg.save_count == 0 and main_rank:
                 save_pytree(state.g.variables(), os.path.join(
                     ckpt_dir, f"tocg_step_{step + 1:06d}.ckpt"))
                 save_pytree(state.d.variables(), os.path.join(
@@ -230,8 +253,10 @@ def main(argv=None):
             if loader is not None:
                 loader.close()
 
-    save_pytree(state.g.variables(), os.path.join(ckpt_dir, "tocg_final.ckpt"))
-    save_pytree(state.d.variables(), os.path.join(ckpt_dir, "D_final.ckpt"))
+    if main_rank:
+        save_pytree(state.g.variables(), os.path.join(ckpt_dir,
+                                                      "tocg_final.ckpt"))
+        save_pytree(state.d.variables(), os.path.join(ckpt_dir, "D_final.ckpt"))
     board.close()
     record["step_ms"] = events.ms()
     print(f"Finished training {opt.name}!")

@@ -8,17 +8,26 @@ same flags and defaults, plus ``--device`` (default ``cuda``)::
 
 The frozen tocg conditions the SPADE generator, trained against its
 multiscale discriminator with TTUR and the linear decay
-(``GeneratorTrainer``), on one device, with in-train LPIPS validation over
+(``GeneratorTrainer``), with in-train LPIPS validation over
 --lpips_samples test images every --lpips_count steps (batches of
 --lpips_batch, the port's ``losses/lpips.py``), TensorBoard grids and
 checkpoints as the JAX CLI writes them (``gen_*.ckpt``, ``dis_*.ckpt``).
 The training defaults hold: the fused unit off (``--fused_block`` turns it
 on), remat and D remat on (``--no_remat``, ``--no_d_remat``), the taps
-weight gradient on (``--no_taps_wgrad``). ``--coordinator`` /
-``--num_processes`` / ``--process_id`` raise until the data-parallel slice
-is ported. ``main`` returns the run's record: the metrics of every
-displayed step, the LPIPS values, the steps' CUDA-event times on a card
-and the checkpoint directory.
+weight gradient on (``--no_taps_wgrad``). The SPADE noise of the steps,
+of the LPIPS validation and of the grids comes from three generators
+seeded from --seed, so the training's draws do not depend on the
+validation's cadence.
+
+Data parallel: start one process a device, each with the same
+``--coordinator host:port`` and ``--num_processes N`` and its own
+``--process_id`` (``cli/common.start_mesh``); -b and --lpips_batch stay
+global batches, of which each rank loads its rows. The metrics and the
+LPIPS printed are the ranks' averages; rank 0 alone writes the
+checkpoints, the board and the grids. ``main`` returns the run's record:
+the metrics of every displayed step, the LPIPS values, the steps'
+CUDA-event times on a card and the checkpoint directory (rank 0's files),
+and tears the group down.
 """
 
 from __future__ import annotations
@@ -37,13 +46,13 @@ from hrviton_tpu_torch.cli.common import (StepEvents, add_data_flags,
                                           add_spade_flags, add_tocg_flags,
                                           batch_to_device,
                                           check_pretrained_backbone,
-                                          check_single_process,
                                           data_cfg_from_args,
                                           load_gen_variables,
-                                          load_tocg_variables)
+                                          load_tocg_variables, start_mesh)
 from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
                                       SPADEDiscriminatorConfig, SPADEGenConfig,
                                       TOCGConfig)
+from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.losses.lpips import make_lpips
 from hrviton_tpu_torch.losses.perceptual import make_vgg_loss
 from hrviton_tpu_torch.models.condition import ConditionGenerator
@@ -156,20 +165,29 @@ def _grid_panels(tb, out, warped, fpg, i):
 
 
 def main(argv=None):
-    from hrviton_tpu_torch.data.dataset import VitonHDDataset
-    from hrviton_tpu_torch.data.loader import Loader
-
     opt = get_opt(argv)
     print(opt)
     # fail fast, before dataset construction
-    check_single_process(opt)
     if not opt.no_vgg_loss:
         check_pretrained_backbone(opt.vgg_weights,
                                   what="VGG19 (perceptual loss)",
                                   flag="--vgg_weights",
                                   allowed=opt.allow_random_vgg,
                                   allow_flag="--allow_random_vgg")
-    dev = opt.device
+    mesh = start_mesh(opt)
+    try:
+        return _train(opt, mesh)
+    finally:
+        if opt.coordinator:            # the group this run joined
+            mesh_lib.shutdown_distributed()
+
+
+def _train(opt, mesh):
+    from hrviton_tpu_torch.data.dataset import VitonHDDataset
+    from hrviton_tpu_torch.data.loader import Loader
+
+    dev = mesh.device
+    rows = dict(process_id=mesh.rank, num_processes=mesh.world_size)
 
     tcfg = GeneratorTrainConfig(
         batch_size=opt.batch_size, keep_step=opt.keep_step,
@@ -217,12 +235,17 @@ def main(argv=None):
     lpips = make_lpips(load_pytree(opt.lpips_weights) if opt.lpips_weights
                        else None, device=dev)
 
-    trainer = GeneratorTrainer(gen_cfg, d_cfg, tcfg, pcfg, tocg_cfg, device=dev)
+    trainer = GeneratorTrainer(gen_cfg, d_cfg, tcfg, pcfg, tocg_cfg,
+                               device=dev, mesh=mesh)
     frozen = {"vgg": vgg, "tocg": tocg}
     state = trainer.init(opt.seed)
     if opt.gen_checkpoint and os.path.exists(opt.gen_checkpoint):
         load_gen_variables(opt.gen_checkpoint, state.g.module,
                            opt.num_upsampling_layers)
+    # every rank starts from rank 0's weights
+    for module in (state.g.module, state.d.module, tocg):
+        if module is not None:
+            mesh_lib.broadcast_module(module, mesh)
 
     # data
     compact = not opt.no_device_preprocess
@@ -230,7 +253,7 @@ def main(argv=None):
                               compact=compact)
     train_loader = Loader(train_ds, opt.batch_size, shuffle=True,
                           num_workers=opt.workers, seed=opt.seed,
-                          worker_processes=opt.worker_processes)
+                          worker_processes=opt.worker_processes, **rows)
     test_cfg = dataclasses.replace(
         data_cfg_from_args(opt, mode="test", data_list=opt.test_data_list),
         dataroot=opt.test_dataroot)
@@ -245,14 +268,19 @@ def main(argv=None):
               f"{n_eval} eval samples; scoring {lpips_iters * lpips_batch}")
     test_loader = Loader(test_ds, lpips_batch, shuffle=False,
                          num_workers=opt.workers,
-                         indices=range(lpips_iters * lpips_batch))
+                         indices=range(lpips_iters * lpips_batch), **rows)
     # the unpaired grids' loader (train_generator.py:618-624)
     vis_loader = Loader(test_ds, min(opt.num_test_visualize, len(test_ds)),
                         shuffle=True, num_workers=0, seed=opt.seed + 7)
 
-    board = Board(os.path.join(opt.tensorboard_dir, opt.name))
+    main_rank = mesh.is_main
+    board = Board(os.path.join(opt.tensorboard_dir, opt.name) if main_rank
+                  else None)
     ckpt_dir = os.path.join(opt.checkpoint_dir, opt.name)
-    noise = torch.Generator(device=dev).manual_seed(opt.seed + 1)
+    # the steps', the LPIPS validation's and the grids' noise
+    noise, eval_noise, vis_noise = (
+        torch.Generator(device=dev).manual_seed(opt.seed + k)
+        for k in (1, 2, 3))
     events = StepEvents(dev)
     record = {"metrics": [], "lpips": [], "ckpt_dir": ckpt_dir}
 
@@ -282,16 +310,16 @@ def main(argv=None):
                 print(f"step {step + 1} t={time.time() - t0:.1f}s " +
                       " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())),
                       flush=True)
-            if (step + 1) % tcfg.tensorboard_count == 0:
+            if (step + 1) % tcfg.tensorboard_count == 0 and main_rank:
                 board.scalars({k: float(v) for k, v in metrics.items()},
                               step + 1)
-                out, warped, fpg = trainer.generate_debug(state, batch, noise,
-                                                          tocg)
+                out, warped, fpg = trainer.generate_debug(state, batch,
+                                                          vis_noise, tocg)
                 board.image_grid("train_images", make_image_grid(
                     _grid_panels(batch, out, warped, fpg, 0), nrow=4), step + 1)
                 # unpaired cloth for the test grids (train_generator.py:391-392)
                 vb = put(vis_loader.next_batch(), "unpaired", False)
-                out, warped, fpg = trainer.generate_debug(state, vb, noise,
+                out, warped, fpg = trainer.generate_debug(state, vb, vis_noise,
                                                           tocg)
                 for i in range(out.shape[0]):
                     board.image_grid(f"test_images/{i}", make_image_grid(
@@ -299,13 +327,15 @@ def main(argv=None):
             if (step + 1) % tcfg.lpips_count == 0:
                 dists = []
                 for _ in range(lpips_iters):
-                    tb = put(test_loader.next_batch(), expand=False)
-                    out = trainer.generate(state, tb, noise, tocg)
+                    tb = mesh_lib.shard_eval_batch(
+                        mesh, put(test_loader.next_batch(), expand=False))
+                    out = trainer.generate(state, tb, eval_noise, tocg)
                     dists.append(float(lpips_resize(tb["image"], out).mean()))
-                board.scalar("test/LPIPS", float(np.mean(dists)), step + 1)
-                record["lpips"].append(float(np.mean(dists)))
-                print(f"LPIPS {np.mean(dists):.4f}", flush=True)
-            if (step + 1) % tcfg.save_count == 0:
+                dist_mean = mesh_lib.all_mean(np.mean(dists), mesh)
+                board.scalar("test/LPIPS", dist_mean, step + 1)
+                record["lpips"].append(dist_mean)
+                print(f"LPIPS {dist_mean:.4f}", flush=True)
+            if (step + 1) % tcfg.save_count == 0 and main_rank:
                 save_pytree(state.g.variables(), os.path.join(
                     ckpt_dir, f"gen_step_{step + 1:06d}.ckpt"))
                 save_pytree(state.d.variables(), os.path.join(
@@ -314,10 +344,11 @@ def main(argv=None):
         for loader in (train_loader, test_loader, vis_loader):
             loader.close()
 
-    save_pytree(state.g.variables(), os.path.join(ckpt_dir,
-                                                  "gen_model_final.ckpt"))
-    save_pytree(state.d.variables(), os.path.join(ckpt_dir,
-                                                  "dis_model_final.ckpt"))
+    if main_rank:
+        save_pytree(state.g.variables(), os.path.join(ckpt_dir,
+                                                      "gen_model_final.ckpt"))
+        save_pytree(state.d.variables(), os.path.join(ckpt_dir,
+                                                      "dis_model_final.ckpt"))
     board.close()
     record["step_ms"] = events.ms()
     print(f"Finished training {opt.name}!")

@@ -1,4 +1,4 @@
-"""LPIPS perceptual distance, eval mode: the counterpart of
+"""LPIPS perceptual distance: the counterpart of
 ``hrviton_tpu/losses/lpips.py`` (the vendored LPIPS v0.1, reference
 eval_models/):
 
@@ -12,7 +12,8 @@ Inputs are NHWC in [-1, 1]. Weights load from the JAX variable tree
 (``make_lpips`` / ``LPIPSFn``, or ``convert.load_jax_variables``) or from the
 published ``.pth`` files through ``train/checkpoint.convert_lpips_alex``;
 random weights (``init_weights``) in tests. Every conv runs in f32 without
-TF32. Training the heads (``train=True``) waits for the training slice.
+TF32. ``train=True`` applies the heads' training dropout
+(networks_basic.py:104-112); ``losses/lpips_train.py`` trains the heads.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from hrviton_tpu_torch.convert import load_jax_variables
 from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core.mesh import draw_rows
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.backbones import (AlexNetFeatures,
                                                 SqueezeNetFeatures,
@@ -52,6 +54,15 @@ _BACKBONES = {
 def _normalize_tensor(x, eps: float = 1e-10):
     norm = torch.sqrt(torch.sum(x ** 2, dim=-1, keepdim=True))
     return x / (norm + eps)
+
+
+def _dropout(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Dropout(0.5) in training mode (flax ``nn.Dropout``): each element
+    kept with probability 0.5 and doubled, the mask drawn from
+    ``generator`` (at the global batch's shape inside ``core/mesh.sharded``)."""
+    keep = draw_rows(lambda s: torch.bernoulli(
+        torch.full(s, 0.5, device=t.device), generator=generator), t.shape)
+    return torch.where(keep.bool(), t / 0.5, torch.zeros_like(t))
 
 
 def _scaled(v: torch.Tensor) -> torch.Tensor:
@@ -85,11 +96,14 @@ class LPIPSModel(nn.Module):
     def _backbone(self) -> nn.Module:
         return getattr(self, self.backbone_name)
 
-    def forward(self, x, y, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "training the LPIPS heads (dropout) waits for the training "
-                "slice")
+    def forward(self, x, y, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``train``: dropout(0.5) on each tap's squared difference before
+        its head, the masks from ``generator`` (the heads' training mode;
+        no effect without heads)."""
+        if train and self.lpips and generator is None:
+            raise ValueError("LPIPSModel(train=True) draws its dropout masks "
+                             "from an explicit torch.Generator")
         fx = self._backbone()(_scaled(x))
         fy = self._backbone()(_scaled(y))
         total = 0.0
@@ -97,6 +111,8 @@ class LPIPSModel(nn.Module):
             diff = (_normalize_tensor(fx[i].float())
                     - _normalize_tensor(fy[i].float())) ** 2
             if self.lpips:
+                if train:
+                    diff = _dropout(diff, generator)
                 d = to_nhwc(getattr(self, f"lin{i}")(to_nchw(diff)))
             else:
                 d = torch.sum(diff, dim=-1, keepdim=True)

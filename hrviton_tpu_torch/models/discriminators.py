@@ -18,7 +18,8 @@ maps one onto the other. ``forward(x)`` is the eval mode: BatchNorm uses
 its running statistics, the spectral norm its stored u/v, dropout is the
 identity. ``train=True`` takes the batch's statistics in BatchNorm (staged,
 ``nn/layers.commit_state``) and, with ``ddropout``, drops half the features
-with a mask drawn from the ``generator`` given; ``update_sn=True`` runs one
+with a mask drawn from the ``generator`` given (at the global batch's shape
+inside ``core/mesh.sharded``, the rank's rows kept); ``update_sn=True`` runs one
 power iteration in each spectral conv (staged). The leaky ReLUs multiply by
 0.2 in the tensor's dtype (``ops/conv3x3.py:activation``), as the JAX
 package does.
@@ -38,6 +39,7 @@ import torch.nn as nn
 
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
                                       SPADEDiscriminatorConfig)
+from hrviton_tpu_torch.core.mesh import draw_rows
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.nn.layers import (BatchNorm2d, Conv2d, InstanceNorm2d,
                                          SpectralNorm2d, activation)
@@ -98,8 +100,9 @@ class CondNLayerDiscriminator(nn.Module):
             h = norm(h, train=train) if isinstance(norm, BatchNorm2d) else norm(h)
             h = activation(h, "leaky0.2")
             if cfg.ddropout and train and n < cfg.n_layers:
-                keep = torch.bernoulli(torch.full(h.shape, 0.5, device=h.device),
-                                       generator=generator)
+                # at the global batch's shape under a data-parallel mesh
+                keep = draw_rows(lambda s, d=h.device: torch.bernoulli(
+                    torch.full(s, 0.5, device=d), generator=generator), h.shape)
                 h = h * (keep * 2.0).to(h.dtype)
             feats.append(h)
         h = getattr(self, f"layer{cfg.n_layers + 1}_conv")(h)

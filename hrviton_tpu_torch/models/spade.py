@@ -19,6 +19,13 @@ small-channel switch admits them. ``SPADEGenerator.forward`` enters
 length of the call and restores them after, so a knob of one generator never
 reaches another model.
 
+The SPADE norm kinds are the JAX package's three: 'aliasinstance',
+'aliasbatch' (BatchNorm without affine: the batch's statistics under
+``forward(..., train=True)``, staged) and 'aliasmask' (``MaskNorm`` on a
+misalign mask, ``SPADEResBlock(use_mask_norm=True)``). Only
+'aliasinstance' without a misalign mask reaches the fused kernels and the
+s2d domain, as in the JAX package.
+
 Training, as the JAX generator trains: ``forward(..., update_sn=True)``
 runs one power iteration in every spectral conv (staged, see
 ``nn/layers.commit_state``); every parameter is read through
@@ -40,9 +47,11 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from hrviton_tpu_torch.config import SPADEGenConfig
+from hrviton_tpu_torch.core.mesh import draw_rows
 from hrviton_tpu_torch.core.precision import policy
 from hrviton_tpu_torch.device import resolve_device
-from hrviton_tpu_torch.nn.layers import (Conv2d, SpectralNorm2d, conv_forward,
+from hrviton_tpu_torch.nn.layers import (BatchNorm2d, Conv2d, InstanceNorm2d,
+                                         SpectralNorm2d, conv_forward,
                                          instance_norm)
 from hrviton_tpu_torch.ops.conv3x3 import fast_conv
 from hrviton_tpu_torch.ops.parse import onehot
@@ -55,8 +64,8 @@ from hrviton_tpu_torch.ops.spade_fused import (fast_spade,
                                                fused_spade_eligible,
                                                fused_spade_modulate)
 
-__all__ = ["SPADENorm", "SPADEResBlock", "SPADEGenerator", "noise_source",
-           "enable_merge_gamma_beta", "merge_gamma_beta"]
+__all__ = ["MaskNorm", "SPADENorm", "SPADEResBlock", "SPADEGenerator",
+           "noise_source", "enable_merge_gamma_beta", "merge_gamma_beta"]
 
 _NHIDDEN = 128
 _CL = torch.channels_last
@@ -90,11 +99,13 @@ def noise_source(noise: NoiseArg, device) -> Callable:
     """A callable ``draw(shape) -> float32 tensor`` for (B, H, W, 1) fields.
 
     ``noise`` is a ``torch.Generator`` (standard normals drawn on
-    ``device``), a callable taking the shape, or a sequence of tensors
-    consumed in order (e.g. another implementation's draws)."""
+    ``device``; inside ``core/mesh.sharded`` at the global batch's shape,
+    the rank's rows kept), a callable taking the shape, or a sequence of
+    tensors consumed in order (e.g. another implementation's draws)."""
     if isinstance(noise, torch.Generator):
-        return lambda shape: torch.randn(shape, generator=noise,
-                                         device=device, dtype=torch.float32)
+        return lambda shape: draw_rows(
+            lambda s: torch.randn(s, generator=noise, device=device,
+                                  dtype=torch.float32), shape)
     if callable(noise):
         return noise
     it = iter(noise)
@@ -119,8 +130,37 @@ def _nhwc_view(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
+class MaskNorm(nn.Module):
+    """MaskNorm (reference network_generator.py:52-72): the foreground and
+    background regions of ``mask`` instance-normalized apart, each filled
+    with its own mean outside it and rescaled by sqrt(num / (h * w)) (an
+    empty region counts 1 pixel); the mask takes no gradient. x: (B, C, H,
+    W); mask: (B, 1, H, W) in [0, 1]."""
+
+    def forward(self, x, mask):
+        mask = mask.detach()
+
+        def region(r, m):
+            h, w = r.shape[2], r.shape[3]
+            num = m.sum(dim=(2, 3), keepdim=True)
+            num = torch.where(num == 0, torch.ones_like(num), num)
+            mu = r.sum(dim=(2, 3), keepdim=True) / num
+            normalized = instance_norm(r + (1.0 - m) * mu)
+            return normalized * torch.sqrt(num / (h * w))
+
+        return region(x * mask, mask) + region(x * (1.0 - mask), 1.0 - mask)
+
+
+_NORM_KINDS = ("aliasinstance", "aliasbatch", "aliasmask")
+
+
 class SPADENorm(nn.Module):
-    """SPADENorm 'aliasinstance' (reference network_generator.py:75-122)."""
+    """SPADENorm 'alias*' (reference network_generator.py:75-122): the
+    parameter-free norm ``param_free_norm`` of the kind, InstanceNorm,
+    BatchNorm without affine (the batch's statistics with ``train``, the
+    running ones without) or MaskNorm on the misalign mask. Only the
+    instance kind reaches the fused modulation kernel and the s2d domain,
+    as in the JAX package."""
 
     _jax_names = {"noise_scale": "noise_scale"}
 
@@ -128,18 +168,31 @@ class SPADENorm(nn.Module):
                  norm_type: str = "aliasinstance", device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        if norm_type != "aliasinstance":
-            raise NotImplementedError(f"SPADENorm {norm_type!r} is not ported yet")
+        if norm_type not in _NORM_KINDS:
+            raise ValueError(f"SPADENorm {norm_type!r}: not one of {_NORM_KINDS}")
         dev = resolve_device(device)
+        self.kind = norm_type[len("alias"):]
         kw = dict(init="xavier", device=dev, dtype=dtype)
         self.noise_scale = nn.Parameter(torch.zeros(norm_nc, device=dev,
                                                     dtype=dtype))
+        if self.kind == "instance":
+            self.param_free_norm = InstanceNorm2d()
+        elif self.kind == "batch":
+            self.param_free_norm = BatchNorm2d(norm_nc, affine=False,
+                                               device=dev, dtype=dtype)
+        else:
+            self.param_free_norm = MaskNorm()
         self.conv_shared = Conv2d(label_nc, _NHIDDEN, 3, padding=1, **kw)
         self.conv_gamma = Conv2d(_NHIDDEN, norm_nc, 3, padding=1, **kw)
         self.conv_beta = Conv2d(_NHIDDEN, norm_nc, 3, padding=1, **kw)
 
-    def forward(self, x, seg, draw, s2d: bool = False):
+    def forward(self, x, seg, draw, s2d: bool = False, misalign_mask=None,
+                train: bool = False):
+        """``misalign_mask``: (B, 1, H, W) at x's size (the mask kind);
+        ``train``: the batch kind's batch statistics (staged)."""
         b, c, h, w = x.shape
+        if s2d and self.kind != "instance":
+            raise ValueError("the s2d domain runs the instance norm only")
         if s2d:
             # x and seg are space-to-depth tensors (ops/s2d.py): the same
             # math and parameters. The noise field is drawn at the plain
@@ -156,7 +209,8 @@ class SPADENorm(nn.Module):
             return normalized * (1.0 + gamma) + beta
 
         noise = draw((b, h, w, 1))
-        if fused_spade_eligible((b, h, w, c), _NHIDDEN, x.dtype, x.device):
+        if self.kind == "instance" and fused_spade_eligible(
+                (b, h, w, c), _NHIDDEN, x.dtype, x.device):
             # the fused modulation kernel (ops/spade_fused.py): same math
             # and parameters; conv_shared's output stays pre-relu
             actv = self.conv_shared(seg)
@@ -167,7 +221,12 @@ class SPADENorm(nn.Module):
 
         xn = x + (_nchw(noise) * policy(self.noise_scale).view(1, -1, 1, 1)
                   ).to(x.dtype)
-        normalized = instance_norm(xn)
+        if self.kind == "instance":
+            normalized = self.param_free_norm(xn)
+        elif self.kind == "batch":
+            normalized = self.param_free_norm(xn, train=train)
+        else:
+            normalized = self.param_free_norm(xn, misalign_mask)
         actv = self.conv_shared(seg)
         if _MERGE_GB:
             gb = conv_forward(
@@ -200,18 +259,25 @@ class SPADEResBlock(nn.Module):
 
     def __init__(self, input_nc: int, output_nc: int,
                  norm_g: str = "spectralaliasinstance", gen_semantic_nc: int = 7,
-                 fused: bool = False, device="cuda", dtype=torch.float32):
+                 fused: bool = False, use_mask_norm: bool = False,
+                 device="cuda", dtype=torch.float32):
+        """``use_mask_norm``: every norm is 'aliasmask' and its seg has one
+        channel more (label_nc + 1), as in the JAX block."""
         super().__init__()
         self.learned_shortcut = input_nc != output_nc
         self.fused = fused
         middle_nc = min(input_nc, output_nc)
         spectral = norm_g.startswith("spectral")
         subnorm = norm_g[len("spectral"):] if spectral else norm_g
+        label_nc = gen_semantic_nc
+        if use_mask_norm:
+            subnorm, label_nc = "aliasmask", label_nc + 1
+        self.subnorm = subnorm
         conv = SpectralNorm2d if spectral else Conv2d
         kw = dict(device=device, dtype=dtype)
 
         def norm(nc):
-            return SPADENorm(nc, gen_semantic_nc, subnorm, **kw)
+            return SPADENorm(nc, label_nc, subnorm, **kw)
 
         if self.learned_shortcut:
             self.norm_s = norm(input_nc)
@@ -249,14 +315,25 @@ class SPADEResBlock(nn.Module):
         return _nchw(out)
 
     def forward(self, x, seg, draw, s2d: bool = False,
-                update_sn: bool = False):
+                update_sn: bool = False, misalign_mask=None,
+                train: bool = False):
         """x: (B, C, H, W); seg: (B, label_nc, h, w) float; draw: noise
         source. With ``s2d`` both arrive as space-to-depth tensors on one
         grid (the caller resizes seg). ``update_sn``: one power iteration in
-        each spectral conv (staged)."""
-        if not s2d:
+        each spectral conv (staged). ``misalign_mask``: (B, 1, h, w), resized
+        (nearest) to x's size, for the mask norms; ``train``: the batch
+        norms' training mode."""
+        if s2d:
+            if misalign_mask is not None:
+                raise ValueError("the s2d domain takes no misalign mask")
+        else:
             seg = interpolate_nchw(seg, size=x.shape[2:], mode="nearest")
-        if self.fused and not s2d and fused_spade_conv_eligible(
+            if misalign_mask is not None:
+                misalign_mask = interpolate_nchw(misalign_mask,
+                                                 size=x.shape[2:],
+                                                 mode="nearest")
+        if self.fused and not s2d and self.subnorm == "aliasinstance" and \
+                misalign_mask is None and fused_spade_conv_eligible(
                 x.shape[2], x.shape[3], _NHIDDEN, x.dtype, x.device):
             u = update_sn
             xs = (self._unit(self.norm_s, self.conv_s, x, seg, draw, None,
@@ -266,15 +343,18 @@ class SPADEResBlock(nn.Module):
                             update_sn=u)
             return self._unit(self.norm_1, self.conv_1, dx, seg, draw,
                               "leaky0.2", residual=xs, update_sn=u)
+        def norm(mod, h):
+            return mod(h, seg, draw, s2d, misalign_mask, train)
+
         if self.learned_shortcut:
-            xs = _apply_conv(self.conv_s, self.norm_s(x, seg, draw, s2d),
-                             s2d=s2d, update_sn=update_sn)
+            xs = _apply_conv(self.conv_s, norm(self.norm_s, x), s2d=s2d,
+                             update_sn=update_sn)
         else:
             xs = x
-        dx = _apply_conv(self.conv_0, self.norm_0(x, seg, draw, s2d),
-                         "leaky0.2", s2d, update_sn)
-        dx = _apply_conv(self.conv_1, self.norm_1(dx, seg, draw, s2d),
-                         "leaky0.2", s2d, update_sn)
+        dx = _apply_conv(self.conv_0, norm(self.norm_0, x), "leaky0.2", s2d,
+                         update_sn)
+        dx = _apply_conv(self.conv_1, norm(self.norm_1, dx), "leaky0.2", s2d,
+                         update_sn)
         return xs + dx
 
 
@@ -282,7 +362,7 @@ class SPADEGenerator(nn.Module):
     def __init__(self, cfg: SPADEGenConfig = SPADEGenConfig(), device="cuda",
                  dtype=torch.float32):
         super().__init__()
-        self._update_sn = False
+        self._update_sn = self._train = False
         if cfg.num_upsampling_layers not in ("more", "most"):
             raise ValueError(
                 "num_upsampling_layers must be 'more' or 'most' ('normal' is "
@@ -332,29 +412,35 @@ class SPADEGenerator(nn.Module):
                 stack.enter_context(merge_gamma_beta(True))
             yield
 
-    def forward(self, x, seg, noise: NoiseArg, update_sn: bool = False):
+    def forward(self, x, seg, noise: NoiseArg, train: bool = False,
+                update_sn: bool = False):
         """x: (N, H, W, input_nc) NHWC; seg: (N, H, W, 7) float one-hot or
         (N, H, W) int labels in [0, 7); noise: see ``noise_source``;
-        ``update_sn``: one power iteration in every spectral conv, staged
-        (the JAX ``update_sn``). Returns (N, H, W, 3) in [-1, 1]."""
-        self._update_sn = update_sn
+        ``train``: the 'aliasbatch' norms normalize with the batch's
+        statistics and stage the running ones (the JAX ``train``; the other
+        kinds ignore it); ``update_sn``: one power iteration in every
+        spectral conv, staged (the JAX ``update_sn``). Returns (N, H, W, 3)
+        in [-1, 1]."""
+        self._update_sn, self._train = update_sn, train
         try:
             with self._knobs():
                 return self._forward(x, seg, noise)
         finally:
-            self._update_sn = False
+            self._update_sn = self._train = False
 
     def _block(self, block, h, seg, draw, update_sn, s2d=False):
         """One SPADEResBlock; under ``remat`` with gradients wanted, a
         checkpointed call whose recompute is pure (module docstring)."""
+        train = self._train
         if not (self.cfg.remat and torch.is_grad_enabled()):
-            return block(h, seg, draw, s2d=s2d, update_sn=update_sn)
+            return block(h, seg, draw, s2d=s2d, update_sn=update_sn,
+                         train=train)
         noises = [draw(shape) for shape in block.noise_shapes(h.shape, s2d)]
 
         def run(h_, seg_, *fields):
             with self._knobs():
                 return block(h_, seg_, noise_source(fields, h_.device),
-                             s2d=s2d, update_sn=update_sn)
+                             s2d=s2d, update_sn=update_sn, train=train)
         return torch.utils.checkpoint.checkpoint(
             run, h, seg, *noises, use_reentrant=False,
             preserve_rng_state=False)

@@ -11,7 +11,8 @@ Training modes, as in the JAX package:
 
   * ``BatchNorm2d(x, train=True)`` normalizes with the batch's biased
     two-pass variance and stages the running mean and the *unbiased*
-    variance, momentum 0.1;
+    variance, momentum 0.1; inside ``core/mesh.sharded`` the batch is the
+    global one, across the ranks;
   * ``SpectralNorm2d(x, update=True)`` runs one power iteration from the
     stored u in f32 (v <- l2(W^T u), u <- l2(W v), sigma = u . W v) and
     stages the new u and v. The gradient flows through u and v, as in the
@@ -39,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.ops import conv3x3 as c3
@@ -155,33 +157,55 @@ class BatchNorm2d(nn.Module):
     """torch BatchNorm2d, f32 math. Eval (``train=False``): the running
     statistics. Training: the batch's mean and biased two-pass variance
     normalize; the running mean and unbiased variance are staged with
-    momentum 0.1 (``commit_state`` writes them)."""
+    momentum 0.1 (``commit_state`` writes them). Inside
+    ``core/mesh.sharded`` with several ranks the batch is the global one:
+    the sums are all-reduced (gradients flow through the reduction) and
+    ``n`` counts every rank's rows. ``affine=False`` has no ``weight`` or
+    ``bias`` (the JAX ``affine``)."""
 
     _jax_names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                   "var": "running_var"}
 
     _MOMENTUM = 0.1
 
-    def __init__(self, features: int, eps: float = 1e-5, device="cuda",
-                 dtype=torch.float32):
+    def __init__(self, features: int, eps: float = 1e-5, affine: bool = True,
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features, device=dev, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(features, device=dev, dtype=dtype))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features, device=dev,
+                                                  dtype=dtype))
+            self.bias = nn.Parameter(torch.zeros(features, device=dev,
+                                                 dtype=dtype))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("running_mean",
                              torch.zeros(features, device=dev, dtype=dtype))
         self.register_buffer("running_var",
                              torch.ones(features, device=dev, dtype=dtype))
         self._pending = None
 
-    def forward(self, x, train: bool = False):
-        v = lambda t: precision.policy(t).float().view(1, -1, 1, 1)
-        xf = x.float()
-        if train:
+    @staticmethod
+    def _batch_moments(xf):
+        """(mean, biased variance, n) over (N, H, W), global across the
+        ranks of an active mesh."""
+        mesh = mesh_lib.active_mesh()
+        if mesh is None:
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
-            n = x.shape[0] * x.shape[2] * x.shape[3]
+            return mean, var, xf.shape[0] * xf.shape[2] * xf.shape[3]
+        from torch.distributed.nn.functional import all_reduce
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3] * mesh.world_size
+        mean = all_reduce(xf.sum(dim=(0, 2, 3)), group=mesh.group) / n
+        dev2 = (xf - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3))
+        return mean, all_reduce(dev2, group=mesh.group) / n, n
+
+    def forward(self, x, train: bool = False):
+        xf = x.float()
+        if train:
+            mean, var, n = self._batch_moments(xf)
             with torch.no_grad():
                 m = self._MOMENTUM
                 self._pending = (
@@ -194,7 +218,10 @@ class BatchNorm2d(nn.Module):
             s = lambda t: t.float().view(1, -1, 1, 1)
             y = (xf - s(self.running_mean)) * torch.rsqrt(
                 s(self.running_var) + self.eps)
-        return (y * v(self.weight) + v(self.bias)).to(x.dtype)
+        if self.weight is not None:
+            v = lambda t: precision.policy(t).float().view(1, -1, 1, 1)
+            y = y * v(self.weight) + v(self.bias)
+        return y.to(x.dtype)
 
     def _commit(self, pending):
         self.running_mean.copy_(pending[0])
@@ -316,7 +343,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(normal(m.weight.shape, m.weight.shape[1] ** -0.5))
             m.bias.zero_()
         if isinstance(m, BatchNorm2d):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.weight is not None:
+                m.weight.fill_(1.0)
+                m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)

@@ -165,5 +165,6 @@ class TryOnPipeline:
             noise = torch.Generator(device=self.device).manual_seed(
                 self.noise_seed)
         return tryon_forward(self.tocg,
-                             lambda x, seg: self.generator(x, seg, noise),
+                             lambda x, seg: self.generator(x, seg, noise,
+                                                           train=False),
                              batch, self.cfg)

@@ -13,6 +13,12 @@ the D step judges the detached fake (or, with ``g_d_separate``, a fresh
 forward of the updated tocg whose statistics are dropped) with one power
 iteration in the fake call only. The whole step runs with TF32 off.
 
+Data parallel (``core/mesh.py``): with a mesh of several ranks each rank
+steps on its rows of the global batch; the gradients, the BatchNorm
+statistics, the ``--Ddropout`` masks (drawn at the global shape) and the
+metrics are reduced across the ranks, so the step equals the one-process
+step on the global batch.
+
 bf16 (``ConditionTrainConfig.bf16``): parameters and Adam state stay f32;
 the batch is cast to bf16 and every parameter is read rounded to bf16
 (``core/precision.param_dtype``), the discriminator's state too in the G
@@ -28,6 +34,7 @@ import torch
 
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
                                       ConditionTrainConfig, TOCGConfig)
+from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.losses.gan import lsgan_loss
@@ -72,18 +79,26 @@ def prep_batch(batch) -> Dict[str, torch.Tensor]:
 
 def apply_grads(loss, net: NetState):
     """The gradient of ``loss`` with respect to ``net``'s parameters alone,
+    averaged across the ranks of an active mesh (``core/mesh.sharded``),
     put in their ``.grad``, and one optimizer update."""
     params = net.opt.params
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    mesh_lib.average_grads(grads)
     for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+        p.grad = g
     net.opt.step()
 
 
 class ConditionTrainer:
     def __init__(self, tocg_cfg: TOCGConfig, d_cfg: CondDiscriminatorConfig,
-                 tcfg: ConditionTrainConfig, device="cuda"):
+                 tcfg: ConditionTrainConfig, device="cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
+        """``mesh``: the data-parallel layout (``core/mesh.make_mesh``);
+        each step's batch is then the rank's rows of the global batch."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.tocg_cfg, self.d_cfg, self.tcfg = tocg_cfg, d_cfg, tcfg
         self.dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
         # the discriminator's dropout masks (--Ddropout)
@@ -171,8 +186,14 @@ class ConditionTrainer:
     # ------------------------------------------------------------- train step
     def train_step(self, state: GANState, batch, vgg) -> Tuple[GANState, Dict]:
         """One G update and one D update; ``vgg`` is the frozen
-        ``Vgg19Features``. Returns (state, metrics of 0-d tensors); the
-        gradients of the last updates stay in the parameters' ``.grad``."""
+        ``Vgg19Features``. Returns (state, metrics of 0-d tensors, averaged
+        across the mesh's ranks); the gradients of the last updates stay in
+        the parameters' ``.grad``."""
+        with mesh_lib.sharded(self.mesh):
+            state, metrics = self._train_step_body(state, batch, vgg)
+            return state, mesh_lib.mean_metrics(metrics)
+
+    def _train_step_body(self, state, batch, vgg):
         tcfg = self.tcfg
         prep = cast_batch(prep_batch(batch), self.dtype)
         tocg, d = state.g.module, state.d.module

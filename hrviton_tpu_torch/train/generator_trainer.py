@@ -5,7 +5,11 @@ reference train_generator.py:184-360):
   conditioning (no gradient: the tocg at the condition size, lifted to the
   full size, train_generator.py:201-275),
   G loss = hinge + 10 feature matching + 10 VGG, then the D hinge step on a
-  fresh output of the updated G, with no gradient.
+  fresh output of the updated G, with no gradient. Both forwards of G run in
+  training mode (the 'aliasbatch' norms on the batch's statistics); the G
+  loss's forward writes the running statistics after the G update, the
+  regeneration writes none (the JAX step applies it with its batch_stats
+  immutable).
 
 TTUR Adam(0, 0.9) with the linear decay after keep_step, stepped per 1000
 updates. As in the JAX step: the G loss's forward runs one power iteration
@@ -18,6 +22,12 @@ the same stored u. The VGG loss runs under ``torch.utils.checkpoint`` (both
 towers), the generator's blocks under ``SPADEGenConfig.remat`` and the
 discriminator under ``d_remat``; ``taps_wgrad`` holds for the whole step
 (``ops/conv3x3.taps_wgrad``). The step runs with TF32 off.
+
+Data parallel (``core/mesh.py``): with a mesh of several ranks each rank
+steps on its rows of the global batch; the G step's gradients, the batch
+norms' statistics, the SPADE noise (drawn at the global shape) and the
+metrics are reduced across the ranks, so the step equals the one-process
+step on the global batch.
 
 bf16 (``GeneratorTrainConfig.bf16``): f32 parameters and Adam state, the
 batch cast to bf16, every parameter read rounded to bf16
@@ -36,6 +46,7 @@ import torch.utils.checkpoint
 from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
                                       SPADEDiscriminatorConfig, SPADEGenConfig,
                                       TOCGConfig)
+from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.losses.gan import gan_loss
@@ -43,7 +54,7 @@ from hrviton_tpu_torch.losses.matching import feature_matching_loss
 from hrviton_tpu_torch.losses.perceptual import vgg_perceptual_loss
 from hrviton_tpu_torch.models.discriminators import SPADEMultiscaleDiscriminator
 from hrviton_tpu_torch.models.spade import NoiseArg, SPADEGenerator
-from hrviton_tpu_torch.nn.layers import commit_state, init_weights
+from hrviton_tpu_torch.nn.layers import commit_state, drop_state, init_weights
 from hrviton_tpu_torch.ops.conv3x3 import taps_wgrad
 from hrviton_tpu_torch.ops.parse import group_index_of_label13, lut_lookup
 from hrviton_tpu_torch.pipelines.tryon import condition_forward
@@ -57,11 +68,15 @@ __all__ = ["GeneratorTrainer"]
 class GeneratorTrainer:
     def __init__(self, gen_cfg: SPADEGenConfig, d_cfg: SPADEDiscriminatorConfig,
                  tcfg: GeneratorTrainConfig, pcfg: PipelineConfig,
-                 tocg_cfg: Optional[TOCGConfig] = None, device="cuda"):
+                 tocg_cfg: Optional[TOCGConfig] = None, device="cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
         """tocg_cfg: the frozen condition generator's architecture; None in
         --GT mode (train_generator.py:102,253-256). Its module is passed per
-        step, with the VGG's, in ``frozen``."""
+        step, with the VGG's, in ``frozen``. ``mesh``: the data-parallel
+        layout (``core/mesh.make_mesh``); each call's batch is then the
+        rank's rows of the global batch."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.gen_cfg, self.d_cfg, self.tcfg, self.pcfg = gen_cfg, d_cfg, tcfg, pcfg
         self.tocg_cfg = tocg_cfg
         self.dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
@@ -138,9 +153,13 @@ class GeneratorTrainer:
         ``frozen``: {'vgg': Vgg19Features, 'tocg': ConditionGenerator or
         None in GT mode}; ``noise_g`` / ``noise_d``: the SPADE noise of the
         G-loss forward and of the regeneration. Returns (state, metrics of
-        0-d tensors); the last updates' gradients stay in ``.grad``."""
-        with taps_wgrad(self.tcfg.taps_wgrad), precision.no_tf32():
-            return self._train_step_body(state, batch, noise_g, noise_d, frozen)
+        0-d tensors, averaged across the mesh's ranks); the last updates'
+        gradients stay in ``.grad``."""
+        with taps_wgrad(self.tcfg.taps_wgrad), precision.no_tf32(), \
+                mesh_lib.sharded(self.mesh):
+            state, metrics = self._train_step_body(state, batch, noise_g,
+                                                   noise_d, frozen)
+            return state, mesh_lib.mean_metrics(metrics)
 
     def _train_step_body(self, state, batch, noise_g, noise_d, frozen):
         tcfg = self.tcfg
@@ -160,7 +179,8 @@ class GeneratorTrainer:
             # ---- G update
             with (precision.rounded_buffers(d, bf16) if bf16
                   else contextlib.nullcontext()):
-                output = gen(gen_in, labels, noise_g, update_sn=True)
+                output = gen(gen_in, labels, noise_g, train=True,
+                             update_sn=True)
                 pred_fake, pred_real = self._d_forward(d, parse7, output, im)
                 losses = {"GAN": gan_loss(pred_fake, True, "hinge",
                                           for_discriminator=False)}
@@ -178,9 +198,11 @@ class GeneratorTrainer:
             commit_state(gen)
 
             # ---- D update on a fresh no-gradient output of the updated G
-            # (train_generator.py:327-334)
+            # (train_generator.py:327-334), in training mode; the batch
+            # norms' statistics it stages are not written
             with torch.no_grad():
-                output_ng = gen(gen_in, labels, noise_d)
+                output_ng = gen(gen_in, labels, noise_d, train=True)
+            drop_state(gen)
             pred_fake, pred_real = self._d_forward(d, parse7, output_ng, im,
                                                    update_sn=True)
             l_fake = gan_loss(pred_fake, False, "hinge", for_discriminator=True)
@@ -200,8 +222,8 @@ class GeneratorTrainer:
     @torch.no_grad()
     def generate(self, state: GANState, batch, noise: NoiseArg, tocg=None):
         gen_in, _, labels = self.conditioning(batch, tocg)
-        with precision.no_tf32():
-            return state.g.module(gen_in, labels, noise)
+        with precision.no_tf32(), mesh_lib.sharded(self.mesh):
+            return state.g.module(gen_in, labels, noise, train=False)
 
     @torch.no_grad()
     def generate_debug(self, state: GANState, batch, noise: NoiseArg,
@@ -213,6 +235,6 @@ class GeneratorTrainer:
         glabel = lut_lookup(fake_parse, group_index_of_label13())
         gen_in = torch.cat([batch["agnostic"], batch["densepose"],
                             warped_cloth], dim=-1)
-        with precision.no_tf32():
-            out = state.g.module(gen_in, glabel, noise)
+        with precision.no_tf32(), mesh_lib.sharded(self.mesh):
+            out = state.g.module(gen_in, glabel, noise, train=False)
         return out, warped_cloth, fpg

@@ -809,3 +809,89 @@ def test_wide_kernel_reads_weights_after_an_optimizer_step():
     assert not torch.equal(before, after)
     _assert_close(after, tc3.conv3x3_ref(x, w.detach(), None, "relu",
                                          fused_bias=True), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_nccl_rank_step_equals_the_step_without_a_group():
+    """core/mesh.py over NCCL: one rank (the card) joins a group through
+    init_distributed; its ConditionTrainer step (tocg ngf=8 at 64x64,
+    batch 2, f32) gives the losses of the same step without a group within
+    1e-5 relative, and the group is torn down after it."""
+    _need_card()
+    import socket
+    from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
+                                          ConditionTrainConfig, TOCGConfig)
+    from hrviton_tpu_torch.core import mesh as mesh_lib
+    from hrviton_tpu_torch.models.backbones import Vgg19Features
+    from hrviton_tpu_torch.nn.layers import init_weights
+    from hrviton_tpu_torch.train.condition_trainer import ConditionTrainer
+
+    rng = np.random.default_rng(2)
+    a = lambda *s: _a(rng, s)
+    labels = torch.from_numpy(rng.integers(0, 13, (2, 64, 64))).cuda()
+    parse = torch.nn.functional.one_hot(labels, 13).float()
+    batch = {"cloth": {"paired": a(2, 64, 64, 3)},
+             "cloth_mask": {"paired": a(2, 64, 64, 1).sigmoid()},
+             "parse_agnostic": a(2, 64, 64, 13), "densepose": a(2, 64, 64, 3),
+             "parse_onehot": labels, "parse": parse,
+             "pcm": parse[..., 3:4].clone(), "parse_cloth": a(2, 64, 64, 3)}
+    vgg = Vgg19Features(device="cuda")
+    init_weights(vgg, torch.Generator().manual_seed(7))
+
+    def step(mesh):
+        trainer = ConditionTrainer(TOCGConfig(ngf=8),
+                                   CondDiscriminatorConfig(ndf=8, ddropout=True),
+                                   ConditionTrainConfig(), device=mesh.device,
+                                   mesh=mesh)
+        return trainer.train_step(trainer.init(0), batch, vgg)[1]
+
+    plain = step(mesh_lib.make_mesh("cuda"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = mesh_lib.init_distributed(f"127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        mesh = mesh_lib.make_mesh(dev)
+        assert mesh.group is not None and mesh.world_size == 1
+        grouped = step(mesh)
+    finally:
+        mesh_lib.shutdown_distributed()
+    assert not torch.distributed.is_initialized()
+    for k, v in plain.items():
+        assert torch.isfinite(v)
+        assert abs(float(grouped[k]) - float(v)) <= 1e-5 * abs(float(v)) + 1e-7, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [False, True])
+def test_aliasbatch_generator_launches_no_kernel(train):
+    """'spectralaliasbatch' in bf16 with the fused unit on (fine 512x256,
+    where up_3 and up_4 pass the unit's shape rules): no hand-written kernel
+    launches, as the JAX gates refuse the alias kinds; the output is finite
+    and, in training mode, the running statistics move."""
+    _need_card()
+    from hrviton_tpu_torch.config import SPADEGenConfig
+    from hrviton_tpu_torch.models.spade import SPADEGenerator
+    from hrviton_tpu_torch.nn.layers import commit_state, init_weights
+    wrappers = (tsb.spade_conv_unit, tsf.norm_stats, tsf.fused_spade_modulate,
+                tc3.conv3x3_wide, tc3.conv3x3_small)
+    gen = SPADEGenerator(SPADEGenConfig(ngf=16, fine_height=512, fine_width=256,
+                                        fused_block=True,
+                                        norm_g="spectralaliasbatch"),
+                         device="cuda", dtype=torch.bfloat16)
+    init_weights(gen, torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(5)
+    x = _a(rng, (2, 512, 256, 9)).bfloat16()
+    labels = torch.from_numpy(rng.integers(0, 7, (2, 512, 256))).cuda()
+    counts = lambda: [w.launches for w in wrappers]
+    before = counts()
+    mean0 = gen.up_4.norm_1.param_free_norm.running_mean.clone()
+    with torch.no_grad():
+        rgb = gen(x, labels, torch.Generator(device="cuda").manual_seed(1),
+                  train=train)
+    commit_state(gen)
+    torch.cuda.synchronize()
+    assert counts() == before
+    assert torch.isfinite(rgb).all()
+    moved = not torch.equal(gen.up_4.norm_1.param_free_norm.running_mean, mean0)
+    assert moved == train

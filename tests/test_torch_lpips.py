@@ -3,7 +3,9 @@ port against the JAX package on the CPU, f32.
 
 ``LPIPSModel`` ('alex', 'vgg16', 'squeeze'; lpips and net mode; averaged
 and spatial) and ``LPIPSAlex`` on random variables shared through
-``load_jax_variables``, at 64x64 on numpy inputs in [-1, 1]. Tolerance f32
+``load_jax_variables``, at 64x64 on numpy inputs in [-1, 1]; in training
+mode too (the heads' dropout: reproducible from its generator, the
+identity on both sides against the JAX ``train=True``). Tolerance f32
 1e-5 relative to max|ref| (with 1e-7 absolute: distances are small sums of
 normalized features). ``dssim_distance`` takes a 7x7 mean of uint8 levels
 (f32, another summation order): 1e-5 relative; ``l2_distance`` 1e-6. The
@@ -54,17 +56,34 @@ def _jax_model(net, lpips, spatial):
 @pytest.mark.parametrize("net", ["alex", "vgg16", "squeeze"])
 @pytest.mark.parametrize("lpips,spatial", [(True, False), (False, False),
                                            (True, True)])
-def test_lpips_model_matches_jax(net, lpips, spatial):
+def test_lpips_model_matches_jax(net, lpips, spatial, monkeypatch):
     m, v = _jax_model(net, lpips, spatial)
     x, y = _images(1)
     want = jax.jit(m.apply)(v, x, y)
     port = tlpips.LPIPSModel(net, lpips, spatial, device="cpu")
     load_jax_variables(port, v)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
     with torch.no_grad():
-        got = port(torch.from_numpy(x), torch.from_numpy(y))
+        got = port(tx, ty)
     _close(got, want)
-    with pytest.raises(NotImplementedError):
-        port(torch.from_numpy(x), torch.from_numpy(y), train=True)
+    # training mode: the heads' dropout, its masks from the generator given
+    with torch.no_grad():
+        drop = [port(tx, ty, train=True,
+                     generator=torch.Generator().manual_seed(3))
+                for _ in range(2)]
+    assert torch.equal(drop[0], drop[1])
+    assert torch.equal(drop[0], got) != lpips
+    # with the dropout the identity on both sides, train=True is the
+    # JAX train=True
+    monkeypatch.setattr(tlpips, "_dropout", lambda t, generator: t)
+    monkeypatch.setattr(jlpips.nn, "Dropout",
+                        lambda *a, **k: (lambda t: t))
+    want_train = m.apply(v, x, y, train=True,
+                         rngs={"dropout": jax.random.PRNGKey(0)})
+    with torch.no_grad():
+        got_train = port(tx, ty, train=True,
+                         generator=torch.Generator().manual_seed(3))
+    _close(got_train, want_train)
 
 
 def test_lpips_alex_and_make_lpips_match_jax():

@@ -14,7 +14,8 @@ their checkpoints against the JAX package's readers.
 * back: JAX-written checkpoints (the JAX ``save_pytree`` of random
   variables) given to the port's CLIs (``--tocg_checkpoint``,
   ``--gen_checkpoint``) with no step to take come out of them bit for bit;
-* the multi-host flags raise until the data-parallel slice.
+* an incomplete set of the multi-host flags is refused (two processes
+  through the whole set: test_torch_mesh_cli.py).
 """
 
 import importlib
@@ -164,9 +165,14 @@ def test_jax_checkpoints_load_into_the_port_trainers(roots, tmp_path):
 
 
 @pytest.mark.parametrize("cli", [t1, t2])
-@pytest.mark.parametrize("flag", [["--coordinator", "h:1"],
-                                  ["--num_processes", "2"],
-                                  ["--process_id", "1"]])
-def test_multihost_flags_raise(cli, flag):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        cli.main(["--name", "x", "--device", "cpu", *flag])
+@pytest.mark.parametrize("flag,match", [
+    (["--coordinator", "h:1"], "--coordinator needs --num_processes and "
+                               "--process_id"),
+    (["--num_processes", "2"], "need --coordinator"),
+    (["--process_id", "1"], "need --coordinator")])
+def test_multihost_flags_raise(cli, flag, match):
+    """An incomplete set of the multi-host flags is refused before any
+    dataset or group is touched (the complete set runs: test_torch_mesh_cli)."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(["--name", "x", "--device", "cpu", "--allow_random_vgg",
+                  *flag])
