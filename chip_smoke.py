@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py --paths    # phases 1, 2, 4, 5 and 6 only
     python3 chip_smoke.py --alone    # phases 1, 2 and kernels' times alone
+    python3 chip_smoke.py --captured # phases 1, 2 and 11 only
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
@@ -47,6 +48,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      and conv_dma in a cluster of 2 or 4 the multicast form of the TMA load,
      and that of the band-copy probe the TMA load and store and no store of
      a thread to device memory;
+  (The inference entry points of phases 4-6 and 8 replay CUDA graphs, as a
+  user's calls do: hrviton_tpu_torch/core/graphs.py; phase 5's layout
+  copies are timed eagerly. A profiler window of kernel times is held to
+  its calls' launches, and the windows that lost records are printed at
+  the end.)
   4. first path: TryOnPipeline at full width (tocg ngf=96 at 256x192, SPADE
      ngf=64 'most' at 1024x768, bf16, random seeded weights) with its default
      configuration answers 3 requests of batch 4; the unit kernel must launch
@@ -183,7 +189,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      batch 1, f32, seeded weights and misalign mask) on the card against
      the same module on the CPU within 1e-4 x max|ref|; (c) 10 steps of
      LPIPSHeadTrainer (alex, 64x64, batch 8): finite losses, every lin
-     kernel >= 0 after each step, ms/step by CUDA events.
+     kernel >= 0 after each step, ms/step by CUDA events;
+ 11. (in a process of its own, chip_smoke.py --captured: a long process's
+     profiler windows lose records, PERF.md section 7) captured entry
+     points (core/graphs.py), each eager (graphs.disabled()) against
+     replayed at full width: both paths (batch 4, bf16, 1024x768),
+     the inference CLI's step (batch 1, f32 and bf16; then a new bf16
+     pipeline at batch 2 and a last batch of 1, a graph each),
+     test_condition's condition_step and get_norm_const's norm_const_step
+     (batch 8, 256x192, f32, tocg ngf=96, the condition discriminator),
+     evaluate's LPIPS (alex, 128x128) and Inception with its softmax
+     (299x299): replay equal to eager bit for bit (or, naming every tensor
+     that differs, the main output within the pipelines' limits), the same
+     launch counters per call, the kernel nodes of each graph (its DOT dump
+     under build/graphs/) no fewer than one eager call's kernel
+     launches (the most of up to three profiler windows; any difference
+     named kernel by kernel) with every hand-written kernel among them as
+     often, the
+     outputs of a call unchanged after the next call, weights written in
+     place after a replay recorded anew and equal to eager with them; then
+     10 eager and replayed calls in turns by CUDA events and host clock,
+     the device busy time and host gap of one call each (torch.profiler)
+     and the graphs' pool memory.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
 line is {"ok": true, "device": {...}}. With --paths the script stops after
@@ -417,56 +444,71 @@ def _events_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
+@contextlib.contextmanager
+def _window(cpu=False):
+    """A torch.profiler window over device activity (and the host's with
+    ``cpu``), the device synchronised before and after its work."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
+# Profiler windows that held fewer kernel records than their calls launched:
+# (what, records, launches). A window loses a record now and then (PERF.md
+# section 7; neither the kernels' static CUDA runtimes nor the window's
+# edges); every window's count is tallied and the short ones printed at the
+# end of the run.
+WINDOWS = {"windows": 0, "short": []}
+
+
+def _tally(what, got, want):
+    WINDOWS["windows"] += 1
+    if got != want:
+        WINDOWS["short"].append((str(what), got, want))
+
+
 def _names(kernel_name):
     return (kernel_name,) if isinstance(kernel_name, str) else tuple(kernel_name)
 
 
-def _device_ms(fn, kernel_name, iters=2, per_call=None):
+def _device_ms(fn, kernel_name, per_call, iters=2):
     """Device time of the kernels whose names contain ``kernel_name`` (or one
     of a tuple of names) in one call of fn, from torch.profiler (the
-    wrapper's own packing left out), or None if the profiler recorded no
-    such kernel. A window now and then loses
-    records (seen after the pipelines' profiles: one of two launches, or all
-    of a window shorter than ~2 ms). ``per_call`` says how many such kernels
-    one call launches, if known: then the mean over the records that did
-    arrive is taken. Otherwise a window's records are summed, and a window
-    whose count is no multiple of its calls is taken again, four times as
-    long."""
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
-        n = iters * 4 ** attempt
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(n in e.name for n in _names(kernel_name))]
-        if us and per_call:
-            return sum(us) / len(us) * per_call / 1e3
-        if us and len(us) % n == 0:
-            return sum(us) / 1e3 / n
-    return None
-
-
-def _device_split(fn, names, iters=3):
-    """ms per call of fn's kernels, by the first of ``names`` each kernel's
-    name contains (torch.profiler); names with no record are left out."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    wrapper's own packing left out): one call launches ``per_call`` such
+    kernels, so the mean of the records that arrived times ``per_call``
+    (a window that lost records is tallied); None without a record."""
+    with _window() as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    split = {}
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and any(n in e.name for n in _names(kernel_name))]
+    _tally(kernel_name, len(us), per_call * iters)
+    return sum(us) / len(us) * per_call / 1e3 if us else None
+
+
+def _device_split(fn, names, per_call, iters=3):
+    """ms per call of fn's kernels, by the first of ``names`` each kernel's
+    name contains (torch.profiler): the mean record of each name times
+    ``per_call``, the kernels of that name one call launches (a window that
+    lost records is tallied); names with no record are left out."""
+    with _window() as prof:
+        for _ in range(iters):
+            fn()
+    us = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = next((n for n in names if n in e.name), None)
         if name is not None:
-            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    return split
+            us.setdefault(name, []).append(e.time_range.elapsed_us())
+    _tally(names, {n: len(v) for n, v in us.items()},
+           {n: k * iters for n, k in zip(names, per_call)})
+    return {n: sum(v) / len(v) * k / 1e3
+            for n, k in zip(names, per_call) if (v := us.get(n))}
 
 
 def _randn(gen, *shape, scale=1.0):
@@ -486,7 +528,7 @@ def _unit_inputs(gen, dtype, h, w, c, cout, ks, residual, batch=B):
 
 
 def _check_site(tot, label, dtype, n, kernel, plain, library, kernel_name,
-                flops, nbytes, exact=False, per_call=None):
+                flops, nbytes, per_call, exact=False):
     """One shape of one kernel: run the wrapper, hold it against its plain
     version (bit for bit if ``exact``), time wrapper, plain and library call,
     and add ``n`` launches' worth to the totals. ``per_call``: as in
@@ -529,8 +571,10 @@ def _check_site(tot, label, dtype, n, kernel, plain, library, kernel_name,
     tot["max_abs"] = max(tot.get("max_abs", 0.0), err)
 
 
-# the unit's kernels by part (bf16)
+# the unit's kernels by part (bf16): gamma|beta, the consumer conv, the
+# statistics' two passes
 UNIT_PARTS = ("spade_unit_gb", "spade_unit_conv", "instance_stats")
+UNIT_KERNELS = 4
 
 
 def _check_stats(tot, label, args, shape):
@@ -549,7 +593,7 @@ def _check_stats(tot, label, args, shape):
         torch.isfinite(mu).all() and torch.isfinite(rsig).all())
     ms = _events_ms(lambda: sf.norm_stats(*args), 3)
     plain_ms = _events_ms(lambda: sf.instance_stats(*args), 3)
-    alone = _device_ms(lambda: sf.norm_stats(*args), "instance_stats")
+    alone = _device_ms(lambda: sf.norm_stats(*args), "instance_stats", 2)
     b, h, w, c = shape
     bound = sf.stats_bytes(b, h, w, c,
                            elem=args[0].element_size()) / PEAK_BYTES * 1e3
@@ -573,8 +617,8 @@ def _check_stats(tot, label, args, shape):
 def _alone_events(tot, label, n, launch):
     """The kernel alone by CUDA events around its bare C entry point
     (``launch``: operands checked, statistics computed and weights packed
-    beforehand), beside the profiler's time, whose windows lose records now
-    and then; ``n`` launches' worth into the totals."""
+    beforehand), beside the profiler's time; ``n`` launches' worth into
+    the totals."""
     ms = _events_ms(launch, 10)
     tot["events_alone_ms"] = tot.get("events_alone_ms", 0.0) + n * ms
     log(f"{label}: kernel alone by CUDA events {ms:.3f} ms")
@@ -810,9 +854,9 @@ def kernel_phase():
                 None, ("spade_unit", "instance_stats"),
                 sb.unit_flops(B, h, w, c, cout, ks),
                 sb.unit_bytes(B, h, w, c, cout, ks, elem=elem,
-                              residual=residual))
+                              residual=residual), UNIT_KERNELS)
             if dtype == torch.bfloat16:
-                parts = _device_split(unit, UNIT_PARTS)
+                parts = _device_split(unit, UNIT_PARTS, (1, 1, 2))
                 log(f"unit {name}: alone by part " + ", ".join(
                     f"{k} {v:.3f} ms" for k, v in parts.items())
                     + f" (gamma|beta tiles {sb.gb_tiles(c)}, consumer tiles "
@@ -850,7 +894,7 @@ def kernel_phase():
                 "spade_modulate_kernel" if dtype == torch.bfloat16
                 else "spade_modulate_f32_kernel",
                 sf.modulate_flops(B, h, w, c),
-                sf.modulate_bytes(B, h, w, c, elem=elem))
+                sf.modulate_bytes(B, h, w, c, elem=elem), 1)
             if dtype == torch.bfloat16:
                 _alone_events(tot, f"modulate {name}", n,
                               sf.modulate_launcher(*args)[0])
@@ -897,7 +941,7 @@ def kernel_phase():
                     lambda: F.conv2d(xa, wl, bl, 1, 1),
                     kname if dtype == torch.bfloat16 else "conv3x3_f32_kernel",
                     c3.conv_flops(B, h, w, cin, cout),
-                    c3.conv_bytes(B, h, w, cin, cout, elem=elem))
+                    c3.conv_bytes(B, h, w, cin, cout, elem=elem), 1)
                 if key == "conv3x3_wide" and dtype == torch.bfloat16:
                     log(f"{key} {name}: N tile {c3.wide_bn(x.shape, cout)}")
                 if key == "conv3x3_small" and dtype == torch.bfloat16:
@@ -987,9 +1031,7 @@ def profile_phase(tag, pipe, batch):
     """One steady request under torch.profiler: device time by kernel group
     and the device's busy share of the request's wall time. Informational:
     if the profiler sees no device activity, it says so."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _window(cpu=True) as prof:
         t = time.perf_counter()
         pipe(batch)
         torch.cuda.synchronize()
@@ -1003,15 +1045,7 @@ def profile_phase(tag, pipe, batch):
     for e in kernels:
         g = _kernel_group(e.name)
         groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
+    busy = _busy_us(kernels)
     total = sum(groups.values())
     log(f"{tag} profile: one request {wall_us / 1e3:.1f} ms wall, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), {len(kernels)} "
@@ -1123,8 +1157,10 @@ def _layout_copies(pipe, batch):
     """The NHWC copies of x and actv that models/spade.py makes before each
     fused modulation (_nhwc), in one request: each call timed by CUDA events
     on the stream around it; a call whose input is already NHWC in memory
-    makes no copy. Informational (a part of the profile's elementwise
+    makes no copy. Run eagerly (graphs.disabled()): the same kernels as the
+    replayed request. Informational (a part of the profile's elementwise
     work)."""
+    from hrviton_tpu_torch.core import graphs
     from hrviton_tpu_torch.models import spade as ms
     orig, spans = ms._nhwc, []
 
@@ -1138,7 +1174,8 @@ def _layout_copies(pipe, batch):
         return out
     ms._nhwc = timed
     try:
-        pipe(batch)
+        with graphs.disabled():      # a replay runs no Python to time
+            pipe(batch)
         torch.cuda.synchronize()
     finally:
         ms._nhwc = orig
@@ -1314,7 +1351,7 @@ def _cli_units(gen):
                 None, ("spade_unit", "instance_stats"),
                 sb.unit_flops(1, h, w, c, cout, ks),
                 sb.unit_bytes(1, h, w, c, cout, ks, elem=elem,
-                              residual=residual))
+                              residual=residual), UNIT_KERNELS)
             del args, res
         fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
         where = ("a direct call, off every path" if dtype == torch.float32
@@ -1538,7 +1575,8 @@ def rejection_phase(card):
     from hrviton_tpu_torch.losses.lpips import make_lpips
     from hrviton_tpu_torch.models.discriminators import \
         CondMultiscaleDiscriminator
-    from hrviton_tpu_torch.models.inception import InceptionV3
+    from hrviton_tpu_torch.models.inception import (InceptionV3,
+                                                    inception_probs)
     from hrviton_tpu_torch.nn.layers import init_weights
     from hrviton_tpu_torch.pipelines.tryon import compose_clothmask
     from PIL import Image
@@ -1710,17 +1748,16 @@ def rejection_phase(card):
         torch.save(sd, inc_pth)
         net = net.cuda().eval()
         inc_ms = []
-        with torch.inference_mode():
-            for n in preds[:REJ_BATCH + 1]:
-                x = ev.inception_input(Image.open(os.path.join(pred_dir, n)),
-                                       "cuda")
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                net(x)
-                e1.record()
-                torch.cuda.synchronize()
-                inc_ms.append(e0.elapsed_time(e1))
+        for n in preds[:REJ_BATCH + 1]:
+            x = ev.inception_input(Image.open(os.path.join(pred_dir, n)),
+                                   "cuda")
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            inception_probs(net, x)
+            e1.record()
+            torch.cuda.synchronize()
+            inc_ms.append(e0.elapsed_time(e1))
         log(f"rejection: LPIPS alex at 128x128, one pair, CUDA events: "
             f"{_spread(lp_ms[1:])}, first {lp_ms[0]:.2f} ms; InceptionV3 at "
             f"299x299, one image: {_spread(inc_ms[1:])}, first "
@@ -2407,7 +2444,7 @@ def tools_phase(card):
                 _check_site(tot, f"{key} TH={th} {c}->{c} {h}x{w}", dtype, 1,
                             lambda: run(x, wt, th=th), lambda: plain(x, wt, th),
                             lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
-                            nbytes, per_call=1)
+                            nbytes, 1)
                 totals.setdefault(key, {dtype: tot})
                 entry = f"{key}_forward_bf16"
                 order = getattr(_common, TAP_ORDER.get(key, "pack_taps"))
@@ -2461,7 +2498,7 @@ def tools_phase(card):
     _check_site(tot, f"copy_probe TH={PROBE_TH} {TOOLS_X}", dtype, 1,
                 lambda: probe(x, th=PROBE_TH), lambda: probe_ref(x, PROBE_TH),
                 lambda: out.copy_(x), "band_copy_probe_kernel", 0,
-                2 * x.numel() * x.element_size(), exact=True, per_call=1)
+                2 * x.numel() * x.element_size(), 1, exact=True)
     totals["copy_probe"] = {dtype: tot}
     launch, _ = exp_copy_probe.probe_launcher(x, PROBE_TH)
     ev, alone = _events_ms(launch, 10), tot["kernel_alone_ms"]
@@ -2541,6 +2578,492 @@ KERNELS = [
 ]
 
 
+# phase 11: the captured entry points (core/graphs.py)
+GRAPH_PAIRS = 10            # eager / replay pairs timed in turns per entry point
+GRAPH_DIR = os.path.join(ROOT, "build", "graphs")   # the graphs' DOT dumps
+# the hand-written kernels, by the names their launches and graph nodes carry
+HAND_WRITTEN = ("spade_unit_gb_kernel", "spade_unit_conv_kernel",
+                "spade_modulate_kernel", "conv3x3_wide_kernel",
+                "conv3x3_small_kernel", "instance_stats_partial_kernel",
+                "instance_stats_finalize_kernel")
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tree_leaves(tree, prefix="out"):
+    """(name, tensor) of every tensor leaf of an entry point's output."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _tree_leaves(v, f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        return [x for n, v in zip(names, tree)
+                for x in _tree_leaves(v, f"{prefix}.{n}")]
+    return []
+
+
+def _held(label, got, want, main):
+    """got against want leaf by leaf: bit for bit, or else every leaf that
+    differs named and the main output held to the pipelines' limits (max 5%
+    of max|ref|, mean 1% of mean|ref|). Returns what was found."""
+    g, w = dict(_tree_leaves(got)), dict(_tree_leaves(want))
+    if g.keys() != w.keys():
+        raise RuntimeError(f"{label}: outputs {sorted(g)} against {sorted(w)}")
+    differ = [k for k in w if g[k].shape != w[k].shape or g[k].dtype != w[k].dtype
+              or not torch.equal(g[k], w[k])]
+    if not differ:
+        return "bit for bit"
+    parts = []
+    for k in differ:
+        if g[k].shape != w[k].shape or g[k].dtype != w[k].dtype:
+            raise RuntimeError(f"{label}: {k} {g[k].dtype} {tuple(g[k].shape)} "
+                               f"against {w[k].dtype} {tuple(w[k].shape)}")
+        d = (g[k].float() - w[k].float()).abs()
+        parts.append(f"{k} max_abs {d.max().item():.3e}")
+    d = (g[main].float() - w[main].float()).abs()
+    ref = w[main].float().abs()
+    lim_max, lim_mean = 0.05 * ref.max().item(), 0.01 * ref.mean().item()
+    if d.max().item() > lim_max or d.mean().item() > lim_mean:
+        raise RuntimeError(f"{label}: {main} max_abs {d.max().item():.3e} mean "
+                           f"{d.mean().item():.3e} (limits {lim_max:.3e} / "
+                           f"{lim_mean:.3e}); differing: {parts}")
+    return (f"not bit for bit, within the pipelines' limits ({main} max_abs "
+            f"{d.max().item():.3e} of {lim_max:.3e}); differing: "
+            + ", ".join(parts))
+
+
+def _profiled(fn):
+    """fn() once in a profiler window: (kernel records by name, other device
+    records (copies, memsets) by name, device busy ms, wall ms)."""
+    with _window() as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    recs = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, other = {}, {}
+    for e in recs:
+        d = other if e.name.startswith(("Memcpy", "Memset")) else kernels
+        d[e.name] = d.get(e.name, 0) + 1
+    return kernels, other, _busy_us(recs) / 1e3, wall
+
+
+def _busy_us(recs):
+    """The union of the device records' spans, us."""
+    if not recs:
+        return 0.0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in recs)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return busy + cur_e - cur_s
+
+
+def _kernel_diff(graph_names, eager_names):
+    """{kernel: graph nodes - eager launches} for the kernels whose counts
+    differ, the graph's mangled names demangled (cu++filt) to compare with
+    the profiler's."""
+    # GNU c++filt spells names as the profiler does (cu++filt does not)
+    tool = shutil.which("c++filt") or "c++filt"
+    mangled = list(graph_names)
+    try:
+        plain = subprocess.run([tool], input="\n".join(mangled), text=True,
+                               capture_output=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = mangled
+    norm = lambda n: re.sub(r"\s+", "", n.removeprefix("void "))
+    diff = {}
+    for name, n in zip(plain, graph_names.values()):
+        diff[norm(name)] = diff.get(norm(name), 0) + n
+    for name, n in eager_names.items():
+        diff[norm(name)] = diff.get(norm(name), 0) - n
+    return {k[:160]: v for k, v in diff.items() if v}
+
+
+def _hand_written(names):
+    """{kernel: count} of the hand-written kernels among {name: count}."""
+    out = {}
+    for name, n in names.items():
+        hit = next((k for k in HAND_WRITTEN if k in name), None)
+        if hit:
+            out[hit] = out.get(hit, 0) + n
+    return out
+
+
+def _graph_nodes(graph, path):
+    """The nodes of a recorded graph (one that kept its cudaGraph_t):
+    kernel nodes by mangled function name, other nodes by type (MEMSET,
+    MEMCPY, ...), from its DOT dump written to ``path``."""
+    graph.debug_dump(path)
+    with open(path) as f:
+        text = f.read()
+    nodes = {}
+    for kind, body in re.findall(r'label="\{([A-Z_]+)(.*?)"\]', text, flags=re.S):
+        name = kind
+        if kind == "KERNEL":        # {ID | n (topoId: m) | name\<\<\<grid...
+            m = re.search(r"\{ID \|[^|]*\|\s*([A-Za-z_]\w*)", body)
+            name = m.group(1) if m else kind
+        nodes[name] = nodes.get(name, 0) + 1
+    return nodes
+
+
+_DUMPED = []
+
+
+def _graph_census(tag, entries):
+    """The kernel nodes of the graphs one call replays (their DOT dumps under
+    GRAPH_DIR): ({kernel name: count}, {other node type: count})."""
+    os.makedirs(GRAPH_DIR, exist_ok=True)
+    kernels, other = {}, {}
+    for i, entry in enumerate(entries):
+        name = re.sub(r"[^A-Za-z0-9]+", "_", tag)
+        path = os.path.join(GRAPH_DIR, f"{name}_{i}.dot")
+        for name, n in _graph_nodes(entry.graph, path).items():
+            d = kernels if name not in ("MEMSET", "MEMCPY", "EMPTY", "EVENT_RECORD",
+                                        "WAIT_EVENT", "HOST", "MEM_ALLOC",
+                                        "MEM_FREE", "GRAPH") else other
+            d[name] = d.get(name, 0) + n
+        if not _DUMPED:
+            _DUMPED.append(path)
+            with open(path) as f:
+                log(f"graphs: the start of {path}:\n{f.read(1500)}")
+    return kernels, other
+
+
+def _graph_case(card, tag, call, inputs, capts, reload, main, expect=None):
+    """One entry point, eager (graphs.disabled()) against replayed: outputs,
+    launch counters, the graph's kernel nodes against eager's launches (the
+    inputs are made so that the entry point launches nothing outside its
+    graphs), outputs not overwritten by the next call, weights written in
+    place after a replay, and GRAPH_PAIRS pairs timed in turns. Returns its
+    figures."""
+    from hrviton_tpu_torch.core import graphs
+    wrappers = _wrappers()
+
+    def counted(fn):
+        before = {k: w.launches for k, w in wrappers.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches - before[k] for k, w in wrappers.items()}
+
+    captures = lambda: sum(c.captures for c in capts)
+    with graphs.disabled():
+        call(inputs[0])                      # cuDNN's choices, the packing
+        eager, n_eager = counted(lambda: call(inputs[0]))
+    caps0 = captures()
+    t = time.perf_counter()
+    _, n_first = counted(lambda: call(inputs[0]))
+    first_s = time.perf_counter() - t
+    rep, n_rep = counted(lambda: call(inputs[0]))
+    entries = [c.last_entry for c in capts]
+    if captures() == caps0 and not all(e.replays > 1 for e in entries):
+        raise RuntimeError(f"{tag}: nothing was recorded or replayed")
+    same = _held(f"{tag}: replay against eager", rep, eager, main)
+    if not (n_eager == n_first == n_rep) or (expect is not None and n_rep != expect):
+        raise RuntimeError(f"{tag}: launches eager {n_eager}, first call "
+                           f"{n_first}, replay {n_rep}, expected {expect}")
+    # outputs of call k are not overwritten by call k + 1
+    snap = [(k, v.clone()) for k, v in _tree_leaves(rep)]
+    nxt = call(inputs[1])
+    torch.cuda.synchronize()
+    kept = dict(_tree_leaves(rep))
+    hit = [k for k, v in snap if not torch.equal(kept[k], v)]
+    if hit:
+        raise RuntimeError(f"{tag}: call k+1 overwrote call k's {hit}")
+    if torch.equal(dict(_tree_leaves(nxt))[main], kept[main]):
+        raise RuntimeError(f"{tag}: another input gave the same {main}")
+    # the graphs' kernel nodes against one eager call's launches: a profiler
+    # window may lose a record (PERF.md section 7), never gain one, so the
+    # most of up to three eager windows
+    gk, go = _graph_census(tag, entries)
+    n_gk = sum(gk.values())
+    ek, tries = None, []
+    for _ in range(3):
+        with graphs.disabled():
+            got = _profiled(lambda: call(inputs[0]))
+        tries.append(sum(got[0].values()))
+        if ek is None or tries[-1] > sum(ek.values()):
+            ek, eo, e_busy, e_wall = got
+        if tries[-1] == n_gk:
+            break
+    rk, ro, r_busy, r_wall = _profiled(lambda: call(inputs[0]))
+    hw_e, hw_g = _hand_written(ek), _hand_written(gk)
+    n_ek = sum(ek.values())
+    log(f"{tag}: graph kernel nodes {n_gk} (other nodes {go}), eager kernel "
+        f"launches {n_ek} (most of the windows {tries}; copies, memsets "
+        f"{eo}), replay's kernel records {sum(rk.values())} (copies, "
+        f"memsets {ro}); hand-written: graph {hw_g}, eager {hw_e}")
+    # a window may lose records, never gain one: every hand-written kernel
+    # as often, and no fewer kernel nodes than eager's launches; a
+    # difference is named kernel by kernel
+    if hw_e != hw_g or n_gk < n_ek:
+        raise RuntimeError(f"{tag}: the graphs' kernel nodes differ from eager's "
+                           f"launches: {n_gk} against {n_ek}: "
+                           f"{_kernel_diff(gk, ek)}")
+    if n_gk != n_ek:
+        log(f"{tag}: the graphs hold {n_gk - n_ek} kernel nodes more than "
+            f"eager's launches: {_kernel_diff(gk, ek)}")
+    if expect is not None:
+        want = {k: v for k, v in expect.items() if v}
+        got = {"spade_unit": hw_g.get("spade_unit_gb_kernel", 0),
+               "spade_modulate": hw_g.get("spade_modulate_kernel", 0),
+               "conv3x3_wide": hw_g.get("conv3x3_wide_kernel", 0),
+               "conv3x3_small": hw_g.get("conv3x3_small_kernel", 0),
+               "instance_stats": hw_g.get("instance_stats_finalize_kernel", 0)}
+        if {k: v for k, v in got.items() if v} != want:
+            raise RuntimeError(f"{tag}: hand-written nodes {got}, expected {want}")
+    # weights written in place after a replay
+    reload()
+    caps1 = captures()
+    fresh = call(inputs[0])
+    torch.cuda.synchronize()
+    if captures() == caps1:
+        raise RuntimeError(f"{tag}: new weights, no new recording")
+    with graphs.disabled():
+        fresh_eager = call(inputs[0])
+    same_new = _held(f"{tag}: replay with new weights against eager", fresh,
+                     fresh_eager, main)
+    if torch.equal(dict(_tree_leaves(fresh))[main], kept[main]):
+        raise RuntimeError(f"{tag}: new weights gave the same {main}")
+    # eager and replay in turns
+    ms = {"eager": [], "replay": []}
+    wall = {"eager": [], "replay": []}
+    for _ in range(GRAPH_PAIRS):
+        for mode in ("eager", "replay"):
+            ctx = graphs.disabled() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                e0.record()
+                call(inputs[0])
+                e1.record()
+                torch.cuda.synchronize()
+                wall[mode].append((time.perf_counter() - t) * 1e3)
+                ms[mode].append(e0.elapsed_time(e1))
+    pool = _pool_mib(capts)
+    med = lambda v: statistics.median(v)
+    fig = dict(eager_ms=med(ms["eager"]), replay_ms=med(ms["replay"]),
+               eager_wall=med(wall["eager"]), replay_wall=med(wall["replay"]),
+               eager_busy=e_busy, replay_busy=r_busy, eager_gap=e_wall - e_busy,
+               replay_gap=r_wall - r_busy, launches=n_ek, nodes=n_gk, pool_mib=pool,
+               capture_s=sum(e.seconds for e in entries))
+    log(f"{tag}: replay against eager {same}; with new weights {same_new}; "
+        f"launch counters per call eager {n_eager}, replayed {n_rep}; first "
+        f"call (warm-up and recording) {first_s * 1e3:.1f} ms, recording "
+        f"{fig['capture_s'] * 1e3:.1f} ms, pools "
+        + ("not measured" if pool is None else f"{pool:.1f} MiB"))
+    log(f"{tag}: CUDA events ms per call, {GRAPH_PAIRS} pairs in turns: eager "
+        f"{_spread(ms['eager'])}; replay {_spread(ms['replay'])}; wall eager "
+        f"{fig['eager_wall']:.2f} replay {fig['replay_wall']:.2f} ms; device busy "
+        f"eager {e_busy:.2f} of {e_wall:.2f} ms (host gap {e_wall - e_busy:.2f}), "
+        f"replay {r_busy:.2f} of {r_wall:.2f} ms (host gap "
+        f"{r_wall - r_busy:.2f}); launches {n_ek} eager, {n_gk} graph kernel "
+        f"nodes | {card}")
+    del eager, rep, nxt, fresh, fresh_eager, snap, kept
+    return fig
+
+
+def _pool_mib(capts):
+    """MiB of the device memory segments of the captured functions' private
+    pools (torch.cuda.memory_snapshot), or None where the snapshot does not
+    name a segment's pool."""
+    pools = {tuple(c.pool) for c in capts if c.pool is not None}
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) in pools) / 2 ** 20
+
+
+def _reseed(*modules, seed):
+    from hrviton_tpu_torch.nn.layers import init_weights
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in modules:
+            init_weights(m, g)
+
+
+def _stacked(raws):
+    """Compact CLI batches of 1 stacked into one batch."""
+    import numpy as np
+
+    def cat(vals):
+        if isinstance(vals[0], dict):
+            return {k: cat([v[k] for v in vals]) for k in vals[0]}
+        return np.concatenate(vals)
+    return cat(raws)
+
+
+def captured_phase(card):
+    """Phase 11 (module docstring): every inference entry point at full
+    width, eager against replayed."""
+    from hrviton_tpu_torch import SPADEGenConfig
+    from hrviton_tpu_torch.cli import get_norm_const as gnc
+    from hrviton_tpu_torch.cli import test_condition as tc
+    from hrviton_tpu_torch.cli import test_generator as tg
+    from hrviton_tpu_torch.config import CondDiscriminatorConfig, TOCGConfig
+    from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.losses import lpips as lp
+    from hrviton_tpu_torch.models import inception as inc
+    from hrviton_tpu_torch.models.condition import ConditionGenerator
+    from hrviton_tpu_torch.models.discriminators import CondMultiscaleDiscriminator
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    from hrviton_tpu_torch.pipelines import tryon
+
+    figures = {}
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    # the two paths, batch 4, bf16
+    on_cfg = SPADEGenConfig(ngf=64, num_upsampling_layers="most",
+                            fused_block=False, fast_spade=True, fast_conv=True)
+    for tag, cfg, views, expect in (("first path", None, False, FIRST_PATH),
+                                    ("second path", on_cfg, True, SECOND_PATH)):
+        pipe = _build_pipeline(f"captured {tag}", cfg)
+        fh, fw = pipe.cfg.fine_height, pipe.cfg.fine_width
+        # in the pipeline's dtype: its cast launches nothing
+        batches = [{k: v.to(pipe.dtype) for k, v in
+                    _synthetic_batch(fh, fw, seed).items()} for seed in (0, 1)]
+        saved = c3._VIEWS
+        c3._VIEWS = views
+        try:
+            figures[tag] = _graph_case(
+                card, f"captured {tag}", lambda b: pipe(b), batches,
+                [tryon._forward],
+                lambda: _reseed(pipe.tocg, pipe.generator, seed=9), "out.0",
+                {k: v for k, v in expect.items() if k in _wrappers()})
+        finally:
+            c3._VIEWS = saved
+        del pipe, batches
+        _free()
+
+    # the inference CLI's step, batch 1, f32 and bf16, then a last batch
+    base = ["--tocg_checkpoint", "", "--gen_checkpoint", "", "--device", "cuda"]
+    fh, fw = 1024, 768
+    raws = []
+    for seed in range(3):
+        raw = _compact_batch(fh, fw, seed)
+        raw.pop("c_name")
+        raw.pop("im_name")
+        raws.append(raw)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    _tf32(True, False)                      # torch's defaults
+    try:
+        for bf16 in (False, True):
+            tag = f"captured cli step {'bf16' if bf16 else 'f32'}"
+            pipe = tg.build_pipeline(tg.get_opt(base + (["--bf16"] if bf16 else [])))
+            expect = ({k: v for k, v in FIRST_PATH.items() if k in _wrappers()}
+                      if bf16 else dict.fromkeys(_wrappers(), 0))
+            figures[tag] = _graph_case(
+                card, tag, lambda r: tg.tryon_step(pipe, r), raws,
+                [tg.prepare_batch, tryon._forward],
+                lambda: _reseed(pipe.tocg, pipe.generator, seed=9), "out.output",
+                expect)
+            if bf16:
+                # a new pipeline at batch 2, then the last, smaller batch:
+                # a graph each
+                del pipe
+                _free()
+                pipe = tg.build_pipeline(tg.get_opt(base + ["--bf16"]))
+                two = _stacked(raws[:2])
+                n0 = len(tryon._forward.entries)
+                for b in (two, two, raws[2]):
+                    got = tg.tryon_step(pipe, b)
+                    with graphs.disabled():
+                        want = tg.tryon_step(pipe, b)
+                    how = _held(f"{tag}: batch {got.output.shape[0]}", got, want,
+                                "out.output")
+                    log(f"{tag}: batch {got.output.shape[0]} replay against "
+                        f"eager {how}")
+                if len(tryon._forward.entries) - n0 != 2:
+                    raise RuntimeError(f"{tag}: batches of 2 and 1 recorded "
+                                       f"{len(tryon._forward.entries) - n0} graphs")
+                log(f"{tag}: batches of 2 and a last batch of 1: a graph each")
+            del pipe
+            _free()
+    finally:
+        _tf32(*saved)
+
+    # the rejection steps, batch 8, 256x192, f32
+    torch.backends.cudnn.benchmark = False  # the CLIs run with torch's default
+    fh, fw = REJ_HW
+    tocg = ConditionGenerator(TOCGConfig(ngf=96), device="cuda").eval()
+    dm = CondMultiscaleDiscriminator(CondDiscriminatorConfig(input_nc=33),
+                                     device="cuda").eval()
+    _reseed(tocg, seed=0)
+    _reseed(dm, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    ins = [(rn(REJ_BATCH, fh, fw, 4), rn(REJ_BATCH, fh, fw, 16),
+            torch.softmax(rn(REJ_BATCH, fh, fw, 13), -1)) for _ in range(2)]
+    figures["condition_step"] = _graph_case(
+        card, "captured condition_step",
+        lambda i: tc.condition_step(tocg, dm, *i[:2]),
+        ins, [tc._condition_step], lambda: _reseed(tocg, dm, seed=3), "out.3")
+    figures["norm_const_step"] = _graph_case(
+        card, "captured norm_const_step",
+        lambda i: gnc.norm_const_step(tocg, dm, *i), ins,
+        [gnc._norm_const_step], lambda: _reseed(tocg, dm, seed=4), "out.1")
+    del tocg, dm, ins
+    _free()
+    # evaluate's LPIPS (alex, 128x128) and Inception (299x299)
+    lpf = lp.make_lpips(device="cuda")
+    pairs = [(rn(1, 128, 128, 3).clamp(-1, 1), rn(1, 128, 128, 3).clamp(-1, 1))
+             for _ in range(2)]
+    figures["lpips"] = _graph_case(
+        card, "captured LPIPS alex 128x128", lambda p: lpf(*p), pairs,
+        [lp._distance], lambda: _reseed(lpf.model, seed=2), "out")
+    net = inc.InceptionV3(device="cuda").eval()
+    _reseed(net, seed=6)
+    imgs = [rn(1, 299, 299, 3).clamp(-1, 1) for _ in range(2)]
+    figures["inception"] = _graph_case(
+        card, "captured Inception 299x299", lambda x: inc.inception_probs(net, x),
+        imgs, [inc._probs], lambda: _reseed(net, seed=8), "out")
+    del lpf, net
+    _free()
+    torch.backends.cudnn.benchmark = benchmark
+    log("captured entry points, CUDA events ms per call (median of "
+        f"{GRAPH_PAIRS} pairs in turns) eager -> replay, busy, host gap, "
+        f"launches, pool: " + "; ".join(
+            f"{k} {v['eager_ms']:.2f} -> {v['replay_ms']:.2f} ms (busy "
+            f"{v['eager_busy']:.2f} / {v['replay_busy']:.2f}, gap "
+            f"{v['eager_gap']:.2f} / {v['replay_gap']:.2f}, {v['launches']} "
+            f"launches, {v['nodes']} nodes, pools "
+            + ("not measured)" if v["pool_mib"] is None
+               else f"{v['pool_mib']:.0f} MiB)")
+            for k, v in figures.items()) + f" | {card}")
+    return figures
+
+
+def captured_process():
+    """Phase 11 in a process of its own (chip_smoke.py --captured): its
+    launch counts read profiler windows, and a long process's windows lose
+    records, the more after CUDA graphs have been recorded and profiled
+    (PERF.md section 7). Its output is logged but for its last line."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--captured"], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        log(line)
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+        raise RuntimeError(f"phase 11 (chip_smoke.py --captured) exited "
+                           f"{proc.returncode}")
+
+
 def _contract_line():
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2558,6 +3081,10 @@ def main():
         # a parent checkout from before the CLI (timed in turns) has none
         if importlib.util.find_spec("hrviton_tpu_torch.cli") is not None:
             cli_phase(card)
+        _contract_line()
+        return
+    if sys.argv[1:] == ["--captured"]:
+        captured_phase(card)
         _contract_line()
         return
     if sys.argv[1:] == ["--alone"]:
@@ -2602,6 +3129,10 @@ def main():
             launches[key] += n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"profiler windows: {WINDOWS['windows']} windows of kernel records, "
+        f"{len(WINDOWS['short'])} short: {WINDOWS['short']}")
+    _free()
+    captured_process()
     record = {"kernels": []}
     ths = {key: t for key, _, t in TOOL_CONVS}
     for key, name, source, replaces in KERNELS:

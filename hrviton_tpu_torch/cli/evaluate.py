@@ -11,6 +11,11 @@ evaluate.py:91-111). The same flags and defaults as the JAX CLI, plus
 
     python -m hrviton_tpu_torch.cli.evaluate --predict_dir OUT \\
         --ground_truth_dir ROOT/test/image --lpips_weights lpips.ckpt
+
+On the card the LPIPS forward and the Inception forward with its softmax
+each replay a CUDA graph recorded once per input signature
+(``losses/lpips.LPIPSFn``, ``models/inception.inception_probs``), as the JAX
+CLI jits them.
 """
 
 from __future__ import annotations
@@ -86,7 +91,8 @@ def main(argv=None):
     from hrviton_tpu_torch.convert import load_jax_variables
     from hrviton_tpu_torch.losses.lpips import make_lpips
     from hrviton_tpu_torch.models.inception import (InceptionV3,
-                                                    convert_inception_v3)
+                                                    convert_inception_v3,
+                                                    inception_probs)
     from hrviton_tpu_torch.train.checkpoint import load_pytree
 
     opt = get_opt(argv)
@@ -129,11 +135,10 @@ def main(argv=None):
         load_jax_variables(inception, _load_tree(opt.inception_weights,
                                                  convert_inception_v3))
         preds = np.zeros((len(pred_list), 1000))
-        with torch.inference_mode():
-            for i, name in enumerate(pred_list):
-                img = Image.open(os.path.join(opt.predict_dir, name))
-                logits = inception(inception_input(img, opt.device))
-                preds[i] = torch.softmax(logits, dim=-1)[0].cpu().numpy()
+        for i, name in enumerate(pred_list):
+            img = Image.open(os.path.join(opt.predict_dir, name))
+            preds[i] = inception_probs(
+                inception, inception_input(img, opt.device))[0].cpu().numpy()
         is_mean, is_std = inception_score(preds, splits=1)
 
     lpips_list.sort(key=lambda x: x[1], reverse=True)

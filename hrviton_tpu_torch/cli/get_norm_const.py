@@ -8,6 +8,10 @@ on both real and predicted segmaps; feed M to ``test_condition
 
     python -m hrviton_tpu_torch.cli.get_norm_const --dataroot ROOT \\
         --tocg_checkpoint mtviton.pth --D_checkpoint D.pth   # prints M: <float>
+
+On the card ``norm_const_step`` replays a CUDA graph recorded once per batch
+signature (``core/graphs.py``), the counterpart of the JAX CLI's jitted
+``run_impl``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from hrviton_tpu_torch.cli.common import (add_d_flags, add_data_flags,
                                           build_cond_discriminator,
                                           build_tocg, condition_inputs,
                                           data_cfg_from_args)
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.infer.rejection import d_logit, norm_const_from_logits
 from hrviton_tpu_torch.pipelines.tryon import compose_clothmask
 
@@ -54,7 +59,13 @@ def norm_const_step(tocg, d_model, input1, input2, label,
                     composition: str = "warp_grad"):
     """The discriminator's scores (N,) of the real segmap ``label`` and of
     the tocg's composed prediction, each ``d_logit`` of D(input1, input2,
-    segmap)."""
+    segmap). Replayed on the card (module docstring)."""
+    return _norm_const_step(tocg, d_model, input1, input2, label, composition)
+
+
+@graphs.captured(weights=lambda tocg, d_model, *_: graphs.module_tensors(
+    tocg, d_model))
+def _norm_const_step(tocg, d_model, input1, input2, label, composition):
     _, seg, _, wcm = tocg(input1, input2)
     seg = compose_clothmask(seg, wcm, composition)
     real = d_model(torch.cat([input1, input2, label], dim=-1))

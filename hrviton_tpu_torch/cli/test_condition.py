@@ -11,7 +11,9 @@ and defaults as the JAX CLI, plus ``--device`` (default ``cuda``)::
         --tocg_checkpoint mtviton.pth --D_checkpoint D.pth --norm_const M
 
 PIL is imported by ``main`` only: ``condition_step`` and ``grid_panels``
-serve a caller without it.
+serve a caller without it. On the card ``condition_step`` replays a CUDA
+graph recorded once per batch signature (``core/graphs.py``), the
+counterpart of the JAX CLI's jitted ``run_impl``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from hrviton_tpu_torch.cli.common import (add_d_flags, add_data_flags,
                                           build_cond_discriminator,
                                           build_tocg, condition_inputs,
                                           data_cfg_from_args)
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.infer.rejection import d_logit, rejection_scores
 from hrviton_tpu_torch.pipelines.tryon import compose_clothmask
 from hrviton_tpu_torch.utils.vis import make_image_grid, visualize_segmap
@@ -59,7 +62,13 @@ def condition_step(tocg, d_model, input1, input2,
                    composition: str = "warp_grad"):
     """One batch: the tocg's composed segmap, warped cloth and mask, and,
     with a discriminator, ``d_logit`` of D(input1, input2, softmax(seg))
-    (else None)."""
+    (else None). Replayed on the card (module docstring)."""
+    return _condition_step(tocg, d_model, input1, input2, composition)
+
+
+@graphs.captured(weights=lambda tocg, d_model, *_: graphs.module_tensors(
+    tocg, d_model))
+def _condition_step(tocg, d_model, input1, input2, composition):
     _, seg, wc, wcm = tocg(input1, input2)
     seg = compose_clothmask(seg, wcm, composition)
     logits = None

@@ -12,7 +12,11 @@ every kernel's plain version)::
         --tocg_checkpoint mtviton.pth --gen_checkpoint gen.pth [--bf16]
 
 PIL is imported by ``main`` only: ``tryon_step`` and ``grid_panels`` serve a
-caller with neither PIL nor msgpack.
+caller with neither PIL nor msgpack. On the card ``tryon_step`` replays two
+CUDA graphs, each recorded once per batch signature (``core/graphs.py``;
+the JAX CLI jits ``expand`` and ``run_impl`` apart): the batch's expansion
+and cast, then ``TryOnPipeline``'s forward. The last, smaller batch gets
+graphs of its own, as JAX compiles anew for it.
 """
 
 from __future__ import annotations
@@ -32,14 +36,15 @@ from hrviton_tpu_torch.cli.common import (add_data_flags,
                                           load_gen_variables,
                                           load_tocg_variables)
 from hrviton_tpu_torch.config import PipelineConfig, SPADEGenConfig, TOCGConfig
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core.precision import bf16_params
 from hrviton_tpu_torch.data.device import expand_compact, to_device
 from hrviton_tpu_torch.pipelines.tryon import ConditionOutputs, TryOnPipeline
 from hrviton_tpu_torch.utils.vis import (make_image_grid, save_images,
                                          visualize_segmap)
 
-__all__ = ["get_opt", "build_pipeline", "tryon_step", "grid_panels", "main",
-           "Step"]
+__all__ = ["get_opt", "build_pipeline", "prepare_batch", "tryon_step",
+           "grid_panels", "main", "Step"]
 
 
 def get_opt(argv=None):
@@ -112,13 +117,12 @@ class Step(NamedTuple):
     full: Dict                  # the loader's arrays on the device, expanded
 
 
-def tryon_step(pipe: TryOnPipeline, raw: Mapping, *,
-               datasetting: str = "unpaired", compact: bool = True,
-               semantic_nc: int = 13) -> Step:
-    """One batch of the CLI: the loader's dict (name lists removed) to the
-    device, expanded there if compact, the ``datasetting`` cloth picked, cast
-    to the pipeline's dtype, and the try-on forward."""
-    full = to_device(raw, pipe.device)
+@graphs.captured
+def prepare_batch(full: Mapping, datasetting: str, compact: bool,
+                  semantic_nc: int, dtype) -> tuple:
+    """The loader's batch on the device -> (the batch expanded if compact,
+    the pipeline's inputs: the ``datasetting`` cloth picked, all cast to
+    ``dtype``); one graph per signature on the card."""
     if compact:
         full = expand_compact(full, semantic_nc=semantic_nc)
     batch = {"cloth": full["cloth"][datasetting],
@@ -126,7 +130,18 @@ def tryon_step(pipe: TryOnPipeline, raw: Mapping, *,
              "parse_agnostic": full["parse_agnostic"],
              "densepose": full["densepose"],
              "agnostic": full["agnostic"]}
-    batch = {k: v.to(pipe.dtype) for k, v in batch.items()}
+    return full, {k: v.to(dtype) for k, v in batch.items()}
+
+
+def tryon_step(pipe: TryOnPipeline, raw: Mapping, *,
+               datasetting: str = "unpaired", compact: bool = True,
+               semantic_nc: int = 13) -> Step:
+    """One batch of the CLI: the loader's dict (name lists removed) to the
+    device (the host's copy), expanded there if compact, the ``datasetting``
+    cloth picked, cast to the pipeline's dtype (``prepare_batch``), and the
+    try-on forward."""
+    full, batch = prepare_batch(to_device(raw, pipe.device), datasetting,
+                                compact, semantic_nc, pipe.dtype)
     output, cond = pipe(batch)
     return Step(output, cond, batch, full)
 

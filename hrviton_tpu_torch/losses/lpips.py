@@ -26,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hrviton_tpu_torch.convert import load_jax_variables
-from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.core.mesh import draw_rows
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.backbones import (AlexNetFeatures,
@@ -66,8 +66,9 @@ def _dropout(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 def _scaled(v: torch.Tensor) -> torch.Tensor:
-    shift = torch.tensor(_SHIFT, dtype=torch.float32, device=v.device)
-    scale = torch.tensor(_SCALE, dtype=torch.float32, device=v.device)
+    """The ScalingLayer (its constants copied to a device once)."""
+    shift = graphs.constant(_SHIFT, v.device, torch.float32)
+    scale = graphs.constant(_SCALE, v.device, torch.float32)
     return (v.float() - shift) / scale
 
 
@@ -134,10 +135,17 @@ class LPIPSAlex(LPIPSModel):
                          backbone_name="alexnet")
 
 
+@graphs.captured(weights=lambda model, *_: graphs.module_tensors(model))
+def _distance(model, x, y):
+    return model(x, y)
+
+
 class LPIPSFn:
     """LPIPS as a callable over frozen weights: ``variables`` (a JAX
     variable tree of numpy arrays) loaded into ``model`` (an ``LPIPSAlex``
-    on ``device`` by default); None keeps the model's own weights."""
+    on ``device`` by default); None keeps the model's own weights. On the
+    card a call replays a CUDA graph recorded once per input signature
+    (``core/graphs.py``), as the JAX ``make_lpips`` is jitted."""
 
     def __init__(self, variables: Optional[Mapping], model=None,
                  device="cuda"):
@@ -148,7 +156,7 @@ class LPIPSFn:
 
     @torch.inference_mode()
     def __call__(self, x, y):
-        return self.model(x, y)
+        return _distance(self.model, x, y)
 
 
 def make_lpips(variables: Optional[Mapping] = None, seed: int = 0,

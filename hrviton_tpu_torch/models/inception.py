@@ -8,6 +8,9 @@ ports it. Module names mirror torchvision's state_dict and the JAX
 parameter tree: BasicConv2d = conv (no bias) + BatchNorm (eps 1e-3) + relu;
 the auxiliary classifier is left out (unused at eval). Input NHWC in [-1, 1];
 output the logits. Every conv and the classifier run in f32 without TF32.
+``inception_probs`` is the Inception Score's forward and softmax; on the card
+it replays a CUDA graph recorded once per batch signature (``core/graphs.py``),
+as the JAX evaluate jits it.
 """
 
 from __future__ import annotations
@@ -19,11 +22,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.backbones import to_nchw
 from hrviton_tpu_torch.nn.layers import BatchNorm2d, Conv2d, Dense
 
-__all__ = ["InceptionV3", "convert_inception_v3"]
+__all__ = ["InceptionV3", "inception_probs", "convert_inception_v3"]
 
 
 class BasicConv2d(nn.Module):
@@ -199,6 +203,18 @@ class InceptionV3(nn.Module):
                      "Mixed_7a", "Mixed_7b", "Mixed_7c"):
             x = getattr(self, name)(x)
         return self.fc(x.float().mean(dim=(2, 3)).to(x.dtype))
+
+
+@graphs.captured(weights=lambda model, *_: graphs.module_tensors(model))
+def _probs(model, x):
+    return torch.softmax(model(x), dim=-1)
+
+
+@torch.inference_mode()
+def inception_probs(model: InceptionV3, x: torch.Tensor) -> torch.Tensor:
+    """softmax(model(x)): the class probabilities (N, num_classes) of NHWC
+    images in [-1, 1]; replayed on the card (module docstring)."""
+    return _probs(model, x)
 
 
 def convert_inception_v3(sd: Dict[str, np.ndarray]) -> Dict:

@@ -47,6 +47,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from hrviton_tpu_torch.config import SPADEGenConfig
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core.mesh import draw_rows
 from hrviton_tpu_torch.core.precision import policy
 from hrviton_tpu_torch.device import resolve_device
@@ -92,6 +93,8 @@ def merge_gamma_beta(on: bool = True):
     finally:
         _MERGE_GB = prev
 
+
+graphs.register_state(lambda: _MERGE_GB)   # a dispatch switch: in every graph's key
 NoiseArg = Union[torch.Generator, Callable, Sequence[torch.Tensor]]
 
 
@@ -392,6 +395,18 @@ class SPADEGenerator(nn.Module):
                 **kw))
         self.conv_img = Conv2d(chans[-1][2], 3, 3, padding=1, init="xavier",
                                **kw)
+
+    def noise_shapes(self, batch: int):
+        """The (B, H, W, 1) noise fields one forward of ``batch`` images
+        draws, in its order: block by block at the block's scale (the s2d
+        domain draws at the plain shape too), each norm_s (with a learned
+        shortcut), norm_0, norm_1."""
+        sh, sw = self.cfg.latent_hw
+        shapes = []
+        for i, name in enumerate(self.block_names):
+            block = getattr(self, name)
+            shapes += block.noise_shapes((batch, 0, sh * 2 ** i, sw * 2 ** i))
+        return shapes
 
     def set_fused(self, on: bool) -> None:
         """Route eligible blocks through the fused unit (on) or not."""

@@ -2,10 +2,11 @@
 
 Each source under ``hrviton_tpu_torch/csrc/`` has a plain C interface. It is
 compiled by ``nvcc`` for sm_90a into a shared library under ``build/`` at the
-repository root, at first use, and loaded with ctypes. The library's name
-carries a hash of the source, of the headers it may include (every ``*.cuh``
-beside it) and of the compiler flags, so an edited kernel is rebuilt and an
-unchanged one is not. Nothing but the CUDA toolkit is needed.
+repository root, at first use, linked to the shared CUDA runtime (the one
+torch has loaded, found by its soname), and loaded with ctypes. The
+library's name carries a hash of the source, of the headers it may include
+(every ``*.cuh`` beside it) and of the compiler flags, so an edited kernel
+is rebuilt and an unchanged one is not. Nothing but the CUDA toolkit is needed.
 
 ``build_all`` compiles several sources at once, one ``nvcc`` process each.
 The argument checks that every kernel wrapper makes before it hands raw
@@ -35,8 +36,10 @@ SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# -cudart shared: the libraries use the process's one CUDA runtime (torch's,
+# already loaded), not a static copy each
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-cudart", "shared"]
 ACT_CODES = {None: 0, "relu": 1, "leaky0.2": 2}   # pre_act as the kernels take it
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 

@@ -4,6 +4,7 @@ Counterpart of ``hrviton_tpu/ops/blur.py``: a normalized 1-D kernel
 exp(-x^2 / 2 sigma^2), zero padding, applied per channel along H then W.
 Always computed in float32 with TF32 off: the blur feeds the argmax that
 makes the parse labels, and lower precision flips labels at region edges.
+The two 1-D kernels are copied to a device once (``core/graphs.constant``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from hrviton_tpu_torch.core import graphs
 
 __all__ = ["gaussian_kernel1d", "gaussian_blur"]
 
@@ -32,8 +35,8 @@ def gaussian_blur(x: torch.Tensor, ksize=(15, 15), sigma=(3.0, 3.0)):
     kh, kw = ksize
     sig_y = float(sigma[1] if len(sigma) > 1 else sigma[0])
     sig_x = float(sigma[0])
-    ky = torch.from_numpy(gaussian_kernel1d(kh, sig_y)).to(x.device)
-    kx = torch.from_numpy(gaussian_kernel1d(kw, sig_x)).to(x.device)
+    ky = graphs.constant(gaussian_kernel1d(kh, sig_y), x.device)
+    kx = graphs.constant(gaussian_kernel1d(kw, sig_x), x.device)
     y = x.permute(0, 3, 1, 2).float()
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False, allow_tf32=False):

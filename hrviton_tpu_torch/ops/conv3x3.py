@@ -50,7 +50,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
                                           check_tensor, pad_to, ref_grads)
@@ -407,6 +407,9 @@ def conv3x3_small(x, w, bias=None, pre_act=None):
 
 conv3x3_wide.launches = 0
 conv3x3_small.launches = 0
+graphs.register_counters(conv3x3_wide, conv3x3_small)   # counted in replays too
+# the dispatch switches: in every graph's key
+graphs.register_state(lambda: (_ENABLED, _TAPS_WGRAD, _VIEWS))
 
 
 def _row_chunk(h: int) -> int:

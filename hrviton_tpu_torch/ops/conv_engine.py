@@ -12,7 +12,8 @@ Packing costs a few small launches per call, so the kernels' wrappers keep
 what they packed (``packed``): once per set of weight tensors, again when one
 of them is written in place (its ``_version`` moves) or is another tensor.
 Tensors without a version counter (made under ``torch.inference_mode``) are
-packed per call.
+packed per call. A pack that a CUDA graph being recorded reads is held with
+the graph (``core/graphs.hold``), so the cache may drop it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.ops._build import pad_to
 
 __all__ = ["KC", "swizzle32", "pack_kmajor", "pack_weights_kmajor", "packed",
@@ -118,11 +120,11 @@ def packed(tag: str, tensors: Sequence[Optional[torch.Tensor]], make: Callable):
                 (r is None and t is None) or (r is not None and r() is t)
                 for r, t in zip(refs, tensors)):
             _CACHE.move_to_end(key)
-            return value
+            return graphs.hold(value)
     value = make()
     _CACHE[key] = (tuple(None if t is None else weakref.ref(t) for t in tensors),
                    sig, value)
     _CACHE.move_to_end(key)
     while len(_CACHE) > _CACHE_SIZE:
         _CACHE.popitem(last=False)
-    return value
+    return graphs.hold(value)

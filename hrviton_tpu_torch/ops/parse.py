@@ -8,7 +8,8 @@ regroupings of the reference pipeline:
     (reference test_generator.py:188-203, train_generator.py:261-273)
 
 Remaps are static 0/1 matrices applied with one einsum; the label-id forms
-(``group_index_of_label20`` / ``13``) are lookup tables.
+(``group_index_of_label20`` / ``13``) are lookup tables. Both are copied to
+a device once (``core/graphs.constant``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core import graphs, precision
 
 __all__ = [
     "LABELS_20_TO_13", "LABELS_13_TO_7", "remap_matrix", "onehot",
@@ -86,8 +87,8 @@ def onehot(labels: torch.Tensor, num_classes: int,
 
 def remap_parse(parse_onehot: torch.Tensor, spec_name: str) -> torch.Tensor:
     """(N, H, W, src) one-hot(ish) map -> grouped (N, H, W, dst) map."""
-    mat = torch.from_numpy(remap_matrix(spec_name)).to(
-        parse_onehot.device, parse_onehot.dtype)
+    mat = graphs.constant(remap_matrix(spec_name), parse_onehot.device,
+                          parse_onehot.dtype)
     with precision.exact(parse_onehot.dtype):
         return torch.einsum("ds,nhws->nhwd", mat, parse_onehot)
 
@@ -118,6 +119,5 @@ def group_index_of_label20() -> np.ndarray:
 
 def lut_lookup(labels: torch.Tensor, table) -> torch.Tensor:
     """``table[labels]`` as int32."""
-    t = torch.as_tensor(np.asarray(table), dtype=torch.int32,
-                        device=labels.device)
+    t = graphs.constant(table, labels.device, torch.int32)
     return t[labels.long()]

@@ -38,7 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import ACT_CODES as _ACTS
 from hrviton_tpu_torch.ops._build import KERNEL_DTYPES as _DTYPES
@@ -288,6 +288,7 @@ def spade_conv_unit(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
 
 
 spade_conv_unit.launches = 0
+graphs.register_counters(spade_conv_unit)   # counted in replays too
 
 
 def unit_flops(b, h, w, c, cout, ks, nh=128) -> int:

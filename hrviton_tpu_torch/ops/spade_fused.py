@@ -36,7 +36,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (KERNEL_DTYPES, check_tensor, pad_to,
                                           ref_grads)
@@ -142,6 +142,7 @@ def norm_stats(x, noise, nscale):
 
 
 norm_stats.launches = 0
+graphs.register_counters(norm_stats)   # counted in replays too
 
 
 def modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb):
@@ -320,6 +321,8 @@ def fused_spade_modulate(x, noise, nscale, actv, wg, bg, wb, bb):
 
 
 fused_spade_modulate.launches = 0
+graphs.register_counters(fused_spade_modulate)
+graphs.register_state(fast_spade_enabled)   # a dispatch switch: in every graph's key
 
 
 def modulate_flops(b, h, w, c, nh=128) -> int:

@@ -7,8 +7,12 @@ test_generator.py:90-238):
   13->7 regroup -> full-res flow warp -> occlusion removal -> SPADE generator
 
 ``condition_forward`` and ``tryon_forward`` keep the JAX signatures (NHWC
-dicts in, NHWC tensors out). ``TryOnPipeline`` builds both models from their
-configs and answers ``pipeline(batch) -> (rgb, ConditionOutputs)``.
+dicts in, NHWC tensors out) and stay plain functions, as in JAX.
+``TryOnPipeline`` builds both models from their configs and answers
+``pipeline(batch) -> (rgb, ConditionOutputs)``; on the card each call
+replays a CUDA graph of the forward recorded once per batch signature
+(``core/graphs.py``, the counterpart of the JAX pipeline's one jitted
+program).
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from hrviton_tpu_torch.config import PipelineConfig, SPADEGenConfig, TOCGConfig
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.condition import ConditionGenerator
-from hrviton_tpu_torch.models.spade import NoiseArg, SPADEGenerator
+from hrviton_tpu_torch.models.spade import (NoiseArg, SPADEGenerator,
+                                           noise_source)
 from hrviton_tpu_torch.nn.layers import init_weights
 from hrviton_tpu_torch.ops.blur import gaussian_blur
 from hrviton_tpu_torch.ops.grid_sample import flow_warp
@@ -125,18 +131,41 @@ def tryon_forward(tocg_apply: Callable, generator_apply: Callable,
     return generator_apply(gen_in, cond.parse_labels), cond
 
 
+def _pipeline_forward(pipe: "TryOnPipeline", batch, fields):
+    """The recorded body of ``TryOnPipeline.__call__``: the try-on forward
+    of ``batch`` (on the pipeline's device, in its dtype) with the SPADE
+    noise ``fields`` (``TryOnPipeline.noise_fields``)."""
+    return tryon_forward(
+        pipe.tocg, lambda x, seg: pipe.generator(x, seg, fields, train=False),
+        batch, pipe.cfg)
+
+
+# one graph per pipeline, batch signature and dispatch; every pipeline's
+# graphs share one pool
+_forward = graphs.captured(
+    _pipeline_forward,
+    weights=lambda pipe, *_: graphs.module_tensors(pipe.tocg, pipe.generator),
+    context=lambda pipe, *_: pipe.dispatch())
+
+
 class TryOnPipeline:
     """The unpaired try-on entry point: tocg + SPADE generator, eval mode.
 
     Built as the inference CLI and the benchmark build it: tocg ngf=96 at the
     condition resolution, SPADE ngf=64 'most' at the fine resolution with the
     fused unit on. Weights are random from ``seed`` until loaded
-    (``convert.load_jax_variables`` on ``.tocg`` / ``.generator``). Each call
-    draws the SPADE noise from a generator seeded with ``noise_seed``, as the
-    JAX CLI uses one fixed noise key. An f32 forward is f32 in every library
-    conv and matmul too, as in the JAX package: each is issued with TF32 off
-    (``core/precision.exact``) and the caller's settings are restored after
-    it. bf16 leaves them as they are.
+    (``convert.load_jax_variables`` on ``.tocg`` / ``.generator``). Every
+    call of a batch size gets the same SPADE noise, drawn once from a
+    generator seeded with ``noise_seed``, as the JAX CLI uses one fixed noise
+    key. An f32 forward is f32 in every library conv and matmul too, as in
+    the JAX package: each is issued with TF32 off (``core/precision.exact``)
+    and the caller's settings are restored after it. bf16 leaves them as they
+    are.
+
+    On a CUDA device a call replays the CUDA graph of its batch signature
+    and dispatch (``dispatch``), recorded at the first such call; a graph is
+    recorded anew after the weights are written or replaced, and under
+    ``core/graphs.disabled()`` the call runs eagerly.
     """
 
     def __init__(self, pipeline_cfg: Optional[PipelineConfig] = None,
@@ -156,15 +185,34 @@ class TryOnPipeline:
         init_weights(self.tocg, g)
         init_weights(self.generator, g)
         self.noise_seed = noise_seed
+        self._fixed_noise: Dict = {}
+
+    def dispatch(self):
+        """What, besides the weights and the batch, decides the forward's
+        kernels: the configurations and the blocks' fused flags."""
+        gen = self.generator
+        return (self.cfg, self.tocg.cfg, gen.cfg,
+                tuple(getattr(gen, n).fused for n in gen.block_names))
+
+    def noise_fields(self, n: int, noise: Optional[NoiseArg] = None):
+        """The SPADE noise fields of a batch of ``n``, in the generator's
+        order: drawn from ``noise`` (``models/spade.noise_source``) or, by
+        default, from a generator seeded with ``noise_seed`` once per batch
+        size and seed and reused."""
+        shapes = self.generator.noise_shapes(n)
+        if noise is not None:
+            draw = noise_source(noise, self.device)
+            return [draw(s) for s in shapes]
+        key = (n, self.noise_seed)
+        if key not in self._fixed_noise:
+            draw = noise_source(torch.Generator(device=self.device).manual_seed(
+                self.noise_seed), self.device)
+            self._fixed_noise[key] = [draw(s) for s in shapes]
+        return self._fixed_noise[key]
 
     @torch.inference_mode()
     def __call__(self, batch: Dict[str, torch.Tensor],
                  noise: Optional[NoiseArg] = None):
         batch = {k: v.to(self.device, self.dtype) for k, v in batch.items()}
-        if noise is None:
-            noise = torch.Generator(device=self.device).manual_seed(
-                self.noise_seed)
-        return tryon_forward(self.tocg,
-                             lambda x, seg: self.generator(x, seg, noise,
-                                                           train=False),
-                             batch, self.cfg)
+        n = next(iter(batch.values())).shape[0]
+        return _forward(self, batch, self.noise_fields(n, noise))

@@ -728,6 +728,27 @@ def test_discriminator_is_free_of_tf32(monkeypatch):
     print(f"discriminator, TF32 on against off: max_abs "
           f"{(on - off).abs().max().item():.3e}")
     _assert_close(default, off, torch.float32)
+    # the same through the replayed rejection step (test_condition's
+    # condition_step: a graph recorded under each setting)
+    from hrviton_tpu_torch.cli import test_condition as tc
+    from hrviton_tpu_torch.config import TOCGConfig
+    from hrviton_tpu_torch.models.condition import ConditionGenerator
+    tocg = ConditionGenerator(TOCGConfig(ngf=8)).eval()
+    init_weights(tocg, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(9)
+    x1, x2 = _a(rng, (2, 256, 192, 4)), _a(rng, (2, 256, 192, 16))
+    logits = {}
+    try:
+        for tf32 in (True, False):
+            cudnn.allow_tf32, matmul.allow_tf32 = tf32, False
+            caps = tc._condition_step.captures
+            tc.condition_step(tocg, d, x1, x2)
+            logits[tf32] = tc.condition_step(tocg, d, x1, x2)[-1]
+            assert tc._condition_step.captures == caps + 1
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (tf32, False)
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    _assert_close(logits[True], logits[False], torch.float32)
 
 
 @pytest.mark.gpu
@@ -895,3 +916,174 @@ def test_aliasbatch_generator_launches_no_kernel(train):
     assert torch.isfinite(rgb).all()
     moved = not torch.equal(gen.up_4.norm_1.param_free_norm.running_mean, mean0)
     assert moved == train
+
+
+def _captured_pipeline(batch_size=1, seed=3):
+    """A bf16 TryOnPipeline at fine 512x256 (up_3 and up_4 pass the unit's
+    shape rules), tocg and SPADE ngf=16, non-zero noise scales, and a batch
+    made with numpy from ``seed``."""
+    from hrviton_tpu_torch import (PipelineConfig, SPADEGenConfig, TOCGConfig,
+                                   TryOnPipeline)
+    from hrviton_tpu_torch.core.precision import bf16_params
+    pipe = TryOnPipeline(
+        PipelineConfig(fine_height=512, fine_width=256, cond_height=128,
+                       cond_width=64),
+        TOCGConfig(ngf=16), SPADEGenConfig(ngf=16, fine_height=512,
+                                           fine_width=256), seed=3)
+    bf16_params(pipe.tocg)
+    bf16_params(pipe.generator)
+    pipe.dtype = torch.bfloat16
+    with torch.no_grad():
+        for name, p in pipe.generator.named_parameters():
+            if name.endswith("noise_scale"):
+                p.fill_(0.2)
+    return pipe, _pipeline_batch(batch_size, seed)
+
+
+def _pipeline_batch(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"cloth": _a(rng, (n, 512, 256, 3)),
+            "cloth_mask": _a(rng, (n, 512, 256, 1)).sigmoid(),
+            "parse_agnostic": _a(rng, (n, 512, 256, 13)),
+            "densepose": _a(rng, (n, 512, 256, 3)),
+            "agnostic": _a(rng, (n, 512, 256, 3))}
+
+
+def _equal_outputs(got, want):
+    """Every tensor of two (rgb, ConditionOutputs) pairs bit for bit."""
+    rgb, cond = got
+    rgb0, cond0 = want
+    assert torch.equal(rgb, rgb0)
+    for name in cond._fields:
+        a, b = getattr(cond, name), getattr(cond0, name)
+        for x, y in zip(a if isinstance(a, list) else [a],
+                        b if isinstance(b, list) else [b]):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+def test_pipeline_replay_equals_eager():
+    """TryOnPipeline replays a CUDA graph recorded at its first call: the
+    replay gives eager's outputs (graphs.disabled()) bit for bit and counts
+    the fused unit's launches as eager does (6 and 6 statistics)."""
+    _need_card()
+    from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.pipelines import tryon
+    pipe, batch = _captured_pipeline()
+    with graphs.disabled():
+        pipe(batch)
+        before = tsb.spade_conv_unit.launches, tsf.norm_stats.launches
+        want = pipe(batch)
+        eager = (tsb.spade_conv_unit.launches - before[0],
+                 tsf.norm_stats.launches - before[1])
+    caps = tryon._forward.captures
+    pipe(batch)
+    assert tryon._forward.captures == caps + 1
+    before = tsb.spade_conv_unit.launches, tsf.norm_stats.launches
+    got = pipe(batch)
+    torch.cuda.synchronize()
+    assert tryon._forward.captures == caps + 1
+    assert eager == (6, 6)
+    assert (tsb.spade_conv_unit.launches - before[0],
+            tsf.norm_stats.launches - before[1]) == eager
+    _equal_outputs(got, want)
+
+
+@pytest.mark.gpu
+def test_pipeline_replay_outputs_are_not_overwritten():
+    """Call k's outputs are fresh tensors: call k+1 on another batch leaves
+    them as they were."""
+    _need_card()
+    pipe, batch = _captured_pipeline()
+    pipe(batch)
+    rgb, cond = pipe(batch)
+    saved = rgb.clone(), cond.warped_cloth.clone()
+    other, _ = pipe(_pipeline_batch(1, 4))
+    torch.cuda.synchronize()
+    assert not torch.equal(other, rgb)
+    assert torch.equal(rgb, saved[0]) and torch.equal(cond.warped_cloth, saved[1])
+
+
+@pytest.mark.gpu
+def test_pipeline_replay_sees_weights_loaded_after_capture():
+    """Weights loaded in place after a replay (load_jax_variables) are
+    used: the signature is recorded anew and gives eager's result with the
+    new weights."""
+    _need_card()
+    from hrviton_tpu_torch.convert import (export_jax_variables,
+                                           load_jax_variables)
+    from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.pipelines import tryon
+    pipe, batch = _captured_pipeline()
+    pipe(batch)
+    old, _ = pipe(batch)
+    other, _ = _captured_pipeline(seed=3)
+    from hrviton_tpu_torch.nn.layers import init_weights
+    init_weights(other.generator, torch.Generator().manual_seed(11))
+    caps = tryon._forward.captures
+    load_jax_variables(pipe.generator, export_jax_variables(other.generator))
+    got = pipe(batch)
+    assert tryon._forward.captures == caps + 1
+    with graphs.disabled():
+        want = pipe(batch)
+    _equal_outputs(got, want)
+    assert not torch.equal(got[0], old)
+
+
+@pytest.mark.gpu
+def test_pipeline_recaptures_for_a_new_batch_size():
+    """A new batch size records a graph of its own (as jit compiles anew);
+    each size then replays its own."""
+    _need_card()
+    from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.pipelines import tryon
+    pipe, batch = _captured_pipeline()
+    two = _pipeline_batch(2, 5)
+    caps = tryon._forward.captures
+    pipe(batch)
+    pipe(two)
+    assert tryon._forward.captures == caps + 2
+    got1, got2 = pipe(batch), pipe(two)
+    assert tryon._forward.captures == caps + 2
+    with graphs.disabled():
+        _equal_outputs(got1, pipe(batch))
+        _equal_outputs(got2, pipe(two))
+
+
+@pytest.mark.gpu
+def test_entry_point_calling_item_raises_on_the_card(monkeypatch):
+    """An entry point that syncs the host (``.item()``) cannot be recorded:
+    the call raises on the card instead of running eagerly, and the next
+    entry point records and replays as before."""
+    _need_card()
+    from hrviton_tpu_torch.cli import test_condition as tc
+    from hrviton_tpu_torch.config import CondDiscriminatorConfig, TOCGConfig
+    from hrviton_tpu_torch.models.condition import ConditionGenerator
+    from hrviton_tpu_torch.models.discriminators import \
+        CondMultiscaleDiscriminator
+    from hrviton_tpu_torch.nn.layers import init_weights
+    from hrviton_tpu_torch.pipelines import tryon as tt
+    tocg = ConditionGenerator(TOCGConfig(ngf=8)).eval()
+    d = CondMultiscaleDiscriminator(CondDiscriminatorConfig(ndf=8)).eval()
+    init_weights(tocg, torch.Generator().manual_seed(0))
+    init_weights(d, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(8)
+    x1, x2 = _a(rng, (2, 64, 64, 4)), _a(rng, (2, 64, 64, 16))
+    plain = tt.compose_clothmask
+
+    def syncing(seg, wcm, mode):
+        float(seg.sum().item())
+        return plain(seg, wcm, mode)
+    monkeypatch.setattr(tc, "compose_clothmask", syncing)
+    caps = tc._condition_step.captures
+    with pytest.raises(RuntimeError):
+        tc.condition_step(tocg, d, x1, x2)
+    assert tc._condition_step.captures == caps
+    monkeypatch.setattr(tc, "compose_clothmask", plain)
+    got = tc.condition_step(tocg, d, x1, x2)
+    got = tc.condition_step(tocg, d, x1, x2)
+    from hrviton_tpu_torch.core import graphs
+    with graphs.disabled():
+        want = tc.condition_step(tocg, d, x1, x2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
