@@ -5,6 +5,8 @@
     python3 chip_smoke.py --paths    # phases 1, 2, 4, 5 and 6 only
     python3 chip_smoke.py --alone    # phases 1, 2 and kernels' times alone
     python3 chip_smoke.py --captured # phases 1, 2 and 11 only
+    python3 chip_smoke.py --steps    # phases 1, 2 and the recorded
+                                     # training steps of phases 9 and 10
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
@@ -169,7 +171,40 @@ Phases (any failure exits non-zero, and no result line is printed):
      step's regeneration), the counts set to 0 just before and read just
      after; those launches join the record's rows of the unit and the
      statistics; (e) stage 2 with --no_taps_wgrad, 4 steps: ms/step beside
-     (c)'s, the tap-product weight gradient's cost against cuDNN's;
+     (c)'s, the tap-product weight gradient's cost against cuDNN's (the CLIs'
+     steps, eval calls and expand replay CUDA graphs, as a user's run does,
+     with the allocator's expandable segments the CLIs turn on); (b), (c)
+     and (d) each also run eagerly under graphs.disabled() (its launches
+     not counted): the peak memory, allocated and reserved from an emptied
+     cache, recorded beside eager;
+     (f) the recorded steps (core/graphs.py, the trainers' train_step)
+     against eager (graphs.disabled()), each from a state built alike from
+     one seed, in turns on the same 3 batches of the trees (the CLIs' data
+     path), 11 pairs, cuDNN deterministic: stage 1 (as (b), with --Ddropout,
+     under torch's default TF32 settings with the TF32 hooks), stage 2 (as
+     (c)), stage 2 --fused_block (as (d)); bit for bit every step's metrics
+     and the generators' states (dropout, noise) after every step, and,
+     after the last, every parameter, buffer (running statistics, spectral
+     u/v), Adam moment and step count and the counters; launches a step
+     eager and replayed (18 unit and 18 statistics with --fused_block,
+     none else); one recording. Stage 1's eager step is not reproducible
+     on the card (atomic adds in grid_sample's backward): a second eager
+     state is stepped in the same turns, the ops torch names as
+     nondeterministic are printed, and before each step both eager states
+     are set to the replayed one; then, after each step, bit for bit in all
+     three: every metric, every tensor but the tocg's parameters and their
+     Adam moments (the tocg's running statistics, the whole discriminator
+     with its Adam state, every step count), the dropout generator; the
+     tocg's parameters and moments within 4 times the two eager runs'
+     distance D from that state (the sum over those tensors of mean|x - y|
+     / mean|y|); the memory of the first eager step and of the first
+     replayed call (warm-up, recording), the step's pool and what is
+     allocated in it; ms/step eager and replayed by CUDA
+     events (the pairs after the first: median, quartiles), the recording's
+     seconds, the pool's MiB, the graph's kernel nodes (DOT dump) beside one
+     eager step's profiled launches; (g) the loader's host time
+     (hrviton_tpu_torch/tools/bench_loader.py, one worker, stage 2's tree
+     at 1024x768, full f32 against compact uint8);
  10. data parallel, the alias norms, LPIPS head training, on phase 9's
      synthetic trees, cuDNN deterministic for (a): (a) both training CLIs
      through --coordinator 127.0.0.1:<free port> --num_processes 1
@@ -187,9 +222,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      'aliasbatch' running mean moved from 0 in gen_model_final.ckpt; and
      SPADEResBlock with use_mask_norm at up_4's shape (80 -> 32, 1024x768,
      batch 1, f32, seeded weights and misalign mask) on the card against
-     the same module on the CPU within 1e-4 x max|ref|; (c) 10 steps of
-     LPIPSHeadTrainer (alex, 64x64, batch 8): finite losses, every lin
-     kernel >= 0 after each step, ms/step by CUDA events;
+     the same module on the CPU within 1e-4 x max|ref|; (c) LPIPSHeadTrainer
+     (alex, 64x64, batch 8) replayed against eager as in phase 9 (f), 11
+     pairs on 10 batches, the learning rate decayed before the sixth step;
+     then 10 replayed steps of a new trainer: finite losses, every lin
+     kernel >= 0 after each step; (d) phase 9 (f) through one NCCL rank (a group of one,
+     its reductions real collectives recorded in the graphs): stage 1 and
+     stage 2 --fused_block, 4 pairs each;
  11. (in a process of its own, chip_smoke.py --captured: a long process's
      profiler windows lose records, PERF.md section 7) captured entry
      points (core/graphs.py), each eager (graphs.disabled()) against
@@ -213,7 +252,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      and the graphs' pool memory.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
-line is {"ok": true, "device": {...}}. With --paths the script stops after
+line is {"ok": true, "device": {...}}. With --steps the script builds, writes
+the two synthetic trees and runs phase 9 (f), (g), phase 10 (c) and (d), and
+prints only the last line. With --paths the script stops after
 phase 6 and prints only the last line: it is how two checkouts are timed in
 turns (a copy of this script in each, see README). With --alone it times
 the engine's model kernels at their main-path shapes by CUDA events (the
@@ -1903,18 +1944,29 @@ def _tf32_spy(module, name, seen):
     return mock.patch.object(module, name, spy)
 
 
-def _run_cli(label, main, argv, spy_module, spy_name, card):
+def _run_cli(label, main, argv, spy_module, spy_name, card, eager=False):
     """One training CLI's main under torch's default TF32 settings, with
-    the TF32 spy; prints its losses, ms/step and peak memory."""
+    the TF32 spy (``eager``: under graphs.disabled(), the reference of the
+    memory it takes); prints its losses, ms/step and peak memory, allocated
+    and reserved (a graph's private pool is reserved for as long as the
+    graph lives), from an emptied cache."""
     import numpy as np
+    from hrviton_tpu_torch.core import graphs
     seen = []
     _tf32(True, False)
+    if eager:
+        label += ", eager (graphs.disabled())"
+    _free()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _tf32_spy(spy_module, spy_name, seen):
+    with _tf32_spy(spy_module, spy_name, seen), \
+            (graphs.disabled() if eager else contextlib.nullcontext()):
         rec = main(argv)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["peak_gib"] = peak, torch.cuda.max_memory_reserved() / 2 ** 30
+    pools = "" if eager else "; pools after it " + ", ".join(
+        f"{k} {v:.0f} MiB" for k, v in _cli_pools().items())
     for i, m in enumerate(rec["metrics"]):
         log(f"training: {label} step {i + 1}: " +
             " ".join(f"{k}={v:.6g}" for k, v in sorted(m.items())))
@@ -1923,14 +1975,42 @@ def _run_cli(label, main, argv, spy_module, spy_name, card):
     ms = rec["step_ms"]
     log(f"training: {label} ms/step by CUDA events after the first step: "
         f"{_spread(ms[1:])}, first {ms[0]:.2f} ms; peak "
-        f"torch.cuda.max_memory_allocated {peak:.2f} GiB; main {wall:.1f} s "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB, max_memory_reserved "
+        f"{rec['peak_gib'][1]:.2f} GiB{pools}; main {wall:.1f} s "
         f"| {card}")
     flags = sorted(set(seen))
     log(f"training: {label} TF32 flags (cudnn, matmul) seen in backward at "
         f"{len(seen)} logit maps: {flags}")
     if not seen or flags != [(False, False)]:
         raise RuntimeError(f"training: {label}: TF32 in backward {flags}")
+    # the run's trainer is garbage now (its optimizers are in reference
+    # cycles): its graphs and their pools' memory go with it
+    _free()
     return rec
+
+
+def _cli_pools():
+    """MiB of the training CLIs' pools that hold segments: the trainers'
+    (step and eval graphs), expand's, lpips_resize's."""
+    from hrviton_tpu_torch.cli import common
+    from hrviton_tpu_torch.cli import train_generator as t2
+    from hrviton_tpu_torch.train import condition_trainer as ct
+    from hrviton_tpu_torch.train import generator_trainer as gt
+    out = {}
+    for key, capt in (("stage 1 step and eval", ct._step),
+                      ("stage 2 step and eval", gt._step),
+                      ("expand", common.expand),
+                      ("lpips_resize", t2._lpips_resize)):
+        sizes = _pool_sizes([capt]) if capt.pool is not None else None
+        if sizes and sizes[0]:
+            out[key] = sizes[0]
+    return out
+
+
+def _renamed(argv, name):
+    """A CLI's arguments with another --name (its own checkpoints)."""
+    i = argv.index("--name")
+    return argv[:i + 1] + [name] + argv[i + 2:]
 
 
 def training_trees(tmp):
@@ -1982,20 +2062,24 @@ def training_phase(card, tmp, r1, r2):
 
         # part 2: stage 1, f32, through the CLI
         n1 = STAGE1["steps"]
+        argv1 = ["--name", "s1", "--dataroot", r1, "--test_dataroot", r1,
+                 "--fine_height", str(h1), "--fine_width", str(w1),
+                 "-b", str(STAGE1["batch"]), "-j", "4", "--keep_step", str(n1),
+                 "--display_count", "1", "--tensorboard_count", str(n1),
+                 "--val_count", str(n1), "--val_samples", "16",
+                 "--save_count", str(n1), "--checkpoint_dir", ck,
+                 "--tensorboard_dir", tb, "--allow_random_vgg", "--device",
+                 "cuda"]
         rec1 = _run_cli(
             f"stage 1 (tocg ngf=96 {h1}x{w1}, batch {STAGE1['batch']}, f32, "
-            f"condition D 33 ch ndf 64 3 layers 2 scales)", t1.main,
-            ["--name", "s1", "--dataroot", r1, "--test_dataroot", r1,
-             "--fine_height", str(h1), "--fine_width", str(w1),
-             "-b", str(STAGE1["batch"]), "-j", "4", "--keep_step", str(n1),
-             "--display_count", "1", "--tensorboard_count", str(n1),
-             "--val_count", str(n1), "--val_samples", "16",
-             "--save_count", str(n1), "--checkpoint_dir", ck,
-             "--tensorboard_dir", tb, "--allow_random_vgg", "--device", "cuda"],
+            f"condition D 33 ch ndf 64 3 layers 2 scales)", t1.main, argv1,
             condition_trainer, "lsgan_loss", card)
         if len(rec1["metrics"]) != n1 or len(rec1["val_iou"]) != 1:
             raise RuntimeError(f"training: stage 1 gave {len(rec1['metrics'])} "
                                f"steps, val/iou {rec1['val_iou']}")
+        peaks = {"stage 1": (rec1, _run_cli(
+            "stage 1", t1.main, _renamed(argv1, "s1e"), condition_trainer,
+            "lsgan_loss", card, eager=True))}
         s1 = os.path.join(ck, "s1")
         out = tc.main(["--dataroot", r1, "--datamode", "test",
                        "--data_list", "test_pairs.txt", "--fine_height", str(h1),
@@ -2025,15 +2109,17 @@ def training_phase(card, tmp, r1, r2):
                   "--allow_random_vgg", "--bf16", "--tocg_checkpoint",
                   os.path.join(s1, "tocg_final.ckpt"), "--device", "cuda"]
         n2 = STAGE2["steps"]
+        argv2 = ["--name", "s2", "--keep_step", str(n2), "--tensorboard_count",
+                 str(n2), "--lpips_count", str(n2), "--lpips_samples", "4",
+                 "--lpips_batch", "2"] + common
         rec2 = _run_cli(
             f"stage 2 (SPADE ngf=64 'most' {h2}x{w2}, batch "
             f"{STAGE2['batch']}, bf16, fused unit off, remat, d_remat, taps "
             f"wgrad; SPADE D ndf 64 3 layers 2 scales; frozen tocg ngf=96 from "
-            f"stage 1)", t2.main,
-            ["--name", "s2", "--keep_step", str(n2), "--tensorboard_count",
-             str(n2), "--lpips_count", str(n2), "--lpips_samples", "4",
-             "--lpips_batch", "2"] + common,
-            generator_trainer, "gan_loss", card)
+            f"stage 1)", t2.main, argv2, generator_trainer, "gan_loss", card)
+        peaks["stage 2"] = (rec2, _run_cli(
+            "stage 2", t2.main, _renamed(argv2, "s2e"), generator_trainer,
+            "gan_loss", card, eager=True))
         d0 = rec2["metrics"][0]["loss/dis"]
         log(f"training: stage 2 hinge D loss at init {d0:.6f} (expect ~2.0), "
             f"LPIPS {rec2['lpips']}, checkpoints "
@@ -2054,11 +2140,10 @@ def training_phase(card, tmp, r1, r2):
         wrappers = _wrappers()
         for w in wrappers.values():
             w.launches = 0
-        rec4 = _run_cli(
-            f"stage 2 --fused_block ({n4} steps)", t2.main,
-            ["--name", "s2f", "--keep_step", str(n4), "--tensorboard_count",
-             "100000", "--lpips_count", "100000", "--fused_block"] + common,
-            generator_trainer, "gan_loss", card)
+        argv4 = ["--name", "s2f", "--keep_step", str(n4), "--tensorboard_count",
+                 "100000", "--lpips_count", "100000", "--fused_block"] + common
+        rec4 = _run_cli(f"stage 2 --fused_block ({n4} steps)", t2.main, argv4,
+                        generator_trainer, "gan_loss", card)
         got = {k: w.launches for k, w in wrappers.items()}
         want = {k: 0 for k in got}
         want["spade_unit"] = want["instance_stats"] = UNITS_PER_FUSED_STEP * n4
@@ -2072,7 +2157,14 @@ def training_phase(card, tmp, r1, r2):
                                f"expected {want}")
         if len(rec4["metrics"]) != n4:
             raise RuntimeError("training: --fused_block steps missing")
-        torch.cuda.empty_cache()
+        # its launches in the eager run are not of the main path: not counted
+        saved = {k: w.launches for k, w in wrappers.items()}
+        peaks["stage 2 --fused_block"] = (rec4, _run_cli(
+            f"stage 2 --fused_block ({n4} steps)", t2.main,
+            _renamed(argv4, "s2fe"), generator_trainer, "gan_loss", card,
+            eager=True))
+        for k, w in wrappers.items():
+            w.launches = saved[k]
 
         # part 5: stage 2 with the library's weight gradient in place of
         # the tap products (--no_taps_wgrad), for the taps' cost
@@ -2081,15 +2173,481 @@ def training_phase(card, tmp, r1, r2):
             ["--name", "s2n", "--keep_step", str(n4), "--tensorboard_count",
              "100000", "--lpips_count", "100000", "--no_taps_wgrad"] + common,
             generator_trainer, "gan_loss", card)
+        log("training: the CLIs' peak device memory from an emptied cache, "
+            "GiB, allocated / reserved, recorded (a user's run) against "
+            "eager: " + "; ".join(
+                f"{k} {g['peak_gib'][0]:.2f} / {g['peak_gib'][1]:.2f} against "
+                f"{e['peak_gib'][0]:.2f} / {e['peak_gib'][1]:.2f}"
+                for k, (g, e) in peaks.items()) + f" | {card}")
         taps = statistics.median(rec2["step_ms"][1:])
         lib = statistics.median(rec5["step_ms"][1:])
         log(f"training: stage 2 median ms/step with the taps weight gradient "
             f"{taps:.2f} against cuDNN's {lib:.2f} ({taps - lib:+.2f} ms) | "
             f"{card}")
+        torch.cuda.empty_cache()
+
+        # part 6: the recorded steps against eager, in turns; part 7: the
+        # loader's host time
+        recorded_steps(card, r1, r2)
+        _loader_time(card, r2)
     return ({"spade_unit": got["spade_unit"],
              "instance_stats": got["instance_stats"]},
             {"stage 1": statistics.median(rec1["step_ms"][1:]),
              "stage 2 --fused_block": statistics.median(rec4["step_ms"][1:])})
+
+
+# the recorded training steps (core/graphs.py) against eager, in turns
+# (phases 9 and 10): the first pair records and is not timed
+STEP_PAIRS = 11
+NCCL_PAIRS = 4
+# stage 1's eager step is not reproducible on the card (atomic adds in the
+# backward of the tocg's grid_sample): its three states are set alike before
+# each step, and the tensors that gradient reaches, the tocg's parameters and
+# their Adam moments, are held to within this factor of two eager steps' own
+# distance D from that state (the sum over those tensors of mean|x - y| /
+# mean|y|); everything else of the step bit for bit
+EAGER_SPREAD_FACTOR = 4.0
+
+
+def _named_state(*nets):
+    """(name, tensor) of every tensor a training step writes: each
+    network's parameters and buffers, its Adam's moments and step counts."""
+    out = []
+    for tag, module, opt in nets:
+        names = {id(p): n for n, p in module.named_parameters()}
+        out += [(f"{tag}.{n}", t) for n, t in module.named_parameters()]
+        out += [(f"{tag}.{n}", t) for n, t in module.named_buffers()]
+        out += [(f"{tag}.{names[id(p)]}.{k}", t) for p in opt.params
+                for k, t in opt.opt.state[p].items()]
+    return out
+
+
+def _distance(a, b):
+    """D of two states' (name, tensor) lists (EAGER_SPREAD_FACTOR)."""
+    total = 0.0
+    for (_, x), (_, y) in zip(a, b):
+        den = y.float().abs().mean().item()
+        if den > 0:
+            total += (x.float() - y.float()).abs().mean().item() / den
+    return total
+
+
+def _nondeterministic_ops(step, batch):
+    """The ops of one eager step that torch names as having no
+    deterministic CUDA implementation (deterministic mode, warnings only;
+    a throwaway state)."""
+    import warnings
+    from hrviton_tpu_torch.core import graphs
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen, graphs.disabled():
+            warnings.simplefilter("always")
+            step(batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = set()
+    for w in seen:
+        text = str(w.message)
+        if "does not have a deterministic implementation" in text:
+            ops.add(text.split(" does not have")[0])
+        elif "CuBLAS" in text:
+            ops.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
+    return sorted(ops)
+
+
+def _set_alike(run, ref):
+    """``run``'s state tensors set to ``ref``'s (``run`` is stepped eagerly:
+    no graph reads its tensors)."""
+    with torch.no_grad():
+        for (_, x), (_, y) in zip(run["tensors"](), ref["tensors"]()):
+            x.copy_(y)
+
+
+def _held_step(tag, i, runs, mets, varies):
+    """Step ``i`` of a step that is not reproducible eagerly, its three
+    states set alike before it: bit for bit the metrics of the three and
+    every state tensor outside ``varies``; D of the ``varies`` tensors, the
+    replay against each eager run, within EAGER_SPREAD_FACTOR times the two
+    eager runs' own. Returns (D eager-eager, the larger D of the replay)."""
+    m_e, m_r, m_2 = (mets[m][i] for m in ("eager", "replay", "eager2"))
+    m_diff = [k for k in m_e if not (torch.equal(m_r[k], m_e[k])
+                                     and torch.equal(m_2[k], m_e[k]))]
+    s_e, s_r, s_2 = (runs[m]["tensors"]() for m in ("eager", "replay", "eager2"))
+    t_diff = [n for (n, x), (_, y), (_, z) in zip(s_e, s_r, s_2)
+              if n not in varies and not (torch.equal(x, y) and torch.equal(x, z))]
+    pick = lambda s: [(n, t) for n, t in s if n in varies]
+    d_ee = _distance(pick(s_2), pick(s_e))
+    d_re = max(_distance(pick(s_r), pick(s_e)), _distance(pick(s_r), pick(s_2)))
+    if m_diff or t_diff or d_re > EAGER_SPREAD_FACTOR * d_ee:
+        raise RuntimeError(
+            f"{tag}: step {i + 1} from one state: metrics {m_diff[:5]} and "
+            f"tensors outside the varying set {t_diff[:5]} ({len(t_diff)}) "
+            f"differ, or D(replay, eager) {d_re:.4g} > {EAGER_SPREAD_FACTOR:g} "
+            f"x D(eager, eager) {d_ee:.4g}")
+    return d_ee, d_re
+
+
+def _steps_in_turns(card, tag, build, batches, pairs=STEP_PAIRS, expect=None,
+                    spy=None):
+    """Training states built alike from one seed (``build()``: step,
+    tensors, generators, counts, the step's Captured), one stepped eagerly
+    under graphs.disabled() and one replayed, in turns on the same batches,
+    cuDNN's algorithms deterministic (its defaults may sum a weight gradient
+    by atomic adds, in another order each run, eager or replayed). Bit for
+    bit: every step's metrics, the generators' states after every step,
+    and, after the last, every tensor of the states, the Python counters,
+    and the launch counters of every step (``expect``: the fused unit's and
+    the statistics' a step). A build that names ``varies`` (the tensors a
+    nondeterministic op reaches) gets a second eager state, and all three
+    are held step by step (_held_step). Printed: ms/step by CUDA events of
+    the pairs after the first (median, quartiles), the recording's seconds,
+    the pool's MiB, the memory of the first eager step and of the first
+    replayed call, the graph's kernel nodes (DOT dump) beside one eager
+    step's launches. Returns the figures."""
+    with _deterministic_cudnn():
+        return _in_turns(card, tag, build, batches, pairs, expect, spy)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def _memory_of(mem, key):
+    """``mem[key]``: GiB of device memory above the start of the block, at
+    its peak (allocated) and the cache's growth (reserved) from an emptied
+    cache; a recording inside the block also gives ``mem['warm-up']`` (the
+    peak allocated before it) and ``mem['recording']`` (while it runs)."""
+    from unittest import mock
+    from hrviton_tpu_torch.core import graphs
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    real = graphs.Captured._record
+    gib = lambda b: b / 2 ** 30
+
+    def record(self, *a, **k):
+        mem["warm-up"] = gib(torch.cuda.max_memory_allocated() - a0)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return real(self, *a, **k)
+        finally:
+            mem["recording"] = gib(torch.cuda.max_memory_allocated() - a0)
+    with mock.patch.object(graphs.Captured, "_record", record):
+        yield
+    mem[key] = (gib(torch.cuda.max_memory_allocated() - a0),
+                gib(torch.cuda.max_memory_reserved() - r0))
+
+
+def _in_turns(card, tag, build, batches, pairs, expect, spy):
+    from hrviton_tpu_torch.core import graphs
+    wrappers = _wrappers()
+    runs = {"eager": build(), "replay": build()}
+    varies = runs["eager"].get("varies")
+    if varies is not None:
+        runs["eager2"] = build()
+    modes = tuple(runs)
+    eager, rep = runs["eager"], runs["replay"]
+    capt = rep["capt"]
+    caps0 = capt.captures
+    ms = {m: [] for m in modes}
+    mets = {m: [] for m in modes}
+    launches = {m: [] for m in modes}
+    first_s = hooks = None
+    held, gen_diff, mem = [], [], {}
+    for i in range(pairs):
+        batch = batches[i % len(batches)]
+        if varies is not None and i:
+            _set_alike(eager, rep)
+            _set_alike(runs["eager2"], rep)
+        for mode in modes:
+            run = runs[mode]
+            before = {k: w.launches for k, w in wrappers.items()}
+            n_seen = len(spy) if spy is not None else 0
+            ctx = contextlib.nullcontext() if mode == "replay" else graphs.disabled()
+            watch = (_memory_of(mem, mode) if i == 0 and mode != "eager2"
+                     else contextlib.nullcontext())
+            with watch, ctx:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                mets[mode].append(run["step"](batch))
+                e1.record()
+                torch.cuda.synchronize()
+            if mode == "replay" and i == 0:
+                first_s = time.perf_counter() - t
+                hooks = len(spy) - n_seen if spy is not None else None
+            ms[mode].append(e0.elapsed_time(e1))
+            launches[mode].append({k: w.launches - before[k]
+                                   for k, w in wrappers.items()})
+        for m in modes[1:]:
+            if not all(torch.equal(a.get_state(), b.get_state())
+                       for a, b in zip(runs[m]["gens"], eager["gens"])):
+                gen_diff.append((i + 1, m))
+        if varies is not None:
+            held.append(_held_step(tag, i, runs, mets, varies))
+    entry = capt.last_entry
+    if capt.captures != caps0 + 1 or entry.replays != pairs:
+        raise RuntimeError(f"{tag}: {capt.captures - caps0} recordings, "
+                           f"{entry.replays} replays for {pairs} steps")
+    if spy is not None and not hooks:
+        raise RuntimeError(f"{tag}: no logit hook ran while recording")
+    if rep["counts"]() != eager["counts"]() or rep["counts"]()[0] != pairs:
+        raise RuntimeError(f"{tag}: counters {rep['counts']()} against "
+                           f"{eager['counts']()}")
+    if gen_diff:
+        raise RuntimeError(f"{tag}: generator states differ after (step, "
+                           f"state) {gen_diff[:5]}")
+    want = dict.fromkeys(wrappers, 0)
+    if expect:
+        want.update(expect)
+    bad = [(i, launches["eager"][i], launches["replay"][i]) for i in range(pairs)
+           if not launches["eager"][i] == launches["replay"][i] == want]
+    if bad:
+        raise RuntimeError(f"{tag}: launches a step (step, eager, replay) "
+                           f"{bad[:3]}, expected {want}")
+    s_e, s_r = eager["tensors"](), rep["tensors"]()
+    steps = [n for n, _ in s_e if n.endswith(".step")]
+    named = dict(s_r)
+    if not all(torch.equal(named[n], dict(s_e)[n]) and float(named[n]) == pairs
+               for n in steps):
+        raise RuntimeError(f"{tag}: Adam's step counts differ from {pairs}")
+    n_gens = len(eager["gens"])
+    if varies is None:
+        m_diff = [(i, k) for i in range(pairs) for k in mets["eager"][i]
+                  if not torch.equal(mets["eager"][i][k], mets["replay"][i][k])]
+        t_diff = [n for (n, x), (_, y) in zip(s_e, s_r) if not torch.equal(x, y)]
+        if m_diff or t_diff:
+            raise RuntimeError(f"{tag}: replay against eager: metrics "
+                               f"{m_diff[:5]}, tensors {t_diff[:5]} "
+                               f"({len(t_diff)} of {len(s_e)}) differ")
+        how = (f"replay equal to eager bit for bit over {pairs} steps: "
+               f"{len(mets['eager'][0])} metrics a step, {len(s_e)} state "
+               f"tensors (parameters, buffers, Adam's moments and step "
+               f"counts), {n_gens} generator states, the counters")
+    else:
+        ops = _nondeterministic_ops(build()["step"], batches[0])
+        n_var = sum(n in varies for n, _ in s_e)
+        how = (f"eager not reproducible (ops without a deterministic CUDA "
+               f"implementation in its step: {ops}); {pairs} steps, each "
+               f"from one state (the two eager states set to the replayed "
+               f"one before it): bit for bit in all three the "
+               f"{len(mets['eager'][0])} metrics of every step and "
+               f"{len(s_e) - n_var} of {len(s_e)} state tensors after every "
+               f"step (the tocg's buffers, the discriminator's parameters, "
+               f"buffers and Adam state, every step count), {n_gens} "
+               f"generator states, the counters; the tocg's parameters and "
+               f"moments ({n_var} tensors) D(replay, eager) / D(eager, "
+               f"eager) a step, limit {EAGER_SPREAD_FACTOR:g}x: "
+               + " ".join(f"{r:.3g}/{e:.3g}" for e, r in held))
+    log(f"{tag}: {how}; launches a step {({k: v for k, v in want.items() if v}) or 'none'}"
+        + (f"; {hooks} logit hooks ran while recording" if spy is not None else ""))
+    # the graph's nodes beside one eager step's launches (an extra step of
+    # the eager state, after the comparison)
+    gk, go = _graph_census(tag, [entry])
+    with graphs.disabled():
+        ek, eo, e_busy, e_wall = _profiled(lambda: eager["step"](batches[0]))
+    rk, ro, r_busy, r_wall = _profiled(lambda: rep["step"](batches[0]))
+    hw = _hand_written(gk)
+    if expect and (hw.get("spade_unit_gb_kernel", 0) != expect["spade_unit"] or
+                   hw.get("instance_stats_finalize_kernel", 0)
+                   != expect["instance_stats"]):
+        raise RuntimeError(f"{tag}: the graph's hand-written nodes {hw}")
+    pool = _pool_sizes([capt])
+    fig = dict(eager=statistics.median(ms["eager"][1:]),
+               replay=statistics.median(ms["replay"][1:]),
+               eager_ms=ms["eager"][1:], replay_ms=ms["replay"][1:],
+               capture_s=entry.seconds, pool_mib=pool and pool[0],
+               nodes=sum(gk.values()), launches=sum(ek.values()), memory=mem)
+    log(f"{tag}: ms/step by CUDA events, {pairs - 1} pairs in turns after "
+        f"the first: eager {_spread(ms['eager'][1:])}; replay "
+        f"{_spread(ms['replay'][1:])}; first replayed call (warm-up, "
+        f"recording, replay) {first_s * 1e3:.0f} ms, recording "
+        f"{entry.seconds * 1e3:.0f} ms, pools "
+        + ("not measured" if pool is None else f"{pool[0]:.0f} MiB") +
+        f"; graph kernel nodes {fig['nodes']} (other nodes {go}; hand-written "
+        f"{hw}) against one eager step's kernel launches {fig['launches']} "
+        f"(a profiler window, a lower bound), the replay's window "
+        f"{sum(rk.values())}; device busy eager {e_busy:.1f} of {e_wall:.1f} "
+        f"ms, replay {r_busy:.1f} of {r_wall:.1f} ms | {card}")
+    log(f"{tag}: device memory above the states, GiB (peak allocated / the "
+        f"reserved cache's growth from an emptied cache): the first eager "
+        f"step {mem['eager'][0]:.2f} / {mem['eager'][1]:.2f}; the first "
+        f"replayed call {mem['replay'][0]:.2f} / {mem['replay'][1]:.2f}, "
+        f"the warm-up's peak {mem['warm-up']:.2f}, the recording's "
+        f"{mem['recording']:.2f}; the step's pool after it "
+        + ("not measured" if pool is None else
+           f"{pool[0] / 1024:.2f}, {pool[1] / 1024:.2f} of it allocated (the "
+           f"graph's outputs, the gradients left in .grad)") + f" | {card}")
+    del runs, entry, eager, rep
+    _free()
+    return fig
+
+
+def _tree_batches(root, h, w, batch, n, cloth=None):
+    """``n`` training batches of a synthetic tree through the CLIs' data
+    path (the compact format, the loader, batch_to_device: the host's copy
+    and the recorded expand), on the card."""
+    from hrviton_tpu_torch.cli.common import batch_to_device
+    from hrviton_tpu_torch.config import DataConfig
+    from hrviton_tpu_torch.data.dataset import VitonHDDataset
+    from hrviton_tpu_torch.data.loader import Loader
+    ds = VitonHDDataset(DataConfig(dataroot=root, fine_height=h, fine_width=w),
+                        mode="train", compact=True)
+    loader = Loader(ds, batch, shuffle=False, num_workers=4)
+    try:
+        raws = [loader.next_batch() for _ in range(n)]
+    finally:
+        loader.close()
+    out = []
+    for raw in raws:
+        if cloth:
+            raw = dict(raw, cloth=raw["cloth"][cloth],
+                       cloth_mask=raw["cloth_mask"][cloth])
+        out.append(batch_to_device(raw, "cuda", True))
+    return out
+
+
+def _stage1_build(vgg, mesh=None):
+    """Stage 1 as the CLI builds it (tocg ngf=96, the condition
+    discriminator, batch 8, f32), with --Ddropout: its masks come from the
+    trainer's generator inside the recorded step."""
+    from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
+                                          ConditionTrainConfig, TOCGConfig)
+    from hrviton_tpu_torch.train import condition_trainer as ct
+
+    def build():
+        trainer = ct.ConditionTrainer(
+            TOCGConfig(ngf=96), CondDiscriminatorConfig(input_nc=33,
+                                                        ddropout=True),
+            ConditionTrainConfig(batch_size=STAGE1["batch"]), device="cuda",
+            mesh=mesh)
+        state = trainer.init(0)
+        # what grid_sample's backward reaches: the tocg's parameters, their
+        # Adam moments
+        varies = {f"G.{n}{k}" for n, _ in state.g.module.named_parameters()
+                  for k in ("", ".exp_avg", ".exp_avg_sq")}
+        return dict(step=lambda b: trainer.train_step(state, b, vgg)[1],
+                    varies=varies,
+                    tensors=lambda: _named_state(
+                        ("G", state.g.module, state.g.opt),
+                        ("D", state.d.module, state.d.opt)),
+                    gens=[trainer.dropout],
+                    counts=lambda: (state.step, state.g.opt.count,
+                                    state.d.opt.count),
+                    capt=ct._step)
+    return build
+
+
+def _stage2_build(vgg, fused, mesh=None):
+    """Stage 2 as the CLI builds it (SPADE ngf=64 'most' at 1024x768, batch
+    2, bf16, remat, D remat, taps wgrad, the SPADE discriminator, the frozen
+    tocg ngf=96 from seed 0), one noise generator for both forwards as the
+    CLI feeds it. Each state has a tocg of its own: the bf16 step rounds the
+    tocg's statistics in place and puts them back, a write from outside the
+    other state's graph."""
+    from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
+                                          SPADEDiscriminatorConfig,
+                                          SPADEGenConfig, TOCGConfig)
+    from hrviton_tpu_torch.models.condition import ConditionGenerator
+    from hrviton_tpu_torch.nn.layers import init_weights
+    from hrviton_tpu_torch.train import generator_trainer as gt
+    (h2, w2), (h1, w1) = STAGE2["hw"], STAGE1["hw"]
+
+    def build():
+        tocg = ConditionGenerator(TOCGConfig(ngf=96), device="cuda").eval()
+        init_weights(tocg, torch.Generator().manual_seed(0))
+        tocg.requires_grad_(False)
+        trainer = gt.GeneratorTrainer(
+            SPADEGenConfig(ngf=64, fine_height=h2, fine_width=w2,
+                           fused_block=fused),
+            SPADEDiscriminatorConfig(),
+            GeneratorTrainConfig(batch_size=STAGE2["batch"], bf16=True),
+            PipelineConfig(fine_height=h2, fine_width=w2, cond_height=h1,
+                           cond_width=w1), TOCGConfig(ngf=96), device="cuda",
+            mesh=mesh)
+        state = trainer.init(0)
+        noise = torch.Generator(device="cuda").manual_seed(1)
+        frozen = {"vgg": vgg, "tocg": tocg}
+        return dict(step=lambda b: trainer.train_step(state, b, noise, noise,
+                                                      frozen)[1],
+                    tensors=lambda: _named_state(
+                        ("G", state.g.module, state.g.opt),
+                        ("D", state.d.module, state.d.opt)),
+                    gens=[noise],
+                    counts=lambda: (state.step, state.g.opt.count,
+                                    state.d.opt.count),
+                    capt=gt._step)
+    return build
+
+
+def _loader_time(card, root):
+    """Part 7 of phase 9: tools/bench_loader.py on stage 2's tree, on the
+    card's host."""
+    from hrviton_tpu_torch.tools import bench_loader
+    h, w = STAGE2["hw"]
+    out = bench_loader.main(root=root, n=8, h=h, w=w)
+    log(f"loader host time (tools/bench_loader.py, one worker, {h}x{w}, 8 "
+        f"samples): full f32 {out['full']['ms']:.1f} ms a sample "
+        f"({out['full']['mb']:.1f} MB), compact uint8 "
+        f"{out['compact']['ms']:.1f} ms ({out['compact']['mb']:.1f} MB); the "
+        f"card's host has {os.cpu_count()} cores | {card}")
+
+
+def recorded_steps(card, r1, r2, mesh=None):
+    """Phase 9 part 6 (no mesh) and phase 10 part (d) (one NCCL rank): the
+    recorded steps of stage 1, stage 2 and stage 2 --fused_block against
+    eager. Returns their figures."""
+    from hrviton_tpu_torch.cli.common import expandable_segments
+    from hrviton_tpu_torch.losses.perceptual import make_vgg_loss
+    from hrviton_tpu_torch.train import condition_trainer
+    (h1, w1), (h2, w2) = STAGE1["hw"], STAGE2["hw"]
+    where = "" if mesh is None else ", one NCCL rank"
+    expandable_segments("cuda")         # as the training CLIs set it
+    pairs = STEP_PAIRS if mesh is None else NCCL_PAIRS
+    vgg = make_vgg_loss(None, device="cuda").vgg
+    figs = {}
+    b1 = _tree_batches(r1, h1, w1, STAGE1["batch"], 3)
+    seen = []
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    _tf32(True, False)                       # torch's defaults
+    try:
+        with _tf32_spy(condition_trainer, "lsgan_loss", seen):
+            figs["stage 1"] = _steps_in_turns(
+                card, f"recorded steps: stage 1 (tocg ngf=96 {h1}x{w1}, "
+                f"batch {STAGE1['batch']}, f32, condition D with "
+                f"--Ddropout{where})", _stage1_build(vgg, mesh), b1, pairs,
+                spy=seen)
+    finally:
+        _tf32(*saved)
+    flags = sorted(set(seen))
+    log(f"recorded steps: stage 1 TF32 flags (cudnn, matmul) in backward "
+        f"at {len(seen)} logit maps, eager and while recording: {flags}")
+    if flags != [(False, False)]:
+        raise RuntimeError(f"recorded steps: TF32 in backward {flags}")
+    del b1
+    b2 = _tree_batches(r2, h2, w2, STAGE2["batch"], 3, cloth="paired")
+    for fused in (False, True):
+        if fused is False and mesh is not None:
+            continue
+        key = "stage 2 --fused_block" if fused else "stage 2"
+        figs[key] = _steps_in_turns(
+            card, f"recorded steps: {key} (SPADE ngf=64 'most' {h2}x{w2}, "
+            f"batch {STAGE2['batch']}, bf16, the CLI's defaults{where})",
+            _stage2_build(vgg, fused, mesh), b2, pairs,
+            expect=({"spade_unit": UNITS_PER_FUSED_STEP,
+                     "instance_stats": UNITS_PER_FUSED_STEP}
+                    if fused else None))
+    return figs
 
 
 # phase 10: data parallel through the multi-host flags (one NCCL rank), the
@@ -2159,37 +2717,63 @@ def _mask_block_check(card):
             out["cpu"], torch.float32)
 
 
+def _lpips_build(batches):
+    """LPIPSHeadTrainer (alex) stepped on ``batches``; the learning rate
+    decays once, before the sixth step (update_learning_rate)."""
+    from hrviton_tpu_torch.losses import lpips_train as lt
+
+    def build():
+        trainer = lt.LPIPSHeadTrainer(net=LPIPS_TRAIN["net"], lr=1e-4,
+                                      device="cuda")
+        nets = torch.nn.ModuleDict({"model": trainer.model,
+                                    "rank": trainer.rank})
+
+        def step(b):
+            if trainer.opt.count == 5:
+                trainer.update_learning_rate(10)
+            # f32 values read back as Python floats: exact
+            return {k: torch.tensor(v, dtype=torch.float64)
+                    for k, v in zip(("loss", "acc"), trainer.train_step(*b))}
+        return dict(step=step, tensors=lambda: _named_state(
+                        ("lpips", nets, trainer.opt)),
+                    gens=[trainer.dropout], counts=lambda: (trainer.opt.count,),
+                    capt=lt._step, heads=trainer.heads)
+    return build
+
+
 def _lpips_head_training(card):
-    """Part (c): LPIPSHeadTrainer steps on the card."""
-    from hrviton_tpu_torch.cli.common import StepEvents
-    from hrviton_tpu_torch.losses.lpips_train import LPIPSHeadTrainer
+    """Part (c): LPIPSHeadTrainer steps on the card, eager against
+    replayed in turns (the learning rate decayed once in between), then
+    replayed steps of a new trainer: every lin kernel >= 0 after each."""
     cfg = LPIPS_TRAIN
-    trainer = LPIPSHeadTrainer(net=cfg["net"], lr=1e-4, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(22)
     shape = (cfg["batch"], cfg["hw"], cfg["hw"], 3)
-    events, losses, accs = StepEvents("cuda"), [], []
-    for step in range(cfg["steps"]):
+    batches = []
+    for _ in range(cfg["steps"]):
         ref = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
         p0 = (ref + 0.05 * torch.randn(shape, generator=gen, device="cuda")
               ).clamp(-1, 1)
         p1 = (ref + 0.5 * torch.randn(shape, generator=gen, device="cuda")
               ).clamp(-1, 1)
         judge = torch.rand(cfg["batch"], generator=gen, device="cuda")
-        events.start()
-        loss, acc = trainer.train_step(ref, p0, p1, judge)
-        events.stop()
-        low = min(float(h.weight.detach().min()) for h in trainer.heads)
-        if not (low >= 0.0 and loss == loss and abs(loss) < float("inf")):
-            raise RuntimeError(f"LPIPS head training: step {step + 1} loss "
-                               f"{loss}, smallest head weight {low}")
-        losses.append(loss)
-        accs.append(acc)
-    ms = events.ms()
-    log(f"LPIPS head training ({cfg['net']}, {cfg['hw']}x{cfg['hw']}, batch "
-        f"{cfg['batch']}, {cfg['steps']} steps on the card): losses "
-        f"{' '.join(f'{v:.5g}' for v in losses)}, acc {accs[-1]:.3f}, every "
-        f"lin kernel >= 0 after each step; ms/step by CUDA events after the "
-        f"first: {_spread(ms[1:])} | {card}")
+        batches.append((ref, p0, p1, judge))
+    build = _lpips_build(batches)
+    fig = _steps_in_turns(
+        card, f"LPIPS head training ({cfg['net']}, {cfg['hw']}x{cfg['hw']}, "
+        f"batch {cfg['batch']})", build, batches, pairs=cfg["steps"] + 1)
+    run = build()
+    losses, lows = [], []
+    for b in batches:
+        losses.append(float(run["step"](b)["loss"]))
+        lows.append(min(float(h.weight.detach().min()) for h in run["heads"]))
+    if not (min(lows) >= 0.0 and
+            all(v == v and abs(v) < float("inf") for v in losses)):
+        raise RuntimeError(f"LPIPS head training: losses {losses}, smallest "
+                           f"head weight after each step {lows}")
+    log(f"LPIPS head training: losses {' '.join(f'{v:.5g}' for v in losses)}, "
+        f"every lin kernel >= 0 after each step; ms/step eager "
+        f"{fig['eager']:.3f}, replayed {fig['replay']:.3f} | {card}")
+    return fig
 
 
 def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
@@ -2198,6 +2782,7 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
     import torch.distributed as dist
     from hrviton_tpu_torch.cli import train_condition as t1
     from hrviton_tpu_torch.cli import train_generator as t2
+    from hrviton_tpu_torch.core import mesh as mesh_lib
     from hrviton_tpu_torch.train import condition_trainer, generator_trainer
     from hrviton_tpu_torch.train.checkpoint import load_pytree
 
@@ -2309,6 +2894,15 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
 
         # (c) LPIPS head training
         _lpips_head_training(card)
+        torch.cuda.empty_cache()
+
+        # (d) the recorded steps through one NCCL rank, against eager
+        dev = mesh_lib.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                        "cuda")
+        try:
+            recorded_steps(card, r1, r2, mesh_lib.make_mesh(dev))
+        finally:
+            mesh_lib.shutdown_distributed()
     torch.cuda.empty_cache()
     return {"spade_unit": got["spade_unit"],
             "instance_stats": got["instance_stats"]}
@@ -2876,16 +3470,23 @@ def _graph_case(card, tag, call, inputs, capts, reload, main, expect=None):
     return fig
 
 
-def _pool_mib(capts):
+def _pool_sizes(capts):
     """MiB of the device memory segments of the captured functions' private
-    pools (torch.cuda.memory_snapshot), or None where the snapshot does not
-    name a segment's pool."""
+    pools and MiB allocated in them (torch.cuda.memory_snapshot), or None
+    where the snapshot does not name a segment's pool."""
     pools = {tuple(c.pool) for c in capts if c.pool is not None}
     segs = torch.cuda.memory_snapshot()
     if not segs or "segment_pool_id" not in segs[0]:
         return None
-    return sum(sg["total_size"] for sg in segs
-               if tuple(sg["segment_pool_id"]) in pools) / 2 ** 20
+    mine = [sg for sg in segs if tuple(sg["segment_pool_id"]) in pools]
+    return (sum(sg["total_size"] for sg in mine) / 2 ** 20,
+            sum(sg["allocated_size"] for sg in mine) / 2 ** 20)
+
+
+def _pool_mib(capts):
+    """MiB of the captured functions' private pools, or None (_pool_sizes)."""
+    sizes = _pool_sizes(capts)
+    return None if sizes is None else sizes[0]
 
 
 def _reseed(*modules, seed):
@@ -3087,6 +3688,25 @@ def main():
         captured_phase(card)
         _contract_line()
         return
+    if sys.argv[1:] == ["--steps"]:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_steps_")
+        try:
+            r1, r2 = training_trees(tmp)
+            with _as_a_user_runs():
+                recorded_steps(card, r1, r2)
+                _loader_time(card, r2)
+                _lpips_head_training(card)
+                from hrviton_tpu_torch.core import mesh as mesh_lib
+                dev = mesh_lib.init_distributed(
+                    f"127.0.0.1:{_free_port()}", 1, 0, "cuda")
+                try:
+                    recorded_steps(card, r1, r2, mesh_lib.make_mesh(dev))
+                finally:
+                    mesh_lib.shutdown_distributed()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        _contract_line()
+        return
     if sys.argv[1:] == ["--alone"]:
         log(card)
         alone_phase()
@@ -3117,6 +3737,7 @@ def main():
     launches.update(tool_launches)
     torch.cuda.empty_cache()
     rejection_phase(card)
+    _free()                 # the graphs of phases 4-8 with their objects
     # phase 9's and phase 10's --fused_block steps are main paths of the
     # unit and the statistics: their launches join those rows
     tmp = tempfile.mkdtemp(prefix="chip_smoke_training_")

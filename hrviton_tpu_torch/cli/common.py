@@ -18,7 +18,9 @@ import torch.nn as nn
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig, DataConfig,
                                       TOCGConfig)
 from hrviton_tpu_torch.convert import load_jax_variables
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core.mesh import Mesh, init_distributed, make_mesh
+from hrviton_tpu_torch.data.device import expand_compact, to_device
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.models.condition import ConditionGenerator
 from hrviton_tpu_torch.models.discriminators import CondMultiscaleDiscriminator
@@ -33,7 +35,8 @@ __all__ = ["add_data_flags", "add_tocg_flags", "add_spade_flags",
            "load_tocg_variables", "load_gen_variables", "load_d_variables",
            "data_cfg_from_args", "check_pretrained_backbone", "build_tocg",
            "build_cond_discriminator", "condition_inputs",
-           "add_multihost_flags", "start_mesh", "batch_to_device",
+           "add_multihost_flags", "start_mesh", "expandable_segments",
+           "batch_to_device", "expand",
            "StepEvents"]
 
 
@@ -245,14 +248,34 @@ def start_mesh(opt) -> Mesh:
     return make_mesh(dev if dev is not None else resolve_device(opt.device))
 
 
+def expandable_segments(device) -> None:
+    """On a CUDA device, the caching allocator's expandable segments for the
+    rest of the process, unless ``PYTORCH_CUDA_ALLOC_CONF`` names them. A
+    recorded step's private pool then holds what the step allocates at its
+    peak; with fixed segments it holds the segments of the step's first
+    allocations, for stage 1 half as much again (PERF.md, section 5)."""
+    if torch.device(device).type != "cuda" or \
+            "expandable_segments" in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", ""):
+        return
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
+@graphs.captured
+def expand(batch: Mapping, semantic_nc: int = 13) -> dict:
+    """``data/device.expand_compact`` of a batch on the device: the JAX
+    training CLIs' jitted ``expand``, one graph per batch signature on the
+    card."""
+    return expand_compact(batch, semantic_nc=semantic_nc)
+
+
 def batch_to_device(batch: Mapping, device, compact: bool,
                     semantic_nc: int = 13) -> dict:
-    """A loader batch without its name lists, as tensors on ``device``, the
-    compact format expanded there (``data/device.py``)."""
-    from hrviton_tpu_torch.data.device import expand_compact, to_device
+    """A loader batch without its name lists, as tensors on ``device`` (the
+    host's copy, outside any graph), the compact format expanded there
+    (``expand``)."""
     batch = {k: v for k, v in batch.items() if k not in ("im_name", "c_name")}
     batch = to_device(batch, device)
-    return expand_compact(batch, semantic_nc=semantic_nc) if compact else batch
+    return expand(batch, semantic_nc) if compact else batch
 
 
 class StepEvents:

@@ -7,7 +7,10 @@ same flags and defaults, plus ``--device`` (default ``cuda``)::
 
 Runs ``ConditionTrainer.train_step``, with in-train IoU validation every
 --val_count steps, TensorBoard panels every --tensorboard_count and
-checkpoints every --save_count, written as the JAX CLI writes them
+checkpoints every --save_count; on the card the step, ``eval_iou``,
+``visualize`` and the batches' ``expand`` replay CUDA graphs recorded once
+per signature (``core/graphs.py``), as the JAX CLI jits them, and no flag
+turns that off. Checkpoints are written as the JAX CLI writes them
 (``tocg_*.ckpt``, ``D_*.ckpt``: the JAX variable trees in its msgpack
 format, readable by both packages' test_condition).
 
@@ -38,6 +41,7 @@ from hrviton_tpu_torch.cli.common import (StepEvents, add_data_flags,
                                           batch_to_device,
                                           check_pretrained_backbone,
                                           data_cfg_from_args,
+                                          expandable_segments,
                                           load_tocg_variables, start_mesh)
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
                                       ConditionTrainConfig, TOCGConfig)
@@ -135,6 +139,7 @@ def main(argv=None):
                               allowed=opt.allow_random_vgg,
                               allow_flag="--allow_random_vgg")
     mesh = start_mesh(opt)
+    expandable_segments(mesh.device)
     try:
         return _train(opt, mesh)
     finally:

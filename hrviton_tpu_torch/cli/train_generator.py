@@ -14,7 +14,11 @@ multiscale discriminator with TTUR and the linear decay
 checkpoints as the JAX CLI writes them (``gen_*.ckpt``, ``dis_*.ckpt``).
 The training defaults hold: the fused unit off (``--fused_block`` turns it
 on), remat and D remat on (``--no_remat``, ``--no_d_remat``), the taps
-weight gradient on (``--no_taps_wgrad``). The SPADE noise of the steps,
+weight gradient on (``--no_taps_wgrad``). On the card the step, the
+LPIPS validation's ``generate`` and ``lpips_resize``, the grids'
+``generate_debug`` and the batches' ``expand`` replay CUDA graphs recorded
+once per signature (``core/graphs.py``), as the JAX CLI jits them; no flag
+turns that off. The SPADE noise of the steps,
 of the LPIPS validation and of the grids comes from three generators
 seeded from --seed, so the training's draws do not depend on the
 validation's cadence.
@@ -47,11 +51,13 @@ from hrviton_tpu_torch.cli.common import (StepEvents, add_data_flags,
                                           batch_to_device,
                                           check_pretrained_backbone,
                                           data_cfg_from_args,
+                                          expandable_segments,
                                           load_gen_variables,
                                           load_tocg_variables, start_mesh)
 from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
                                       SPADEDiscriminatorConfig, SPADEGenConfig,
                                       TOCGConfig)
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.losses.lpips import make_lpips
 from hrviton_tpu_torch.losses.perceptual import make_vgg_loss
@@ -63,7 +69,7 @@ from hrviton_tpu_torch.train.generator_trainer import GeneratorTrainer
 from hrviton_tpu_torch.utils.logging import Board
 from hrviton_tpu_torch.utils.vis import make_image_grid, visualize_segmap
 
-__all__ = ["get_opt", "main"]
+__all__ = ["get_opt", "main", "lpips_resize"]
 
 
 def get_opt(argv=None):
@@ -164,6 +170,19 @@ def _grid_panels(tb, out, warped, fpg, i):
     ]
 
 
+@torch.inference_mode()
+def lpips_resize(lpips, a, b):
+    """LPIPS of two NHWC batches resized bilinearly to 128x128 (the JAX
+    CLI's jitted ``lpips_resize``); one graph per signature on the card."""
+    return _lpips_resize(lpips, a, b)
+
+
+@graphs.captured(weights=lambda lpips, *_: graphs.module_tensors(lpips.model))
+def _lpips_resize(lpips, a, b):
+    return lpips(interpolate(a.float(), (128, 128), mode="bilinear"),
+                 interpolate(b.float(), (128, 128), mode="bilinear"))
+
+
 def main(argv=None):
     opt = get_opt(argv)
     print(opt)
@@ -175,6 +194,7 @@ def main(argv=None):
                                   allowed=opt.allow_random_vgg,
                                   allow_flag="--allow_random_vgg")
     mesh = start_mesh(opt)
+    expandable_segments(mesh.device)
     try:
         return _train(opt, mesh)
     finally:
@@ -291,10 +311,6 @@ def _train(opt, mesh):
         raw["cloth_mask"] = raw["cloth_mask"][cloth]
         return batch_to_device(raw, dev, expand, opt.semantic_nc)
 
-    def lpips_resize(a, b):
-        return lpips(interpolate(a.float(), (128, 128), mode="bilinear"),
-                     interpolate(b.float(), (128, 128), mode="bilinear"))
-
     t0 = time.time()
     try:
         for step in range(opt.load_step, opt.keep_step + opt.decay_step):
@@ -330,7 +346,8 @@ def _train(opt, mesh):
                     tb = mesh_lib.shard_eval_batch(
                         mesh, put(test_loader.next_batch(), expand=False))
                     out = trainer.generate(state, tb, eval_noise, tocg)
-                    dists.append(float(lpips_resize(tb["image"], out).mean()))
+                    dists.append(float(
+                        lpips_resize(lpips, tb["image"], out).mean()))
                 dist_mean = mesh_lib.all_mean(np.mean(dists), mesh)
                 board.scalar("test/LPIPS", dist_mean, step + 1)
                 record["lpips"].append(dist_mean)

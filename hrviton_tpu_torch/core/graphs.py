@@ -1,13 +1,16 @@
-"""Capture cache: the port's counterpart of ``jax.jit`` for its inference
-entry points.
+"""Capture cache: the port's counterpart of ``jax.jit`` for its entry
+points, inference and training.
 
-The JAX package runs each inference entry point as one compiled program per
-input signature (``pipelines/tryon.py``, the CLIs' ``run_impl``s,
-evaluate's LPIPS and Inception). ``captured(fn)`` gives a function the same
-on the card: the first call with a new signature records ``fn`` once as a
-``torch.cuda.CUDAGraph`` and every later call with that signature replays
-it. On the CPU, and inside ``disabled()`` (the counterpart of
-``jax.disable_jit``), it is the plain call.
+The JAX package runs each entry point as one compiled program per input
+signature (``pipelines/tryon.py``, the CLIs' ``run_impl``s, evaluate's LPIPS
+and Inception; the trainers' steps, eval calls and ``expand``s).
+``captured(fn)`` gives a function the same on the card: the first call with
+a new signature records ``fn`` once as a ``torch.cuda.CUDAGraph`` and every
+later call with that signature replays it. On the CPU, and inside
+``disabled()`` (the counterpart of ``jax.disable_jit``), it is the plain
+call. A captured function called inside another's warm-up or recording is
+its plain call, recorded into the other's graph (a jitted function called
+inside a jit is inlined).
 
 - **Signature** (``jit``'s cache key, with its static arguments): the
   shapes, dtypes and devices of the tensor leaves of the arguments
@@ -25,10 +28,10 @@ it. On the CPU, and inside ``disabled()`` (the counterpart of
   one (``ops/conv_engine.packed``).
 - **Capture**: the arguments are copied into static buffers; one eager call
   on the capture stream warms up (it builds the kernels, fills the packing
-  cache, lets cuDNN choose its algorithms, sets the kernels' attributes);
-  then the call is recorded. Everything the graph reads that it did not
-  allocate is held with it (``hold``). A capture that fails raises: there is
-  no eager substitute on the card.
+  cache, lets cuDNN choose its algorithms, sets the kernels' attributes,
+  creates NCCL's communicators); then the call is recorded. Everything the
+  graph reads that it did not allocate is held with it (``hold``). A
+  capture that fails raises: there is no eager substitute on the card.
 - **Replay**: the arguments are copied into the static buffers, the graph
   runs, and the outputs are cloned out (a jitted function's results are
   fresh arrays, a replay overwrites its static outputs). The kernels'
@@ -36,8 +39,51 @@ it. On the CPU, and inside ``disabled()`` (the counterpart of
   the call launched when it was recorded, so a request counts the same
   eager and replayed; the warm-up and the recording count once, as the
   first call.
-- **Memory**: the graphs of one ``Captured`` share one private pool (a
-  failed capture leaves it to its graphs; the next capture takes a new one).
+- **Memory**: the graphs of one ``Captured`` share one private pool, or
+  those of several given one ``Pool`` (a trainer's step and eval calls: a
+  recording takes what the others leave free between their runs). A failed
+  capture leaves the pool to its graphs, and so does one whose graphs all
+  died; the next capture takes a new one. A pool keeps the segments its
+  recordings allocated: with the allocator's fixed segments, as much as one
+  eager call's cache grows by from an emptied cache, well above the call's
+  peak (eagerly the allocator gives the rest back when an allocation
+  fails); with expandable segments, about the peak.
+
+**Steps** (``donated``: the counterpart of ``donate_argnums``). A training
+step advances state in place: ``donated(*args)`` names it, the tensors (the
+parameters, Adam's moments and step counts, BatchNorm's running statistics,
+the spectral u/v) and the ``torch.Generator``s it draws from. Each call
+takes exactly one step, the first too: the state is copied before the
+warm-up and put back after it, and the new graph is then replayed once.
+(The other way, the warm-up's own step kept and the recording left out,
+would return the first call's results from another program than every later
+call's and leave what the body assigns on the host, the parameters'
+``.grad``, pointing at the graph's buffers before any replay has written
+them.) The donated tensors and the weights are watched together, and their
+signature is taken after each call: what the step wrote is the graph's own,
+a replay moves no version counter, and a write from outside (a checkpoint
+loaded in place, ``cast_floating``'s ``.data``, a caller's ``clamp_``)
+records anew. Python counters (``state.step``, ``Adam.count``) and host
+reads stay out of the body: the caller moves them around the call, once.
+A donated CUDA generator is registered with the graph
+(``CUDAGraph.register_generator_state``), so each replay draws at its
+offset and advances it as an eager call does; the default generator is the
+capture's own (its state is put back after the warm-up too); noise the
+caller can draw before the call (the SPADE fields) comes in as arguments.
+
+On the card (torch 2.11, CUDA 12.8, NCCL 2.28.9; tests/test_torch_cuda.py
+and ``chip_smoke.py``): a step that takes its gradients with
+``torch.autograd.grad`` and recomputes blocks under
+``torch.utils.checkpoint`` (``preserve_rng_state=False``) records under
+each of the three ``capture_error_mode``s. The autograd engine runs
+backward on its own device thread, on the capture stream (the stream of the
+forward), and the allocator routes that thread's allocations to the pool;
+``thread_local`` is kept, so that only the recording thread's own unsafe
+calls (a sync, a pageable copy) fail it, not a loader thread's. NCCL
+collectives inside a step (``core/mesh.average_grads``, ``mean_metrics``,
+BatchNorm's global moments) record as nodes of the graph with no setting
+changed: the warm-up creates the communicator, and torch does not hand work
+enqueued during a capture to its watchdog.
 """
 
 from __future__ import annotations
@@ -50,13 +96,16 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["captured", "Captured", "disabled", "enabled", "register_counters",
-           "register_state", "hold", "module_tensors", "constant"]
+__all__ = ["captured", "Captured", "Pool", "disabled", "enabled",
+           "register_counters", "register_state", "hold", "module_tensors",
+           "constant"]
 
 _OFF = 0                 # depth of disabled() blocks
 _COUNTERS: List[Any] = []          # wrappers with a ``launches`` count
 _STATES: List[Callable[[], Any]] = []   # readers of module-level switches
 _HOLD: Optional[list] = None       # what the graph being recorded reads
+_TRACING = 0             # depth of warm-ups and recordings under way
+CAPTURE_ERROR_MODE = "thread_local"
 _CONSTANTS: Dict[Any, torch.Tensor] = {}
 
 
@@ -189,11 +238,12 @@ class _Entry:
     increase per call, what it holds, its weights' signature."""
 
     def __init__(self, graph, inputs, out_spec, outputs, out_objects, counts,
-                 held, weights_sig, seconds):
+                 held, seconds):
         self.graph, self.inputs = graph, inputs
         self.out_spec, self.outputs = out_spec, outputs
         self.out_objects = out_objects
-        self.counts, self.held, self.weights_sig = counts, held, weights_sig
+        self.counts, self.held = counts, held
+        self.weights_sig = None         # set by the call that records it
         self.seconds = seconds          # warm-up and recording
         self.replays = 0
 
@@ -207,26 +257,62 @@ def _set_counts(values: List[int]) -> None:
         c.launches = v
 
 
+class Pool:
+    """A private memory pool for the graphs of several captured functions
+    (module docstring, "Memory"), with the side stream they are warmed up
+    and recorded on (the allocator reuses a freed block on its own stream
+    only). They run one at a time, and each keeps in the pool only its
+    static outputs, which a replay clones out: what a graph writes and a
+    caller reads later (a step's gradients) lives outside (``hold``)."""
+
+    def __init__(self):
+        self.handle = None
+        self.stream = None
+        self.users: List["Captured"] = []
+
+    def in_use(self) -> bool:
+        """Whether a graph of the pool is cached."""
+        return any(c.entries for c in self.users)
+
+
 class Captured:
     """``fn`` recorded once per signature and replayed on a CUDA device
     (module docstring); the plain call on the CPU and under ``disabled()``.
     ``weights(*args, **kwargs)``: the tensors ``fn`` reads besides its
     arguments; ``context(*args, **kwargs)``: hashable state of identity
-    arguments that changes what ``fn`` does."""
+    arguments that changes what ``fn`` does; ``donated(*args, **kwargs)``:
+    the state ``fn`` advances in place (tensors and ``torch.Generator``s),
+    which makes each call one step (module docstring, "Steps"); ``pool``: a
+    ``Pool`` shared with other captured functions (else one of its own)."""
 
     device_type = "cuda"    # the device whose calls are recorded
 
     def __init__(self, fn: Callable, weights: Optional[Callable] = None,
-                 context: Optional[Callable] = None):
+                 context: Optional[Callable] = None,
+                 donated: Optional[Callable] = None,
+                 pool: Optional[Pool] = None):
         self.fn, self.weights, self.context = fn, weights, context
+        self.donated = donated
         self.entries: Dict[Any, _Entry] = {}
         self.captures = 0
-        self.last_entry: Optional[_Entry] = None   # the entry of the last replay
-        self.pool = None                # the graphs' private memory pool
-        self._stream = None
+        self._last = None               # the entry of the last replay, weakly
+        self._pool = Pool() if pool is None else pool
+        self._pool.users.append(self)
         self._watched: Dict[int, Any] = {}
         self.__name__ = getattr(fn, "__name__", "captured")
         self.__doc__ = getattr(fn, "__doc__", None)
+
+    @property
+    def pool(self):
+        """The handle of the graphs' private memory pool (None before a
+        recording)."""
+        return self._pool.handle
+
+    @property
+    def last_entry(self) -> Optional[_Entry]:
+        """The entry of the last replay while it is cached (a dropped entry's
+        graph and pool memory are not held here)."""
+        return None if self._last is None else self._last()
 
     # -- signature
 
@@ -239,6 +325,17 @@ class Captured:
                _global_state(),
                None if self.context is None else self.context(*args, **kwargs))
         return key, leaves, objects, dev
+
+    def _weights_sig(self, args, kwargs):
+        """The signature of what the graphs read in place: the weights and
+        the donated tensors."""
+        tensors: list = []
+        if self.weights is not None:
+            tensors.extend(self.weights(*args, **kwargs))
+        if self.donated is not None:
+            tensors.extend(t for t in self.donated(*args, **kwargs)
+                           if isinstance(t, torch.Tensor))
+        return _weights_signature(tensors)
 
     def _watch(self, objects) -> None:
         """Drop the entries of an identity argument when it dies (its id
@@ -259,80 +356,126 @@ class Captured:
     # -- calls
 
     def __call__(self, *args, **kwargs):
-        if not enabled():
+        if not enabled() or _TRACING:
             return self.fn(*args, **kwargs)
         key, leaves, objects, dev = self._signature(args, kwargs)
         if dev is None or dev.type != self.device_type:
             return self.fn(*args, **kwargs)
-        wsig = (None if self.weights is None
-                else _weights_signature(self.weights(*args, **kwargs)))
+        wsig = self._weights_sig(args, kwargs)
         entry = self.entries.get(key)
-        if entry is None or entry.weights_sig != wsig:
-            self.entries.pop(key, None)
+        fresh = entry is None or entry.weights_sig != wsig
+        if fresh:
+            # the graph being replaced lives until the new one is recorded:
+            # its pool is then still in use, and the new graph takes the
+            # memory of its temporaries (a pool whose graphs have all died
+            # cannot take another: the next capture starts a new pool)
+            old = self.entries.pop(key, None)
+            if old is None and not self._pool.in_use():
+                self._pool.handle = None
             self._watch(objects)
             entry = self.entries[key] = self._capture(
-                key[0], leaves, objects, dev, wsig)
-        self.last_entry = entry
-        return self._replay(entry, leaves)
+                key[0], leaves, objects, dev)
+            del old
+        self._last = weakref.ref(entry)
+        out = self._replay(entry, leaves)
+        if fresh or self.donated is not None:
+            # the signature after the call: what the call itself wrote (the
+            # warm-up, the restore and the recording move version counters;
+            # a replay moves none) is the graph's own, and only a write from
+            # outside records anew
+            entry.weights_sig = self._weights_sig(args, kwargs)
+        return out
 
-    def _capture(self, spec, leaves, objects, dev, wsig) -> _Entry:
-        global _HOLD
+    def _capture(self, spec, leaves, objects, dev) -> _Entry:
+        global _TRACING
         t0 = time.perf_counter()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(dev)
         inputs = [torch.empty_like(t) for t in leaves]
         for s, t in zip(inputs, leaves):
             s.copy_(t)
         s_args, s_kwargs = _unflatten(spec, iter(inputs),
                                       {id(o): o for o in objects})
+        state = ([] if self.donated is None
+                 else list(self.donated(*s_args, **s_kwargs)))
+        gens = [g for g in state if isinstance(g, torch.Generator)]
+        if self.donated is not None and dev.type == "cuda":
+            # a draw from the default generator moves it too
+            gens.append(torch.cuda.default_generators[dev.index or 0])
+        tensors = [t for t in state if isinstance(t, torch.Tensor)]
         before = _counts()
-        held: list = []
-        # the cudaGraph_t is kept after capture, so that the graph can be
-        # dumped (debug_dump) and its nodes counted
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        stream = self._stream
+        _TRACING += 1
         try:
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self.fn(*s_args, **s_kwargs)              # warm-up
-            stream.synchronize()
+            saved = _snapshot(tensors, gens)
+            self._warm_up(s_args, s_kwargs, dev)
             warm = _counts()
-            _HOLD = held
-            # the outer stream block restores the caller's stream even when
-            # a failed capture leaves torch.cuda.graph's own block open
-            try:
-                with torch.cuda.stream(stream), torch.cuda.graph(
-                        graph, pool=self.pool, stream=stream,
-                        capture_error_mode="thread_local"):
-                    out = self.fn(*s_args, **s_kwargs)
-            except BaseException:
-                self._abandon_pool(dev)
-                raise
-            finally:
-                _HOLD = None
-            graph.instantiate()
+            # the warm-up's step undone: the call's step is the replay's
+            _restore(tensors, gens, saved)
+            del saved
+            graph, out, held = self._record(s_args, s_kwargs, dev, gens)
             recorded = [a - b for a, b in zip(_counts(), warm)]
         finally:
+            _TRACING -= 1
             _set_counts(before)
-        torch.cuda.current_stream(dev).wait_stream(stream)
         outputs: list = []
         out_objects: list = []
         out_spec = _flatten(out, outputs, out_objects)
         self.captures += 1
         return _Entry(graph, inputs, out_spec, outputs,
-                      {id(o): o for o in out_objects}, recorded, held, wsig,
+                      {id(o): o for o in out_objects}, recorded, held,
                       time.perf_counter() - t0)
+
+    def _warm_up(self, s_args, s_kwargs, dev) -> None:
+        """One eager call on the capture stream (it builds the kernels, fills
+        the packing cache, lets cuDNN choose its algorithms, sets the
+        kernels' attributes, joins NCCL's communicators)."""
+        pool = self._pool
+        if pool.handle is None:
+            pool.handle = torch.cuda.graph_pool_handle()
+        if pool.stream is None or pool.stream.device != dev:
+            pool.stream = torch.cuda.Stream(dev)
+        stream = pool.stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.fn(*s_args, **s_kwargs)
+        stream.synchronize()
+
+    def _record(self, s_args, s_kwargs, dev, gens):
+        """``fn`` recorded into a graph of this entry point's pool: (graph,
+        its outputs, what it holds)."""
+        global _HOLD
+        held: list = []
+        # the cudaGraph_t is kept after capture, so that the graph can be
+        # dumped (debug_dump) and its nodes counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for g in gens:
+            _register(graph, g)
+        stream = self._pool.stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        _HOLD = held
+        # the outer stream block restores the caller's stream even when a
+        # failed capture leaves torch.cuda.graph's own block open
+        try:
+            with torch.cuda.stream(stream), torch.cuda.graph(
+                    graph, pool=self._pool.handle, stream=stream,
+                    capture_error_mode=CAPTURE_ERROR_MODE):
+                out = self.fn(*s_args, **s_kwargs)
+        except BaseException:
+            self._abandon_pool(dev)
+            raise
+        finally:
+            _HOLD = None
+        graph.instantiate()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return graph, out, held
 
     def _abandon_pool(self, dev) -> None:
         """After a failed capture: the allocator stops routing to the pool
         (torch's capture_end raises before it would), and later captures
         take a new pool."""
         try:
-            torch._C._cuda_endAllocateToPool(dev.index, self.pool)
+            torch._C._cuda_endAllocateToPool(dev.index, self._pool.handle)
         except RuntimeError:
             pass
-        self.pool = None
+        self._pool.handle = None
 
     def _replay(self, entry: _Entry, leaves):
         for s, t in zip(entry.inputs, leaves):
@@ -349,6 +492,34 @@ class Captured:
                           entry.out_objects)
 
 
+def _snapshot(tensors, gens):
+    """Copies of the donated tensors and the generators' states."""
+    with torch.no_grad():
+        return [t.detach().clone() for t in tensors], [g.get_state() for g in gens]
+
+
+def _restore(tensors, gens, saved) -> None:
+    with torch.no_grad():
+        for t, s in zip(tensors, saved[0]):
+            t.copy_(s)
+    for g, s in zip(gens, saved[1]):
+        g.set_state(s)
+
+
+def _register(graph, generator) -> None:
+    """Let ``graph`` draw from ``generator`` (the default CUDA generator is
+    the capture's own): each replay then draws at the generator's offset
+    and advances it, as an eager call does."""
+    if generator.device.type != "cuda" or \
+            generator is torch.cuda.default_generators[generator.device.index or 0]:
+        return
+    register = getattr(graph, "register_generator_state", None)
+    if register is None:
+        raise RuntimeError("this torch cannot record a draw from a generator "
+                           "of the caller's (CUDAGraph.register_generator_state)")
+    register(generator)
+
+
 def _mentions(spec, oid: int) -> bool:
     if isinstance(spec, _Static):
         return spec.ref and spec.value == oid
@@ -359,9 +530,10 @@ def _mentions(spec, oid: int) -> bool:
 
 
 def captured(fn: Optional[Callable] = None, *, weights: Optional[Callable] = None,
-             context: Optional[Callable] = None):
-    """``Captured(fn, weights, context)``; usable as a decorator with or
-    without keyword arguments."""
+             context: Optional[Callable] = None,
+             donated: Optional[Callable] = None, pool: Optional[Pool] = None):
+    """``Captured(fn, weights, context, donated, pool)``; usable as a
+    decorator with or without keyword arguments."""
     if fn is None:
-        return lambda f: Captured(f, weights, context)
-    return Captured(fn, weights, context)
+        return lambda f: Captured(f, weights, context, donated, pool)
+    return Captured(fn, weights, context, donated, pool)

@@ -19,7 +19,11 @@ path, eval_models/dist_model.py:115-210 and networks_basic.py:114-141):
     (dist_model.py:200-208).
 
 Inputs are NHWC in [-1, 1]; judge is the preference fraction in [0, 1] (0:
-p0 preferred). The step runs in f32 with TF32 off.
+p0 preferred). The step runs in f32 with TF32 off. On the card it replays a
+CUDA graph recorded once per batch signature (``core/graphs.py``; the JAX
+step's jit with its state donated): the graph advances the heads, the rank
+net, Adam's state and the dropout generator in place, once a call; the
+inputs' copies to the card and the two numbers read back are outside it.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from hrviton_tpu_torch.convert import export_jax_variables, load_jax_variables
-from hrviton_tpu_torch.core import precision
+from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.device import resolve_device
 from hrviton_tpu_torch.losses.lpips import LPIPSModel
 from hrviton_tpu_torch.nn.layers import Conv2d, activation, init_weights
@@ -75,6 +79,32 @@ def bce_ranking_loss(logit, per, eps: float = 1e-12):
     return -torch.mean(per * logl + (1.0 - per) * log1)
 
 
+def _train_step(trainer: "LPIPSHeadTrainer", ref, p0, p1, judge):
+    """The recorded step: (loss, acc) as 0-d tensors."""
+    with precision.no_tf32():
+        d0 = trainer.model(ref, p0, train=True, generator=trainer.dropout)
+        d1 = trainer.model(ref, p1, train=True, generator=trainer.dropout)
+        loss = bce_ranking_loss(trainer.rank(d0, d1), judge)
+        grads = torch.autograd.grad(loss, trainer.params)
+        for p, gr in zip(trainer.params, grads):
+            p.grad = gr
+        trainer.opt.update()
+    with torch.no_grad():
+        # clamp_weights (dist_model.py:127-131): the lin heads' 1x1
+        # kernels, not the rank net's, floor at 0
+        for h in trainer.heads:
+            h.weight.clamp_(min=0.0)
+        d1_lt_d0 = (d1 < d0).float()
+        acc = torch.mean(d1_lt_d0 * judge + (1.0 - d1_lt_d0) * (1.0 - judge))
+    return loss.detach(), acc
+
+
+_step = graphs.captured(
+    _train_step,
+    donated=lambda trainer, *_: graphs.module_tensors(trainer.model, trainer.rank)
+    + trainer.opt.state_tensors() + [trainer.dropout])
+
+
 class LPIPSHeadTrainer:
     """Trains the net-lin calibration on 2AFC triplets (ref, p0, p1,
     judge). ``variables``: an LPIPS variable tree (the JAX layout) to start
@@ -110,29 +140,16 @@ class LPIPSHeadTrainer:
 
     def train_step(self, ref, p0, p1, judge) -> Tuple[float, float]:
         """One optimize_parameters() step; returns (loss, acc)."""
-        ref, p0, p1, judge = map(self._as_tensor, (ref, p0, p1, judge))
-        with precision.no_tf32():
-            d0 = self.model(ref, p0, train=True, generator=self.dropout)
-            d1 = self.model(ref, p1, train=True, generator=self.dropout)
-            loss = bce_ranking_loss(self.rank(d0, d1), judge)
-            grads = torch.autograd.grad(loss, self.params)
-            for p, gr in zip(self.params, grads):
-                p.grad = gr
-            self.opt.step()
-        with torch.no_grad():
-            # clamp_weights (dist_model.py:127-131): the lin heads' 1x1
-            # kernels, not the rank net's, floor at 0
-            for h in self.heads:
-                h.weight.clamp_(min=0.0)
-            d1_lt_d0 = (d1 < d0).float()
-            acc = torch.mean(d1_lt_d0 * judge + (1.0 - d1_lt_d0) * (1.0 - judge))
-        return float(loss.detach()), float(acc)
+        args = map(self._as_tensor, (ref, p0, p1, judge))
+        self.opt.prepare()
+        loss, acc = _step(self, *args)
+        self.opt.advance()
+        return float(loss), float(acc)
 
     def update_learning_rate(self, nepoch_decay: int) -> float:
         """dist_model.py:200-208: the linear decay old_lr - lr / nepoch_decay."""
         self.old_lr = self.old_lr - self.lr / nepoch_decay
-        for group in self.opt.opt.param_groups:
-            group["lr"] = self.old_lr
+        self.opt.set_lr(self.old_lr)
         return self.old_lr
 
     def trained_variables(self) -> Dict:

@@ -13,6 +13,14 @@ the D step judges the detached fake (or, with ``g_d_separate``, a fresh
 forward of the updated tocg whose statistics are dropped) with one power
 iteration in the fake call only. The whole step runs with TF32 off.
 
+On the card ``train_step``, ``visualize`` and ``eval_iou`` replay CUDA
+graphs recorded once per batch signature (``core/graphs.py``) into one
+memory pool, the counterparts of the JAX trainer's jits; the step's graph
+advances the networks, their optimizers and the dropout generator in place,
+once a call (``donate_argnums=1``). The learning rates, the optimizers'
+counts and ``state.step`` move on the host around it. On the CPU they are
+plain calls.
+
 Data parallel (``core/mesh.py``): with a mesh of several ranks each rank
 steps on its rows of the global batch; the gradients, the BatchNorm
 statistics, the ``--Ddropout`` masks (drawn at the global shape) and the
@@ -34,6 +42,7 @@ import torch
 
 from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
                                       ConditionTrainConfig, TOCGConfig)
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.device import resolve_device
@@ -51,7 +60,8 @@ from hrviton_tpu_torch.pipelines.tryon import compose_clothmask, remove_overlap
 from hrviton_tpu_torch.train.optim import adam
 from hrviton_tpu_torch.train.state import GANState, NetState
 
-__all__ = ["ConditionTrainer", "prep_batch", "cast_batch", "apply_grads"]
+__all__ = ["ConditionTrainer", "prep_batch", "cast_batch", "apply_grads",
+           "net_tensors"]
 
 
 def cast_batch(tree, dtype):
@@ -80,15 +90,76 @@ def prep_batch(batch) -> Dict[str, torch.Tensor]:
 def apply_grads(loss, net: NetState):
     """The gradient of ``loss`` with respect to ``net``'s parameters alone,
     averaged across the ranks of an active mesh (``core/mesh.sharded``),
-    put in their ``.grad``, and one optimizer update."""
+    put in their ``.grad``, and the optimizer's update (``Adam.update``: the
+    caller sets its learning rate before the step and counts it after).
+    After the first call the gradients are copied into the ``.grad`` it
+    made: a recorded step writes them outside its pool, which it shares
+    with the eval calls (``graphs.Pool``)."""
     params = net.opt.params
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     mesh_lib.average_grads(grads)
     for p, g in zip(params, grads):
-        p.grad = g
-    net.opt.step()
+        if p.grad is None:
+            p.grad = g
+        else:
+            graphs.hold(p.grad).copy_(g)
+    net.opt.update()
+
+
+def net_tensors(*nets: NetState):
+    """What a training step writes in place: the networks' parameters and
+    buffers, their optimizers' moments and step counts."""
+    return [t for net in nets for t in
+            graphs.module_tensors(net.module) + net.opt.state_tensors()]
+
+
+def _train_step(trainer: "ConditionTrainer", g: NetState, d: NetState, batch,
+                vgg):
+    with mesh_lib.sharded(trainer.mesh):
+        metrics = trainer._train_step_body(g, d, batch, vgg)
+        return mesh_lib.mean_metrics(metrics)
+
+
+# the step's and the eval calls' graphs, one memory pool
+_POOL = graphs.Pool()
+
+# the counterpart of the JAX step's jit with its state donated
+_step = graphs.captured(
+    _train_step,
+    weights=lambda trainer, g, d, batch, vgg: graphs.module_tensors(vgg),
+    donated=lambda trainer, g, d, *_: net_tensors(g, d) + [trainer.dropout],
+    pool=_POOL)
+
+
+def _visualize(trainer: "ConditionTrainer", tocg, batch):
+    prep = prep_batch(batch)
+    with precision.no_tf32():
+        _, seg, warped_c, warped_cm = tocg(prep["input1"], prep["input2"])
+    warped_cm_onehot = (warped_cm > 0.5).float()
+    seg = compose_clothmask(seg, warped_cm, trainer.tcfg.clothmask_composition)
+    if trainer.tcfg.occlusion:
+        warped_cm = remove_overlap(torch.softmax(seg, -1), warped_cm)
+        warped_c = warped_c * warped_cm + (1.0 - warped_cm)
+    fake_cm = (seg.argmax(dim=-1, keepdim=True) == 3).float()
+    misalign = (fake_cm - warped_cm_onehot).clamp(min=0.0)
+    return dict(seg_softmax=torch.softmax(seg, -1), warped_cloth=warped_c,
+                warped_cm_onehot=warped_cm_onehot, misalign=misalign)
+
+
+def _eval_iou(trainer: "ConditionTrainer", tocg, batch):
+    prep = prep_batch(batch)
+    with precision.no_tf32():
+        _, seg, _, warped_cm = tocg(prep["input1"], prep["input2"])
+    seg = compose_clothmask(seg, warped_cm, trainer.tcfg.clothmask_composition)
+    return iou_metric(torch.softmax(seg, dim=-1), prep["label"])
+
+
+_tocg_weights = lambda trainer, tocg, *_: graphs.module_tensors(tocg)
+_visualize_graph = graphs.captured(_visualize, weights=_tocg_weights,
+                                   pool=_POOL)
+_eval_iou_graph = graphs.captured(_eval_iou, weights=_tocg_weights, pool=_POOL)
 
 
 class ConditionTrainer:
@@ -126,12 +197,11 @@ class ConditionTrainer:
         return precision.param_dtype(torch.bfloat16 if self.tcfg.bf16 else None)
 
     # ------------------------------------------------------------ tocg losses
-    def _forward_and_losses(self, state: GANState, vgg, prep,
-                            train: bool = True):
+    def _forward_and_losses(self, tocg, d, vgg, prep, train: bool = True):
         """The G loss (train_condition.py:157-266): (loss_g, (seg_softmax,
         losses))."""
         tcfg = self.tcfg
-        flow_list, seg, warped_c, warped_cm = state.g.module(
+        flow_list, seg, warped_c, warped_cm = tocg(
             prep["input1"], prep["input2"], train=train)
         seg = compose_clothmask(seg, warped_cm, tcfg.clothmask_composition)
 
@@ -177,7 +247,7 @@ class ConditionTrainer:
         if not tcfg.no_gan_loss:
             d_in = torch.cat([prep["input1"].detach(), prep["input2"].detach(),
                               seg_softmax], dim=-1)
-            pred = state.d.module(d_in, train=True, generator=self.dropout)
+            pred = d(d_in, train=True, generator=self.dropout)
             g_gan = lsgan_loss(pred, True)
             losses["gan"] = g_gan
             loss_g = loss_g + g_gan * tcfg.gan_lambda
@@ -188,15 +258,21 @@ class ConditionTrainer:
         """One G update and one D update; ``vgg`` is the frozen
         ``Vgg19Features``. Returns (state, metrics of 0-d tensors, averaged
         across the mesh's ranks); the gradients of the last updates stay in
-        the parameters' ``.grad``."""
-        with mesh_lib.sharded(self.mesh):
-            state, metrics = self._train_step_body(state, batch, vgg)
-            return state, mesh_lib.mean_metrics(metrics)
+        the parameters' ``.grad``. On the card the call replays the step's
+        graph (module docstring)."""
+        opts = [state.g.opt] + ([] if self.tcfg.no_gan_loss else [state.d.opt])
+        for opt in opts:
+            opt.prepare()
+        metrics = _step(self, state.g, state.d, batch, vgg)
+        for opt in opts:
+            opt.advance()
+        state.step += 1
+        return state, metrics
 
-    def _train_step_body(self, state, batch, vgg):
+    def _train_step_body(self, g: NetState, d_net: NetState, batch, vgg):
         tcfg = self.tcfg
         prep = cast_batch(prep_batch(batch), self.dtype)
-        tocg, d = state.g.module, state.d.module
+        tocg, d = g.module, d_net.module
         bf16 = torch.bfloat16 if tcfg.bf16 else None
         d_state = (precision.rounded_buffers(d, bf16) if bf16
                    else contextlib.nullcontext())
@@ -204,8 +280,8 @@ class ConditionTrainer:
             # ---- G update
             with d_state:
                 loss_g, (seg_softmax, losses) = self._forward_and_losses(
-                    state, vgg, prep, train=True)
-                apply_grads(loss_g, state.g)
+                    tocg, d, vgg, prep, train=True)
+                apply_grads(loss_g, g)
             commit_state(tocg)
             metrics = {f"loss/G/{k}": v.detach() for k, v in losses.items()}
             metrics["loss/G"] = loss_g.detach()
@@ -231,13 +307,12 @@ class ConditionTrainer:
                 l_fake = lsgan_loss(pred_f, False)
                 l_real = lsgan_loss(pred_r, True)
                 loss_d = l_fake + l_real
-                apply_grads(loss_d, state.d)
+                apply_grads(loss_d, d_net)
                 commit_state(d)
                 metrics.update({"loss/D": loss_d.detach(),
                                 "loss/D/pred_fake": l_fake.detach(),
                                 "loss/D/pred_real": l_real.detach()})
-        state.step += 1
-        return state, metrics
+        return metrics
 
     # ----------------------------------------------------------- visualization
     @torch.no_grad()
@@ -245,27 +320,11 @@ class ConditionTrainer:
         """Eval-mode forward for the TensorBoard panels
         (train_condition.py:400-436): the composed segmap softmax, the warped
         cloth and mask and the misalignment map."""
-        prep = prep_batch(batch)
-        with precision.no_tf32():
-            _, seg, warped_c, warped_cm = state.g.module(
-                prep["input1"], prep["input2"])
-        warped_cm_onehot = (warped_cm > 0.5).float()
-        seg = compose_clothmask(seg, warped_cm, self.tcfg.clothmask_composition)
-        if self.tcfg.occlusion:
-            warped_cm = remove_overlap(torch.softmax(seg, -1), warped_cm)
-            warped_c = warped_c * warped_cm + (1.0 - warped_cm)
-        fake_cm = (seg.argmax(dim=-1, keepdim=True) == 3).float()
-        misalign = (fake_cm - warped_cm_onehot).clamp(min=0.0)
-        return dict(seg_softmax=torch.softmax(seg, -1), warped_cloth=warped_c,
-                    warped_cm_onehot=warped_cm_onehot, misalign=misalign)
+        return _visualize_graph(self, state.g.module, batch)
 
     # -------------------------------------------------------------- validation
     @torch.no_grad()
     def eval_iou(self, state: GANState, batch) -> torch.Tensor:
         """Validation IoU of the composed softmax segmap
         (train_condition.py:314-360)."""
-        prep = prep_batch(batch)
-        with precision.no_tf32():
-            _, seg, _, warped_cm = state.g.module(prep["input1"], prep["input2"])
-        seg = compose_clothmask(seg, warped_cm, self.tcfg.clothmask_composition)
-        return iou_metric(torch.softmax(seg, dim=-1), prep["label"])
+        return _eval_iou_graph(self, state.g.module, batch)

@@ -33,6 +33,16 @@ bf16 (``GeneratorTrainConfig.bf16``): f32 parameters and Adam state, the
 batch cast to bf16, every parameter read rounded to bf16
 (``core/precision.param_dtype``); the frozen tocg's statistics and, in the
 G step, D's u/v are rounded too, as the JAX step casts those trees.
+
+On the card ``train_step``, ``generate`` and ``generate_debug`` replay CUDA
+graphs recorded once per batch signature (``core/graphs.py``) into one
+memory pool, the counterparts of the JAX trainer's jits; the step's graph
+advances both networks and their optimizers in place, once a call
+(``donate_argnums=1``).
+The SPADE noise is drawn before the graph, in the eager step's order (the G
+loss's forward, then the regeneration), and handed in as fields
+(``noise_fields``); the learning rates, the optimizers' counts and
+``state.step`` move on the host around it. On the CPU they are plain calls.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import torch.utils.checkpoint
 from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
                                       SPADEDiscriminatorConfig, SPADEGenConfig,
                                       TOCGConfig)
+from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core import mesh as mesh_lib
 from hrviton_tpu_torch.core import precision
 from hrviton_tpu_torch.device import resolve_device
@@ -53,16 +64,61 @@ from hrviton_tpu_torch.losses.gan import gan_loss
 from hrviton_tpu_torch.losses.matching import feature_matching_loss
 from hrviton_tpu_torch.losses.perceptual import vgg_perceptual_loss
 from hrviton_tpu_torch.models.discriminators import SPADEMultiscaleDiscriminator
-from hrviton_tpu_torch.models.spade import NoiseArg, SPADEGenerator
+from hrviton_tpu_torch.models.spade import (NoiseArg, SPADEGenerator,
+                                           noise_source)
 from hrviton_tpu_torch.nn.layers import commit_state, drop_state, init_weights
 from hrviton_tpu_torch.ops.conv3x3 import taps_wgrad
 from hrviton_tpu_torch.ops.parse import group_index_of_label13, lut_lookup
 from hrviton_tpu_torch.pipelines.tryon import condition_forward
-from hrviton_tpu_torch.train.condition_trainer import apply_grads, cast_batch
+from hrviton_tpu_torch.train.condition_trainer import (apply_grads, cast_batch,
+                                                       net_tensors)
 from hrviton_tpu_torch.train.optim import adam, lambda_decay_schedule
 from hrviton_tpu_torch.train.state import GANState, NetState
 
 __all__ = ["GeneratorTrainer"]
+
+
+def _train_step(trainer: "GeneratorTrainer", g: NetState, d: NetState, batch,
+                fields_g, fields_d, frozen):
+    with taps_wgrad(trainer.tcfg.taps_wgrad), precision.no_tf32(), \
+            mesh_lib.sharded(trainer.mesh):
+        metrics = trainer._train_step_body(g, d, batch, fields_g, fields_d,
+                                           frozen)
+        return mesh_lib.mean_metrics(metrics)
+
+
+# the step's and the eval calls' graphs, one memory pool
+_POOL = graphs.Pool()
+
+# the counterpart of the JAX step's jit with its state donated
+_step = graphs.captured(
+    _train_step,
+    weights=lambda trainer, g, d, batch, fg, fd, frozen: graphs.module_tensors(
+        frozen.get("vgg"), frozen.get("tocg")),
+    donated=lambda trainer, g, d, *_: net_tensors(g, d), pool=_POOL)
+
+
+def _generate(trainer: "GeneratorTrainer", gen, batch, fields, tocg):
+    gen_in, _, labels = trainer.conditioning(batch, tocg)
+    with precision.no_tf32(), mesh_lib.sharded(trainer.mesh):
+        return gen(gen_in, labels, fields, train=False)
+
+
+def _generate_debug(trainer: "GeneratorTrainer", gen, batch, fields, tocg):
+    fake_parse, warped_cloth, fpg = trainer._condition(batch, tocg)
+    glabel = lut_lookup(fake_parse, group_index_of_label13())
+    gen_in = torch.cat([batch["agnostic"], batch["densepose"],
+                        warped_cloth], dim=-1)
+    with precision.no_tf32(), mesh_lib.sharded(trainer.mesh):
+        out = gen(gen_in, glabel, fields, train=False)
+    return out, warped_cloth, fpg
+
+
+_gen_weights = lambda trainer, gen, batch, fields, tocg: graphs.module_tensors(
+    gen, tocg)
+_generate_graph = graphs.captured(_generate, weights=_gen_weights, pool=_POOL)
+_generate_debug_graph = graphs.captured(_generate_debug, weights=_gen_weights,
+                                        pool=_POOL)
 
 
 class GeneratorTrainer:
@@ -146,26 +202,44 @@ class GeneratorTrainer:
         return ([[t[:n] for t in scale] for scale in out],
                 [[t[n:] for t in scale] for scale in out])
 
+    def noise_fields(self, gen: SPADEGenerator, noise: NoiseArg, n: int):
+        """The SPADE noise fields of one forward of ``gen`` on ``n`` rows,
+        drawn from ``noise`` (``models/spade.noise_source``) in the
+        forward's order: inside ``core/mesh.sharded`` at the global batch's
+        shape, the rank's rows kept, as the forward draws them."""
+        with mesh_lib.sharded(self.mesh):
+            draw = noise_source(noise, self.device)
+            return [draw(shape) for shape in gen.noise_shapes(n)]
+
     # ------------------------------------------------------------- train step
     def train_step(self, state: GANState, batch, noise_g: NoiseArg,
                    noise_d: NoiseArg, frozen: Dict) -> Tuple[GANState, Dict]:
         """One G update, then one D update on a regenerated output.
         ``frozen``: {'vgg': Vgg19Features, 'tocg': ConditionGenerator or
         None in GT mode}; ``noise_g`` / ``noise_d``: the SPADE noise of the
-        G-loss forward and of the regeneration. Returns (state, metrics of
-        0-d tensors, averaged across the mesh's ranks); the last updates'
-        gradients stay in ``.grad``."""
-        with taps_wgrad(self.tcfg.taps_wgrad), precision.no_tf32(), \
-                mesh_lib.sharded(self.mesh):
-            state, metrics = self._train_step_body(state, batch, noise_g,
-                                                   noise_d, frozen)
-            return state, mesh_lib.mean_metrics(metrics)
+        G-loss forward and of the regeneration, drawn in that order before
+        the step. Returns (state, metrics of 0-d tensors, averaged across the
+        mesh's ranks); the last updates' gradients stay in ``.grad``. On the
+        card the call replays the step's graph (module docstring)."""
+        n = batch["image"].shape[0]
+        gen = state.g.module
+        fields_g = self.noise_fields(gen, noise_g, n)
+        fields_d = self.noise_fields(gen, noise_d, n)
+        for opt in (state.g.opt, state.d.opt):
+            opt.prepare()
+        metrics = _step(self, state.g, state.d, batch, fields_g, fields_d,
+                        {"vgg": frozen.get("vgg"), "tocg": frozen.get("tocg")})
+        for opt in (state.g.opt, state.d.opt):
+            opt.advance()
+        state.step += 1
+        return state, metrics
 
-    def _train_step_body(self, state, batch, noise_g, noise_d, frozen):
+    def _train_step_body(self, g: NetState, d_net: NetState, batch, noise_g,
+                         noise_d, frozen):
         tcfg = self.tcfg
         bf16 = torch.bfloat16 if tcfg.bf16 else None
         batch = cast_batch(batch, self.dtype)
-        gen, d = state.g.module, state.d.module
+        gen, d = g.module, d_net.module
         tocg = frozen.get("tocg")
         with precision.param_dtype(bf16):
             tocg_state = (precision.rounded_buffers(tocg, bf16)
@@ -194,7 +268,7 @@ class GeneratorTrainer:
                         use_reentrant=False, preserve_rng_state=False
                     ) * tcfg.lambda_vgg
                 loss_g = sum(losses.values())
-                apply_grads(loss_g, state.g)
+                apply_grads(loss_g, g)
             commit_state(gen)
 
             # ---- D update on a fresh no-gradient output of the updated G
@@ -208,22 +282,21 @@ class GeneratorTrainer:
             l_fake = gan_loss(pred_fake, False, "hinge", for_discriminator=True)
             l_real = gan_loss(pred_real, True, "hinge", for_discriminator=True)
             loss_d = l_fake + l_real
-            apply_grads(loss_d, state.d)
+            apply_grads(loss_d, d_net)
             commit_state(d)
 
         metrics = {f"loss/gen/{k}": v.detach() for k, v in losses.items()}
         metrics.update({"loss/gen": loss_g.detach(), "loss/dis": loss_d.detach(),
                         "loss/dis/adv_fake": l_fake.detach(),
                         "loss/dis/adv_real": l_real.detach()})
-        state.step += 1
-        return state, metrics
+        return metrics
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()
     def generate(self, state: GANState, batch, noise: NoiseArg, tocg=None):
-        gen_in, _, labels = self.conditioning(batch, tocg)
-        with precision.no_tf32(), mesh_lib.sharded(self.mesh):
-            return state.g.module(gen_in, labels, noise, train=False)
+        gen = state.g.module
+        return _generate_graph(self, gen, batch, self.noise_fields(
+            gen, noise, batch["agnostic"].shape[0]), tocg)
 
     @torch.no_grad()
     def generate_debug(self, state: GANState, batch, noise: NoiseArg,
@@ -231,10 +304,6 @@ class GeneratorTrainer:
         """``generate`` and the conditioning's intermediates for the
         reference's TensorBoard grids (train_generator.py:366-476):
         (output, warped cloth, fake_parse_gauss 13 channels)."""
-        fake_parse, warped_cloth, fpg = self._condition(batch, tocg)
-        glabel = lut_lookup(fake_parse, group_index_of_label13())
-        gen_in = torch.cat([batch["agnostic"], batch["densepose"],
-                            warped_cloth], dim=-1)
-        with precision.no_tf32(), mesh_lib.sharded(self.mesh):
-            out = state.g.module(gen_in, glabel, noise, train=False)
-        return out, warped_cloth, fpg
+        gen = state.g.module
+        return _generate_debug_graph(self, gen, batch, self.noise_fields(
+            gen, noise, batch["agnostic"].shape[0]), tocg)

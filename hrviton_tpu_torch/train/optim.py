@@ -10,11 +10,23 @@ hyperparameters (``hrviton_tpu/train/optim.py``).
 optax's is: update = -lr * m_hat / (sqrt(v_hat) + eps). With a schedule
 the learning rate of update t (counted from 0) is lr * schedule(t), as
 ``optax.scale_by_schedule`` counts.
+
+A training step is recorded as a CUDA graph on the card (``core/graphs.py``),
+so the update is split in three: ``prepare`` writes the learning rate of
+update ``count`` before the recorded body, ``update`` is the body's part
+(``torch.optim.Adam.step``), ``advance`` counts the update after it. On the
+card the optimizer is ``capturable`` (its step counts on the device) and its
+learning rate a 0-d device tensor that ``prepare`` fills, so a replay reads
+the new rate; on the CPU it is the plain optimizer with a float rate. The
+two sum the same terms in another order (the capturable update divides by
+-lr / (1 - b1^t) on the device): equal within f32 rounding, not bit for bit.
+The moments and step counts exist from construction, so a recording finds
+every tensor it writes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
 
@@ -29,17 +41,50 @@ class Adam:
                  b2: float, schedule: Optional[Callable[[int], float]] = None):
         self.params = list(params)
         self.lr, self.schedule = lr, schedule
-        self.opt = torch.optim.Adam(self.params, lr=lr, betas=(b1, b2),
-                                    eps=1e-8)
+        dev = self.params[0].device
+        self.capturable = dev.type == "cuda"
+        rate = (torch.tensor(lr, dtype=torch.float32, device=dev)
+                if self.capturable else lr)
+        self.opt = torch.optim.Adam(self.params, lr=rate, betas=(b1, b2),
+                                    eps=1e-8, capturable=self.capturable)
+        # eager steps of a capturable optimizer are the checks' reference
+        self.opt._warned_capturable_if_run_uncaptured = True
+        for p in self.params:
+            self.opt.state[p] = {
+                "step": (torch.zeros((), dtype=torch.float32, device=dev)
+                         if self.capturable else torch.tensor(0.0)),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
         self.count = 0
 
-    def step(self) -> None:
+    def state_tensors(self) -> List[torch.Tensor]:
+        """What an update writes besides the parameters: the moments and
+        the step counts. (The learning rate is read, not written: a new
+        rate needs no new recording.)"""
+        return [t for p in self.params for t in self.opt.state[p].values()]
+
+    def set_lr(self, value: float) -> None:
+        """The learning rate of the next updates (outside a recorded body)."""
+        for group in self.opt.param_groups:
+            if self.capturable:
+                group["lr"].fill_(value)
+            else:
+                group["lr"] = value
+
+    def prepare(self) -> None:
         if self.schedule is not None:
-            for group in self.opt.param_groups:
-                group["lr"] = self.lr * float(self.schedule(self.count))
+            self.set_lr(self.lr * float(self.schedule(self.count)))
+
+    def update(self) -> None:
         self.opt.step()
+
+    def advance(self) -> None:
         self.count += 1
 
+    def step(self) -> None:
+        self.prepare()
+        self.update()
+        self.advance()
 
 
 def adam(params, lr: float, b1: float, b2: float, schedule=None) -> Adam:

@@ -13,9 +13,10 @@ from hrviton_tpu_torch.train.optim import Adam
 __all__ = ["NetState", "GANState"]
 
 
-@dataclass
+@dataclass(eq=False)
 class NetState:
-    """One network: its module and its optimizer."""
+    """One network: its module and its optimizer. Compared and hashed by
+    identity, as a recorded step's argument (``core/graphs.py``)."""
     module: nn.Module
     opt: Adam
 

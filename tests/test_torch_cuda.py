@@ -1087,3 +1087,379 @@ def test_entry_point_calling_item_raises_on_the_card(monkeypatch):
         want = tc.condition_step(tocg, d, x1, x2)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------ the training steps, recorded
+
+def _train_state(stage, seed=0, schedule=None):
+    """A training state on the card at a small size, as a dict: ``step(batch)
+    -> metrics``, ``tensors()`` (every tensor a step writes), ``gens``,
+    ``counts()``, ``batches``, the trainer and its state. Stage 1: the tocg
+    ngf=8 at 64x64, f32, the condition discriminator ndf 8 with --Ddropout.
+    Stage 2: SPADE ngf=16 'most' at 512x256 (up_3 and up_4 pass the unit's
+    shape rules), bf16, the fused unit on, remat, non-zero noise scales, the
+    SPADE discriminator ndf 8, the frozen tocg ngf=8 at 128x64, one noise
+    generator for both forwards."""
+    from hrviton_tpu_torch.config import (CondDiscriminatorConfig,
+                                          ConditionTrainConfig,
+                                          GeneratorTrainConfig, PipelineConfig,
+                                          SPADEDiscriminatorConfig,
+                                          SPADEGenConfig, TOCGConfig)
+    from hrviton_tpu_torch.models.backbones import Vgg19Features
+    from hrviton_tpu_torch.models.condition import ConditionGenerator
+    from hrviton_tpu_torch.nn.layers import init_weights
+    from hrviton_tpu_torch.train import condition_trainer as ct
+    from hrviton_tpu_torch.train import generator_trainer as gt
+    vgg = Vgg19Features(device="cuda")
+    init_weights(vgg, torch.Generator().manual_seed(7))
+    vgg.requires_grad_(False)
+    rng = np.random.default_rng(seed + 40)
+    if stage == "condition":
+        trainer = ct.ConditionTrainer(
+            TOCGConfig(ngf=8), CondDiscriminatorConfig(input_nc=33, ndf=8,
+                                                       ddropout=True),
+            ConditionTrainConfig(), device="cuda")
+        state = trainer.init(seed)
+        gens = [trainer.dropout]
+        step = lambda b: trainer.train_step(state, b, vgg)[1]
+        batches = []
+        for _ in range(3):
+            labels = torch.from_numpy(rng.integers(0, 13, (2, 64, 64))).cuda()
+            parse = torch.nn.functional.one_hot(labels, 13).float()
+            a = lambda *s: _a(rng, s)
+            batches.append({"cloth": {"paired": a(2, 64, 64, 3)},
+                            "cloth_mask": {"paired": a(2, 64, 64, 1).sigmoid()},
+                            "parse_agnostic": a(2, 64, 64, 13),
+                            "densepose": a(2, 64, 64, 3),
+                            "parse_onehot": labels.int(), "parse": parse,
+                            "pcm": parse[..., 3:4].clone(),
+                            "parse_cloth": a(2, 64, 64, 3)})
+    else:
+        trainer = gt.GeneratorTrainer(
+            SPADEGenConfig(ngf=16, fine_height=512, fine_width=256),
+            SPADEDiscriminatorConfig(ndf=8), GeneratorTrainConfig(bf16=True),
+            PipelineConfig(fine_height=512, fine_width=256, cond_height=128,
+                           cond_width=64), TOCGConfig(ngf=8), device="cuda")
+        if schedule is not None:
+            trainer.schedule = schedule
+        state = trainer.init(seed)
+        with torch.no_grad():
+            for name, p in state.g.module.named_parameters():
+                if name.endswith("noise_scale"):
+                    p.fill_(0.2)
+        tocg = ConditionGenerator(TOCGConfig(ngf=8), device="cuda").eval()
+        init_weights(tocg, torch.Generator().manual_seed(3))
+        frozen = {"vgg": vgg, "tocg": tocg.requires_grad_(False)}
+        noise = torch.Generator(device="cuda").manual_seed(seed + 1)
+        gens = [noise]
+        step = lambda b: trainer.train_step(state, b, noise, noise, frozen)[1]
+        batches = []
+        for _ in range(3):
+            a = lambda c: torch.tanh(_a(rng, (2, 512, 256, c)))
+            labels = torch.from_numpy(rng.integers(0, 13, (2, 512, 256))).cuda()
+            batches.append({"cloth": a(3), "cloth_mask": a(1) * 0.5 + 0.5,
+                            "parse_agnostic": a(13), "densepose": a(3),
+                            "agnostic": a(3), "image": a(3),
+                            "parse": torch.nn.functional.one_hot(labels,
+                                                                 13).float(),
+                            "parse_cloth": a(3)})
+    return dict(step=step, gens=gens, batches=batches, trainer=trainer,
+                state=state, frozen=None if stage == "condition" else frozen,
+                tensors=lambda: ct.net_tensors(state.g, state.d),
+                counts=lambda: (state.step, state.g.opt.count,
+                                state.d.opt.count),
+                capt=(ct if stage == "condition" else gt)._step)
+
+
+def _deterministic(monkeypatch):
+    """cuDNN's deterministic algorithms for a test (two runs of one step
+    must sum alike)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+
+def _eager_steps(run, batches):
+    from hrviton_tpu_torch.core import graphs
+    with graphs.disabled():
+        return [run["step"](b) for b in batches]
+
+
+def _distance(a, b):
+    """The sum over two states' tensors of mean|x - y| / mean|y|."""
+    return sum((x.float() - y.float()).abs().mean().item()
+               / y.float().abs().mean().item()
+               for x, y in zip(a, b) if y.float().abs().mean().item() > 0)
+
+
+def _varying(state):
+    """Per tensor of ``net_tensors(state.g, state.d)``: whether the stage-1
+    step's nondeterministic op (the atomic adds of grid_sample's backward)
+    reaches it, i.e. it is one of the tocg's parameters or their Adam
+    moments."""
+    from hrviton_tpu_torch.train import condition_trainer as ct
+    g = state.g
+    ids = {id(p) for p in g.module.parameters()}
+    ids |= {id(g.opt.opt.state[p][k]) for p in g.opt.params
+            for k in ("exp_avg", "exp_avg_sq")}
+    return [id(t) in ids for t in ct.net_tensors(state.g, state.d)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["condition", "generator"])
+def test_training_step_replay_equals_eager(stage, monkeypatch):
+    """Three replayed steps against three eager steps (graphs.disabled())
+    from the same state, capturable Adam on both sides, one recording, the
+    generators' states equal after every step: stage 2 (bf16, the fused
+    unit) bit for bit in every metric, parameter, buffer, Adam moment and
+    step count and the counters. Stage 1's eager step is not reproducible
+    on the card (the atomic adds of grid_sample's backward), so it is held
+    step by step: before each step a second eager state and the first are
+    set to the replayed one; after it every metric of the three and every
+    tensor but the tocg's parameters and their Adam moments (the tocg's
+    running statistics, the discriminator and its Adam state, the step
+    counts) are equal bit for bit, and those within 4 times the two eager
+    runs' distance (the sum over the tensors of mean|x - y| / mean|y|)."""
+    _need_card()
+    _deterministic(monkeypatch)
+    runs = [_train_state(stage) for _ in range(3 if stage == "condition" else 2)]
+    eager, rep = runs[0], runs[1]
+    batches = eager["batches"]
+    caps = rep["capt"].captures
+    varies = _varying(rep["state"])
+    for i, b in enumerate(batches):
+        if stage == "condition" and i:
+            with torch.no_grad():
+                for run in (eager, runs[2]):
+                    for x, y in zip(run["tensors"](), rep["tensors"]()):
+                        x.copy_(y)
+        got = rep["step"](b)
+        want = [_eager_steps(run, [b])[0] for run in runs if run is not rep]
+        for w in want:
+            for k in w:
+                assert torch.equal(got[k], w[k]), (i, k)
+        for other in runs:
+            for a, c in zip(rep["gens"], other["gens"]):
+                assert torch.equal(a.get_state(), c.get_state()), i
+        if stage == "condition":
+            s_r, s_e, s_2 = (run["tensors"]() for run in (rep, eager, runs[2]))
+            for x, y, z, var in zip(s_r, s_e, s_2, varies):
+                if not var:
+                    assert torch.equal(x, y) and torch.equal(x, z), i
+            pick = lambda s: [t for t, var in zip(s, varies) if var]
+            d_ee = _distance(pick(s_2), pick(s_e))
+            d_re = max(_distance(pick(s_r), pick(s_e)),
+                       _distance(pick(s_r), pick(s_2)))
+            assert d_re <= 4.0 * d_ee or d_re == 0.0, (i, d_re, d_ee)
+    torch.cuda.synchronize()
+    assert rep["capt"].captures == caps + 1
+    assert rep["counts"]() == eager["counts"]() == (3, 3, 3)
+    steps = [s["step"] for s in rep["state"].g.opt.opt.state.values()]
+    assert all(float(s) == 3.0 for s in steps)
+    if stage == "generator":
+        for x, y in zip(rep["tensors"](), eager["tensors"]()):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_step_and_generate_share_one_pool(monkeypatch):
+    """The stage-2 step's graph and generate's share one memory pool:
+    generating and stepping in turns (generate recorded first, so the
+    step's recording may take what generate's graph leaves free), replayed,
+    equals the same eagerly bit for bit, outputs, state and the gradients
+    left in ``.grad`` after a generate replay (they live outside the
+    pool)."""
+    _need_card()
+    _deterministic(monkeypatch)
+    from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.train import generator_trainer as gt
+
+    def turns(run):
+        noise = torch.Generator(device="cuda").manual_seed(9)
+        gen = lambda b: run["trainer"].generate(run["state"], b, noise,
+                                                run["frozen"]["tocg"])
+        b = run["batches"]
+        return [gen(b[0]), run["step"](b[0]), gen(b[1]), run["step"](b[1]),
+                gen(b[2])]
+
+    eager, rep = _train_state("generator"), _train_state("generator")
+    with graphs.disabled():
+        want = turns(eager)
+    got = turns(rep)
+    assert gt._step.pool is not None and gt._step.pool == gt._generate_graph.pool
+    for g, w in zip(got, want):
+        for k in (w if isinstance(w, dict) else [None]):
+            a, c = (g, w) if k is None else (g[k], w[k])
+            assert torch.equal(a, c), k
+    for x, y in zip(rep["tensors"](), eager["tensors"]()):
+        assert torch.equal(x, y)
+    for p, q in zip(rep["state"].g.opt.params + rep["state"].d.opt.params,
+                    eager["state"].g.opt.params + eager["state"].d.opt.params):
+        assert torch.equal(p.grad, q.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b1,b2", [(0.5, 0.999), (0.0, 0.9)])
+def test_capturable_adam_matches_plain_adam(b1, b2):
+    """The port's Adam on the card (capturable, a device learning rate)
+    against torch's plain Adam (a float rate, the CPU tests' optimizer) on
+    the same gradients: after three updates with a changing rate the
+    parameters and moments agree within 1e-6 x max|ref| (f32: the same
+    update in another order of operations)."""
+    _need_card()
+    from hrviton_tpu_torch.train.optim import adam
+    rng = np.random.default_rng(12)
+    p0 = _a(rng, (64, 33))
+    grads = [_a(rng, (64, 33), 0.1) for _ in range(3)]
+    pa = torch.nn.Parameter(p0.clone())
+    pb = torch.nn.Parameter(p0.clone())
+    opt_a = adam([pa], 1e-3, b1, b2, schedule=lambda c: 1.0 / (1 + c))
+    opt_b = torch.optim.Adam([pb], lr=1e-3, betas=(b1, b2), eps=1e-8,
+                             capturable=False, foreach=False)
+    assert opt_a.capturable
+    for i, g in enumerate(grads):
+        pa.grad, pb.grad = g, g.clone()
+        opt_a.step()
+        opt_b.param_groups[0]["lr"] = 1e-3 / (1 + i)
+        opt_b.step()
+    for x, y in [(pa, pb)] + [(opt_a.opt.state[pa][k], opt_b.state[pb][k])
+                              for k in ("exp_avg", "exp_avg_sq")]:
+        err = (x.detach() - y.detach()).abs().max().item()
+        assert err <= 1e-6 * y.detach().abs().max().item(), err
+    assert float(opt_a.opt.state[pa]["step"]) == 3.0 and opt_a.count == 3
+
+
+@pytest.mark.gpu
+def test_training_step_recaptures_after_a_load(monkeypatch):
+    """Weights loaded in place into the generator after two replayed steps
+    (load_jax_variables) record the step anew, and the next step equals the
+    eager step after the same load, bit for bit; a learning rate that
+    changes every update is read by the replays."""
+    _need_card()
+    _deterministic(monkeypatch)
+    from hrviton_tpu_torch.convert import (export_jax_variables,
+                                           load_jax_variables)
+    from hrviton_tpu_torch.nn.layers import init_weights
+    schedule = lambda c: 1.0 / (1 + c)
+    eager = _train_state("generator", schedule=schedule)
+    rep = _train_state("generator", schedule=schedule)
+    other = _train_state("generator", seed=5)["state"].g.module
+    init_weights(other, torch.Generator().manual_seed(11))
+    tree = export_jax_variables(other)
+    b = rep["batches"]
+    caps = rep["capt"].captures
+    got = [rep["step"](b[0]), rep["step"](b[1])]
+    assert rep["capt"].captures == caps + 1
+    load_jax_variables(rep["state"].g.module, tree)
+    got.append(rep["step"](b[2]))
+    assert rep["capt"].captures == caps + 2
+    want = _eager_steps(eager, b[:2])
+    load_jax_variables(eager["state"].g.module, tree)
+    want += _eager_steps(eager, b[2:])
+    for m, n in zip(got, want):
+        for k in n:
+            assert torch.equal(m[k], n[k]), k
+    for x, y in zip(rep["tensors"](), eager["tensors"]()):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_fused_block_step_launches_18_units():
+    """A replayed stage-2 step with the fused unit launches it 18 times
+    (the G loss's forward, the remat recompute, the D step's regeneration)
+    and the statistics 18 times, as the eager step does; the graph holds 18
+    nodes of each of the unit's two kernels."""
+    _need_card()
+    import os
+    import tempfile
+    run = _train_state("generator")
+    b = run["batches"][0]
+    counts = lambda: (tsb.spade_conv_unit.launches, tsf.norm_stats.launches)
+    before = counts()
+    _eager_steps(run, [b])
+    eager = tuple(x - y for x, y in zip(counts(), before))
+    run["step"](b)
+    before = counts()
+    run["step"](b)
+    torch.cuda.synchronize()
+    assert eager == tuple(x - y for x, y in zip(counts(), before)) == (18, 18)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "step.dot")
+        run["capt"].last_entry.graph.debug_dump(path)
+        dot = open(path).read()
+    assert dot.count("spade_unit_gb_kernel") == 18
+    assert dot.count("spade_unit_conv_kernel") == 18
+
+
+@pytest.mark.gpu
+def test_recorded_backward_runs_without_tf32(monkeypatch):
+    """Stage 1 in f32 recorded under torch's default TF32 settings: the
+    logit hooks, which run while the step is warmed up and recorded, read
+    TF32 off in backward; the caller's settings are back after the call."""
+    _need_card()
+    from hrviton_tpu_torch.train import condition_trainer as ct
+    seen = []
+    real = ct.lsgan_loss
+
+    def spy(pred, *a, **k):
+        for p in pred:
+            t = p[-1] if isinstance(p, (list, tuple)) else p
+            if t.requires_grad:
+                t.register_hook(lambda g: seen.append(
+                    (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)) or g)
+        return real(pred, *a, **k)
+    monkeypatch.setattr(ct, "lsgan_loss", spy)
+    run = _train_state("condition")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    caps = run["capt"].captures
+    run["step"](run["batches"][0])
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    _need_card()                                 # the file's TF32 settings
+    assert run["capt"].captures == caps + 1
+    assert len(seen) >= 4 and set(seen) == {(False, False)}
+    assert after == (True, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["thread_local", "global", "relaxed"])
+def test_step_records_under_each_capture_mode(monkeypatch, mode):
+    """A stage-2 step (torch.autograd.grad, blocks recomputed under
+    torch.utils.checkpoint in the autograd engine's thread, the fused unit)
+    records under each capture_error_mode and replays eager's step."""
+    _need_card()
+    _deterministic(monkeypatch)
+    from hrviton_tpu_torch.core import graphs
+    monkeypatch.setattr(graphs, "CAPTURE_ERROR_MODE", mode)
+    eager, rep = _train_state("generator"), _train_state("generator")
+    b = eager["batches"][0]
+    caps = rep["capt"].captures
+    got = rep["step"](b)
+    want = _eager_steps(eager, [b])[0]
+    assert rep["capt"].captures == caps + 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for x, y in zip(rep["tensors"](), eager["tensors"]()):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_a_step_records_again_after_its_graphs_died(monkeypatch):
+    """Once a step's graphs have died with their trainer and the cache was
+    emptied, a new trainer's step records into a new pool and replays
+    eager's step (a pool whose graphs all died cannot take another)."""
+    _need_card()
+    _deterministic(monkeypatch)
+    import gc
+    run = _train_state("generator")
+    run["step"](run["batches"][0])
+    capt = run["capt"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not capt.entries and capt.last_entry is None
+    eager, rep = _train_state("generator"), _train_state("generator")
+    b = eager["batches"][0]
+    got = rep["step"](b)
+    want = _eager_steps(eager, [b])[0]
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

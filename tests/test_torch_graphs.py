@@ -3,9 +3,10 @@
 A CUDA graph is recorded and replayed on the card only (``tests/
 test_torch_cuda.py`` and ``chip_smoke.py`` phase 11). Here the cache's
 logic runs with the CPU standing in for the card: ``_Rerun`` is a
-``Captured`` whose "recording" is one call and whose "replay" calls the
-function again on the static input buffers and writes its static outputs in
-place, as a replay overwrites a graph's outputs. The signature (shapes,
+``Captured`` whose "recording" is one call (its writes to the donated state
+undone) and whose "replay" calls the function again on the static input
+buffers and writes its static outputs in place, as a replay overwrites a
+graph's outputs. The signature (shapes,
 dtypes, static arguments, switches, TF32 flags; new values make no new
 entry), the recapture after weights are written, the launch counters, the
 outputs cloned out, ``disabled()``, the constants copied to a device once,
@@ -34,9 +35,10 @@ FH, FW = 128, 128       # 'most' needs fine sizes divisible by 128
 
 class _Static:
     """A graph stand-in: replay() calls the function on the static inputs,
-    its launch counts left as they were (a replay runs no Python), and
-    copies the results into the static outputs. Identity arguments are held
-    weakly, as a recorded graph does not hold them."""
+    its launch counts left as they were and the captured functions it calls
+    plain (a replay runs no Python), and copies the results into the static
+    outputs. Identity arguments are held weakly, as a recorded graph does
+    not hold them."""
 
     def __init__(self, fn, spec, inputs, objects, outputs):
         self.fn, self.spec, self.inputs, self.outputs = fn, spec, inputs, outputs
@@ -47,32 +49,41 @@ class _Static:
             self.spec, iter(self.inputs), {k: r() for k, r in self.refs.items()})
         before = graphs._counts()
         leaves = []
-        graphs._flatten(self.fn(*args, **kwargs), leaves, [])
+        graphs._TRACING += 1
+        try:
+            graphs._flatten(self.fn(*args, **kwargs), leaves, [])
+        finally:
+            graphs._TRACING -= 1
         graphs._set_counts(before)
         for o, t in zip(self.outputs, leaves):
             o.copy_(t)
 
 
 class _Rerun(graphs.Captured):
-    """A Captured that records CPU calls (module docstring)."""
+    """A Captured that records CPU calls (module docstring): ``_capture`` is
+    the card's (static inputs, the donated state's snapshot, warm-up,
+    restore, recording, counters); the warm-up is a plain call and the
+    "recording" is one call whose writes to the donated state are undone, as
+    a recording writes nothing."""
 
     device_type = "cpu"
 
-    def _capture(self, spec, leaves, objects, dev, wsig):
-        inputs = [t.clone() for t in leaves]
-        args, kwargs = graphs._unflatten(spec, iter(inputs),
-                                         {id(o): o for o in objects})
-        before = graphs._counts()
-        out = self.fn(*args, **kwargs)
-        recorded = [a - b for a, b in zip(graphs._counts(), before)]
-        graphs._set_counts(before)
-        outputs, out_objects = [], []
-        out_spec = graphs._flatten(out, outputs, out_objects)
-        self.captures += 1
-        return graphs._Entry(_Static(self.fn, spec, inputs, objects, outputs),
-                             inputs, out_spec, outputs,
-                             {id(o): o for o in out_objects}, recorded, [],
-                             wsig, 0.0)
+    def _warm_up(self, s_args, s_kwargs, dev):
+        self.fn(*s_args, **s_kwargs)
+
+    def _record(self, s_args, s_kwargs, dev, gens):
+        state = ([] if self.donated is None
+                 else list(self.donated(*s_args, **s_kwargs)))
+        tensors = [t for t in state if isinstance(t, torch.Tensor)]
+        saved = graphs._snapshot(tensors, gens)
+        out = self.fn(*s_args, **s_kwargs)
+        graphs._restore(tensors, gens, saved)
+        outputs, objects = [], []
+        spec = graphs._flatten((s_args, s_kwargs), [], objects)
+        graphs._flatten(out, outputs, [])
+        inputs = []
+        graphs._flatten((s_args, s_kwargs), inputs, [])
+        return _Static(self.fn, spec, inputs, objects, outputs), out, []
 
 
 def _t(*shape, seed=0, dtype=torch.float32):
