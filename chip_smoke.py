@@ -7,14 +7,19 @@
     python3 chip_smoke.py --captured # phases 1, 2 and 11 only
     python3 chip_smoke.py --steps    # phases 1, 2 and the recorded
                                      # training steps of phases 9 and 10
+    python3 chip_smoke.py --knockout # phases 1, 2 and 12, the tools at
+                                     # ten pairs, every training variant
+    python3 chip_smoke.py --sass-diff DIR  # phases 1, 2 and the engine
+                                     # kernels' SASS here against DIR's
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
      (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,copy_probe,
-     conv_tma}.cu: twelve kernels and the instance statistics; conv_tma.cu
-     holds conv_halo, conv_roll, conv_band, conv_dma, conv_prodroll, conv_e2
-     and conv_e), one nvcc process each, all started together, with ptxas's
+     conv_tma,spade_knock}.cu: twelve kernels and the instance statistics;
+     conv_tma.cu holds conv_halo, conv_roll, conv_band, conv_dma,
+     conv_prodroll, conv_e2 and conv_e, spade_knock.cu the unit's knock
+     variants, timing only), one nvcc process each, all started together, with ptxas's
      report of registers and spills; a kernel whose wgmma ptxas serialised
      (C7518, C7520) fails it;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
@@ -249,10 +254,38 @@ Phases (any failure exits non-zero, and no result line is printed):
      place after a replay recorded anew and equal to eager with them; then
      10 eager and replayed calls in turns by CUDA events and host clock,
      the device busy time and host gap of one call each (torch.profiler)
-     and the graphs' pool memory.
+     and the graphs' pool memory;
+ 12. the knockout attribution (timing only; ops/spade_block.py knock=,
+     models/spade.py:gen_knock, hrviton_tpu_torch/tools/exp_*_knockout.py
+     and profile_components.py): (a) each of the seven knock variants of
+     the unit's two kernels (csrc/spade_knock.cu, a compile-time mask of
+     conv_engine.cuh and spade_mod.cuh) through the wrapper with its tag
+     set at the six unit shapes, batch 4, bf16, on x with channel means and
+     scales far from 0 and 1, against the plain knocked unit within 2 ulps
+     of max|ref|, and the production unit outside that limit (actv_dma,
+     whose output is undefined, launched and timed only), with times beside
+     the plain version and the bound of what the variant still does; (c)
+     gen_knock through the replayed first path with each of the JAX tool's
+     knocks, skeleton and the unit's eight tag sets: one recording a set,
+     two replays equal, after each context the production graph replayed
+     with no new recording and the output from before the knocks bit for
+     bit; the variants' counts and those of the production kernels a
+     knocked call launches set to 0 just before and read just after (the
+     variants' in the record; each stage run once a unit a call); (d) each
+     tool's main at full size, two pairs (the condition stage's full
+     variant held against condition_forward bit for bit; the training
+     step's: prod and skeleton, after its full variant's step is held
+     against the production step bit for bit, its ms beside the stage-2
+     CLI's of phase 9); (b) every knock variant built, with HGMMA in all
+     but the two without products.
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
-line is {"ok": true, "device": {...}}. With --steps the script builds, writes
+line is {"ok": true, "device": {...}}. With --knockout the script builds and
+runs phase 12 with the tools at ten pairs and every training variant (the
+measured tables of PERF.md), and prints only the last line; with
+--sass-diff DIR it builds the engine kernels here and in the checkout at DIR
+(e.g. a parent unpacked under build/) and fails unless the production
+kernels' SASS and resources are the same. With --steps the script builds, writes
 the two synthetic trees and runs phase 9 (f), (g), phase 10 (c) and (d), and
 prints only the last line. With --paths the script stops after
 phase 6 and prints only the last line: it is how two checkouts are timed in
@@ -812,13 +845,14 @@ def band_variants(x, wt, rounds=2):
     return times
 
 
-def _sass_functions(src, names):
+def _sass_functions(src, names, lib=None):
     """(kernel name, mangled name, SASS) of every function of csrc/<src>.cu's
-    library (cuobjdump -sass) whose name contains one of ``names``; raises
-    if one of them has none."""
+    library (cuobjdump -sass; ``lib``: a built library's path, else this
+    checkout's) whose name contains one of ``names``; raises if one of them
+    has none."""
     from hrviton_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(_build.build(src))],
+    text = subprocess.run([tool, "-sass", lib or str(_build.build(src))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     found = []
@@ -2193,6 +2227,7 @@ def training_phase(card, tmp, r1, r2):
     return ({"spade_unit": got["spade_unit"],
              "instance_stats": got["instance_stats"]},
             {"stage 1": statistics.median(rec1["step_ms"][1:]),
+             "stage 2": statistics.median(rec2["step_ms"][1:]),
              "stage 2 --fused_block": statistics.median(rec4["step_ms"][1:])})
 
 
@@ -3648,6 +3683,341 @@ def captured_phase(card):
     return figures
 
 
+
+# phase 12: the knockout attribution (timing only; hrviton_tpu_torch/tools/
+# exp_*_knockout.py, profile_components.py)
+
+# the knock variants of the unit's two kernels: (counter key of
+# ops/spade_block.knock_counters, the tag set that launches it in (a), kernel
+# name in the library, and what it removes)
+KNOCK_VARIANTS = [
+    ("gb/actv_dma", ("actv_dma",), "spade_unit_gb_knock_kernel", "actv's TMA loads"),
+    ("gb/prod_dots", ("prod_dots",), "spade_unit_gb_knock_kernel",
+     "the gamma|beta main loop (loads and wgmma)"),
+    ("gb/prod_rolls", ("prod_rolls",), "spade_unit_gb_knock_kernel",
+     "the gamma|beta taps' kx offsets"),
+    ("gb/normalize", ("normalize",), "spade_unit_gb_knock_kernel",
+     "the epilogue's normalize"),
+    ("gb/modulate", ("modulate",), "spade_unit_gb_knock_kernel",
+     "the epilogue's modulation (mod = norm + gamma)"),
+    ("conv/cons_dots", ("cons_dots",), "spade_unit_conv_knock_kernel",
+     "the consumer's main loop (3x3 units)"),
+    ("conv/cons_rolls", ("cons_rolls",), "spade_unit_conv_knock_kernel",
+     "the consumer taps' kx offsets (3x3 units)"),
+]
+
+
+def _kernel_key(fname):
+    """A mangled kernel name without its anonymous namespace's hash (the
+    hash differs from build to build of a changed source)."""
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", fname)
+
+
+def _sass_text(func):
+    """A function's instructions without their addresses and encodings."""
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", func)
+    return "\n".join(" ".join(op.split()) for op in ops)
+
+
+# the engine kernels of the model path and the unit's knock variants, by
+# source: (csrc/<source>.cu, names the functions contain)
+ENGINE_SOURCES = (("spade_block", ("spade_unit_gb", "spade_unit_conv")),
+                  ("spade_knock", ("spade_unit_gb_knock", "spade_unit_conv_knock")),
+                  ("spade_fused", ("spade_modulate_kernel",)),
+                  ("conv3x3", ("conv3x3_wide_kernel", "conv3x3_small_kernel")))
+
+
+def _library_of(root, src):
+    """The built library of csrc/<src>.cu of the checkout at ``root`` (this
+    one's through its own _build; another's in a process with that root
+    first on the path, built there under its own build/), or None where
+    that checkout has no such source."""
+    if os.path.realpath(root) == os.path.realpath(ROOT):
+        from hrviton_tpu_torch.ops import _build
+        return str(_build.build(src))
+    if not os.path.exists(os.path.join(root, "hrviton_tpu_torch", "csrc",
+                                       src + ".cu")):
+        return None
+    code = ("import sys; from hrviton_tpu_torch.ops import _build; "
+            "print(_build.build(sys.argv[1]))")
+    out = subprocess.run([sys.executable, "-c", code, src], cwd=root,
+                         capture_output=True, text=True, check=True,
+                         timeout=600,
+                         env={**os.environ, "PYTHONPATH": os.path.abspath(root)})
+    return out.stdout.strip().splitlines()[-1]
+
+
+def sass_digest(root=ROOT):
+    """{mangled name without its namespace hash: [sha256 of its SASS
+    instructions (24 hex digits), the first five fields of its cuobjdump
+    -res-usage line, HGMMA count]} of every engine kernel (ENGINE_SOURCES)
+    of the checkout at ``root``."""
+    import hashlib
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for src, names in ENGINE_SOURCES:
+        lib = _library_of(root, src)
+        if lib is None:
+            continue
+        res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                             text=True, check=True, timeout=300).stdout
+        usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:[^\n]*)", res))
+        if not usage:
+            log(f"cuobjdump -res-usage {src}: no REG line read from:\n{res[:2000]}")
+        for _, fname, func in _sass_functions(src, names, lib):
+            out[_kernel_key(fname)] = [
+                hashlib.sha256(_sass_text(func).encode()).hexdigest()[:24],
+                " ".join(usage.get(fname, "?").split()[:5]),
+                len(re.findall(r"\bHGMMA\b", func))]
+    return out
+
+
+def sass_diff(other):
+    """``--sass-diff OTHER``: the production engine kernels' SASS and
+    resources of this checkout against those of the checkout at ``other``
+    (e.g. a parent unpacked under build/), each built from its own sources;
+    raises if one differs or is missing on either side."""
+    here, there = sass_digest(), sass_digest(other)
+    prod = lambda d: {n: v[:2] for n, v in d.items() if "knock" not in n}
+    here, there = prod(here), prod(there)
+    changed = sorted(n for n in set(here) | set(there)
+                     if here.get(n) != there.get(n))
+    log(f"sass diff: {len(there)} production engine kernels in {other}, "
+        f"{len(here)} here, the same SASS and resources: "
+        f"{sum(here[n] == there.get(n) for n in here)}")
+    for n in changed:
+        log(f"  differs: {n}: here {here.get(n)}, {other} {there.get(n)}")
+    if changed or not here:
+        raise RuntimeError(f"{len(changed)} production engine kernels differ")
+
+
+def knockout_sass_phase():
+    """(b) Every knock variant built, its wgmma unserialised (the build
+    phase) and HGMMA in all but the no-products ones (knock mask 2). The
+    production kernels against a parent's build: ``--sass-diff``."""
+    variants = {n: d for n, d in sass_digest().items() if "knock" in n}
+    for n, (sha, usage, hgmma) in sorted(variants.items()):
+        # spade_unit_gb_knock_kernel<BN, MASK>, spade_unit_conv_knock_kernel<BN, MASK, Epi>
+        mask = int(re.search(r"knock_kernelILi\d+ELi(\d+)E", n).group(1))
+        no_dots = mask == 2
+        log(f"  {n}: {usage}, {hgmma} HGMMA")
+        if (hgmma == 0) != no_dots:
+            raise RuntimeError(f"{n}: {hgmma} HGMMA with knock mask {mask}")
+    log(f"knockout (b): {len(variants)} knock variants built, HGMMA in all but "
+        f"the two without products")
+    if len(variants) != 5 * 3 + 2 * 3:
+        raise RuntimeError(f"{len(variants)} knock variants, expected 21")
+
+
+def _knock_bound(h, w, c, cout, ks, residual, knock):
+    """(operations, bytes) of the knocked unit at batch B: the products it
+    still makes, the bytes it must still move."""
+    px = B * h * w
+    gb_ops = 0 if "prod_dots" in knock else 2 * px * 2 * 9 * 128 * c
+    cons_ops = 0 if ks == 3 and "cons_dots" in knock else 2 * px * ks * ks * c * cout
+    from hrviton_tpu_torch.ops import spade_block as sb
+    nbytes = sb.unit_bytes(B, h, w, c, cout, ks, residual=residual)
+    if {"actv_dma", "prod_dots"} & set(knock):
+        nbytes -= px * 128 * 2
+    return gb_ops + cons_ops, nbytes
+
+
+def _knock_unit_inputs(gen, h, w, c, cout, ks, residual):
+    """The unit's bf16 inputs with x's channel means and scales well away
+    from 0 and 1 (x * (1 + 2u) + 3v per channel, u uniform in [0, 1), v
+    standard normal), so that the statistics and the normalize step show in
+    the output: on standard normal x (mu ~ 0, rsig ~ 1) the production unit
+    is within the limit of the normalize- and stats-knocked ones."""
+    args, res = _unit_inputs(gen, torch.bfloat16, h, w, c, cout, ks, residual)
+    u = torch.rand(c, generator=gen, device="cuda")
+    v = _randn(gen, c)
+    args[0] = (args[0].float() * (1 + 2 * u) + 3 * v).to(torch.bfloat16)
+    return args, res
+
+
+def knockout_kernel_phase():
+    """(a) Every knock variant of the unit's kernels against the plain
+    knocked unit at the six unit shapes, batch 4, bf16 (2 ulps of max|ref|,
+    as phase 3), on x with statistics far from mu = 0, rsig = 1; the
+    production unit must fail each variant's limit against the knocked plain
+    version (else the comparison could not tell them apart); actv_dma
+    (undefined output) launched and timed only. Returns {variant key:
+    totals over the six units}."""
+    from hrviton_tpu_torch.ops import spade_block as sb
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for key, knock, _, _ in KNOCK_VARIANTS:
+        tot = rows[key] = {"max_abs": None if knock == ("actv_dma",) else 0.0}
+        for name, h, w, c, cout, ks, act, residual in UNITS:
+            if key.startswith("conv/") and ks == 1:
+                continue               # no consumer variant of a 1x1 unit
+            args, res = _knock_unit_inputs(gen, h, w, c, cout, ks, residual)
+            unit = lambda: sb.spade_conv_unit(act, *args, res, knock=knock)
+            plain = lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res,
+                                              knock=knock)
+            ops, nbytes = _knock_bound(h, w, c, cout, ks, residual, knock)
+            out = unit()
+            torch.cuda.synchronize()
+            if tuple(out.shape) != (B, h, w, cout):
+                raise RuntimeError(f"knock {key} {name}: shape {tuple(out.shape)}")
+            ms, plain_ms = _events_ms(unit, 3), _events_ms(plain, 2)
+            t_ops, t_bytes = ops / PEAK_OPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES * 1e3
+            msg = f"knock {key} {name}: wrapper {ms:.3f} ms, plain {plain_ms:.3f} ms, " \
+                f"bound {max(t_ops, t_bytes):.4f} ms"
+            if tot["max_abs"] is not None:
+                ref = plain()
+                scale = ref.float().abs().max().item()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 2 * 2 ** -7 * scale
+                prod = sb.spade_conv_unit(act, *args, res)
+                control = (prod.float() - ref.float()).abs().max().item()
+                msg += (f", max_abs {err:.3e} (tol {tol:.3e}; the production "
+                        f"unit {control:.3e})")
+                if not torch.isfinite(out).all() or err > tol:
+                    log(msg)
+                    raise RuntimeError(f"knock {key} {name}: the variant disagrees "
+                                       f"with its plain version ({err} > {tol})")
+                if control <= tol:
+                    log(msg)
+                    raise RuntimeError(
+                        f"knock {key} {name}: the production unit is within the "
+                        f"variant's limit ({control} <= {tol}): the check cannot "
+                        f"tell the variant from it")
+                tot["max_abs"] = max(tot["max_abs"], err)
+                del prod
+            log(msg)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", t_ops),
+                         ("bytes_ms", t_bytes), ("bound_ms", max(t_ops, t_bytes))):
+                tot[k] = tot.get(k, 0.0) + v
+            del args, res, out
+        tot["library_ms"] = None
+    return rows
+
+
+def knockout_path_phase(card):
+    """(c) gen_knock through the replayed first path: one recording per tag
+    set (the JAX tool's knocks, skeleton and the unit's eight sets), the
+    production graph replayed after each context with no new recording and
+    the production output bit for bit. The knock variants' counts are set to
+    0 just before and read just after. Returns {variant key: launches}."""
+    from hrviton_tpu_torch.models import spade as tspade
+    from hrviton_tpu_torch.ops import spade_block as sb
+    from hrviton_tpu_torch.pipelines import tryon
+    pipe = _build_pipeline("knockout path")
+    batch = _synthetic_batch(pipe.cfg.fine_height, pipe.cfg.fine_width, 12)
+    want, _ = pipe(batch)
+    want = want.clone()
+    captures = lambda: tryon._forward.captures
+    sets = ([(t,) for t in tspade.KNOCKS] + [tspade.KNOCKS]
+            + [k for k in sb.KNOCK_SETS])
+    for c in (*sb.knock_counters.values(), *sb.knock_production.values()):
+        c.launches = 0
+    t0 = time.perf_counter()
+    for tags in sets:
+        n0 = captures()
+        with tspade.gen_knock(tags):
+            pipe(batch)
+            a, _ = pipe(batch)
+            b, _ = pipe(batch)
+        # actv_dma's output is undefined (the ring's stale bytes)
+        same = tags == ("actv_dma",) or (torch.equal(a, b)
+                                         and bool(torch.isfinite(a).all()))
+        if captures() != n0 + 1 or not same:
+            raise RuntimeError(f"gen_knock {tags}: {captures() - n0} recordings, "
+                               f"replays equal and finite: {same}")
+        n1 = captures()
+        again, _ = pipe(batch)
+        if captures() != n1 or not torch.equal(again, want):
+            raise RuntimeError(f"after gen_knock {tags}: {captures() - n1} "
+                               f"recordings, production output equal: "
+                               f"{torch.equal(again, want)}")
+    launches = {k: c.launches for k, c in sb.knock_counters.items()}
+    production = {k: c.launches for k, c in sb.knock_production.items()}
+    log(f"knockout (c): {len(sets)} tag sets through the replayed first path in "
+        f"{time.perf_counter() - t0:.1f} s, one recording each, the production "
+        f"graph and output after each; variant launches {launches}; the "
+        f"production kernels of the stages a knocked call left unknocked "
+        f"{production} | {card}")
+    if any(n <= 0 for n in launches.values()):
+        raise RuntimeError(f"a knock variant did not launch: {launches}")
+    # each set with a unit tag (and no `unit` stub) runs, in its three
+    # calls, both stages of the six units once, each through its variant
+    # or its production kernel (`stats` through both production kernels)
+    want = 3 * len(UNITS) * sum(
+        "unit" not in tags and bool(set(tags) & set(sb.UNIT_KNOCKS))
+        for tags in sets)
+    per_stage = {st: production[st] + sum(n for k, n in launches.items()
+                                          if k.startswith(st + "/"))
+                 for st in production}
+    if any(n != want for n in per_stage.values()):
+        raise RuntimeError(f"knocked calls' kernels a stage {per_stage}, "
+                           f"expected {want} each")
+    del pipe
+    return launches
+
+
+# the knockout tool's stage-2 step against the stage-2 CLI's of phase 9
+# (the same program: the CLI's defaults, cuDNN's autotuning off): at most
+# this far apart, relative, in their medians
+TRAIN_TOOL_SPREAD = 0.25
+
+
+def knockout_tools_phase(card, pairs, train_variants=(), cli_ms=None):
+    """(d) Each knockout tool's main at full size, ``pairs`` pairs; the
+    training step's with ``train_variants`` (all if empty), after it holds
+    the full variant's step against the production step bit for bit, its
+    production step against ``cli_ms`` (the stage-2 CLI's median ms/step)
+    where given."""
+    from hrviton_tpu_torch.tools import (exp_block_knockout, exp_cond_knockout,
+                                         exp_gen_knockout, exp_train_knockout,
+                                         profile_components)
+    os.environ["KNOCK_PAIRS"] = str(pairs)
+    results = {}
+    for name, main in (("exp_block_knockout", exp_block_knockout.main),
+                       ("exp_gen_knockout", lambda: exp_gen_knockout.main()),
+                       ("exp_cond_knockout", exp_cond_knockout.main),
+                       ("profile_components", profile_components.main),
+                       ("exp_train_knockout",
+                        lambda: exp_train_knockout.main(train_variants))):
+        t0 = time.perf_counter()
+        results[name] = main()
+        _free()
+        log(f"knockout (d): {name}.main at full size, {pairs} pairs, in "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+    if cli_ms is not None:
+        tool_ms = results["exp_train_knockout"]["prod"]["ms"]
+        log(f"knockout (d): the tool's stage-2 production step {tool_ms:.2f} ms "
+            f"against the stage-2 CLI's {cli_ms:.2f} (phase 9) | {card}")
+        if abs(tool_ms - cli_ms) > TRAIN_TOOL_SPREAD * cli_ms:
+            raise RuntimeError(f"the knockout tool's stage-2 step ({tool_ms:.2f} "
+                               f"ms) is not the CLI's ({cli_ms:.2f} ms)")
+    return results
+
+
+def knockout_phase(card, pairs=2, train_variants=("prod", "skeleton"),
+                   cli_ms=None):
+    """Phase 12: (a), (c), (d), (b). Returns (rows, launches) of the knock
+    variants for the record."""
+    rows = knockout_kernel_phase()
+    launches = knockout_path_phase(card)
+    _free()
+    knockout_tools_phase(card, pairs, train_variants, cli_ms)
+    knockout_sass_phase()
+    return rows, launches
+
+
+KNOCK_KERNELS = [
+    (key, f"{kernel} knock variant {key.split('/')[1]} (timing only; removes "
+     f"{removes}): the knocked unit at the six units of one batch-4 request "
+     f"({'the 3x3 four' if key.startswith('conv/') else 'all six'} launch it), "
+     f"bf16, wrapper time; launches through the replayed first path under "
+     f"gen_knock (phase 12 (c))"
+     + ("; output undefined, max_abs_err not compared" if tags == ("actv_dma",)
+        else ""),
+     "spade_knock.cu", "hrviton_tpu/ops/spade_block.py:337")
+    for key, tags, kernel, removes in KNOCK_VARIANTS]
+
+
 def captured_process():
     """Phase 11 in a process of its own (chip_smoke.py --captured): its
     launch counts read profiler windows, and a long process's windows lose
@@ -3712,6 +4082,14 @@ def main():
         alone_phase()
         _contract_line()
         return
+    if sys.argv[1:2] == ["--sass-diff"] and len(sys.argv) == 3:
+        sass_diff(sys.argv[2])
+        _contract_line()
+        return
+    if sys.argv[1:] == ["--knockout"]:
+        knockout_phase(card, pairs=10, train_variants=())
+        _contract_line()
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     sass_phase()
@@ -3753,10 +4131,15 @@ def main():
     log(f"profiler windows: {WINDOWS['windows']} windows of kernel records, "
         f"{len(WINDOWS['short'])} short: {WINDOWS['short']}")
     _free()
+    knock_rows, knock_launches = knockout_phase(card,
+                                                cli_ms=step_ms["stage 2"])
+    rows.update(knock_rows)
+    launches.update(knock_launches)
+    _free()
     captured_process()
     record = {"kernels": []}
     ths = {key: t for key, _, t in TOOL_CONVS}
-    for key, name, source, replaces in KERNELS:
+    for key, name, source, replaces in KERNELS + KNOCK_KERNELS:
         t = rows[key]
         if launches[key] <= 0:
             raise RuntimeError(f"{key}: no launch on its main path")

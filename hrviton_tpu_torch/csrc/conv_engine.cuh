@@ -79,6 +79,17 @@
 // apply() then gets this thread's accumulators, keeps the rounding chain of
 // its plain version and masks what lies past H, W and the output channels.
 // store_words() below is the common store.
+//
+// Knocks (timing only; the JAX unit's `knock`, hrviton_tpu/ops/
+// spade_block.py:105): Cfg's KNOCK mask compiles a variant that removes one
+// stage of the engine, so that the time it saves is that stage's. 0 is the
+// engine as above (the same type, the same code). KNOCK_NO_A: the input's
+// TMA loads are not issued (the full barrier waits for the weights alone;
+// the products read whatever the ring holds); KNOCK_NO_DOTS: no stage is
+// loaded or multiplied, the producer does nothing and no barrier of the
+// ring is waited on, and the epilogue runs on zero accumulators;
+// KNOCK_NO_ROLLS: every tap's window starts at the kx = R column, so the
+// products of one row's taps are summed at the same column.
 
 #pragma once
 
@@ -102,6 +113,9 @@ constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory a block may use
 
 constexpr int align_up(int v, int a) { return (v + a - 1) / a * a; }
 
+// a Cfg's knock mask bits (above); the epilogues may use the bits from 8 on
+constexpr int KNOCK_NO_A = 1, KNOCK_NO_DOTS = 2, KNOCK_NO_ROLLS = 4;
+
 // What every launch of the engine is told.
 struct Geometry {
   int H, W;       // the image (B is gridDim.z)
@@ -114,9 +128,9 @@ struct Geometry {
   int box;        // and the elements of each of its two boxes a row
 };
 
-template <int KS_, int BN_, bool NARROW_ = false, int MINB_ = 1>
+template <int KS_, int BN_, bool NARROW_ = false, int MINB_ = 1, int KNOCK_ = 0>
 struct Cfg {
-  static constexpr int KS = KS_, BN = BN_;
+  static constexpr int KS = KS_, BN = BN_, KNOCK = KNOCK_;
   static constexpr bool NARROW = NARROW_;
   // blocks an SM holds: with two, the consumers keep the even split of the
   // register file (no setmaxnreg: 85 a thread), for narrow N tiles
@@ -148,6 +162,7 @@ struct Cfg {
   static_assert(3 + STAGES <= 16, "a named barrier per stage slot");
   static_assert(!NARROW || KS == 3, "narrow inputs are 3 x 3 convs");
   static_assert(MINB == 1 || BN <= 32, "two blocks an SM hold narrow N tiles only");
+  static_assert(!NARROW || KNOCK == 0, "no knock variants of a narrow input");
 };
 
 // act(v) on 16 bytes of bf16 (8 values) in place.
@@ -173,6 +188,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* tmx, const unsigned c
                                         const Geometry& g, unsigned base, unsigned full,
                                         unsigned empty, int x0, int ntile, int i0, int nb,
                                         int b) {
+  if constexpr ((C::KNOCK & KNOCK_NO_DOTS) != 0) return;
   int st = 0;
   unsigned ph = 0;
   for (int band = i0; band < i0 + nb; ++band) {
@@ -189,6 +205,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tmx, const unsigned c
         mbar_expect_tx(bar, (two ? 2 : 1) * C::ROWS * g.box * 2 + C::W_BYTES);
         tma_load_3d(a + C::RAW_OFF, tmx, bar, e0, y, b);
         if (two) tma_load_3d(a + C::RAW_OFF + C::RAW_BOX, tmx, bar, e0 + g.box, y, b);
+      } else if constexpr ((C::KNOCK & KNOCK_NO_A) != 0) {
+        mbar_expect_tx(bar, C::W_BYTES);
       } else {
         mbar_expect_tx(bar, C::A_TX + C::W_BYTES);
         tma_load_4d(a, tmx, bar, q * KC, x0 - C::R, y, b);
@@ -295,6 +313,21 @@ __device__ __forceinline__ void consume(const Epi& epi,
                                         unsigned full, unsigned empty, int x0, int ntile,
                                         int i0, int nb, int b, int tid) {
   const int warp = tid >> 5, lane = tid & 31, wg = warp >> 2, w4 = warp & 3;
+  if constexpr ((C::KNOCK & KNOCK_NO_DOTS) != 0) {
+    // no main loop: each row tile's epilogue on zero accumulators
+    const float zero[C::BN / 2] = {};
+    epi.template prepare<C::BN>(shared, b, ntile, tid);
+    named_bar_sync(1, CONSUMERS);
+    for (int band = i0; band < i0 + nb; ++band) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int x = x0 + 8 * (2 * wg + mt);
+        const auto pre = epi.template load<C::BN>(b, band * TH, x, ntile, lane, w4);
+        epi.template apply<C::BN>(zero, pre, shared, b, band * TH, x, ntile, lane, w4);
+      }
+    }
+    return;
+  }
   const bool ready = C::NARROW || g.act;     // stages need a pass before the products
   float acc[2][C::BN / 2] = {};
   const int nk = nb * g.NCHUNKS;
@@ -310,6 +343,9 @@ __device__ __forceinline__ void consume(const Epi& epi,
     wgmma_fence_acc(acc[0]);
     wgmma_fence_acc(acc[1]);
     wgmma_fence();
+    // (the knock's copy of the tap loop apart, so that mask 0 compiles from
+    // the same statements as before it existed: the same SASS)
+    if constexpr ((C::KNOCK & KNOCK_NO_ROLLS) == 0) {
 #pragma unroll
     for (int tap = 0; tap < C::TAPS; ++tap) {
       const unsigned win = (tap / C::KS) * C::PITCH + (tap % C::KS) * KROW;
@@ -321,6 +357,20 @@ __device__ __forceinline__ void consume(const Epi& epi,
                           wgmma_desc(a + win + (2 * wg + mt) * 8 * KROW, C::PITCH,
                                      WGMMA_SWIZZLE_32B),
                           db, scale_d);
+    }
+    } else {
+#pragma unroll
+      for (int tap = 0; tap < C::TAPS; ++tap) {   // every window at column R
+        const unsigned win = (tap / C::KS) * C::PITCH + C::R * KROW;
+        const uint64_t db = wgmma_desc(w + tap * C::TAP_BYTES, 8 * KROW, WGMMA_SWIZZLE_32B);
+        const int scale_d = q != 0 || tap != 0;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          Wgmma<C::BN>::mma(acc[mt],
+                            wgmma_desc(a + win + (2 * wg + mt) * 8 * KROW, C::PITCH,
+                                       WGMMA_SWIZZLE_32B),
+                            db, scale_d);
+      }
     }
     wgmma_commit();
     if (q + 1 == g.NCHUNKS) {

@@ -26,11 +26,17 @@
 
 namespace hv {
 
+// The epilogue's knock mask bits (timing only; the JAX unit's "normalize"
+// and "modulate", hrviton_tpu/ops/spade_block.py:209-215), beside the
+// engine's (conv_engine.cuh): norm = xn; mod = norm + g.
+constexpr int KNOCK_NORMALIZE = 8, KNOCK_MODULATE = 16;
+
 // Two neighbouring channels of mod, each rounded as the plain version rounds
 // it, in bf16x2 arithmetic: an add or a multiply of two bf16 values rounds the
 // exact result once, which is what the plain version's f32 operation followed
 // by its rounding to bf16 gives. g and bt are the f32 accumulators of gamma
-// and beta.
+// and beta. KNOCK: the epilogue's knock bits (0 in production).
+template <int KNOCK = 0>
 __device__ __forceinline__ __nv_bfloat162 modulate2(__nv_bfloat162 x, float nz, float2 nsc,
                                                     float2 mu, float2 rs, float g0, float g1,
                                                     float b0, float b1, __nv_bfloat162 bg,
@@ -38,11 +44,19 @@ __device__ __forceinline__ __nv_bfloat162 modulate2(__nv_bfloat162 x, float nz, 
   const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
   const __nv_bfloat162 xn = __hadd2(x, __floats2bfloat162_rn(nz * nsc.x, nz * nsc.y));
   const float2 xf = __bfloat1622float2(xn);
-  const __nv_bfloat162 nrm =
-      __floats2bfloat162_rn((xf.x - mu.x) * rs.x, (xf.y - mu.y) * rs.y);
+  __nv_bfloat162 nrm;
+  if constexpr ((KNOCK & KNOCK_NORMALIZE) != 0)
+    nrm = xn;
+  else
+    nrm = __floats2bfloat162_rn((xf.x - mu.x) * rs.x, (xf.y - mu.y) * rs.y);
   const __nv_bfloat162 gm = __hadd2(__floats2bfloat162_rn(g0, g1), bg);
-  const __nv_bfloat162 be = __hadd2(__floats2bfloat162_rn(b0, b1), bb);
-  __nv_bfloat162 m = __hadd2(__hmul2(nrm, __hadd2(one, gm)), be);
+  __nv_bfloat162 m;
+  if constexpr ((KNOCK & KNOCK_MODULATE) != 0) {
+    m = __hadd2(nrm, gm);
+  } else {
+    const __nv_bfloat162 be = __hadd2(__floats2bfloat162_rn(b0, b1), bb);
+    m = __hadd2(__hmul2(nrm, __hadd2(one, gm)), be);
+  }
   if (pre_act == 1) m = __hmax2(m, __float2bfloat162_rn(0.f));
   if (pre_act == 2) m = __hmax2(m, __hmul2(m, __float2bfloat162_rn(0.2f)));
   return m;
@@ -111,6 +125,13 @@ struct ModEpilogue {
   __device__ __forceinline__ void apply(const float (&d)[BN / 2], const Pre<BN>& p,
                                         const Shared<BN>& s, int b, int y, int x0, int ntile,
                                         int lane, int w4) const {
+    apply_knocked<BN, 0>(d, p, s, b, y, x0, ntile, lane, w4);
+  }
+
+  template <int BN, int KNOCK>
+  __device__ __forceinline__ void apply_knocked(const float (&d)[BN / 2], const Pre<BN>& p,
+                                                const Shared<BN>& s, int b, int y, int x0,
+                                                int ntile, int lane, int w4) const {
     constexpr int G = BN / 16;
     const int g = lane >> 2, t = lane & 3, c0 = ntile * CT, px = x0 + g;
     unsigned w[2][G];
@@ -122,7 +143,7 @@ struct ModEpilogue {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const __nv_bfloat162 v =
-            modulate2(p.x[half][i], p.nz[half], k.ns, k.mu, k.rs, d[8 * i + 2 * half],
+            modulate2<KNOCK>(p.x[half][i], p.nz[half], k.ns, k.mu, k.rs, d[8 * i + 2 * half],
                       d[8 * i + 2 * half + 1], d[8 * i + 4 + 2 * half],
                       d[8 * i + 4 + 2 * half + 1], bg, bb, pre_act);
         w[half][i] = *reinterpret_cast<const unsigned*>(&v);
@@ -135,6 +156,18 @@ struct ModEpilogue {
       const size_t pix = ok ? (size_t)(b * H + py) * W + px : 0;
       engine::store_words<G>(out + pix * C, w[half], c0, C, ok, t);
     }
+  }
+};
+
+// The epilogue of a knock variant of the unit's gamma|beta stage
+// (spade_knock.cu): KNOCK's epilogue bits (KNOCK_NORMALIZE, KNOCK_MODULATE).
+template <int KNOCK>
+struct ModKnockEpilogue : ModEpilogue {
+  template <int BN>
+  __device__ __forceinline__ void apply(const float (&d)[BN / 2], const Pre<BN>& p,
+                                        const Shared<BN>& s, int b, int y, int x0, int ntile,
+                                        int lane, int w4) const {
+    apply_knocked<BN, KNOCK>(d, p, s, b, y, x0, ntile, lane, w4);
   }
 };
 

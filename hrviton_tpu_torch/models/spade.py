@@ -35,6 +35,19 @@ runs one power iteration in every spectral conv (staged, see
 pure: the block's noise fields are drawn before it (in the same order) and
 handed in, the staged spectral state is read from unchanged buffers, and
 the config's knobs are entered again around it.
+
+Knockouts (timing only, the JAX ``gen_knock``): inside ``with
+gen_knock(tags):`` each generator tag replaces one piece with a stub of the
+same shape (``_tie``: 0.1 in the dtype) and the unit's tags go to
+``spade_conv_unit``; the empty set is the production forward. The stubs:
+``conv_shared`` (a fused unit's actv), ``unit`` (a fused unit: xin's first
+c_out channels, tiled up to c_out, + 0.1, + the residual), ``seg_for`` (the
+seg at each scale), ``features`` (the input pyramid's feature maps: no
+resize, no conv), ``pyramid`` (its samples: the convs run on constants),
+``conv_img`` (tanh of h's first 3 channels). The set is a registered switch
+(``core/graphs.register_state``): a captured entry point records a graph of
+its own under a knock and replays the production graph after it. No CLI
+reaches a knock, and a knocked output is never an image.
 """
 
 from __future__ import annotations
@@ -60,13 +73,14 @@ from hrviton_tpu_torch.ops.resize import interpolate_nchw
 from hrviton_tpu_torch.ops.s2d import (concat_s2d, from_s2d, instance_norm_s2d,
                                        to_s2d, upsample2x_s2d)
 from hrviton_tpu_torch.ops.spade_block import (fused_spade_conv_eligible,
-                                               spade_conv_unit)
+                                               knock_tags, spade_conv_unit)
 from hrviton_tpu_torch.ops.spade_fused import (fast_spade,
                                                fused_spade_eligible,
                                                fused_spade_modulate)
 
 __all__ = ["MaskNorm", "SPADENorm", "SPADEResBlock", "SPADEGenerator",
-           "noise_source", "enable_merge_gamma_beta", "merge_gamma_beta"]
+           "noise_source", "enable_merge_gamma_beta", "merge_gamma_beta",
+           "gen_knock", "KNOCKS"]
 
 _NHIDDEN = 128
 _CL = torch.channels_last
@@ -95,6 +109,48 @@ def merge_gamma_beta(on: bool = True):
 
 
 graphs.register_state(lambda: _MERGE_GB)   # a dispatch switch: in every graph's key
+
+# TIMING-ONLY knockout stubs (module docstring; hrviton_tpu/models/
+# spade.py:50-80). Empty: the production forward.
+_GEN_KNOCK: frozenset = frozenset()
+# the JAX tool's generator knocks (tools/exp_gen_knockout.py:44-45)
+KNOCKS = ("conv_shared", "seg_for", "stats", "unit", "features", "pyramid",
+          "conv_img")
+
+
+@contextlib.contextmanager
+def gen_knock(tags):
+    """Timing only: stub generator pieces for the length of the block (the
+    JAX ``gen_knock``); the previous set comes back after it, also after an
+    exception. Tags: the generator's (``KNOCKS``) and the unit's
+    (``ops/spade_block.UNIT_KNOCKS``, forwarded); an unknown tag raises."""
+    global _GEN_KNOCK
+    tags = knock_tags(tags)
+    prev = _GEN_KNOCK
+    _GEN_KNOCK = tags
+    try:
+        yield
+    finally:
+        _GEN_KNOCK = prev
+
+
+graphs.register_state(lambda: _GEN_KNOCK)   # a knocked forward is another graph
+
+
+def _tie(shape, dtype, device) -> torch.Tensor:
+    """The stub of a knocked piece: 0.1 in ``dtype``, an NCHW view of NHWC
+    memory for a 4-d ``shape`` (B, C, H, W), the layout of the piece it
+    stands for (another layout would add the copies or the slower library
+    kernels of its consumers to the knocked program). The JAX ``_tie``
+    adds 0 x a full sum of the piece's inputs so that XLA keeps their
+    producers; eager PyTorch and a recorded graph drop nothing, so no
+    reduction is read here (it would bias the attribution)."""
+    if len(shape) == 4:
+        b, c, h, w = shape
+        return _nchw(torch.full((b, h, w, c), 0.1, dtype=dtype, device=device))
+    return torch.full(shape, 0.1, dtype=dtype, device=device)
+
+
 NoiseArg = Union[torch.Generator, Callable, Sequence[torch.Tensor]]
 
 
@@ -304,17 +360,28 @@ class SPADEResBlock(nn.Module):
     def _unit(self, norm, conv, xin, seg, draw, pre_act, residual=None,
               update_sn=False):
         """One fused {SPADENorm, conv} pair (ops/spade_block.py)."""
-        b, _, h, w = xin.shape
+        b, c_in, h, w = xin.shape
         dt = xin.dtype
         noise = draw((b, h, w, 1))
-        actv = norm.conv_shared(seg)                       # pre-relu
+        if "conv_shared" in _GEN_KNOCK:                    # timing only
+            actv = _tie((b, _NHIDDEN, h, w), dt, xin.device)
+        else:
+            actv = norm.conv_shared(seg)                   # pre-relu
         bc = None if conv.bias is None else policy(conv.bias)
+        wc = _conv_weight(conv, dt, update_sn)
+        if "unit" in _GEN_KNOCK:                           # timing only
+            c_out = wc.shape[0]
+            out = (xin[:, :c_out] if c_in >= c_out else
+                   torch.cat([xin, xin[:, :c_out - c_in]], dim=1))
+            out = out + _tie((), dt, xin.device)
+            return out + residual if residual is not None else out
+        # the production call takes no knock argument at all
+        knocked = {"knock": _GEN_KNOCK} if _GEN_KNOCK else {}
         out = spade_conv_unit(
             pre_act, _nhwc(xin), noise, policy(norm.noise_scale), _nhwc(actv),
             policy(norm.conv_gamma.weight).to(dt), policy(norm.conv_gamma.bias),
             policy(norm.conv_beta.weight).to(dt), policy(norm.conv_beta.bias),
-            _conv_weight(conv, dt, update_sn), bc,
-            None if residual is None else _nhwc(residual))
+            wc, bc, None if residual is None else _nhwc(residual), **knocked)
         return _nchw(out)
 
     def forward(self, x, seg, draw, s2d: bool = False,
@@ -471,6 +538,9 @@ class SPADEGenerator(nn.Module):
 
         def seg_at(th, tw):
             """seg at (th, tw), NCHW one-hot."""
+            if "seg_for" in _GEN_KNOCK:                    # timing only
+                return _tie((x.shape[0], cfg.gen_semantic_nc, th, tw),
+                            x.dtype, x.device)
             if labels is None:
                 return interpolate_nchw(_nchw(seg), size=(th, tw),
                                         mode="nearest")
@@ -490,10 +560,18 @@ class SPADEGenerator(nn.Module):
         # one feature map per block ('more' never reads conv_7's scale)
         features = []
         for i in range(n_plain):
-            sample = interpolate_nchw(xc, size=(sh * 2 ** i, sw * 2 ** i),
-                                      mode="nearest")
-            features.append(getattr(self, f"conv_{i}")(
-                sample.contiguous(memory_format=_CL)))
+            conv = getattr(self, f"conv_{i}")
+            size = (sh * 2 ** i, sw * 2 ** i)
+            if "features" in _GEN_KNOCK:                   # timing only
+                features.append(_tie((x.shape[0], conv.weight.shape[0], *size),
+                                     x.dtype, x.device))
+                continue
+            if "pyramid" in _GEN_KNOCK:                    # timing only
+                sample = _tie((x.shape[0], xc.shape[1], *size), x.dtype,
+                              x.device)
+            else:
+                sample = interpolate_nchw(xc, size=size, mode="nearest")
+            features.append(conv(sample.contiguous(memory_format=_CL)))
 
         def up(t):
             return interpolate_nchw(t, scale_factor=2, mode="nearest")
@@ -524,5 +602,7 @@ class SPADEGenerator(nn.Module):
             h = self.conv_img(h, pre_act="leaky0.2", s2d=True)
             return torch.tanh(from_s2d(_nhwc_view(h), 3))
 
+        if "conv_img" in _GEN_KNOCK:                       # timing only
+            return torch.tanh(h[:, :3]).permute(0, 2, 3, 1)
         h = self.conv_img(h, pre_act="leaky0.2")
         return torch.tanh(h).permute(0, 2, 3, 1)

@@ -32,7 +32,8 @@ __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
            "KERNEL_DTYPES", "check_tensor", "pad_to", "ref_grads"]
 
 # csrc/<name>.cu
-SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma")
+SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma",
+           "spade_knock")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

@@ -48,6 +48,31 @@ def _inputs(dtype, b, h, w, c, cout, ksize, residual, nh=128):
     return [t[k] for k in _ORDER], res
 
 
+def _shifted(x, seed=1):
+    """x with channel means and scales well away from 0 and 1 (x * (1 + 2u)
+    + 3v per channel), so that the statistics and the normalize step show
+    in the unit's output."""
+    rng = np.random.default_rng(seed)
+    c = x.shape[-1]
+    u = torch.from_numpy(rng.uniform(0, 1, c).astype(np.float32)).cuda()
+    v = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
+    return (x.float() * (1 + 2 * u) + 3 * v).to(x.dtype)
+
+
+def _knock_inputs(b, h, w, c, cout, ksize, residual):
+    args, res = _inputs(torch.bfloat16, b, h, w, c, cout, ksize, residual)
+    args[0] = _shifted(args[0])
+    return args, res
+
+
+def _tells_apart(prod, want):
+    """The production unit's output fails the limit a knocked output is
+    held to: the comparison can tell the variant from the production unit."""
+    scale = want.float().abs().max().item()
+    err = (prod.float() - want.float()).abs().max().item()
+    assert err > 2 * 2 ** -7 * scale, (err, scale)
+
+
 def _assert_close(got, want, dtype):
     scale = want.float().abs().max().item()
     tol = 1e-4 * scale if dtype == torch.float32 else 2 * 2 ** -7 * scale
@@ -70,6 +95,73 @@ def test_kernel_matches_plain(dtype, ksize, residual, pre_act):
     assert tsb.spade_conv_unit.launches == before + 1
     want = tsb.spade_conv_ref(*args, pre_act=pre_act, residual=res)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knock", tsb.KNOCK_SETS, ids="+".join)
+@pytest.mark.parametrize("gb_bn", [64, 80, 96])
+@pytest.mark.parametrize("ks,cout", [(3, 24), (1, 16), (3, 32)])
+def test_knock_variants_match_plain(knock, gb_bn, ks, cout, monkeypatch):
+    """Each knock variant of the unit's two kernels against the plain
+    knocked unit (2 bf16 ulps of max|ref|), at every stage (a) tile and a
+    ragged 37x45, on x whose statistics are far from mu = 0, rsig = 1; the
+    production unit fails that limit (a variant that still did the knocked
+    work would too); actv_dma (undefined output) for its shape; each kernel
+    the call launches counts once, the variant's in its counter, an
+    unknocked stage's in knock_production, the unit's counter not at all."""
+    _need_card()
+    monkeypatch.setattr(tsf, "_GB_BN", (gb_bn,))
+    c = gb_bn // 2
+    args, res = _knock_inputs(2, 37, 45, c, cout, ks, ks == 3)
+    counters = {**tsb.knock_counters,
+                **{f"{s}/production": n for s, n in tsb.knock_production.items()}}
+    counts = {k: n.launches for k, n in counters.items()}
+    before = tsb.spade_conv_unit.launches
+    got = tsb.spade_conv_unit("leaky0.2", *args, res, knock=knock)
+    torch.cuda.synchronize()
+    assert tsb.spade_conv_unit.launches == before
+    moved = {k: n.launches - counts[k] for k, n in counters.items()
+             if n.launches != counts[k]}
+    knocked = {f"{'conv' if t.startswith('cons') else 'gb'}/{t}"
+               for t in knock if ks == 3 or not t.startswith("cons")}
+    want_moved = dict.fromkeys(knocked, 1)
+    for stage in ("gb", "conv"):
+        if not any(k.startswith(stage) for k in knocked):
+            want_moved[f"{stage}/production"] = 1
+    assert moved == want_moved
+    if knock == ("actv_dma",):
+        assert got.shape == (2, 37, 45, cout)
+        return
+    want = tsb.spade_conv_ref(*args, pre_act="leaky0.2", residual=res,
+                              knock=knock)
+    _assert_close(got, want, torch.bfloat16)
+    if knocked:          # the consumer's tags are no-ops for a 1x1 conv
+        _tells_apart(tsb.spade_conv_unit("leaky0.2", *args, res), want)
+
+
+@pytest.mark.gpu
+def test_knock_stats_and_f32():
+    """stats runs no statistics kernel and both production kernels, on x
+    whose statistics are far from mu = 0, rsig = 1 (the production unit
+    fails the limit); a knocked f32 call raises."""
+    _need_card()
+    from hrviton_tpu_torch.ops import spade_fused
+    args, res = _knock_inputs(1, 16, 32, 32, 32, 3, True)
+    before = spade_fused.norm_stats.launches, tsb.spade_conv_unit.launches
+    prod0 = {s: n.launches for s, n in tsb.knock_production.items()}
+    got = tsb.spade_conv_unit(None, *args, res, knock=("stats",))
+    assert (spade_fused.norm_stats.launches,
+            tsb.spade_conv_unit.launches) == before
+    assert {s: n.launches - prod0[s]
+            for s, n in tsb.knock_production.items()} == {"gb": 1, "conv": 1}
+    want = tsb.spade_conv_ref(*args, residual=res, knock=("stats",))
+    _assert_close(got, want, torch.bfloat16)
+    _tells_apart(tsb.spade_conv_unit(None, *args, res), want)
+    args32, res32 = _inputs(torch.float32, 1, 16, 32, 32, 32, 3, True)
+    with pytest.raises(NotImplementedError):
+        tsb.spade_conv_unit(None, *args32, res32, knock=("normalize",))
+    with pytest.raises(NotImplementedError):   # two tags of one stage
+        tsb.spade_conv_unit(None, *args, res, knock=("normalize", "modulate"))
 
 
 @pytest.mark.gpu
