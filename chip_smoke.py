@@ -2340,8 +2340,27 @@ def _steps_in_turns(card, tag, build, batches, pairs=STEP_PAIRS, expect=None,
     the pool's MiB, the memory of the first eager step and of the first
     replayed call, the graph's kernel nodes (DOT dump) beside one eager
     step's launches. Returns the figures."""
-    with _deterministic_cudnn():
-        return _in_turns(card, tag, build, batches, pairs, expect, spy)
+    with _deterministic_cudnn(), _capture_clock() as capture_s:
+        return _in_turns(card, tag, build, batches, pairs, expect, spy,
+                         capture_s)
+
+
+@contextlib.contextmanager
+def _capture_clock():
+    """The port's tracer on for the block (``utils/profiling``): yields a
+    function that gives the seconds of the ``graphs.capture`` spans (each
+    warm-up and recording) closed in the block so far. A graph recorded in
+    the block holds the device spans' event nodes, and no other node."""
+    from hrviton_tpu_torch.utils import profiling
+    was = profiling.enabled()
+    profiling.enable()
+    t0 = time.perf_counter_ns()
+    try:
+        yield lambda: sum(s.t1_ns - s.t0_ns for s in profiling.spans()
+                          if s.name == "graphs.capture" and s.t0_ns >= t0) / 1e9
+    finally:
+        if not was:
+            profiling.disable()
 
 
 @contextlib.contextmanager
@@ -2381,7 +2400,7 @@ def _memory_of(mem, key):
                 gib(torch.cuda.max_memory_reserved() - r0))
 
 
-def _in_turns(card, tag, build, batches, pairs, expect, spy):
+def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s):
     from hrviton_tpu_torch.core import graphs
     wrappers = _wrappers()
     runs = {"eager": build(), "replay": build()}
@@ -2395,7 +2414,7 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy):
     ms = {m: [] for m in modes}
     mets = {m: [] for m in modes}
     launches = {m: [] for m in modes}
-    first_s = hooks = None
+    first_s = hooks = recording_s = None
     held, gen_diff, mem = [], [], {}
     for i in range(pairs):
         batch = batches[i % len(batches)]
@@ -2420,6 +2439,7 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy):
                 torch.cuda.synchronize()
             if mode == "replay" and i == 0:
                 first_s = time.perf_counter() - t
+                recording_s = capture_s()
                 hooks = len(spy) - n_seen if spy is not None else None
             ms[mode].append(e0.elapsed_time(e1))
             launches[mode].append({k: w.launches - before[k]
@@ -2501,13 +2521,13 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy):
     fig = dict(eager=statistics.median(ms["eager"][1:]),
                replay=statistics.median(ms["replay"][1:]),
                eager_ms=ms["eager"][1:], replay_ms=ms["replay"][1:],
-               capture_s=entry.seconds, pool_mib=pool and pool[0],
+               capture_s=recording_s, pool_mib=pool and pool[0],
                nodes=sum(gk.values()), launches=sum(ek.values()), memory=mem)
     log(f"{tag}: ms/step by CUDA events, {pairs - 1} pairs in turns after "
         f"the first: eager {_spread(ms['eager'][1:])}; replay "
         f"{_spread(ms['replay'][1:])}; first replayed call (warm-up, "
         f"recording, replay) {first_s * 1e3:.0f} ms, recording "
-        f"{entry.seconds * 1e3:.0f} ms, pools "
+        f"{recording_s * 1e3:.0f} ms, pools "
         + ("not measured" if pool is None else f"{pool[0]:.0f} MiB") +
         f"; graph kernel nodes {fig['nodes']} (other nodes {go}; hand-written "
         f"{hw}) against one eager step's kernel launches {fig['launches']} "
@@ -3375,8 +3395,16 @@ def _graph_case(card, tag, call, inputs, capts, reload, main, expect=None):
     launch counters, the graph's kernel nodes against eager's launches (the
     inputs are made so that the entry point launches nothing outside its
     graphs), outputs not overwritten by the next call, weights written in
-    place after a replay, and GRAPH_PAIRS pairs timed in turns. Returns its
+    place after a replay, and GRAPH_PAIRS pairs timed in turns; the first
+    call's warm-ups and recordings timed by the tracer. Returns its
     figures."""
+    with _capture_clock() as capture_s:
+        return _graph_case_traced(card, tag, call, inputs, capts, reload, main,
+                                  expect, capture_s)
+
+
+def _graph_case_traced(card, tag, call, inputs, capts, reload, main, expect,
+                       capture_s):
     from hrviton_tpu_torch.core import graphs
     wrappers = _wrappers()
 
@@ -3394,6 +3422,7 @@ def _graph_case(card, tag, call, inputs, capts, reload, main, expect=None):
     t = time.perf_counter()
     _, n_first = counted(lambda: call(inputs[0]))
     first_s = time.perf_counter() - t
+    recording_s = capture_s()
     rep, n_rep = counted(lambda: call(inputs[0]))
     entries = [c.last_entry for c in capts]
     if captures() == caps0 and not all(e.replays > 1 for e in entries):
@@ -3488,7 +3517,7 @@ def _graph_case(card, tag, call, inputs, capts, reload, main, expect=None):
                eager_wall=med(wall["eager"]), replay_wall=med(wall["replay"]),
                eager_busy=e_busy, replay_busy=r_busy, eager_gap=e_wall - e_busy,
                replay_gap=r_wall - r_busy, launches=n_ek, nodes=n_gk, pool_mib=pool,
-               capture_s=sum(e.seconds for e in entries))
+               capture_s=recording_s)
     log(f"{tag}: replay against eager {same}; with new weights {same_new}; "
         f"launch counters per call eager {n_eager}, replayed {n_rep}; first "
         f"call (warm-up and recording) {first_s * 1e3:.1f} ms, recording "

@@ -17,6 +17,10 @@ CUDA graphs, each recorded once per batch signature (``core/graphs.py``;
 the JAX CLI jits ``expand`` and ``run_impl`` apart): the batch's expansion
 and cast, then ``TryOnPipeline``'s forward. The last, smaller batch gets
 graphs of its own, as JAX compiles anew for it.
+
+With ``HRVITON_TRACE=1`` in the environment (``utils/profiling``), each
+``tryon_step`` is a traced request, and ``main`` prints after its "Test
+time" line the mean milliseconds a batch of each span over the run.
 """
 
 from __future__ import annotations
@@ -40,11 +44,12 @@ from hrviton_tpu_torch.core import graphs
 from hrviton_tpu_torch.core.precision import bf16_params
 from hrviton_tpu_torch.data.device import expand_compact, to_device
 from hrviton_tpu_torch.pipelines.tryon import ConditionOutputs, TryOnPipeline
+from hrviton_tpu_torch.utils import profiling
 from hrviton_tpu_torch.utils.vis import (make_image_grid, save_images,
                                          visualize_segmap)
 
 __all__ = ["get_opt", "build_pipeline", "prepare_batch", "tryon_step",
-           "grid_panels", "main", "Step"]
+           "grid_panels", "main", "trace_summary", "Step"]
 
 
 def get_opt(argv=None):
@@ -139,10 +144,12 @@ def tryon_step(pipe: TryOnPipeline, raw: Mapping, *,
     """One batch of the CLI: the loader's dict (name lists removed) to the
     device (the host's copy), expanded there if compact, the ``datasetting``
     cloth picked, cast to the pipeline's dtype (``prepare_batch``), and the
-    try-on forward."""
-    full, batch = prepare_batch(to_device(raw, pipe.device), datasetting,
-                                compact, semantic_nc, pipe.dtype)
-    output, cond = pipe(batch)
+    try-on forward. With tracing on it is a request's root span,
+    ``tryon_step``."""
+    with profiling.span("tryon_step"):
+        full, batch = prepare_batch(to_device(raw, pipe.device), datasetting,
+                                    compact, semantic_nc, pipe.dtype)
+        output, cond = pipe(batch)
     return Step(output, cond, batch, full)
 
 
@@ -195,6 +202,7 @@ def main(argv=None):
 
     num = 0
     t0 = time.time()
+    t0_ns = time.perf_counter_ns()
     steps = (len(ds) + opt.batch_size - 1) // opt.batch_size
     try:
         for _ in range(steps):
@@ -220,8 +228,29 @@ def main(argv=None):
     finally:
         loader.close()
     print(f"Test time {time.time() - t0}")
+    if profiling.enabled():
+        for line in trace_summary(t0_ns, steps):
+            print(line)
     print("Finished testing!")
 
+
+def trace_summary(since_ns: int, batches: int) -> List[str]:
+    """One line for each span name recorded from ``since_ns`` on: its mean
+    milliseconds a batch over ``batches`` batches, its count, and "device"
+    where the card's events timed it; then the tracer's counters."""
+    profiling.flush()
+    total: Dict[str, list] = {}
+    for s in profiling.spans():
+        if s.t0_ns >= since_ns:
+            t = total.setdefault(s.name, [0, 0, s.device])
+            t[0] += s.t1_ns - s.t0_ns
+            t[1] += 1
+    counts = profiling.counters()
+    return [f"trace {name}: {ns / 1e6 / max(batches, 1):.3f} ms a batch "
+            f"({n} spans{', device' if dev else ''})"
+            for name, (ns, n, dev) in sorted(total.items())] + [
+        f"trace counters: {counts['dropped']} dropped, {counts['waits']} "
+        "harvests waited for a replay"]
 
 if __name__ == "__main__":
     main()

@@ -48,6 +48,12 @@ inside a jit is inlined).
   eager call's cache grows by from an emptied cache, well above the call's
   peak (eagerly the allocator gives the rest back when an allocation
   fails); with expandable segments, about the peak.
+- **Tracing** (``utils/profiling``): a call's phases are host spans owned
+  by the entry point's name, ``graphs.signature``, ``graphs.weights``,
+  ``graphs.capture`` (the warm-up and the recording), ``graphs.copy_in``,
+  ``graphs.launch`` and ``graphs.clone_out``. The tracing switch joins the
+  signature; the device spans a recording makes are kept with its entry,
+  and each launch first harvests the last replay's.
 
 **Steps** (``donated``: the counterpart of ``donate_argnums``). A training
 step advances state in place: ``donated(*args)`` names it, the tensors (the
@@ -89,12 +95,13 @@ enqueued during a capture to its watchdog.
 from __future__ import annotations
 
 import contextlib
-import time
 import weakref
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["captured", "Captured", "Pool", "disabled", "enabled",
            "register_counters", "register_state", "hold", "module_tensors",
@@ -137,6 +144,10 @@ def register_state(reader: Callable[[], Any]) -> None:
     """A module-level switch a traced function would read: ``reader()``
     (hashable) joins every signature."""
     _STATES.append(reader)
+
+
+# a graph recorded with tracing on holds its device spans' event nodes
+register_state(profiling.enabled)
 
 
 def hold(value):
@@ -238,13 +249,13 @@ class _Entry:
     increase per call, what it holds, its weights' signature."""
 
     def __init__(self, graph, inputs, out_spec, outputs, out_objects, counts,
-                 held, seconds):
+                 held, marks):
         self.graph, self.inputs = graph, inputs
         self.out_spec, self.outputs = out_spec, outputs
         self.out_objects = out_objects
         self.counts, self.held = counts, held
+        self.marks = marks              # its device spans (utils/profiling)
         self.weights_sig = None         # set by the call that records it
-        self.seconds = seconds          # warm-up and recording
         self.replays = 0
 
 
@@ -358,10 +369,12 @@ class Captured:
     def __call__(self, *args, **kwargs):
         if not enabled() or _TRACING:
             return self.fn(*args, **kwargs)
-        key, leaves, objects, dev = self._signature(args, kwargs)
+        with profiling.span("graphs.signature", self.__name__):
+            key, leaves, objects, dev = self._signature(args, kwargs)
         if dev is None or dev.type != self.device_type:
             return self.fn(*args, **kwargs)
-        wsig = self._weights_sig(args, kwargs)
+        with profiling.span("graphs.weights", self.__name__):
+            wsig = self._weights_sig(args, kwargs)
         entry = self.entries.get(key)
         fresh = entry is None or entry.weights_sig != wsig
         if fresh:
@@ -373,8 +386,9 @@ class Captured:
             if old is None and not self._pool.in_use():
                 self._pool.handle = None
             self._watch(objects)
-            entry = self.entries[key] = self._capture(
-                key[0], leaves, objects, dev)
+            with profiling.span("graphs.capture", self.__name__):
+                entry = self.entries[key] = self._capture(
+                    key[0], leaves, objects, dev)
             del old
         self._last = weakref.ref(entry)
         out = self._replay(entry, leaves)
@@ -383,12 +397,12 @@ class Captured:
             # warm-up, the restore and the recording move version counters;
             # a replay moves none) is the graph's own, and only a write from
             # outside records anew
-            entry.weights_sig = self._weights_sig(args, kwargs)
+            with profiling.span("graphs.weights", self.__name__):
+                entry.weights_sig = self._weights_sig(args, kwargs)
         return out
 
     def _capture(self, spec, leaves, objects, dev) -> _Entry:
         global _TRACING
-        t0 = time.perf_counter()
         inputs = [torch.empty_like(t) for t in leaves]
         for s, t in zip(inputs, leaves):
             s.copy_(t)
@@ -410,7 +424,8 @@ class Captured:
             # the warm-up's step undone: the call's step is the replay's
             _restore(tensors, gens, saved)
             del saved
-            graph, out, held = self._record(s_args, s_kwargs, dev, gens)
+            with profiling.collect(profiling.Marks(self.__name__)) as marks:
+                graph, out, held = self._record(s_args, s_kwargs, dev, gens)
             recorded = [a - b for a, b in zip(_counts(), warm)]
         finally:
             _TRACING -= 1
@@ -420,8 +435,7 @@ class Captured:
         out_spec = _flatten(out, outputs, out_objects)
         self.captures += 1
         return _Entry(graph, inputs, out_spec, outputs,
-                      {id(o): o for o in out_objects}, recorded, held,
-                      time.perf_counter() - t0)
+                      {id(o): o for o in out_objects}, recorded, held, marks)
 
     def _warm_up(self, s_args, s_kwargs, dev) -> None:
         """One eager call on the capture stream (it builds the kernels, fills
@@ -478,16 +492,23 @@ class Captured:
         self._pool.handle = None
 
     def _replay(self, entry: _Entry, leaves):
-        for s, t in zip(entry.inputs, leaves):
-            s.copy_(t)
-        entry.graph.replay()
+        name = self.__name__
+        with profiling.span("graphs.copy_in", name):
+            for s, t in zip(entry.inputs, leaves):
+                s.copy_(t)
+        with profiling.span("graphs.launch", name):
+            # the last replay's device spans, before this one overwrites them
+            entry.marks.harvest()
+            entry.graph.replay()
+            entry.marks.launched()
         entry.replays += 1
         for c, n in zip(_COUNTERS, entry.counts):
             c.launches += n
         clones: Dict[int, torch.Tensor] = {}     # an output returned twice
-        for t in entry.outputs:                  # is cloned once
-            if id(t) not in clones:
-                clones[id(t)] = t.clone()
+        with profiling.span("graphs.clone_out", name):
+            for t in entry.outputs:              # is cloned once
+                if id(t) not in clones:
+                    clones[id(t)] = t.clone()
         return _unflatten(entry.out_spec, (clones[id(t)] for t in entry.outputs),
                           entry.out_objects)
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from hrviton_tpu_torch.ops.parse import onehot
+from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["expand_compact", "COMPACT_KEYS", "to_device"]
 
@@ -76,11 +77,13 @@ def expand_compact(batch: Mapping, semantic_nc: int = 13,
 
 def to_device(batch: Mapping, device) -> Dict:
     """A loader batch of numpy arrays (nested one level) -> tensors on
-    ``device``; other values (the name lists) pass through."""
+    ``device``; other values (the name lists) pass through. Its span,
+    ``to_device``, holds the pageable copies and the host's wait for them."""
     def move(v):
         if isinstance(v, Mapping):
             return {k: move(x) for k, x in v.items()}
         if isinstance(v, np.ndarray):
             return torch.from_numpy(v).to(device)
         return v
-    return {k: move(v) for k, v in batch.items()}
+    with profiling.span("to_device"):
+        return {k: move(v) for k, v in batch.items()}

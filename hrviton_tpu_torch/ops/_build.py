@@ -28,6 +28,8 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from hrviton_tpu_torch.utils import profiling
+
 __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
            "KERNEL_DTYPES", "check_tensor", "pad_to", "ref_grads"]
 
@@ -107,11 +109,13 @@ def build(name: str, verbose: bool = False) -> Path:
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if need be;
-    ``declare(lib)`` sets argtypes and restype once."""
+    ``declare(lib)`` sets argtypes and restype once. A first load is the
+    span ``ops.load[<name>]``, with the build inside it."""
     with _LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(str(build(name)))
-            declare(lib)
+            with profiling.span("ops.load", name):
+                lib = ctypes.CDLL(str(build(name)))
+                declare(lib)
             _LIBS[name] = lib
         return _LIBS[name]
 

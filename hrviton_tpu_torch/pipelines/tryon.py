@@ -13,6 +13,13 @@ dicts in, NHWC tensors out) and stay plain functions, as in JAX.
 replays a CUDA graph of the forward recorded once per batch signature
 (``core/graphs.py``, the counterpart of the JAX pipeline's one jitted
 program).
+
+With tracing on (``utils/profiling``) the forward is three contiguous
+device spans: ``tryon.tocg`` (the downsampling to the condition size, the
+tocg, the cloth-mask composition), ``tryon.lift`` (the resize to the fine
+size, the blur, argmax, lookup and one-hot, the flow's resize, the warp,
+the occlusion) and ``tryon.generator`` (the input concat and the SPADE
+generator); building a pipeline is the host span ``pipeline.init``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from hrviton_tpu_torch.ops.blur import gaussian_blur
 from hrviton_tpu_torch.ops.grid_sample import flow_warp
 from hrviton_tpu_torch.ops.parse import group_index_of_label13, lut_lookup, onehot
 from hrviton_tpu_torch.ops.resize import interpolate, resize_flow
+from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["ConditionOutputs", "compose_clothmask", "remove_overlap",
            "condition_forward", "tryon_forward", "TryOnPipeline"]
@@ -85,35 +93,39 @@ def condition_forward(tocg_apply: Callable, batch: Dict[str, torch.Tensor],
     fh, fw = cfg.fine_height, cfg.fine_width
 
     cloth = batch[cloth_key]
-    cm = (batch[clothmask_key] > 0.5).to(cloth.dtype)
-    cloth_down = interpolate(cloth, size=(ch, cw), mode="bilinear")
-    cm_down = interpolate(cm, size=(ch, cw), mode="nearest")
-    parse_agn_down = interpolate(batch["parse_agnostic"], size=(ch, cw),
-                                 mode="nearest")
-    densepose_down = interpolate(batch["densepose"], size=(ch, cw),
-                                 mode="bilinear")
-    input1 = torch.cat([cloth_down, cm_down], dim=-1)
-    input2 = torch.cat([parse_agn_down, densepose_down], dim=-1)
+    with profiling.device_span("tryon.tocg", cloth.device):
+        cm = (batch[clothmask_key] > 0.5).to(cloth.dtype)
+        cloth_down = interpolate(cloth, size=(ch, cw), mode="bilinear")
+        cm_down = interpolate(cm, size=(ch, cw), mode="nearest")
+        parse_agn_down = interpolate(batch["parse_agnostic"], size=(ch, cw),
+                                     mode="nearest")
+        densepose_down = interpolate(batch["densepose"], size=(ch, cw),
+                                     mode="bilinear")
+        input1 = torch.cat([cloth_down, cm_down], dim=-1)
+        input2 = torch.cat([parse_agn_down, densepose_down], dim=-1)
 
-    flow_list, fake_segmap, warped_c_lr, warped_cm_lr = tocg_apply(input1, input2)
-    fake_segmap = compose_clothmask(fake_segmap, warped_cm_lr,
-                                    cfg.clothmask_composition)
+        flow_list, fake_segmap, warped_c_lr, warped_cm_lr = tocg_apply(
+            input1, input2)
+        fake_segmap = compose_clothmask(fake_segmap, warped_cm_lr,
+                                        cfg.clothmask_composition)
 
-    seg_full = interpolate(fake_segmap, size=(fh, fw), mode="bilinear")
-    fake_parse_gauss = gaussian_blur(seg_full, (15, 15), (3.0, 3.0))
-    fake_parse = torch.argmax(fake_parse_gauss, dim=-1)
-    glabel = lut_lookup(fake_parse, group_index_of_label13())
-    parse7 = onehot(glabel, 7, dtype=cloth.dtype)
+    with profiling.device_span("tryon.lift", cloth.device):
+        seg_full = interpolate(fake_segmap, size=(fh, fw), mode="bilinear")
+        fake_parse_gauss = gaussian_blur(seg_full, (15, 15), (3.0, 3.0))
+        fake_parse = torch.argmax(fake_parse_gauss, dim=-1)
+        glabel = lut_lookup(fake_parse, group_index_of_label13())
+        parse7 = onehot(glabel, 7, dtype=cloth.dtype)
 
-    flow_full = resize_flow(flow_list[-1], (fh, fw), mode="bilinear")
-    warped = flow_warp(torch.cat([cloth, cm], dim=-1), flow_full,
-                       cfg.flow_norm_w, cfg.flow_norm_h)
-    warped_cloth = warped[..., :3]
-    warped_clothmask = warped[..., 3:]
-    if cfg.occlusion:
-        warped_clothmask = remove_overlap(
-            torch.softmax(fake_parse_gauss, dim=-1), warped_clothmask)
-        warped_cloth = warped_cloth * warped_clothmask + (1.0 - warped_clothmask)
+        flow_full = resize_flow(flow_list[-1], (fh, fw), mode="bilinear")
+        warped = flow_warp(torch.cat([cloth, cm], dim=-1), flow_full,
+                           cfg.flow_norm_w, cfg.flow_norm_h)
+        warped_cloth = warped[..., :3]
+        warped_clothmask = warped[..., 3:]
+        if cfg.occlusion:
+            warped_clothmask = remove_overlap(
+                torch.softmax(fake_parse_gauss, dim=-1), warped_clothmask)
+            warped_cloth = warped_cloth * warped_clothmask + (
+                1.0 - warped_clothmask)
 
     return ConditionOutputs(flow_list, fake_segmap, warped_c_lr, warped_cm_lr,
                             fake_parse_gauss, fake_parse, parse7, glabel,
@@ -126,9 +138,11 @@ def tryon_forward(tocg_apply: Callable, generator_apply: Callable,
     """Full unpaired try-on. generator_apply: fn(x9, parse_labels) -> rgb.
     Returns (rgb in [-1, 1] NHWC, ConditionOutputs)."""
     cond = condition_forward(tocg_apply, batch, cfg, cloth_key, clothmask_key)
-    gen_in = torch.cat([batch["agnostic"], batch["densepose"],
-                        cond.warped_cloth], dim=-1)
-    return generator_apply(gen_in, cond.parse_labels), cond
+    with profiling.device_span("tryon.generator", cond.warped_cloth.device):
+        gen_in = torch.cat([batch["agnostic"], batch["densepose"],
+                            cond.warped_cloth], dim=-1)
+        rgb = generator_apply(gen_in, cond.parse_labels)
+    return rgb, cond
 
 
 def _pipeline_forward(pipe: "TryOnPipeline", batch, fields):
@@ -179,11 +193,12 @@ class TryOnPipeline:
         gen_cfg = gen_cfg or SPADEGenConfig(
             ngf=64, num_upsampling_layers="most", fused_block=True,
             fine_height=self.cfg.fine_height, fine_width=self.cfg.fine_width)
-        self.tocg = ConditionGenerator(tocg_cfg, self.device, dtype).eval()
-        self.generator = SPADEGenerator(gen_cfg, self.device, dtype).eval()
-        g = torch.Generator().manual_seed(seed)
-        init_weights(self.tocg, g)
-        init_weights(self.generator, g)
+        with profiling.span("pipeline.init"):
+            self.tocg = ConditionGenerator(tocg_cfg, self.device, dtype).eval()
+            self.generator = SPADEGenerator(gen_cfg, self.device, dtype).eval()
+            g = torch.Generator().manual_seed(seed)
+            init_weights(self.tocg, g)
+            init_weights(self.generator, g)
         self.noise_seed = noise_seed
         self._fixed_noise: Dict = {}
 

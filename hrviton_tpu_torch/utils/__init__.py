@@ -1,3 +1,3 @@
 """Visualization and image saving (``utils/vis.py``), TensorBoard logging
-(``logging.py``), profiling hooks (``profiling.py``) and the reference's
-legacy helpers (``legacy.py``)."""
+(``logging.py``), the port's tracer of host and device spans
+(``profiling.py``) and the reference's legacy helpers (``legacy.py``)."""

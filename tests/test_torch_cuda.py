@@ -1181,6 +1181,86 @@ def test_entry_point_calling_item_raises_on_the_card(monkeypatch):
         assert torch.equal(a, b)
 
 
+class _TimedGraph:
+    """A recorded graph whose replays are bracketed by CUDA events."""
+
+    def __init__(self, graph):
+        self.graph, self.times = graph, []
+
+    def replay(self):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        self.times.append((a, b))
+
+
+@pytest.mark.gpu
+def test_device_spans_sum_to_the_replay():
+    """With tracing on, the try-on graph holds the three device spans; over
+    five replays of a bf16 forward their sum is within 2% of CUDA events
+    recorded around the replays, and each span is harvested under its
+    launch."""
+    _need_card()
+    from hrviton_tpu_torch.pipelines import tryon
+    from hrviton_tpu_torch.utils import profiling
+    pipe, batch = _captured_pipeline(batch_size=4)
+    profiling.clear()
+    profiling.enable()
+    try:
+        pipe(batch)
+        entry = tryon._forward.last_entry
+        assert [n for n, _, _ in entry.marks.pairs] == [
+            "tryon.tocg", "tryon.lift", "tryon.generator"]
+        timed = entry.graph = _TimedGraph(entry.graph)
+        for _ in range(5):
+            pipe(batch)
+        profiling.flush()
+        records = profiling.spans()
+    finally:
+        profiling.disable()
+        profiling.clear()
+    launches = [s.id for s in records if s.name == "graphs.launch"][-5:]
+    device = [s for s in records if s.device and s.parent in launches]
+    assert len(device) == 15 and all(s.t1_ns > s.t0_ns for s in device)
+    spans_ms = sum(s.t1_ns - s.t0_ns for s in device) / 1e6
+    outer_ms = sum(a.elapsed_time(b) for a, b in timed.times)
+    assert abs(spans_ms - outer_ms) <= 0.02 * outer_ms, (spans_ms, outer_ms)
+
+
+def _node_kinds(graph, path):
+    """{node type: count} of a recorded graph, from its DOT dump."""
+    import collections
+    import re
+    graph.debug_dump(str(path))
+    return collections.Counter(re.findall(
+        r"\b(KERNEL|MEMSET|MEMCPY|EVENT_RECORD|WAIT_EVENT)\b", path.read_text()))
+
+
+@pytest.mark.gpu
+def test_traced_graph_adds_only_its_event_nodes(tmp_path):
+    """With tracing off the try-on graph has no event node, and it is the
+    graph recorded with tracing on less that graph's six event nodes (two a
+    device span): off, the tracer leaves the recorded graph as it was."""
+    _need_card()
+    from hrviton_tpu_torch.pipelines import tryon
+    from hrviton_tpu_torch.utils import profiling
+    pipe, batch = _captured_pipeline()
+    assert not profiling.enabled()
+    pipe(batch)
+    off = _node_kinds(tryon._forward.last_entry.graph, tmp_path / "off.dot")
+    profiling.enable()
+    try:
+        pipe(batch)
+        on = _node_kinds(tryon._forward.last_entry.graph, tmp_path / "on.dot")
+    finally:
+        profiling.disable()
+        profiling.clear()
+    assert off["KERNEL"] > 0 and off["EVENT_RECORD"] == 0, off
+    assert on - off == {"EVENT_RECORD": 6} and not off - on, (on, off)
+
+
 # ------------------------------------------ the training steps, recorded
 
 def _train_state(stage, seed=0, schedule=None):

@@ -255,14 +255,3 @@ def test_legacy_helpers_match_jax():
     np.testing.assert_array_equal(legacy.pred_to_onehot(seg).numpy(),
                                   np.asarray(jleg.pred_to_onehot(jnp.asarray(seg))))
 
-
-def test_trace_if_and_step_timer(tmp_path):
-    from hrviton_tpu_torch.utils.profiling import StepTimer, trace_if
-    with trace_if(""):
-        pass
-    assert not any(tmp_path.iterdir())
-    with trace_if(str(tmp_path / "tr")):
-        torch.ones(4).sum()
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
-    timer = StepTimer()
-    assert timer.lap() >= 0.0
