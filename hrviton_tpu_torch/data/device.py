@@ -10,6 +10,11 @@ cp_dataset.py:118-244) runs on the batch's device with the same formulas:
   pcm     = parse[..., 3:4]
   parse_cloth = image * pcm + (1 - pcm)       (cp_dataset.py:194-195)
 
+``to_device`` brings the loader's numpy arrays there first. On the card each
+array is staged through page-locked host memory and copied without the host
+waiting for the stream, so that a request's upload queues behind the forward
+still running instead of holding the host until the stream drains.
+
 Imports neither PIL nor msgpack: it is what runs on the card.
 """
 
@@ -77,13 +82,33 @@ def expand_compact(batch: Mapping, semantic_nc: int = 13,
 
 def to_device(batch: Mapping, device) -> Dict:
     """A loader batch of numpy arrays (nested one level) -> tensors on
-    ``device``; other values (the name lists) pass through. Its span,
-    ``to_device``, holds the pageable copies and the host's wait for them."""
+    ``device``; other values (the name lists) pass through.
+
+    On a CUDA device the host copies each array into page-locked memory
+    (torch's caching host allocator: a block is handed out again once
+    the copies that read it have ended, so after the first requests nothing
+    is page-locked anew), then to a fresh device tensor with
+    ``non_blocking`` on the caller's current stream. The call returns when
+    the host has staged the last array, without waiting for the stream: the
+    caller may overwrite its arrays at once, and each copy runs while the
+    next array is staged. Elsewhere (the CPU) a plain copy. Its span,
+    ``to_device``, holds the staging and the enqueue."""
+    device = torch.device(device)
+    pinned = device.type == "cuda"
+
     def move(v):
         if isinstance(v, Mapping):
             return {k: move(x) for k, x in v.items()}
         if isinstance(v, np.ndarray):
-            return torch.from_numpy(v).to(device)
+            t = torch.from_numpy(v)
+            if not pinned:
+                return t.to(device)
+            staged = torch.empty_like(t, pin_memory=True)
+            # numpy copies on this thread alone: torch's copy runs a parallel
+            # region, and on a shared host a descheduled worker of it held
+            # some requests back by tens of ms
+            np.copyto(staged.numpy(), v)
+            return staged.to(device, non_blocking=True)
         return v
     with profiling.span("to_device"):
         return {k: move(v) for k, v in batch.items()}

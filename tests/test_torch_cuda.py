@@ -1261,6 +1261,122 @@ def test_traced_graph_adds_only_its_event_nodes(tmp_path):
     assert on - off == {"EVENT_RECORD": 6} and not off - on, (on, off)
 
 
+# ------------------------------------------ the loader's batch to the card
+
+_BUSY_CYCLES = 10 ** 9      # torch.cuda._sleep: about half a second
+
+
+def _loader_batch(n=2, h=256, w=192, seed=0):
+    """A compact loader batch as the CLI hands it to ``to_device``: uint8
+    arrays nested one level, a float32 array, and the name lists."""
+    rng = np.random.default_rng(seed)
+    u8 = lambda c: rng.integers(0, 256, (n, h, w, c), dtype=np.uint8)
+    idx = lambda: rng.integers(0, 13, (n, h, w), dtype=np.uint8)
+    names = [f"{i:05d}_00.jpg" for i in range(n)]
+    return {"cloth": {"paired": u8(3), "unpaired": u8(3)},
+            "cloth_mask": {"paired": u8(1) & 1, "unpaired": u8(1) & 1},
+            "parse_idx": idx(), "parse_agnostic_idx": idx(), "image": u8(3),
+            "densepose": u8(3), "pose": u8(3), "agnostic": u8(3),
+            "pcm": rng.standard_normal((n, h, w, 1)).astype(np.float32),
+            "im_name": names, "c_name": {"paired": names, "unpaired": names}}
+
+
+def _arrays(batch, prefix=""):
+    """(key path, numpy array) of each array of a loader batch."""
+    for k, v in batch.items():
+        if isinstance(v, dict):
+            yield from _arrays(v, f"{prefix}{k}/")
+        elif isinstance(v, np.ndarray):
+            yield f"{prefix}{k}", v
+
+
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.gpu
+def test_to_device_equals_the_pageable_copy():
+    """The pinned path gives the tensors of ``torch.from_numpy(v).to(device)``
+    bit for bit, dtypes, shapes and nesting included; the name lists pass
+    through as the same objects."""
+    _need_card()
+    from hrviton_tpu_torch.data.device import to_device
+    raw = _loader_batch()
+    got = to_device(raw, "cuda")
+    torch.cuda.synchronize()
+    assert set(got) == set(raw)
+    assert got["im_name"] is raw["im_name"]
+    assert got["c_name"] == raw["c_name"]
+    assert all(got["c_name"][k] is raw["c_name"][k] for k in raw["c_name"])
+    for path, v in _arrays(raw):
+        t, want = _leaf(got, path), torch.from_numpy(v).to("cuda")
+        assert t.device.type == "cuda" and t.dtype == want.dtype, path
+        assert t.shape == want.shape and torch.equal(t, want), path
+
+
+@pytest.mark.gpu
+def test_to_device_copies_survive_overwritten_arrays():
+    """The numpy arrays overwritten as soon as ``to_device`` returns, while
+    its copies still wait behind a busy stream: the device tensors hold the
+    values the arrays had (the host staged them before returning)."""
+    _need_card()
+    from hrviton_tpu_torch.data.device import to_device
+    raw = _loader_batch(seed=1)
+    want = {path: v.copy() for path, v in _arrays(raw)}
+    torch.cuda.synchronize()
+    busy = torch.cuda.Event()
+    torch.cuda._sleep(_BUSY_CYCLES)
+    busy.record()
+    got = to_device(raw, "cuda")
+    for _, v in _arrays(raw):
+        v += 1
+    queued = not busy.query()
+    torch.cuda.synchronize()
+    assert queued, "the stream drained before the arrays were overwritten"
+    for path, v in want.items():
+        assert torch.equal(_leaf(got, path).cpu(), torch.from_numpy(v)), path
+
+
+@pytest.mark.gpu
+def test_to_device_returns_before_a_busy_stream_drains():
+    """With the current stream held busy, ``to_device`` returns before the
+    busy kernel ends, and kernels queued after it on that stream read the
+    copied values."""
+    _need_card()
+    from hrviton_tpu_torch.data.device import to_device
+    raw = _loader_batch(seed=2)
+    torch.cuda.synchronize()
+    busy = torch.cuda.Event()
+    torch.cuda._sleep(_BUSY_CYCLES)
+    busy.record()
+    got = to_device(raw, "cuda")
+    returned_first = not busy.query()
+    after = {path: _leaf(got, path) * 1 for path, _ in _arrays(raw)}
+    torch.cuda.synchronize()
+    assert returned_first, "to_device waited for the stream"
+    for path, v in _arrays(raw):
+        assert torch.equal(after[path].cpu(), torch.from_numpy(v)), path
+
+
+@pytest.mark.gpu
+def test_to_device_reuses_its_pinned_memory():
+    """Once a call's copies have ended, later calls of the same batch
+    page-lock nothing new: the caching host allocator hands the same blocks
+    out again (its count of blocks created stays put)."""
+    _need_card()
+    from hrviton_tpu_torch.data.device import to_device
+    raw = _loader_batch(seed=3)
+    to_device(raw, "cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(4):
+        to_device(raw, "cuda")
+        torch.cuda.synchronize()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+
+
 # ------------------------------------------ the training steps, recorded
 
 def _train_state(stage, seed=0, schedule=None):
