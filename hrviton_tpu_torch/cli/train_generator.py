@@ -23,6 +23,12 @@ of the LPIPS validation and of the grids comes from three generators
 seeded from --seed, so the training's draws do not depend on the
 validation's cadence.
 
+``build_training(opt, mesh)`` builds what the steps need (the trainer, its
+state, the frozen networks, the steps' noise, ``put``) and
+``train_step(...)`` is one step of the loop: the batch to the device, then
+the trainer's step, under the host root span ``train_step`` when tracing is
+on (``utils/profiling``). The benchmark drives the same two functions.
+
 Data parallel: start one process a device, each with the same
 ``--coordinator host:port`` and ``--num_processes N`` and its own
 ``--process_id`` (``cli/common.start_mesh``); -b and --lpips_batch stay
@@ -40,6 +46,7 @@ import argparse
 import dataclasses
 import os
 import time
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,10 +73,13 @@ from hrviton_tpu_torch.nn.layers import init_weights
 from hrviton_tpu_torch.ops.resize import interpolate
 from hrviton_tpu_torch.train.checkpoint import load_pytree, save_pytree
 from hrviton_tpu_torch.train.generator_trainer import GeneratorTrainer
+from hrviton_tpu_torch.train.state import GANState
+from hrviton_tpu_torch.utils import profiling
 from hrviton_tpu_torch.utils.logging import Board
 from hrviton_tpu_torch.utils.vis import make_image_grid, visualize_segmap
 
-__all__ = ["get_opt", "main", "lpips_resize"]
+__all__ = ["get_opt", "main", "lpips_resize", "build_training", "train_step",
+           "Training", "TrainStep"]
 
 
 def get_opt(argv=None):
@@ -202,13 +212,30 @@ def main(argv=None):
             mesh_lib.shutdown_distributed()
 
 
-def _train(opt, mesh):
-    from hrviton_tpu_torch.data.dataset import VitonHDDataset
-    from hrviton_tpu_torch.data.loader import Loader
+class Training(NamedTuple):
+    """What ``build_training`` builds for the steps."""
+    trainer: GeneratorTrainer
+    state: GANState
+    frozen: Dict                # {'vgg': Vgg19Features, 'tocg': the tocg or None}
+    noise: torch.Generator      # the steps' SPADE noise
+    put: Callable               # a loader batch to the device (``put(raw)``)
+    compact: bool               # the loader yields compact batches
 
+
+class TrainStep(NamedTuple):
+    state: GANState
+    metrics: Dict[str, torch.Tensor]
+    batch: Dict                 # the step's batch on the device
+
+
+def build_training(opt, mesh) -> Training:
+    """The CLI's trainer from its flags: the configurations, the frozen tocg
+    (the checkpoint's weights, else random from seed 0) and VGG19 (the
+    flag's weights, else random), the initial state (the generator's
+    checkpoint loaded where there is one, every rank on rank 0's weights),
+    the steps' noise generator (``--seed`` + 1) and ``put``. Building the
+    networks is the host span ``trainer.init``."""
     dev = mesh.device
-    rows = dict(process_id=mesh.rank, num_processes=mesh.world_size)
-
     tcfg = GeneratorTrainConfig(
         batch_size=opt.batch_size, keep_step=opt.keep_step,
         decay_step=opt.decay_step, g_lr=opt.G_lr, d_lr=opt.D_lr,
@@ -224,18 +251,6 @@ def _train(opt, mesh):
                           cond_height=opt.cond_height, cond_width=opt.cond_width,
                           clothmask_composition=opt.clothmask_composition,
                           occlusion=opt.occlusion)
-
-    # the frozen tocg: the checkpoint's weights, else random from seed 0
-    tocg_cfg = tocg = None
-    if not opt.GT:
-        tocg_cfg = TOCGConfig(ngf=96, warp_feature=opt.warp_feature,
-                              out_layer=opt.out_layer)
-        tocg = ConditionGenerator(tocg_cfg, device=dev).eval()
-        init_weights(tocg, torch.Generator().manual_seed(0))
-        if opt.tocg_checkpoint:
-            load_tocg_variables(opt.tocg_checkpoint, tocg, opt.out_layer)
-        tocg.requires_grad_(False)
-
     gen_cfg = SPADEGenConfig(ngf=opt.ngf, gen_semantic_nc=opt.gen_semantic_nc,
                              num_upsampling_layers=opt.num_upsampling_layers,
                              norm_g=opt.norm_G, fine_height=opt.fine_height,
@@ -246,19 +261,22 @@ def _train(opt, mesh):
                                      num_d=opt.num_D,
                                      no_gan_feat_loss=opt.no_ganFeat_loss)
 
-    vgg = make_vgg_loss(load_pytree(opt.vgg_weights) if opt.vgg_weights
-                        else None, device=dev).vgg
-    # random LPIPS only corrupts the in-train metric, not the objective: warn
-    check_pretrained_backbone(opt.lpips_weights, what="LPIPS (in-train metric)",
-                              flag="--lpips_weights", allowed=False,
-                              allow_flag="--lpips_weights", refuse=False)
-    lpips = make_lpips(load_pytree(opt.lpips_weights) if opt.lpips_weights
-                       else None, device=dev)
-
-    trainer = GeneratorTrainer(gen_cfg, d_cfg, tcfg, pcfg, tocg_cfg,
-                               device=dev, mesh=mesh)
-    frozen = {"vgg": vgg, "tocg": tocg}
-    state = trainer.init(opt.seed)
+    with profiling.span("trainer.init"):
+        # the frozen tocg: the checkpoint's weights, else random from seed 0
+        tocg_cfg = tocg = None
+        if not opt.GT:
+            tocg_cfg = TOCGConfig(ngf=96, warp_feature=opt.warp_feature,
+                                  out_layer=opt.out_layer)
+            tocg = ConditionGenerator(tocg_cfg, device=dev).eval()
+            init_weights(tocg, torch.Generator().manual_seed(0))
+            if opt.tocg_checkpoint:
+                load_tocg_variables(opt.tocg_checkpoint, tocg, opt.out_layer)
+            tocg.requires_grad_(False)
+        vgg = make_vgg_loss(load_pytree(opt.vgg_weights) if opt.vgg_weights
+                            else None, device=dev).vgg
+        trainer = GeneratorTrainer(gen_cfg, d_cfg, tcfg, pcfg, tocg_cfg,
+                                   device=dev, mesh=mesh)
+        state = trainer.init(opt.seed)
     if opt.gen_checkpoint and os.path.exists(opt.gen_checkpoint):
         load_gen_variables(opt.gen_checkpoint, state.g.module,
                            opt.num_upsampling_layers)
@@ -267,8 +285,51 @@ def _train(opt, mesh):
         if module is not None:
             mesh_lib.broadcast_module(module, mesh)
 
-    # data
     compact = not opt.no_device_preprocess
+
+    def put(raw, cloth="paired", expand=compact):
+        # flatten the cloth keys (train_generator.py:195-196)
+        raw = dict(raw)
+        raw["cloth"] = raw["cloth"][cloth]
+        raw["cloth_mask"] = raw["cloth_mask"][cloth]
+        return batch_to_device(raw, dev, expand, opt.semantic_nc)
+
+    noise = torch.Generator(device=dev).manual_seed(opt.seed + 1)
+    return Training(trainer, state, {"vgg": vgg, "tocg": tocg}, noise, put,
+                    compact)
+
+
+def train_step(trainer: GeneratorTrainer, state: GANState, raw, noise,
+               frozen, put, events: Optional[StepEvents] = None) -> TrainStep:
+    """One step of the CLI's loop: the loader's batch to the device
+    (``put``), then ``GeneratorTrainer.train_step`` (``events`` around it
+    alone). With tracing on it is a request's root span, ``train_step``."""
+    with profiling.span("train_step"):
+        batch = put(raw)
+        if events is not None:
+            events.start()
+        state, metrics = trainer.train_step(state, batch, noise, noise, frozen)
+        if events is not None:
+            events.stop()
+    return TrainStep(state, metrics, batch)
+
+
+def _train(opt, mesh):
+    from hrviton_tpu_torch.data.dataset import VitonHDDataset
+    from hrviton_tpu_torch.data.loader import Loader
+
+    dev = mesh.device
+    rows = dict(process_id=mesh.rank, num_processes=mesh.world_size)
+    trainer, state, frozen, noise, put, compact = build_training(opt, mesh)
+    tcfg, tocg = trainer.tcfg, frozen["tocg"]
+    # random LPIPS only corrupts the in-train metric, not the objective: warn
+    check_pretrained_backbone(opt.lpips_weights, what="LPIPS (in-train metric)",
+                              flag="--lpips_weights", allowed=False,
+                              allow_flag="--lpips_weights", refuse=False)
+    lpips = make_lpips(load_pytree(opt.lpips_weights) if opt.lpips_weights
+                       else None, device=dev)
+
+    # data
     train_ds = VitonHDDataset(data_cfg_from_args(opt), mode="train",
                               compact=compact)
     train_loader = Loader(train_ds, opt.batch_size, shuffle=True,
@@ -297,28 +358,19 @@ def _train(opt, mesh):
     board = Board(os.path.join(opt.tensorboard_dir, opt.name) if main_rank
                   else None)
     ckpt_dir = os.path.join(opt.checkpoint_dir, opt.name)
-    # the steps', the LPIPS validation's and the grids' noise
-    noise, eval_noise, vis_noise = (
-        torch.Generator(device=dev).manual_seed(opt.seed + k)
-        for k in (1, 2, 3))
+    # the LPIPS validation's and the grids' noise (the steps' is the
+    # training's)
+    eval_noise, vis_noise = (torch.Generator(device=dev).manual_seed(opt.seed + k)
+                             for k in (2, 3))
     events = StepEvents(dev)
     record = {"metrics": [], "lpips": [], "ckpt_dir": ckpt_dir}
-
-    def put(raw, cloth="paired", expand=compact):
-        # flatten the cloth keys (train_generator.py:195-196)
-        raw = dict(raw)
-        raw["cloth"] = raw["cloth"][cloth]
-        raw["cloth_mask"] = raw["cloth_mask"][cloth]
-        return batch_to_device(raw, dev, expand, opt.semantic_nc)
 
     t0 = time.time()
     try:
         for step in range(opt.load_step, opt.keep_step + opt.decay_step):
-            batch = put(train_loader.next_batch())
-            events.start()
-            state, metrics = trainer.train_step(state, batch, noise, noise,
-                                                frozen)
-            events.stop()
+            state, metrics, batch = train_step(
+                trainer, state, train_loader.next_batch(), noise, frozen, put,
+                events)
 
             if (step + 1) % tcfg.display_count == 0:
                 m = {k: float(v) for k, v in metrics.items()}

@@ -55,6 +55,7 @@ from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
                                           check_tensor, pad_to, ref_grads)
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed, pick_bn
+from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "conv3x3_eligible", "kernel_for", "enable_fast_conv",
@@ -425,22 +426,30 @@ def wgrad_taps(x, g, pre_act=None):
     ky - 1, w + kx - 1, ci] * g[n, h, w, co], zero outside. x (N, H, W, Cin)
     and g (N, H, W, Cout) NHWC; each chunk holds only (N, R + 2, W + 2, Cin)
     of x, and every product and the sum are f32. Returns (Cout, Cin, 3, 3)
-    f32."""
+    f32. With tracing on its work is the device span ``train.wgrad_taps``;
+    ``wgrad_taps.launches`` counts its calls."""
     n, h, wd, cin = x.shape
     cout = g.shape[-1]
     r = _row_chunk(h)
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros(9, cin, cout, dtype=torch.float32, device=x.device)
-    with precision.no_tf32():
-        for j in range(h // r):
-            # relu / leaky keep the zero padding zero
-            rows = activation(xp[:, j * r:j * r + r + 2], pre_act).float()
-            gc = g[:, j * r:(j + 1) * r].float().reshape(-1, cout)
-            for ky in range(3):
-                for kx in range(3):
-                    xs = rows[:, ky:ky + r, kx:kx + wd].reshape(-1, cin)
-                    acc[3 * ky + kx] += xs.t() @ gc
-    return acc.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    wgrad_taps.launches += 1
+    with profiling.device_span("train.wgrad_taps", x.device):
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+        acc = torch.zeros(9, cin, cout, dtype=torch.float32, device=x.device)
+        with precision.no_tf32():
+            for j in range(h // r):
+                # relu / leaky keep the zero padding zero
+                rows = activation(xp[:, j * r:j * r + r + 2], pre_act).float()
+                gc = g[:, j * r:(j + 1) * r].float().reshape(-1, cout)
+                for ky in range(3):
+                    for kx in range(3):
+                        xs = rows[:, ky:ky + r, kx:kx + wd].reshape(-1, cin)
+                        acc[3 * ky + kx] += xs.t() @ gc
+        return acc.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+# its calls: a counter that a replay adds to (``core/graphs``)
+wgrad_taps.launches = 0
+graphs.register_counters(wgrad_taps)
 
 
 class _Taps(torch.autograd.Function):

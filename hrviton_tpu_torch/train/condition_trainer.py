@@ -61,7 +61,7 @@ from hrviton_tpu_torch.train.optim import adam
 from hrviton_tpu_torch.train.state import GANState, NetState
 
 __all__ = ["ConditionTrainer", "prep_batch", "cast_batch", "apply_grads",
-           "net_tensors"]
+           "put_grads", "net_tensors"]
 
 
 def cast_batch(tree, dtype):
@@ -88,13 +88,18 @@ def prep_batch(batch) -> Dict[str, torch.Tensor]:
 
 
 def apply_grads(loss, net: NetState):
+    """``put_grads``, then the optimizer's update (``Adam.update``: the
+    caller sets its learning rate before the step and counts it after)."""
+    put_grads(loss, net)
+    net.opt.update()
+
+
+def put_grads(loss, net: NetState):
     """The gradient of ``loss`` with respect to ``net``'s parameters alone,
     averaged across the ranks of an active mesh (``core/mesh.sharded``),
-    put in their ``.grad``, and the optimizer's update (``Adam.update``: the
-    caller sets its learning rate before the step and counts it after).
-    After the first call the gradients are copied into the ``.grad`` it
-    made: a recorded step writes them outside its pool, which it shares
-    with the eval calls (``graphs.Pool``)."""
+    put in their ``.grad``. After the first call the gradients are copied
+    into the ``.grad`` it made: a recorded step writes them outside its
+    pool, which it shares with the eval calls (``graphs.Pool``)."""
     params = net.opt.params
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -105,7 +110,6 @@ def apply_grads(loss, net: NetState):
             p.grad = g
         else:
             graphs.hold(p.grad).copy_(g)
-    net.opt.update()
 
 
 def net_tensors(*nets: NetState):

@@ -43,6 +43,17 @@ The SPADE noise is drawn before the graph, in the eager step's order (the G
 loss's forward, then the regeneration), and handed in as fields
 (``noise_fields``); the learning rates, the optimizers' counts and
 ``state.step`` move on the host around it. On the CPU they are plain calls.
+
+With tracing on (``utils/profiling``) the step is seven contiguous device
+spans, recorded into its graph: ``train.condition`` (the batch's cast, the
+no-gradient conditioning: the tocg, the lift, the LUT), ``train.g_forward``
+(G's output, D on fake and real, VGG, the losses), ``train.g_backward`` (the
+G gradient, with the blocks' and VGG's recomputation), ``train.g_update``
+(G's Adam update and its u/v written), ``train.regenerate`` (the second,
+no-gradient G forward), ``train.d_step`` (D's forward and backward) and
+``train.d_update`` (D's Adam update and its u/v written). Inside the
+backward each tap-product weight gradient is a nested ``train.wgrad_taps``
+(``ops/conv3x3.wgrad_taps``).
 """
 
 from __future__ import annotations
@@ -70,10 +81,11 @@ from hrviton_tpu_torch.nn.layers import commit_state, drop_state, init_weights
 from hrviton_tpu_torch.ops.conv3x3 import taps_wgrad
 from hrviton_tpu_torch.ops.parse import group_index_of_label13, lut_lookup
 from hrviton_tpu_torch.pipelines.tryon import condition_forward
-from hrviton_tpu_torch.train.condition_trainer import (apply_grads, cast_batch,
-                                                       net_tensors)
+from hrviton_tpu_torch.train.condition_trainer import (cast_batch, net_tensors,
+                                                       put_grads)
 from hrviton_tpu_torch.train.optim import adam, lambda_decay_schedule
 from hrviton_tpu_torch.train.state import GANState, NetState
+from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["GeneratorTrainer"]
 
@@ -136,6 +148,13 @@ class GeneratorTrainer:
         self.gen_cfg, self.d_cfg, self.tcfg, self.pcfg = gen_cfg, d_cfg, tcfg, pcfg
         self.tocg_cfg = tocg_cfg
         self.dtype = torch.bfloat16 if tcfg.bf16 else torch.float32
+        # what the latest step wrote, for a check of that step: its
+        # conditioning (the generator's input, the labels), G's output of the
+        # G update (the fake) and D's logits of the D update (a scale each,
+        # the fakes' then the reals'). Inside a recorded step they are the
+        # graph's own tensors, which each replay rewrites: read them before
+        # the next step.
+        self.held: Dict[str, object] = {}
         self.schedule = lambda_decay_schedule(tcfg.keep_step, tcfg.decay_step,
                                               tcfg.load_step)
 
@@ -238,21 +257,24 @@ class GeneratorTrainer:
                          noise_d, frozen):
         tcfg = self.tcfg
         bf16 = torch.bfloat16 if tcfg.bf16 else None
-        batch = cast_batch(batch, self.dtype)
         gen, d = g.module, d_net.module
         tocg = frozen.get("tocg")
-        with precision.param_dtype(bf16):
-            tocg_state = (precision.rounded_buffers(tocg, bf16)
-                          if bf16 and tocg is not None
-                          else contextlib.nullcontext())
-            with tocg_state:
-                gen_in, parse7, labels = self.conditioning(batch, tocg)
+        dev = batch["image"].device
+        span = lambda name: profiling.device_span(name, dev)
+        with precision.param_dtype(bf16), contextlib.ExitStack() as d_state:
+            with span("train.condition"):
+                batch = cast_batch(batch, self.dtype)
+                with (precision.rounded_buffers(tocg, bf16)
+                      if bf16 and tocg is not None
+                      else contextlib.nullcontext()):
+                    gen_in, parse7, labels = self.conditioning(batch, tocg)
             im = batch["image"]
             vgg = frozen.get("vgg")
 
             # ---- G update
-            with (precision.rounded_buffers(d, bf16) if bf16
-                  else contextlib.nullcontext()):
+            with span("train.g_forward"):
+                if bf16:
+                    d_state.enter_context(precision.rounded_buffers(d, bf16))
                 output = gen(gen_in, labels, noise_g, train=True,
                              update_sn=True)
                 pred_fake, pred_real = self._d_forward(d, parse7, output, im)
@@ -268,23 +290,35 @@ class GeneratorTrainer:
                         use_reentrant=False, preserve_rng_state=False
                     ) * tcfg.lambda_vgg
                 loss_g = sum(losses.values())
-                apply_grads(loss_g, g)
-            commit_state(gen)
+            with span("train.g_backward"):
+                put_grads(loss_g, g)
+                d_state.close()            # D's own u/v back
+            with span("train.g_update"):
+                g.opt.update()
+                commit_state(gen)
 
             # ---- D update on a fresh no-gradient output of the updated G
             # (train_generator.py:327-334), in training mode; the batch
             # norms' statistics it stages are not written
-            with torch.no_grad():
+            with span("train.regenerate"), torch.no_grad():
                 output_ng = gen(gen_in, labels, noise_d, train=True)
             drop_state(gen)
-            pred_fake, pred_real = self._d_forward(d, parse7, output_ng, im,
-                                                   update_sn=True)
-            l_fake = gan_loss(pred_fake, False, "hinge", for_discriminator=True)
-            l_real = gan_loss(pred_real, True, "hinge", for_discriminator=True)
-            loss_d = l_fake + l_real
-            apply_grads(loss_d, d_net)
-            commit_state(d)
+            with span("train.d_step"):
+                pred_fake, pred_real = self._d_forward(d, parse7, output_ng,
+                                                       im, update_sn=True)
+                l_fake = gan_loss(pred_fake, False, "hinge",
+                                  for_discriminator=True)
+                l_real = gan_loss(pred_real, True, "hinge",
+                                  for_discriminator=True)
+                loss_d = l_fake + l_real
+                put_grads(loss_d, d_net)
+            with span("train.d_update"):
+                d_net.opt.update()
+                commit_state(d)
 
+        self.held = {"gen_in": gen_in, "labels": labels,
+                     "fake": output.detach(),
+                     "d_logits": [s[-1].detach() for s in pred_fake + pred_real]}
         metrics = {f"loss/gen/{k}": v.detach() for k, v in losses.items()}
         metrics.update({"loss/gen": loss_g.detach(), "loss/dis": loss_d.detach(),
                         "loss/dis/adv_fake": l_fake.detach(),

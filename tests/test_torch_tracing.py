@@ -48,12 +48,13 @@ def _pipeline():
         device="cpu")
 
 
-def _raw(n=1, seed=0):
-    """A compact loader batch (uint8 and label indices) of ``n``."""
+def _raw(n=1, seed=0, size=FH):
+    """A compact loader batch (uint8 and label indices) of ``n`` at
+    ``size`` x ``size``."""
     rng = np.random.default_rng(seed)
-    u8 = lambda c: rng.integers(0, 256, (n, FH, FW, c), dtype=np.uint8)
-    mask = lambda: rng.integers(0, 2, (n, FH, FW, 1), dtype=np.uint8)
-    idx = lambda: rng.integers(0, 13, (n, FH, FW), dtype=np.uint8)
+    u8 = lambda c: rng.integers(0, 256, (n, size, size, c), dtype=np.uint8)
+    mask = lambda: rng.integers(0, 2, (n, size, size, 1), dtype=np.uint8)
+    idx = lambda: rng.integers(0, 13, (n, size, size), dtype=np.uint8)
     return {"cloth": {"paired": u8(3), "unpaired": u8(3)},
             "cloth_mask": {"paired": mask(), "unpaired": mask()},
             "parse_idx": idx(), "parse_agnostic_idx": idx(), "image": u8(3),
@@ -352,3 +353,167 @@ def test_cli_summary_is_a_batch_mean_of_each_span():
     roots = [s for s in profiling.spans() if s.name == "tryon_step"]
     want = sum(s.t1_ns - s.t0_ns for s in roots) / 1e6 / 2
     assert by["trace tryon_step"] == f"trace tryon_step: {want:.3f} ms a batch (2 spans)"
+
+
+# -- the stage-2 training step --------------------------------------------------
+
+STEP = ("train.condition", "train.g_forward", "train.g_backward",
+        "train.g_update", "train.regenerate", "train.d_step", "train.d_update")
+
+
+def _training(device="cpu", size=FH, ngf="8", extra=()):
+    """The stage-2 CLI's training at a small size ('more', SPADE ngf 8, D
+    ndf 8, batch 1), as ``build_training`` builds it."""
+    from hrviton_tpu_torch.cli import train_generator as t2
+    from hrviton_tpu_torch.cli.common import start_mesh
+    opt = t2.get_opt(["--name", "t", "--device", device, "-b", "1",
+                      "--fine_height", str(size), "--fine_width", str(size),
+                      "--cond_height", "64", "--cond_width", "64", "--ngf", ngf,
+                      "--num_upsampling_layers", "more", "--ndf", "8", *extra])
+    return t2, t2.build_training(opt, start_mesh(opt))
+
+
+def _taps_of_more(blocks=7):
+    """3x3 weight gradients of one G backward of 'more', by hand: the head
+    (two norms of three convs, conv_0, conv_1), six blocks with a learned
+    shortcut (three norms), a feature conv a block, conv_img."""
+    return 8 + 11 * (blocks - 1) + blocks + 1
+
+
+def _ancestors(span, by_id):
+    while span.parent is not None:
+        span = by_id[span.parent]
+        yield span
+
+
+def test_training_spans_nest_under_train_step():
+    """``build_training`` is the set-up span ``trainer.init`` (a root of its
+    own, before the first step); each ``train_step`` is a root whose upload,
+    graph signatures and the step's seven spans (timed by the host clock on
+    the CPU, one after another) carry its request and descend from it; the
+    tap-product weight gradients nest in ``train.g_backward``."""
+    profiling.enable()
+    t2, built = _training()
+    for seed in (0, 1):
+        built = built._replace(state=t2.train_step(
+            built.trainer, built.state, _raw(seed=seed), built.noise,
+            built.frozen, built.put).state)
+    profiling.flush()
+    records = profiling.spans()
+    by_id = {s.id: s for s in records}
+    got = _by_name(records)
+    (init,) = got["trainer.init"]
+    roots = got["train_step"]
+    assert init.parent is None and len(roots) == 2
+    assert init.t1_ns <= roots[0].t0_ns
+    assert len({r.request for r in roots} | {init.request}) == 3
+    for root in roots:
+        mine = [s for s in records if s.request == root.request and s is not root]
+        assert all(root in _ancestors(s, by_id) for s in mine)
+        assert all(root.t0_ns <= s.t0_ns <= s.t1_ns <= root.t1_ns for s in mine)
+        names = [s.name for s in mine]
+        assert names.count("to_device") == 1
+        assert {s.owner for s in mine if s.name == "graphs.signature"} == {
+            "expand", "_train_step"}
+        step = [next(s for s in mine if s.name == n) for n in STEP]
+        assert all(a.t1_ns <= b.t0_ns for a, b in zip(step, step[1:]))
+        backward = step[2]
+        taps = [s for s in mine if s.name == "train.wgrad_taps"]
+        assert len(taps) == _taps_of_more()
+        assert all(s.parent == backward.id for s in taps)
+        assert not any(s.device for s in mine)
+
+
+def test_tracing_off_records_no_events_into_the_training_step(monkeypatch):
+    """The recorded body of the step, as a recording runs it: with tracing
+    off no event pair is kept for the graph; with it on the seven spans in
+    order (a pair is kept as its span closes: the try-on condition stage's
+    two inside the first come before it) and one pair a tap-product weight
+    gradient."""
+    from hrviton_tpu_torch.train import generator_trainer as gt
+    monkeypatch.setattr(profiling, "EVENTS", _CpuEvents())
+    t2, built = _training()
+    trainer, state = built.trainer, built.state
+    batch = built.put(_raw())
+    gen = state.g.module
+
+    def recorded():
+        fields = [trainer.noise_fields(gen, built.noise, 1) for _ in range(2)]
+        for opt in (state.g.opt, state.d.opt):
+            opt.prepare()
+        with profiling.collect(profiling.Marks("_train_step")) as marks:
+            gt._train_step(trainer, state.g, state.d, batch, *fields,
+                           built.frozen)
+        return [name for name, _, _ in marks.pairs]
+    assert recorded() == []
+    profiling.enable()
+    names = recorded()
+    assert [n for n in names if n in STEP] == list(STEP)
+    assert names[:3] == ["tryon.tocg", "tryon.lift", "train.condition"]
+    assert names.count("train.wgrad_taps") == _taps_of_more()
+
+
+def test_wgrad_taps_counter_is_the_models_count():
+    """``wgrad_taps.launches`` moves by the model's count of 3x3 convs with
+    weight gradients each step (the benchmark driver's count from the
+    modules, and by hand), and replays add to it (a registered counter)."""
+    from benchmark.drivers.train_closed_loop import taps_per_step
+    from hrviton_tpu_torch.ops.conv3x3 import wgrad_taps
+    assert any(c is wgrad_taps for c in graphs._COUNTERS)
+    t2, built = _training()
+    gen = built.state.g.module
+    assert taps_per_step(gen) == _taps_of_more(len(gen.block_names))
+    before = wgrad_taps.launches
+    t2.train_step(built.trainer, built.state, _raw(), built.noise,
+                  built.frozen, built.put)
+    assert wgrad_taps.launches - before == taps_per_step(gen)
+
+
+class _TimedGraph:
+    """A recorded graph whose replays are timed by CUDA events around them."""
+
+    def __init__(self, graph):
+        self.graph, self.ms = graph, []
+
+    def replay(self):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        self.ms.append((a, b))
+
+
+@pytest.mark.gpu
+def test_training_device_spans_cover_the_recorded_step():
+    """On the card: the step's seven device spans, harvested from replays of
+    its graph, are contiguous (each starts where the last ended, within a
+    few microseconds) and sum to within 2% of the replay's CUDA-event time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hrviton_tpu_torch.train import generator_trainer as gt
+    profiling.enable()
+    t2, built = _training("cuda", 256, "16", ("--bf16",))
+    step = lambda seed: t2.train_step(built.trainer, built.state,
+                                      _raw(seed=seed, size=256), built.noise,
+                                      built.frozen, built.put)
+    step(0)                                  # records the step's graph
+    entry = gt._step.last_entry
+    timed = entry.graph = _TimedGraph(entry.graph)
+    for seed in (1, 2, 3):
+        step(seed)
+    profiling.flush()
+    torch.cuda.synchronize()
+    records = profiling.spans()
+    roots = [s for s in records if s.name == "train_step"][1:]
+    assert len(roots) == len(timed.ms) == 3
+    for root, (a, b) in zip(roots, timed.ms):
+        mine = [s for s in records if s.request == root.request and s.device]
+        spans = [next(s for s in mine if s.name == n) for n in STEP]
+        assert [n for n, _, _ in entry.marks.pairs if n in STEP] == list(STEP)
+        total = sum(s.t1_ns - s.t0_ns for s in spans) / 1e6
+        assert total == pytest.approx(a.elapsed_time(b), rel=0.02)
+    # contiguity on the last replay's own events: the gaps between spans
+    pairs = [p for p in entry.marks.pairs if p[0] in STEP]
+    gaps = [pairs[k][2].elapsed_time(pairs[k + 1][1]) for k in range(len(pairs) - 1)]
+    assert all(-1e-3 <= g <= 0.02 for g in gaps), gaps
