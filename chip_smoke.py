@@ -11,15 +11,17 @@
                                      # ten pairs, every training variant
     python3 chip_smoke.py --sass-diff DIR  # phases 1, 2 and the engine
                                      # kernels' SASS here against DIR's
+    python3 chip_smoke.py --wgrad    # phases 1, 2 and 13
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
      (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,copy_probe,
-     conv_tma,spade_knock}.cu: twelve kernels and the instance statistics;
-     conv_tma.cu holds conv_halo, conv_roll, conv_band, conv_dma,
-     conv_prodroll, conv_e2 and conv_e, spade_knock.cu the unit's knock
-     variants, timing only), one nvcc process each, all started together, with ptxas's
+     conv_tma,spade_knock,wgrad3x3}.cu: twelve kernels, the instance
+     statistics and the weight gradient; conv_tma.cu holds conv_halo, conv_roll, conv_band,
+     conv_dma, conv_prodroll, conv_e2 and conv_e, spade_knock.cu the unit's
+     knock variants, timing only, wgrad3x3.cu the training step's bf16
+     weight gradient), one nvcc process each, all started together, with ptxas's
      report of registers and spills; a kernel whose wgmma ptxas serialised
      (C7518, C7520) fails it;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
@@ -170,12 +172,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      64, 3 layers, 2 scales), the frozen tocg from stage 1's checkpoint, 8
      steps with in-train LPIPS (random alex) and the TensorBoard grids'
      generate_debug: the same figures, the hinge D loss at init within 0.05
-     of 2.0, no kernel launched; (d) stage 2 with --fused_block, 4 steps:
+     of 2.0, no kernel launched but wgrad3x3, once a wgrad_taps call (this
+     run and its eager run; the record's launches of wgrad3x3 are this
+     run's); (d) stage 2 with --fused_block, 4 steps:
      the fused unit and the statistics exactly 18 launches a step (6 in the
      G loss's forward, 6 when backward recomputes up_3 and up_4, 6 in the D
-     step's regeneration), the counts set to 0 just before and read just
-     after; those launches join the record's rows of the unit and the
-     statistics; (e) stage 2 with --no_taps_wgrad, 4 steps: ms/step beside
+     step's regeneration), wgrad3x3 once a wgrad_taps call, the counts set
+     to 0 just before and read just after; those launches of the unit and
+     the statistics join the record's rows; (e) stage 2 with --no_taps_wgrad, 4 steps: ms/step beside
      (c)'s, the tap-product weight gradient's cost against cuDNN's (the CLIs'
      steps, eval calls and expand replay CUDA graphs, as a user's run does,
      with the allocator's expandable segments the CLIs turn on); (b), (c)
@@ -191,8 +195,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      and the generators' states (dropout, noise) after every step, and,
      after the last, every parameter, buffer (running statistics, spectral
      u/v), Adam moment and step count and the counters; launches a step
-     eager and replayed (18 unit and 18 statistics with --fused_block,
-     none else); one recording. Stage 1's eager step is not reproducible
+     eager and replayed (18 unit and 18 statistics with --fused_block;
+     stage 2's wgrad3x3 once a wgrad_taps call, as many eager as
+     replayed; none else); one recording. Stage 1's eager step is not reproducible
      on the card (atomic adds in grid_sample's backward): a second eager
      state is stepped in the same turns, the ops torch names as
      nondeterministic are printed, and before each step both eager states
@@ -217,13 +222,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      are real collectives) and, the same seed and data, without the flags:
      stage 1 at phase 9's configuration for 4 steps, its first-step losses
      within 1e-5 relative; stage 2 with --fused_block, bf16, 3 steps,
-     exactly 18 unit and 18 statistics launches a step (the counts set to
-     0 just before and read just after; they join the record's rows), the
+     exactly 18 unit and 18 statistics launches a step and wgrad3x3 once a
+     wgrad_taps call (the counts set to 0 just before and read just after;
+     the unit's and the statistics' join the record's rows), the
      G losses of the first step within 1e-5 and the D losses (after the G
      update) within 1e-3; finite losses, TF32 off in backward, ms/step
      beside the run without the flags and phase 9's, the group torn down
      after each CLI; (b) stage 2 with --norm_G spectralaliasbatch, fused
-     unit off, 2 steps: finite losses, no kernel launched, every
+     unit off, 2 steps: finite losses, no kernel launched but wgrad3x3
+     (once a wgrad_taps call), every
      'aliasbatch' running mean moved from 0 in gen_model_final.ckpt; and
      SPADEResBlock with use_mask_norm at up_4's shape (80 -> 32, 1024x768,
      batch 1, f32, seeded weights and misalign mask) on the card against
@@ -278,9 +285,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      against the production step bit for bit, its ms beside the stage-2
      CLI's of phase 9); (b) every knock variant built, with HGMMA in all
      but the two without products.
+ 13. the bf16 weight gradient of the training step's 3x3 convs
+     (ops/conv3x3.py:wgrad3x3, csrc/wgrad3x3.cu): one eager step of the
+     stage-2 benchmark cell (SPADE ngf 64 'most' at 1024x768, batch 2;
+     benchmark/drivers/train_closed_loop.py builds it): 94 launches, as
+     many as wgrad_taps, the operands the wrapper copied, and each call's x
+     and g as the step hands them to the wrapper (shape, strides, storage
+     offset: g contiguous NHWC, the NHWC view of an NCHW tensor, or of a
+     concatenation's NCHW slice), the calls' shapes those of
+     tests/test_torch_wgrad3x3.py:cell_sites; then at each distinct call,
+     on operands drawn with those strides and offsets, the kernel against
+     wgrad3x3_ref within one bf16 ulp an element (2^-12 of max|ref| near
+     zero: tests/test_torch_wgrad3x3.py), finite, two launches bit for
+     bit; the kernel alone (CUDA events around the bare launch), the
+     wrapper (with the copies it makes), the plain version and cuDNN's bf16
+     weight gradient (torch.nn.grad.conv2d_weight, a yardstick the port
+     never calls), each at up_4's largest call and summed over the 94. In
+     the full run phase 9 (c) holds the stage-2 CLI's launches of the kernel
+     to wgrad_taps' (the record's launches).
 
 The second-to-last line is the {"kernels": [...]} JSON record and the last
-line is {"ok": true, "device": {...}}. With --knockout the script builds and
+line is {"ok": true, "device": {...}}. With --wgrad the script builds and
+runs phase 13 and prints its row of the record before the last line. With --knockout the script builds and
 runs phase 12 with the tools at ten pairs and every training variant (the
 measured tables of PERF.md), and prints only the last line; with
 --sass-diff DIR it builds the engine kernels here and in the checkout at DIR
@@ -359,12 +385,13 @@ SMALL_SITES = [
 ]
 # launches per request on each path (the statistics: one per unit or norm)
 FIRST_PATH = {"spade_unit": 6, "spade_modulate": 0, "conv3x3_wide": 0,
-              "conv3x3_small": 0, "instance_stats": 6}
+              "conv3x3_small": 0, "instance_stats": 6, "wgrad3x3": 0}
 SECOND_PATH = {"spade_unit": 0,
                "spade_modulate": sum(s[-1] for s in MODULATE_SITES),   # 9
                "conv3x3_wide": sum(s[-1] for s in WIDE_SITES),         # 8
                "conv3x3_small": sum(s[-1] for s in SMALL_SITES),       # 4
-               "instance_stats": sum(s[-1] for s in MODULATE_SITES)}   # 9
+               "instance_stats": sum(s[-1] for s in MODULATE_SITES),   # 9
+               "wgrad3x3": 0}
 UNIT_RAGGED = (2, 37, 45, 40, 24, 3, "leaky0.2", True)   # b, h, w, c, cout, k
 WIDE_RAGGED = (2, 37, 45, 128, 528, "relu")              # b, h, w, cin, cout
 MODULATE_RAGGED = (2, 37, 45, 272)                       # b, h, w, c
@@ -452,7 +479,8 @@ def _wrappers():
              "spade_modulate": sf.fused_spade_modulate,
              "conv3x3_wide": c3.conv3x3_wide,
              "conv3x3_small": c3.conv3x3_small,
-             "instance_stats": getattr(sf, "norm_stats", None)}
+             "instance_stats": getattr(sf, "norm_stats", None),
+             "wgrad3x3": getattr(c3, "wgrad3x3", None)}
     return {k: w for k, w in found.items() if w is not None}
 
 
@@ -913,7 +941,8 @@ def kernel_phase():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    totals = {name: {} for name in FIRST_PATH}
+    # the weight gradient's row is phase 13's
+    totals = {name: {} for name in FIRST_PATH if name != "wgrad3x3"}
     for dtype in (torch.bfloat16, torch.float32):
         elem = torch.empty(0, dtype=dtype).element_size()
 
@@ -2146,11 +2175,21 @@ def training_phase(card, tmp, r1, r2):
         argv2 = ["--name", "s2", "--keep_step", str(n2), "--tensorboard_count",
                  str(n2), "--lpips_count", str(n2), "--lpips_samples", "4",
                  "--lpips_batch", "2"] + common
+        from hrviton_tpu_torch.ops import conv3x3 as c3
+        taps0 = (c3.wgrad3x3.launches, c3.wgrad_taps.launches)
+        taps_mid = c3.wgrad_taps.launches
         rec2 = _run_cli(
             f"stage 2 (SPADE ngf=64 'most' {h2}x{w2}, batch "
             f"{STAGE2['batch']}, bf16, fused unit off, remat, d_remat, taps "
             f"wgrad; SPADE D ndf 64 3 layers 2 scales; frozen tocg ngf=96 from "
             f"stage 1)", t2.main, argv2, generator_trainer, "gan_loss", card)
+        wgrad = [a - b for a, b in zip((c3.wgrad3x3.launches,
+                                        c3.wgrad_taps.launches), taps0)]
+        log(f"training: stage 2's bf16 weight gradients: wgrad3x3 {wgrad[0]} "
+            f"launches, wgrad_taps {wgrad[1]} calls")
+        if wgrad[0] != wgrad[1] or wgrad[0] <= 0:
+            raise RuntimeError(f"training: stage 2 took wgrad3x3 {wgrad[0]} "
+                               f"times for wgrad_taps' {wgrad[1]}")
         peaks["stage 2"] = (rec2, _run_cli(
             "stage 2", t2.main, _renamed(argv2, "s2e"), generator_trainer,
             "gan_loss", card, eager=True))
@@ -2162,10 +2201,16 @@ def training_phase(card, tmp, r1, r2):
                 len(rec2["lpips"]) != 1:
             raise RuntimeError(f"training: stage 2: D loss {d0}, "
                                f"{len(rec2['metrics'])} steps, LPIPS {rec2['lpips']}")
+        # the recorded and the eager run: no kernel but the weight
+        # gradient's, once for each of wgrad_taps' calls (all bf16)
         after2 = _all_launches()
-        if after2 != mid:
-            raise RuntimeError(f"training: stage 2 (fused unit off) launched a "
-                               f"kernel: { {k: after2[k] - mid[k] for k in mid} }")
+        want2 = dict(mid, wgrad3x3=mid["wgrad3x3"] + c3.wgrad_taps.launches
+                     - taps_mid)
+        if after2 != want2 or want2["wgrad3x3"] == mid["wgrad3x3"]:
+            raise RuntimeError(f"training: stage 2 (fused unit off) launches "
+                               f"{ {k: after2[k] - mid[k] for k in mid} }, "
+                               f"expected wgrad3x3 "
+                               f"{want2['wgrad3x3'] - mid['wgrad3x3']} alone")
         torch.cuda.empty_cache()
 
         # part 4: stage 2 with --fused_block: the unit's exact launches, the
@@ -2174,6 +2219,7 @@ def training_phase(card, tmp, r1, r2):
         wrappers = _wrappers()
         for w in wrappers.values():
             w.launches = 0
+        taps4 = c3.wgrad_taps.launches
         argv4 = ["--name", "s2f", "--keep_step", str(n4), "--tensorboard_count",
                  "100000", "--lpips_count", "100000", "--fused_block"] + common
         rec4 = _run_cli(f"stage 2 --fused_block ({n4} steps)", t2.main, argv4,
@@ -2181,12 +2227,13 @@ def training_phase(card, tmp, r1, r2):
         got = {k: w.launches for k, w in wrappers.items()}
         want = {k: 0 for k in got}
         want["spade_unit"] = want["instance_stats"] = UNITS_PER_FUSED_STEP * n4
+        want["wgrad3x3"] = c3.wgrad_taps.launches - taps4
         log(f"training: stage 2 --fused_block launches over {n4} steps: "
             f"{ {k: v for k, v in got.items() if v} } (expect spade_unit and "
             f"instance_stats {UNITS_PER_FUSED_STEP} a step: 6 in the G loss's "
             f"forward, 6 in the remat recompute, 6 in the D step's "
-            f"regeneration)")
-        if got != want:
+            f"regeneration; wgrad3x3 one a wgrad_taps call)")
+        if got != want or want["wgrad3x3"] <= 0:
             raise RuntimeError(f"training: --fused_block launches {got}, "
                                f"expected {want}")
         if len(rec4["metrics"]) != n4:
@@ -2225,7 +2272,7 @@ def training_phase(card, tmp, r1, r2):
         recorded_steps(card, r1, r2)
         _loader_time(card, r2)
     return ({"spade_unit": got["spade_unit"],
-             "instance_stats": got["instance_stats"]},
+             "instance_stats": got["instance_stats"], "wgrad3x3": wgrad[0]},
             {"stage 1": statistics.median(rec1["step_ms"][1:]),
              "stage 2": statistics.median(rec2["step_ms"][1:]),
              "stage 2 --fused_block": statistics.median(rec4["step_ms"][1:])})
@@ -2324,7 +2371,7 @@ def _held_step(tag, i, runs, mets, varies):
 
 
 def _steps_in_turns(card, tag, build, batches, pairs=STEP_PAIRS, expect=None,
-                    spy=None):
+                    spy=None, wgrad=False):
     """Training states built alike from one seed (``build()``: step,
     tensors, generators, counts, the step's Captured), one stepped eagerly
     under graphs.disabled() and one replayed, in turns on the same batches,
@@ -2333,7 +2380,8 @@ def _steps_in_turns(card, tag, build, batches, pairs=STEP_PAIRS, expect=None,
     bit: every step's metrics, the generators' states after every step,
     and, after the last, every tensor of the states, the Python counters,
     and the launch counters of every step (``expect``: the fused unit's and
-    the statistics' a step). A build that names ``varies`` (the tensors a
+    the statistics' a step; with ``wgrad``, a bf16 step, wgrad3x3 once a
+    wgrad_taps call, as many eager as replayed). A build that names ``varies`` (the tensors a
     nondeterministic op reaches) gets a second eager state, and all three
     are held step by step (_held_step). Printed: ms/step by CUDA events of
     the pairs after the first (median, quartiles), the recording's seconds,
@@ -2342,7 +2390,7 @@ def _steps_in_turns(card, tag, build, batches, pairs=STEP_PAIRS, expect=None,
     step's launches. Returns the figures."""
     with _deterministic_cudnn(), _capture_clock() as capture_s:
         return _in_turns(card, tag, build, batches, pairs, expect, spy,
-                         capture_s)
+                         capture_s, wgrad)
 
 
 @contextlib.contextmanager
@@ -2400,8 +2448,9 @@ def _memory_of(mem, key):
                 gib(torch.cuda.max_memory_reserved() - r0))
 
 
-def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s):
+def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s, wgrad):
     from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.ops import conv3x3 as c3
     wrappers = _wrappers()
     runs = {"eager": build(), "replay": build()}
     varies = runs["eager"].get("varies")
@@ -2414,6 +2463,7 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s):
     ms = {m: [] for m in modes}
     mets = {m: [] for m in modes}
     launches = {m: [] for m in modes}
+    taps = {m: [] for m in modes}
     first_s = hooks = recording_s = None
     held, gen_diff, mem = [], [], {}
     for i in range(pairs):
@@ -2424,6 +2474,7 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s):
         for mode in modes:
             run = runs[mode]
             before = {k: w.launches for k, w in wrappers.items()}
+            taps0 = c3.wgrad_taps.launches
             n_seen = len(spy) if spy is not None else 0
             ctx = contextlib.nullcontext() if mode == "replay" else graphs.disabled()
             watch = (_memory_of(mem, mode) if i == 0 and mode != "eager2"
@@ -2444,6 +2495,7 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s):
             ms[mode].append(e0.elapsed_time(e1))
             launches[mode].append({k: w.launches - before[k]
                                    for k, w in wrappers.items()})
+            taps[mode].append(c3.wgrad_taps.launches - taps0)
         for m in modes[1:]:
             if not all(torch.equal(a.get_state(), b.get_state())
                        for a, b in zip(runs[m]["gens"], eager["gens"])):
@@ -2465,11 +2517,15 @@ def _in_turns(card, tag, build, batches, pairs, expect, spy, capture_s):
     want = dict.fromkeys(wrappers, 0)
     if expect:
         want.update(expect)
+    if wgrad:
+        want["wgrad3x3"] = taps["eager"][0]
     bad = [(i, launches["eager"][i], launches["replay"][i]) for i in range(pairs)
            if not launches["eager"][i] == launches["replay"][i] == want]
-    if bad:
+    if bad or (wgrad and not all(taps["eager"][0] == n > 0
+                                 for m in modes for n in taps[m])):
         raise RuntimeError(f"{tag}: launches a step (step, eager, replay) "
-                           f"{bad[:3]}, expected {want}")
+                           f"{bad[:3]}, expected {want}; wgrad_taps' calls "
+                           f"a step {taps}")
     s_e, s_r = eager["tensors"](), rep["tensors"]()
     steps = [n for n, _ in s_e if n.endswith(".step")]
     named = dict(s_r)
@@ -2701,7 +2757,7 @@ def recorded_steps(card, r1, r2, mesh=None):
             _stage2_build(vgg, fused, mesh), b2, pairs,
             expect=({"spade_unit": UNITS_PER_FUSED_STEP,
                      "instance_stats": UNITS_PER_FUSED_STEP}
-                    if fused else None))
+                    if fused else None), wgrad=True)
     return figs
 
 
@@ -2838,6 +2894,7 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
     from hrviton_tpu_torch.cli import train_condition as t1
     from hrviton_tpu_torch.cli import train_generator as t2
     from hrviton_tpu_torch.core import mesh as mesh_lib
+    from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.train import condition_trainer, generator_trainer
     from hrviton_tpu_torch.train.checkpoint import load_pytree
 
@@ -2887,6 +2944,7 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
             wrappers = _wrappers()
             for w in wrappers.values():
                 w.launches = 0
+            taps2 = c3.wgrad_taps.launches
             dp2 = _run_cli(f"data parallel: {label2} with the flags (NCCL)",
                            t2.main, ["--name", "q2", "--fused_block"] + argv2
                            + flags(), generator_trainer, "gan_loss", card)
@@ -2894,10 +2952,12 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
             want = {k: 0 for k in got}
             want["spade_unit"] = want["instance_stats"] = \
                 UNITS_PER_FUSED_STEP * n2
+            want["wgrad3x3"] = c3.wgrad_taps.launches - taps2
             log(f"data parallel: {label2} launches over {n2} steps: "
                 f"{ {k: v for k, v in got.items() if v} } (expect spade_unit "
-                f"and instance_stats {UNITS_PER_FUSED_STEP} a step)")
-            if got != want:
+                f"and instance_stats {UNITS_PER_FUSED_STEP} a step, wgrad3x3 "
+                f"one a wgrad_taps call)")
+            if got != want or want["wgrad3x3"] <= 0:
                 raise RuntimeError(f"data parallel: --fused_block launches "
                                    f"{got}, expected {want}")
             if dist.is_initialized():
@@ -2921,16 +2981,20 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
             torch.backends.cudnn.deterministic = deterministic
         torch.cuda.empty_cache()
 
-        # (b) the alias norms: 'spectralaliasbatch' launches no kernel and
-        # its running statistics move
+        # (b) the alias norms: 'spectralaliasbatch' launches no kernel but
+        # the weight gradient's (bf16), and its running statistics move
         before = _all_launches()
+        taps_a = c3.wgrad_taps.launches
         rec = _run_cli(f"alias norms: stage 2 --norm_G spectralaliasbatch "
                        f"({ALIAS_STEPS} steps, fused unit off)", t2.main,
                        ["--name", "a2", "--norm_G", "spectralaliasbatch",
                         "--keep_step", str(ALIAS_STEPS)] + common2,
                        generator_trainer, "gan_loss", card)
         after = _all_launches()
-        if after != before or len(rec["metrics"]) != ALIAS_STEPS:
+        want = dict(before, wgrad3x3=before["wgrad3x3"] + c3.wgrad_taps.launches
+                    - taps_a)
+        if after != want or want["wgrad3x3"] == before["wgrad3x3"] or \
+                len(rec["metrics"]) != ALIAS_STEPS:
             raise RuntimeError(f"alias norms: launches "
                                f"{ {k: after[k] - before[k] for k in after} }, "
                                f"{len(rec['metrics'])} steps")
@@ -2939,7 +3003,9 @@ def data_parallel_phase(card, tmp, r1, r2, earlier_ms):
         means = [sub["param_free_norm"]["mean"] for norms in stats.values()
                  for sub in norms.values()]
         moved = sum(float(abs(m).max()) > 0 for m in means)
-        log(f"alias norms: no kernel launched; the running means of "
+        log(f"alias norms: no kernel launched but wgrad3x3 "
+            f"({want['wgrad3x3'] - before['wgrad3x3']}, one a wgrad_taps "
+            f"call); the running means of "
             f"{moved} of {len(means)} 'aliasbatch' norms moved from 0 in "
             f"gen_model_final.ckpt")
         if not means or moved != len(means):
@@ -3224,7 +3290,170 @@ KERNELS = [
      "of one batch-4 request, bf16; launches also one per norm of the second "
      "path)",
      "spade_fused.cu", "hrviton_tpu/ops/spade_block.py:270"),
+    # no TPU kernel's counterpart: the JAX package's weight gradient of the
+    # taps (hrviton_tpu/ops/conv3x3.py:_wgrad_taps :280) is XLA's
+    ("wgrad3x3", "wgrad3x3 (the bf16 weight gradient of the stage-2 training "
+     "step's 94 3x3 convs, batch 2 at 1024x768: TMA boxes of x and g, wgmma "
+     "with both operands MN-major, f32 sums; times summed over the 94 calls; "
+     "launches: the stage-2 CLI's of phase 9 (c), as many as wgrad_taps')",
+     "wgrad3x3.cu", "none: hrviton_tpu/ops/conv3x3.py:280 (_wgrad_taps) is XLA's"),
 ]
+
+
+# phase 13: the bf16 weight gradient of the training cell's 3x3 convs
+WGRAD_LARGEST = (2, 1024, 768, 128, 80, "relu")   # up_4's gamma / beta convs
+
+
+def _view_of(t):
+    """(shape, strides, storage offset) of a view: what _strided_like
+    rebuilds."""
+    return tuple(t.shape), tuple(t.stride()), t.storage_offset()
+
+
+def _strided_like(view, gen, scale=1.0):
+    """A bf16 tensor of ``view``'s shape, strides and storage offset (a
+    slice of a wider tensor stays one), drawn from ``gen``; returns (the
+    view, its storage)."""
+    shape, stride, offset = view
+    size = offset + 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    buf = (torch.randn(size, device="cuda", generator=gen) * scale).bfloat16()
+    return buf.as_strided(shape, stride, offset), buf
+
+
+def _g_layout(view):
+    """How g arrives: "nhwc" (contiguous), "nchw" (the NHWC view of a
+    contiguous NCHW tensor), "slice" (of a wider NCHW tensor, a
+    concatenation's gradient) or "other"."""
+    (n, h, w, c), (sn, sh, sw, sc), offset = view
+    if (sn, sh, sw, sc) == (h * w * c, w * c, c, 1) and offset == 0:
+        return "nhwc"
+    if (sc, sh, sw) == (h * w, w, 1):
+        return "nchw" if sn == c * h * w and offset == 0 else "slice"
+    return "other"
+
+
+def wgrad_phase(card):
+    """Phase 13 (module docstring). Returns (totals over the cell's 94
+    calls, the launches of one eager step)."""
+    import collections
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_wgrad3x3 import assert_within_one_ulp, cell_sites
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    calls, n_step = _wgrad_step_calls(card)
+    sites = collections.Counter()
+    for (xv, gv, act), k in calls.items():
+        sites[(*xv[0], gv[0][-1], act)] += k
+    if sites != collections.Counter(cell_sites()):
+        raise RuntimeError(f"wgrad3x3: the step's calls are not the cell's "
+                           f"94 sites: {sorted(sites.items())}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tot = dict(ms=0.0, kernel_alone_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               ops_ms=0.0, bytes_ms=0.0, bound_ms=0.0, max_abs=0.0)
+    by_layout = collections.Counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (xv, gv, act), k in sorted(calls.items(),
+                                   key=lambda kv: (kv[0][0][0][1:], str(kv[0]))):
+        (n, h, w, cin), cout = xv[0], gv[0][-1]
+        site, layout = (n, h, w, cin, cout, act), _g_layout(gv)
+        by_layout[layout] += k
+        x, xbuf = _strided_like(xv, gen)
+        g, gbuf = _strided_like(gv, gen, 0.1)
+        launch, out = c3.wgrad3x3_launcher(x, g, act, torch.bfloat16)
+        launch()
+        first = out.clone()
+        launch()
+        ref = c3.wgrad3x3_ref(x, g, act, torch.bfloat16)
+        if not torch.isfinite(out.float()).all():
+            raise RuntimeError(f"wgrad3x3 {site} g {layout}: not finite")
+        assert_within_one_ulp(out, ref, floor=2.0 ** -12)
+        if not torch.equal(out, first):
+            raise RuntimeError(f"wgrad3x3 {site} g {layout}: two launches differ")
+        a = c3.activation(x, act).permute(0, 3, 1, 2)
+        gn = g.permute(0, 3, 1, 2)
+        times = dict(
+            ms=_events_ms(lambda: c3.wgrad3x3(x, g, act, torch.bfloat16), 5),
+            kernel_alone_ms=_events_ms(launch, 5),
+            plain_ms=_events_ms(lambda: c3.wgrad3x3_ref(x, g, act, torch.bfloat16), 2),
+            library_ms=_events_ms(lambda: torch.nn.grad.conv2d_weight(
+                a, (cout, cin, 3, 3), gn, padding=1), 3),
+            ops_ms=2 * n * h * w * 9 * cin * cout / PEAK_OPS[torch.bfloat16] * 1e3,
+            bytes_ms=(2 * n * h * w * (cin + cout) + 2 * 9 * cin * cout)
+            / PEAK_BYTES * 1e3)
+        times["bound_ms"] = max(times["ops_ms"], times["bytes_ms"])
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"wgrad3x3 {site} g {layout} (strides {gv[1]}, offset {gv[2]}) "
+            f"x{k} {launch.plan}: max_abs {err:.3e} of max|ref| "
+            f"{ref.float().abs().max().item():.3e}, within one bf16 ulp an "
+            f"element, two launches equal | " + ", ".join(
+                f"{key} {v:.4f}" for key, v in times.items()))
+        if site == WGRAD_LARGEST:
+            log(f"wgrad3x3 up_4's largest call {site}, g {layout}, x{k}: kernel "
+                f"alone {times['kernel_alone_ms']:.4f} ms, wrapper "
+                f"{times['ms']:.4f}, bound {times['bound_ms']:.4f}, plain "
+                f"{times['plain_ms']:.4f}, cuDNN {times['library_ms']:.4f} | {card}")
+        for key, v in times.items():
+            tot[key] += k * v
+        tot["max_abs"] = max(tot["max_abs"], err)
+        del x, g, xbuf, gbuf, out, ref, a, gn, first, launch
+    log(f"wgrad3x3 over the cell's {sum(calls.values())} calls a step, each "
+        f"with x and g as the step hands them (g: {dict(by_layout)}): " +
+        ", ".join(f"{key} {v:.3f}" for key, v in tot.items()) + f" | {card}")
+    torch.cuda.empty_cache()
+    return tot, n_step
+
+
+def _wgrad_step_calls(card):
+    """One eager step of the training cell (built by
+    benchmark/drivers/train_closed_loop.py): the kernel's launches (94, as
+    many as wgrad_taps' calls), the operands copied, and each call's x and
+    g as the step hands them to the kernel's wrapper. Returns ({(x view, g
+    view, pre_act): calls}, launches)."""
+    import collections
+    from benchmark import inputs
+    from benchmark.drivers import train_closed_loop as tcl
+    from hrviton_tpu_torch.cli import train_generator as tgen
+    from hrviton_tpu_torch.core import graphs
+    from hrviton_tpu_torch.ops import conv3x3 as c3
+    bench = os.path.join(ROOT, "benchmark")
+    config = json.load(open(os.path.join(bench, "configs",
+                                         "hrviton-train-stage2-bf16.json")))
+    traffic = json.load(open(os.path.join(bench, "traffic",
+                                          "train-closed-b2.json")))
+    built = tcl.build(config, traffic, 1, "cuda")
+    p = config["pipeline"]
+    raw = inputs.make_pool(1, traffic["batch"], p["fine_height"],
+                           p["fine_width"], 2, "cuda")[0]
+    calls = collections.Counter()
+    real = c3.wgrad3x3_launcher
+
+    def spy(x, g, pre_act=None, dtype=torch.bfloat16):
+        calls[(_view_of(x), _view_of(g), pre_act)] += 1
+        return real(x, g, pre_act, dtype)
+    before = (c3.wgrad3x3.launches, c3.wgrad_taps.launches, c3.wgrad3x3.copies)
+    c3.wgrad3x3_launcher = spy
+    try:
+        with graphs.disabled():
+            tgen.train_step(built.trainer, built.state, raw, built.noise,
+                            built.frozen, built.put)
+        torch.cuda.synchronize()
+    finally:
+        c3.wgrad3x3_launcher = real
+    got = [a - b for a, b in zip((c3.wgrad3x3.launches, c3.wgrad_taps.launches,
+                                  c3.wgrad3x3.copies), before)]
+    layouts = collections.Counter()
+    for (_, gv, _), k in calls.items():
+        layouts[_g_layout(gv)] += k
+    log(f"wgrad3x3 in one eager step of train-stage2-b2: {got[0]} launches, "
+        f"wgrad_taps {got[1]} calls, {got[2]} operands copied first; g as "
+        f"handed over: {dict(layouts)} | {card}")
+    if got[0] != got[1] or got[0] != 94 or sum(calls.values()) != 94:
+        raise RuntimeError(f"wgrad3x3: {got[0]} launches in a step, wgrad_taps "
+                           f"{got[1]}, {sum(calls.values())} seen (expected 94 "
+                           f"each)")
+    del built, raw
+    _free()
+    return calls, got[0]
 
 
 # phase 11: the captured entry points (core/graphs.py)
@@ -3234,7 +3463,8 @@ GRAPH_DIR = os.path.join(ROOT, "build", "graphs")   # the graphs' DOT dumps
 HAND_WRITTEN = ("spade_unit_gb_kernel", "spade_unit_conv_kernel",
                 "spade_modulate_kernel", "conv3x3_wide_kernel",
                 "conv3x3_small_kernel", "instance_stats_partial_kernel",
-                "instance_stats_finalize_kernel")
+                "instance_stats_finalize_kernel", "wgrad3x3_kernel",
+                "wgrad3x3_sum_kernel")
 
 
 def _free():
@@ -4119,10 +4349,16 @@ def main():
         knockout_phase(card, pairs=10, train_variants=())
         _contract_line()
         return
+    if sys.argv[1:] == ["--wgrad"]:
+        t, n = wgrad_phase(card)
+        log(json.dumps({"name": "wgrad3x3", "launches_a_step": n, **t}))
+        _contract_line()
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     sass_phase()
     totals = kernel_phase()
+    wgrad_totals, _ = wgrad_phase(card)
     first = first_path_phase(card)
     torch.cuda.empty_cache()
     second = second_path_phase(card)
@@ -4136,6 +4372,7 @@ def main():
     rows = {k: v[torch.bfloat16] for k, v in totals.items()}
     # the f32 CLI launches no kernel (the gates take bf16 only, checked in
     # phase 6): its unit check is a direct call, in the log only
+    rows["wgrad3x3"] = wgrad_totals
     rows["spade_unit_cli_bf16"] = cli_units[torch.bfloat16]
     launches["spade_unit_cli_bf16"] = cli_launches[torch.bfloat16]["spade_unit"]
     torch.cuda.empty_cache()
@@ -4152,7 +4389,7 @@ def main():
         trees = training_trees(tmp)
         trained, step_ms = training_phase(card, tmp, *trees)
         for key, n in trained.items():
-            launches[key] += n
+            launches[key] = launches.get(key, 0) + n
         for key, n in data_parallel_phase(card, tmp, *trees, step_ms).items():
             launches[key] += n
     finally:

@@ -35,7 +35,7 @@ __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
 
 # csrc/<name>.cu
 SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma",
-           "spade_knock")
+           "spade_knock", "wgrad3x3")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

@@ -32,9 +32,13 @@ the saved inputs (JAX ``_cvjp_bwd``, the backward of both Pallas kernels).
 Under the ``taps_wgrad`` switch (JAX ``_conv3x3_taps``), a library 3x3 conv
 that needs a gradient runs ``conv3x3_taps``: the library forward, the input
 gradient as the library's transposed conv, and the weight gradient as nine
-tap products summed in f32 over chunks of rows (``wgrad_taps``), with no
-im2col buffer. The dispatch keeps the JAX order: the small-channel gate,
-then the wide gate, then taps, then the library.
+tap products with no im2col buffer (``wgrad_taps``), by dtype: bf16 on the
+card the hand-written kernel ``wgrad3x3`` (``csrc/wgrad3x3.cu``: TMA boxes
+of x and g, bf16 products on wgmma summed in f32, one rounding to w's
+dtype), bf16 on the CPU its plain version ``wgrad3x3_ref``, f32 the f32 tap
+products over chunks of rows (``_wgrad_rows``: tensor cores would need
+TF32). The dispatch keeps the JAX order: the small-channel gate, then the
+wide gate, then taps, then the library.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout), so a gate's ``w_shape`` is (Cout, Cin, 3, 3).
@@ -54,7 +58,8 @@ from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
                                           check_tensor, pad_to, ref_grads)
-from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed, pick_bn
+from hrviton_tpu_torch.ops.conv_engine import (pack_kmajor, packed, pick_bn,
+                                               sm_count)
 from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
@@ -62,7 +67,8 @@ __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "fast_conv_enabled", "fast_conv", "activation", "leaky_slope",
            "small_tiles", "small_weights", "narrow_box", "small_channels",
            "small_launcher", "conv3x3_taps", "wgrad_taps", "taps_wgrad",
-           "taps_wgrad_enabled",
+           "taps_wgrad_enabled", "wgrad3x3", "wgrad3x3_ref", "wgrad3x3_launcher",
+           "wgrad3x3_tiles", "wgrad3x3_splits", "wgrad3x3_plan", "wgrad_path",
            "conv_flops", "conv_bytes"]
 
 _TH = 8          # the JAX kernels' rows per grid step: their gates' row rule
@@ -420,36 +426,225 @@ def _row_chunk(h: int) -> int:
     return h
 
 
-def wgrad_taps(x, g, pre_act=None):
-    """dW of a 3x3/s1/p1 conv as nine tap products over chunks of rows (JAX
-    ``_wgrad_taps``): dW[co, ci, ky, kx] = sum over n, h, w of act(x)[n, h +
-    ky - 1, w + kx - 1, ci] * g[n, h, w, co], zero outside. x (N, H, W, Cin)
-    and g (N, H, W, Cout) NHWC; each chunk holds only (N, R + 2, W + 2, Cin)
-    of x, and every product and the sum are f32. Returns (Cout, Cin, 3, 3)
-    f32. With tracing on its work is the device span ``train.wgrad_taps``;
-    ``wgrad_taps.launches`` counts its calls."""
+def _wgrad_rows(x, g, pre_act=None):
+    """dW as nine f32 tap products over chunks of rows (the f32 path of
+    ``wgrad_taps``): each chunk holds only (N, R + 2, W + 2, Cin) of x, and
+    every product and the sum are f32, TF32 off. Returns (Cout, Cin, 3, 3)
+    f32."""
     n, h, wd, cin = x.shape
     cout = g.shape[-1]
     r = _row_chunk(h)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(9, cin, cout, dtype=torch.float32, device=x.device)
+    with precision.no_tf32():
+        for j in range(h // r):
+            # relu / leaky keep the zero padding zero
+            rows = activation(xp[:, j * r:j * r + r + 2], pre_act).float()
+            gc = g[:, j * r:(j + 1) * r].float().reshape(-1, cout)
+            for ky in range(3):
+                for kx in range(3):
+                    xs = rows[:, ky:ky + r, kx:kx + wd].reshape(-1, cin)
+                    acc[3 * ky + kx] += xs.t() @ gc
+    return acc.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def wgrad3x3_ref(x, g, pre_act=None, dtype=torch.float32):
+    """Plain version of the bf16 weight-gradient kernel (the CPU path and its
+    gold): act(x) in x's dtype, every product and the sum over all pixels
+    in f32 (TF32 off), rounded once to ``dtype``. x (N, H, W, Cin), g (N, H,
+    W, Cout) NHWC; returns (Cout, Cin, 3, 3)."""
+    n, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    a = F.pad(activation(x, pre_act).float(), (0, 0, 1, 1, 1, 1))
+    gf = g.float().reshape(-1, cout)
+    with precision.no_tf32():
+        taps = [a[:, ky:ky + h, kx:kx + wd].reshape(-1, cin).t() @ gf
+                for ky in range(3) for kx in range(3)]
+    return torch.stack(taps).reshape(3, 3, cin, cout).permute(3, 2, 0, 1).to(dtype)
+
+
+_WGRAD_BN = (16, 32, 48, 64)         # the N tiles wgrad3x3 is built for
+_WGRAD_M = 64                        # channels of its M side a block
+_WGRAD_TH, _WGRAD_TW = 16, 8         # a pixel tile: rows x columns
+# the split model's costs: a block's walk over one pixel tile, the rate at
+# which the f32 partials are written and read again, the adding kernel
+_WGRAD_TILE_S, _WGRAD_PART_BPS, _WGRAD_SUM_S = 1e-6, 2.5e12, 4e-6
+
+
+def wgrad3x3_tiles(cin: int, cout: int):
+    """(x_on_m, bn) of the weight-gradient kernel for Cin -> Cout: which
+    operand's channels take wgmma's M side (tiles of 64) and the N tile of
+    the other's, the least time by a plain model: the padded product's size
+    over its rate, the rate of an N tile of bn against shared memory's
+    bandwidth min(1, 2 bn / (64 + bn)) of the peak; a tie goes to the wider
+    tile, then to x on M. 128 -> 80: x on M, 48; 7 -> 128: g on M, 16."""
+    def cost(xm, bn):
+        m, n = (cin, cout) if xm else (cout, cin)
+        rate = min(1.0, 2 * bn / (64 + bn))
+        return (pad_to(m, _WGRAD_M) * pad_to(n, bn) / rate, -bn, not xm)
+    return min(((xm, bn) for xm in (True, False) for bn in _WGRAD_BN),
+               key=lambda c: cost(*c))
+
+
+def wgrad3x3_splits(tiles: int, pixel_tiles: int, elems: int, sms: int,
+                    room: int) -> int:
+    """Blocks over the pixels of each of ``tiles`` output tiles: the least
+    time, each wave of blocks over the card's ``sms`` taking as many pixel
+    tiles as its blocks walk (``_WGRAD_TILE_S`` each), plus the f32 partials
+    of ``elems`` outputs a split written and read again and the adding
+    kernel's launch; at most ``pixel_tiles`` splits, partials of at most
+    ``room`` bytes, and two waves of blocks at one tile."""
+    most = max(1, min(pixel_tiles, 2 * sms, room // (4 * elems)))
+
+    def cost(s):
+        waves = -(-tiles * s // sms)
+        walk = waves * -(-pixel_tiles // s) * _WGRAD_TILE_S
+        return walk + (s > 1) * (s * elems * 8 / _WGRAD_PART_BPS + _WGRAD_SUM_S)
+    return min(range(1, most + 1), key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad3x3_plan(n: int, h: int, w: int, cin: int, cout: int,
+                  sms: int) -> dict:
+    """How the weight-gradient kernel runs x (n, h, w, cin) against g (n, h,
+    w, cout) on a card of ``sms`` SMs: ``x_on_m`` and ``bn``
+    (``wgrad3x3_tiles``), its output ``tiles``, ``copies``, the bytes of
+    the operands' zero-padded copies (7, 9 or 3 channels), and its
+    ``splits`` over the pixels (``wgrad3x3_splits``; the f32 partials,
+    splits x cout x cin x 9, exist where it is above 1): the partials take
+    at most the bytes of the bf16 operands they are summed from."""
+    xm, bn = wgrad3x3_tiles(cin, cout)
+    m, nn = (cin, cout) if xm else (cout, cin)
+    tiles = -(-m // _WGRAD_M) * -(-nn // bn)
+    pixel_tiles = n * -(-h // _WGRAD_TH) * -(-w // _WGRAD_TW)
+    copies = sum(2 * n * h * w * pad_to(c, 8) for c in (cin, cout) if c % 8)
+    return dict(x_on_m=xm, bn=bn, tiles=tiles, copies=copies,
+                splits=wgrad3x3_splits(tiles, pixel_tiles, cout * cin * 9, sms,
+                                       2 * n * h * w * (cin + cout)))
+
+
+def _declare_wgrad(lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.wgrad3x3_bf16.argtypes = ([vp] * 4 + [i] * 10 + [ctypes.c_longlong]
+                                  + [i] * 3 + [vp])
+    lib.wgrad3x3_bf16.restype = ctypes.c_int
+
+
+def wgrad3x3_launcher(x, g, pre_act=None, dtype=torch.bfloat16):
+    """Check the arguments, copy an operand the kernel cannot read as it is
+    (a pixel of 7, 9 or 3 channels: no multiple of 16 bytes; a view that is
+    neither contiguous NHWC nor, for g, NCHW with contiguous channel planes,
+    W % 8 == 0 and H % 2 == 0, which the kernel reads as it is) and allocate
+    dW and the partial sums; return (launch, out): ``launch()`` is the bare
+    kernel launch (two with the partials: the products, then their sum),
+    and raises if it fails. CUDA bfloat16 tensors only; out is (Cout, Cin,
+    3, 3) in ``dtype`` (bf16 or f32)."""
+    if pre_act not in ACT_CODES:
+        raise ValueError(pre_act)
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"wgrad3x3 writes float32/bfloat16, got {dtype}")
+    if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
+        raise ValueError(f"wgrad3x3: x {tuple(x.shape)} and g {tuple(g.shape)} "
+                         f"are not NHWC of one (N, H, W)")
+    if x.device.type != "cuda" or g.device != x.device:
+        raise ValueError(f"wgrad3x3 is a CUDA kernel: x on {x.device}, g on "
+                         f"{g.device}")
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"wgrad3x3 takes bfloat16, got {x.dtype}, {g.dtype}")
+    n, h, wd, cin = x.shape
+    cout = g.shape[-1]
+
+    def readable(t, c):
+        if c % 8 == 0 and t.is_contiguous():
+            return t
+        wgrad3x3.copies += 1
+        return F.pad(t, (0, pad_to(c, 8) - c)) if c % 8 else t.contiguous()
+    # the gradient of a conv whose consumer's backward wrote NCHW (a
+    # concatenation's slice among them): read as it is, a K-major operand
+    sn, sh, sw, sc = g.stride()
+    nchw = (not g.is_contiguous() and (sc, sh, sw) == (h * wd, wd, 1)
+            and sn % 8 == 0 and wd % 8 == 0 and h % 2 == 0
+            and g.data_ptr() % 16 == 0)
+    xk = readable(x, cin)
+    gk = g if nchw else readable(g, cout)
+    cg = cout if nchw else gk.shape[-1]
+    dev = x.device
+    check_tensor("x", xk, (n, h, wd, xk.shape[-1]), torch.bfloat16, dev)
+    if not nchw:
+        check_tensor("g", gk, (n, h, wd, cg), torch.bfloat16, dev)
+    plan = wgrad3x3_plan(n, h, wd, cin, cout, sm_count())
+    splits = plan["splits"]
+    lib = _build.load("wgrad3x3", _declare_wgrad)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((cout, cin, 3, 3), dtype=dtype, device=dev)
+    part = (torch.empty((splits, cout, cin, 9), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    args = (xk.data_ptr(), gk.data_ptr(), 0 if part is None else part.data_ptr(),
+            out.data_ptr(), n, h, wd, xk.shape[-1], cg, cin, cout, plan["bn"],
+            int(plan["x_on_m"]), int(nchw), sn, splits, ACT_CODES[pre_act],
+            int(dtype == torch.bfloat16), stream)
+
+    def launch():
+        err = lib.wgrad3x3_bf16(*args)
+        if err != 0:
+            raise RuntimeError(f"wgrad3x3 launch failed: cudaError {err}")
+    launch.operands = (xk, gk, part)            # alive while launch may run
+    launch.plan = dict(plan, g_nchw=nchw)
+    return launch, out
+
+
+def wgrad3x3(x, g, pre_act=None, dtype=torch.bfloat16):
+    """The weight-gradient kernel (``csrc/wgrad3x3.cu``): dW of a 3x3/s1/p1
+    conv from bf16 x (N, H, W, Cin) and g (N, H, W, Cout) on the card, bf16
+    products on wgmma summed in f32, rounded once to ``dtype``; returns
+    (Cout, Cin, 3, 3). CUDA tensors only (raises otherwise): the CPU's is
+    ``wgrad3x3_ref``. ``wgrad3x3.launches`` counts calls (a counter that a
+    replay adds to); ``wgrad3x3.copies`` the operands copied first, counted
+    when a call is made."""
+    launch, out = wgrad3x3_launcher(x, g, pre_act, dtype)
+    launch()
+    wgrad3x3.launches += 1
+    return out
+
+
+wgrad3x3.launches = 0
+wgrad3x3.copies = 0
+
+
+def wgrad_path(dtype, device) -> str:
+    """Which weight gradient ``wgrad_taps`` takes for x and g of ``dtype``
+    on ``device``: "kernel" (bf16 on the card: ``wgrad3x3``), "plain" (bf16
+    elsewhere: ``wgrad3x3_ref``) or "rows" (any other dtype: the f32 tap
+    products over row chunks, ``_wgrad_rows``; tensor cores would need TF32
+    there, which the port forbids)."""
+    if dtype != torch.bfloat16:
+        return "rows"
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
+def wgrad_taps(x, g, pre_act=None, dtype=torch.float32):
+    """dW of a 3x3/s1/p1 conv (JAX ``_wgrad_taps``): dW[co, ci, ky, kx] =
+    sum over n, h, w of act(x)[n, h + ky - 1, w + kx - 1, ci] * g[n, h, w,
+    co], zero outside; x (N, H, W, Cin) and g (N, H, W, Cout) NHWC. Returns
+    (Cout, Cin, 3, 3) in ``dtype``, by ``wgrad_path``: bf16 on the card the
+    kernel ``wgrad3x3`` (bf16 products, f32 sums, one rounding), bf16 on the
+    CPU its plain version ``wgrad3x3_ref``, f32 the f32 tap products over
+    chunks of rows. With tracing on its work (an operand's copy included)
+    is the device span ``train.wgrad_taps``; ``wgrad_taps.launches`` counts
+    its calls."""
+    path = wgrad_path(x.dtype, x.device)
     wgrad_taps.launches += 1
     with profiling.device_span("train.wgrad_taps", x.device):
-        xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-        acc = torch.zeros(9, cin, cout, dtype=torch.float32, device=x.device)
-        with precision.no_tf32():
-            for j in range(h // r):
-                # relu / leaky keep the zero padding zero
-                rows = activation(xp[:, j * r:j * r + r + 2], pre_act).float()
-                gc = g[:, j * r:(j + 1) * r].float().reshape(-1, cout)
-                for ky in range(3):
-                    for kx in range(3):
-                        xs = rows[:, ky:ky + r, kx:kx + wd].reshape(-1, cin)
-                        acc[3 * ky + kx] += xs.t() @ gc
-        return acc.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+        if path == "kernel":
+            return wgrad3x3(x, g, pre_act, dtype)
+        if path == "plain":
+            return wgrad3x3_ref(x, g, pre_act, dtype)
+        return _wgrad_rows(x, g, pre_act).to(dtype)
 
 
-# its calls: a counter that a replay adds to (``core/graphs``)
+# their calls: counters that a replay adds to (``core/graphs``)
 wgrad_taps.launches = 0
-graphs.register_counters(wgrad_taps)
+graphs.register_counters(wgrad_taps, wgrad3x3)
 
 
 class _Taps(torch.autograd.Function):
@@ -482,7 +677,7 @@ class _Taps(torch.autograd.Function):
             gx = da.to(x.dtype)
         if ctx.needs_input_grad[1]:
             gw = wgrad_taps(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1),
-                            pre_act).to(w.dtype)
+                            pre_act, w.dtype)
         if ctx.needs_input_grad[2]:
             gb = g.float().sum(dim=(0, 2, 3)).to(w.dtype)
         return gx, gw, gb, None

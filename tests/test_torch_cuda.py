@@ -1751,3 +1751,161 @@ def test_a_step_records_again_after_its_graphs_died(monkeypatch):
     want = _eager_steps(eager, [b])[0]
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# ------------------------------------------ the bf16 weight gradient (wgrad3x3)
+
+def _wgrad_sites():
+    """The 47 distinct (N, H, W, Cin, Cout, pre_act) of the training cell's
+    94 weight gradients a step (tests/test_torch_wgrad3x3.py:cell_sites)."""
+    from test_torch_wgrad3x3 import cell_sites
+    return sorted(set(cell_sites()), key=lambda s: (s[1], s[3], s[4], str(s[5])))
+
+
+def _wgrad_operands(n, h, w, cin, cout, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, h, w, cin, device="cuda", generator=gen).bfloat16()
+    g = (torch.randn(n, h, w, cout, device="cuda", generator=gen) * 0.1).bfloat16()
+    return x, g
+
+
+def _wgrad_layout(g, layout):
+    """g (N, H, W, C) as the step's backward may hand it over: contiguous
+    NHWC; the NHWC view of a contiguous NCHW tensor; or of the last C
+    channels of a wider NCHW tensor (a concatenation's gradient)."""
+    if layout == "nchw":
+        return g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    if layout == "slice":
+        n, h, w, c = g.shape
+        wide = torch.zeros(n, c + 16, h, w, dtype=g.dtype, device=g.device)
+        wide[:, 16:] = g.permute(0, 3, 1, 2)
+        return wide[:, 16:].permute(0, 2, 3, 1)
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["nhwc", "nchw", "slice"])
+@pytest.mark.parametrize("site", range(47))
+def test_wgrad3x3_matches_plain_at_the_cells_shapes(site, layout):
+    """The kernel against ``wgrad3x3_ref`` (act in bf16, f32 products and
+    sums, one rounding to bf16) at each distinct shape of the training
+    cell's 94 calls, batch 2, with g in each layout ``_wgrad_layout`` makes
+    (most of the step's arrive NCHW): every element within one bf16 ulp,
+    with the card's floor for elements near zero
+    (tests/test_torch_wgrad3x3.py; only the order and the rounding of the
+    f32 sums differ); one launch counted."""
+    _need_card()
+    from test_torch_wgrad3x3 import assert_within_one_ulp
+    sites = _wgrad_sites()
+    assert len(sites) == 47
+    n, h, w, cin, cout, pre_act = sites[site]
+    x, g = _wgrad_operands(n, h, w, cin, cout, seed=site)
+    g = _wgrad_layout(g, layout)
+    before = tc3.wgrad3x3.launches
+    got = tc3.wgrad3x3(x, g, pre_act, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tc3.wgrad3x3.launches == before + 1
+    assert got.shape == (cout, cin, 3, 3) and got.dtype == torch.bfloat16
+    assert_within_one_ulp(got, tc3.wgrad3x3_ref(x, g, pre_act, torch.bfloat16),
+                          floor=2.0 ** -12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (2, 1024, 768, 128, 80, "relu"),      # x on M, the pixels split over 66 blocks
+    (2, 16, 12, 1040, 1024, "leaky0.2"),  # one split: the block rounds dW itself
+    (2, 37, 45, 80, 48, "leaky0.2"),      # ragged rows, columns and channels
+    (2, 64, 48, 7, 128, None),            # g on M; x read from its padded copy
+    (2, 64, 48, 32, 3, "leaky0.2")])      # g padded (NHWC) or read as it is (NCHW)
+@pytest.mark.parametrize("layout", ["nhwc", "nchw", "slice"])
+def test_wgrad3x3_two_launches_are_bit_identical(shape, layout):
+    """The partial sums are added in a fixed order: two launches give the
+    same bits, in bf16 and in f32 output; the f32 output rounds to the bf16
+    one, and lies within 2^-12 of max|exact| of the exact sum (the plain
+    version's products summed in float64; the tensor cores' f32 sums,
+    tests/test_torch_wgrad3x3.py)."""
+    _need_card()
+    n, h, w, cin, cout, pre_act = shape
+    x, g = _wgrad_operands(n, h, w, cin, cout, seed=7)
+    g = _wgrad_layout(g, layout)
+    for dtype in (torch.bfloat16, torch.float32):
+        a = tc3.wgrad3x3(x, g, pre_act, dtype)
+        b = tc3.wgrad3x3(x, g, pre_act, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), dtype
+    assert torch.equal(a.bfloat16(), tc3.wgrad3x3(x, g, pre_act, torch.bfloat16))
+    pad = torch.nn.functional.pad(tc3.activation(x, pre_act).double(),
+                                  (0, 0, 1, 1, 1, 1))
+    gd = g.double().reshape(-1, cout)
+    exact = torch.stack([pad[:, ky:ky + h, kx:kx + w].reshape(-1, cin).t() @ gd
+                         for ky in range(3) for kx in range(3)])
+    exact = exact.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    assert (a - exact).abs().max().item() <= exact.abs().max().item() * 2.0 ** -12
+
+
+@pytest.mark.gpu
+def test_wgrad3x3_rejects_bad_input():
+    _need_card()
+    x, g = _wgrad_operands(1, 16, 8, 16, 16)
+    with pytest.raises(TypeError):
+        tc3.wgrad3x3(x.float(), g)
+    with pytest.raises(ValueError):
+        tc3.wgrad3x3(x, g[:, :8])
+    with pytest.raises(ValueError):
+        tc3.wgrad3x3(x, g.cpu())
+
+
+@pytest.mark.gpu
+def test_wgrad3x3_in_the_recorded_stage2_step():
+    """The training cell's step (benchmark/configs/hrviton-train-stage2-
+    bf16.json, built by benchmark/drivers/train_closed_loop.py: SPADE ngf
+    64 'most' at 1024x768, batch 2, bf16): an eager step takes the kernel 94 times, at
+    the cell's 47 shapes as often as the generator has them; then the step
+    is recorded, and a replay adds 94 to ``wgrad3x3.launches`` and to
+    ``wgrad_taps.launches`` alike, its losses finite."""
+    _need_card()
+    import collections
+    import json
+    import os
+    from benchmark import inputs
+    from benchmark.drivers import train_closed_loop as tcl
+    from hrviton_tpu_torch.cli import train_generator as tgen
+    from hrviton_tpu_torch.core import graphs
+    from test_torch_wgrad3x3 import cell_sites
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "benchmark")
+    config = json.load(open(os.path.join(root, "configs",
+                                         "hrviton-train-stage2-bf16.json")))
+    traffic = json.load(open(os.path.join(root, "traffic", "train-closed-b2.json")))
+    built = tcl.build(config, traffic, 11, "cuda")
+    p = config["pipeline"]
+    pool = inputs.make_pool(2, 2, p["fine_height"], p["fine_width"], 12, "cuda")
+    seen = []
+    real = tc3.wgrad3x3_launcher
+
+    def spy(x, g, pre_act=None, dtype=torch.bfloat16):
+        seen.append((*x.shape, g.shape[-1], pre_act))
+        return real(x, g, pre_act, dtype)
+    state = built.state
+
+    def step(raw):
+        out = tgen.train_step(built.trainer, state, raw, built.noise,
+                              built.frozen, built.put)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(v).all() for v in out.metrics.values())
+        return out.state
+    counts = lambda: (tc3.wgrad3x3.launches, tc3.wgrad_taps.launches)
+    tc3.wgrad3x3_launcher = spy
+    try:
+        with graphs.disabled():
+            before = counts()
+            state = step(pool[0])
+            eager = tuple(a - b for a, b in zip(counts(), before))
+    finally:
+        tc3.wgrad3x3_launcher = real
+    assert eager == (94, 94)
+    assert collections.Counter(seen) == collections.Counter(cell_sites())
+    state = step(pool[1])                 # records the step's graph
+    before = counts()
+    state = step(pool[0])                 # a replay
+    assert tuple(a - b for a, b in zip(counts(), before)) == (94, 94)
