@@ -17,38 +17,39 @@ Phases (any failure exits non-zero, and no result line is printed):
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
   2. build: compile every hand-written kernel from the sources in the checkout
      (hrviton_tpu_torch/csrc/{spade_block,spade_fused,conv3x3,copy_probe,
-     conv_tma,spade_knock,wgrad3x3}.cu: twelve kernels, the instance
-     statistics and the weight gradient; conv_tma.cu holds conv_halo, conv_roll, conv_band,
-     conv_dma, conv_prodroll, conv_e2 and conv_e, spade_knock.cu the unit's
+     conv_tma,spade_knock,wgrad3x3}.cu: the model path's five kernels on the
+     conv engine, the seven of conv_tma.cu and the band-copy probe, the
+     instance statistics and the weight gradient; conv_tma.cu holds
+     conv_halo, conv_roll, conv_band, conv_dma, conv_prodroll, conv_e2 and conv_e, spade_knock.cu the unit's
      knock variants, timing only, wgrad3x3.cu the training step's bf16
      weight gradient), one nvcc process each, all started together, with ptxas's
      report of registers and spills; a kernel whose wgmma ptxas serialised
      (C7518, C7520) fails it;
   3. kernel check: each kernel's wrapper against its plain PyTorch version at
-     every shape its main path gives it, batch 4, in bf16 and f32, with times
-     beside the bound:
+     every shape its main path gives it, batch 4, in bf16 (the kernels run
+     for bf16 on the card only), with times beside the bound:
        - the fused SPADE unit (ops/spade_block.py) at the six unit shapes of
-         the first path (up_3, up_4 x norm_s/norm_0/norm_1): in bf16 two
-         launches on the TMA / wgmma conv engine (gamma|beta with the
+         the first path (up_3, up_4 x norm_s/norm_0/norm_1): two launches on
+         the TMA / wgmma conv engine (gamma|beta with the
          modulation, then the consumer conv) and the one-pass statistics,
          each part's time printed; and at one ragged small shape;
        - the one-pass instance statistics (ops/spade_fused.py:norm_stats)
          against instance_stats at the six unit shapes (mu within 1e-4 of
          the std, rsig within 1e-4 relative);
-       - the fused modulation (ops/spade_fused.py, in bf16 the unit's
-         gamma|beta stage on the conv engine with no activation) at the nine
+       - the fused modulation (ops/spade_fused.py, the unit's gamma|beta
+         stage on the conv engine with no activation) at the nine
          norms of the second path (up_2, up_3, up_4), beside cuDNN's time for
          the gamma|beta product alone (not the same function), and at one
          ragged small shape;
-       - the wide 3x3 conv (ops/conv3x3.py:conv3x3_wide, on the conv engine
-         in bf16) at its eight sites (up_1's gamma/beta convs and conv_1,
+       - the wide 3x3 conv (ops/conv3x3.py:conv3x3_wide, on the conv engine)
+         at its eight sites (up_1's gamma/beta convs and conv_1,
          up_2's conv_1), beside F.conv2d, and at one ragged small shape;
-       - the small-channel 3x3 conv (conv3x3_small, on the conv engine in
-         bf16; 9 input channels as the engine's narrow input) at its four
+       - the small-channel 3x3 conv (conv3x3_small, on the conv engine; 9
+         input channels as the engine's narrow input) at its four
          sites (conv_6, conv_7, up_4.conv_1, conv_img), beside F.conv2d,
          and at three ragged small shapes (one with 20 input channels,
          which the wrapper pads to 24);
-     the bf16 kernels of the modulation and the small conv are also timed
+     the kernels of the modulation and the small conv are also timed
      alone by CUDA events around the bare C entry point, with the operands
      packed; the times of the unit, the modulation and both convs are
      printed beside those of the designs they replaced (PERF.md); and the
@@ -78,10 +79,10 @@ Phases (any failure exits non-zero, and no result line is printed):
   6. the inference CLI's path (hrviton_tpu_torch/cli/test_generator.py) at
      its own configuration and full size (fine 1024x768, condition 256x192,
      tocg ngf=96, SPADE ngf=64 'most', batch 1, random weights from seed 0):
-     the fused unit's wrapper at the six unit shapes at batch 1, in f32 (the
-     FMA kernel, a direct call: off every path, since the kernels' gates
-     take bf16 only, as the JAX gates do) and bf16 (the conv engine),
-     against spade_conv_ref with TF32 off, with times beside the bound; 26 compact
+     the fused unit's wrapper at the six unit shapes at batch 1 in bf16 (the
+     conv engine; the kernels run for bf16 on the card only, an f32 call is
+     the plain version), against spade_conv_ref with TF32 off, with times
+     beside the bound; 26 compact
      uint8 batches, each made with numpy from its own seed in the wire
      format of VitonHDDataset(compact=True); expand_compact on the card bit
      for bit against its CPU run; then the CLI's per-batch step (tryon_step)
@@ -346,11 +347,12 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from benchmark.flops import unit_bytes, unit_flops  # noqa: E402
+
 B = 4                       # batch of the kernel check and of each request
 N_REQUESTS = 3              # per path
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
-PEAK_OPS = {torch.bfloat16: 989e12,    # dense bf16 tensor-core FLOP/s
-            torch.float32: 67e12}      # f32 outside the tensor cores
+PEAK_OPS = 989e12           # dense bf16 tensor-core FLOP/s
 CSRC = "hrviton_tpu_torch/csrc/"
 
 # (name, h, w, c, cout, ksize, pre_act, residual): the units of up_3 / up_4
@@ -629,39 +631,68 @@ def _unit_inputs(gen, dtype, h, w, c, cout, ks, residual, batch=B):
     return args, res
 
 
-def _check_site(tot, label, dtype, n, kernel, plain, library, kernel_name,
+def _modulate_ops(b, h, w, c, nh=128) -> int:
+    """Operations of one modulation (2 per multiply-add): the gamma and beta
+    3x3 convs over nh channels. The elementwise chain is negligible beside
+    them and is not counted."""
+    return 2 * b * h * w * 2 * 9 * nh * c
+
+
+def _modulate_bytes(b, h, w, c, nh=128) -> int:
+    """Bytes one bf16 modulation must move: x, actv and the noise (f32)
+    read once, out written once, weights read once."""
+    px = b * h * w
+    return px * (2 * c + nh) * 2 + px * 4 + 2 * 9 * nh * c * 2
+
+
+def _stats_bytes(b, h, w, c) -> int:
+    """Bytes the bf16 instance statistics must move: x and the noise (f32)
+    read once, mu and rsig (f32) written once."""
+    return b * h * w * (c * 2 + 4) + 2 * b * c * 4
+
+
+def _conv_ops(b, h, w, cin, cout) -> int:
+    """Operations of one 3x3 conv (2 per multiply-add)."""
+    return 2 * b * h * w * 9 * cin * cout
+
+
+def _conv_bytes(b, h, w, cin, cout) -> int:
+    """Bytes a bf16 3x3 conv must move: x read once, out written once,
+    weights and bias read once."""
+    return (b * h * w * (cin + cout) + 9 * cin * cout + cout) * 2
+
+
+def _check_site(tot, label, n, kernel, plain, library, kernel_name,
                 flops, nbytes, per_call, exact=False):
-    """One shape of one kernel: run the wrapper, hold it against its plain
-    version (bit for bit if ``exact``), time wrapper, plain and library call,
-    and add ``n`` launches' worth to the totals. ``per_call``: as in
-    ``_device_ms``. Raises if the kernel disagrees."""
+    """One shape of one bf16 kernel: run the wrapper, hold it against its
+    plain version (2 ulps of max|ref|, bit for bit if ``exact``), time
+    wrapper, plain and library call, and add ``n`` launches' worth to the
+    totals. ``per_call``: as in ``_device_ms``. Raises if the kernel
+    disagrees."""
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
     if not torch.isfinite(out).all():
-        raise RuntimeError(f"{label} {dtype}: non-finite kernel output")
+        raise RuntimeError(f"{label}: non-finite kernel output")
     scale = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs().max().item()
-    tol = (0.0 if exact else
-           1e-4 if dtype == torch.float32 else 2 * 2 ** -7) * scale
-    iters = 3 if dtype == torch.bfloat16 else 2
-    ms = _events_ms(kernel, iters)
-    plain_ms = _events_ms(plain, iters)
-    lib_ms = _events_ms(library, iters) if library is not None else None
-    dev_ms = (_device_ms(kernel, kernel_name, per_call=per_call)
-              if dtype == torch.bfloat16 else None)
-    t_ops = flops / PEAK_OPS[dtype] * 1e3
+    tol = (0.0 if exact else 2 * 2 ** -7) * scale
+    ms = _events_ms(kernel, 3)
+    plain_ms = _events_ms(plain, 3)
+    lib_ms = _events_ms(library, 3) if library is not None else None
+    dev_ms = _device_ms(kernel, kernel_name, per_call=per_call)
+    t_ops = flops / PEAK_OPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bound = max(t_ops, t_bytes)
     fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
-    log(f"{label} {str(dtype)[6:]} x{n}: max_abs {err:.3e} (tol {tol:.3e}, rel "
+    log(f"{label} bfloat16 x{n}: max_abs {err:.3e} (tol {tol:.3e}, rel "
         f"{err / scale:.2e}) {'ok' if err <= tol else 'FAIL'} | wrapper "
         f"{ms:.3f} ms, kernel alone {fmt(dev_ms)}, plain {plain_ms:.3f} ms, "
         f"library {fmt(lib_ms)}, bound {bound:.4f} ms "
         f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s")
     if err > tol:
-        raise RuntimeError(f"{label} {dtype}: kernel disagrees with its plain "
+        raise RuntimeError(f"{label}: kernel disagrees with its plain "
                            f"version ({err} > {tol})")
     for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
                    ("ops_ms", t_ops), ("bytes_ms", t_bytes),
@@ -697,8 +728,7 @@ def _check_stats(tot, label, args, shape):
     plain_ms = _events_ms(lambda: sf.instance_stats(*args), 3)
     alone = _device_ms(lambda: sf.norm_stats(*args), "instance_stats", 2)
     b, h, w, c = shape
-    bound = sf.stats_bytes(b, h, w, c,
-                           elem=args[0].element_size()) / PEAK_BYTES * 1e3
+    bound = _stats_bytes(b, h, w, c) / PEAK_BYTES * 1e3
     log(f"{label}: mu err {err_mu:.2e} (of the std), rsig err {err_rs:.2e} "
         f"(relative) {'ok' if ok else 'FAIL'} | wrapper {ms:.3f} ms, kernel "
         f"alone " + ("not measured" if alone is None else f"{alone:.3f} ms")
@@ -929,12 +959,12 @@ def sass_phase():
 
 
 def kernel_phase():
-    """Every kernel vs its plain version at each main-path shape. Tolerances:
-    f32 (TF32 off in the plain version) 1e-4 x max|ref|, for f32 sums of
-    9*128 or more products in another order; bf16 2 ulps of max|ref| (2 *
-    2^-7 * max|ref|), since each plain version rounds the same intermediates
-    to bf16 as its kernel and a sum in another order flips single roundings.
-    Returns {kernel name: {dtype: totals over one request's launches}}."""
+    """Every kernel vs its plain version at each main-path shape, in bf16
+    (the kernels run for bf16 on the card only; an f32 call is the plain
+    version). Tolerance 2 ulps of max|ref| (2 * 2^-7 * max|ref|), since each
+    plain version rounds the same intermediates to bf16 as its kernel and a
+    sum in another order flips single roundings. Returns {kernel name:
+    totals over one request's launches}."""
     from hrviton_tpu_torch.ops import conv3x3 as c3
     from hrviton_tpu_torch.ops import spade_block as sb
     from hrviton_tpu_torch.ops import spade_fused as sf
@@ -942,166 +972,154 @@ def kernel_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the weight gradient's row is phase 13's
-    totals = {name: {} for name in FIRST_PATH if name != "wgrad3x3"}
-    for dtype in (torch.bfloat16, torch.float32):
-        elem = torch.empty(0, dtype=dtype).element_size()
+    totals = {}
+    dtype = torch.bfloat16
 
-        tot = totals["spade_unit"][dtype] = {}
-        stats = totals["instance_stats"][dtype] = {}
-        split = {}
-        for name, h, w, c, cout, ks, act, residual in UNITS:
-            args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual)
-            unit = lambda: sb.spade_conv_unit(act, *args, res)
+    tot = totals["spade_unit"] = {}
+    stats = totals["instance_stats"] = {}
+    split = {}
+    for name, h, w, c, cout, ks, act, residual in UNITS:
+        args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual)
+        unit = lambda: sb.spade_conv_unit(act, *args, res)
+        _check_site(
+            tot, f"unit {name}", 1, unit,
+            lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
+            None, ("spade_unit", "instance_stats"),
+            unit_flops(B, h, w, c, cout, ks),
+            unit_bytes(B, h, w, c, cout, ks, residual=residual), UNIT_KERNELS)
+        parts = _device_split(unit, UNIT_PARTS, (1, 1, 2))
+        log(f"unit {name}: alone by part " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items())
+            + f" (gamma|beta tiles {sb.gb_tiles(c)}, consumer tiles "
+            f"{sb.conv_tiles(cout)})")
+        for k, v in parts.items():
+            split[k] = split.get(k, 0.0) + v
+        _check_stats(stats, f"instance_stats {name}", args[:3],
+                     (B, h, w, c))
+        del args, res
+    tot["split"] = split
+    b, h, w, c, cout, ks, act, residual = UNIT_RAGGED
+    args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual,
+                             batch=b)
+    _hold(f"unit ragged {UNIT_RAGGED}", sb.spade_conv_unit,
+          lambda: sb.spade_conv_unit(act, *args, res),
+          lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
+          False)
+    del args, res
+
+    tot = totals["spade_modulate"] = {}
+    for name, h, w, c, n in MODULATE_SITES:
+        args, _ = _unit_inputs(gen, dtype, h, w, c, 8, 1, False)
+        args = args[:8]
+        # the wrapper's plain-torch part beside the kernel: the stats
+        stats_ms = _events_ms(lambda: sf.norm_stats(*args[:3]), 3)
+        tot["stats_ms"] = tot.get("stats_ms", 0.0) + n * stats_ms
+        log(f"modulate {name}: the statistics (norm_stats) alone "
+            f"{stats_ms:.3f} ms")
+        _check_site(
+            tot, f"modulate {name}", n,
+            lambda: sf.fused_spade_modulate(*args),
+            lambda: sf.modulate_ref(*args), None, "spade_modulate_kernel",
+            _modulate_ops(B, h, w, c), _modulate_bytes(B, h, w, c), 1)
+        _alone_events(tot, f"modulate {name}", n,
+                      sf.modulate_launcher(*args)[0])
+        # cuDNN on the gamma|beta product alone: not the same function
+        # (no modulation, gamma and beta to device memory)
+        a = F.relu(args[3]).permute(0, 3, 1, 2)
+        wgb = torch.cat([args[4], args[6]]).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        cudnn_ms = _events_ms(lambda: F.conv2d(a, wgb, None, 1, 1), 3)
+        tot["cudnn_gb_ms"] = tot.get("cudnn_gb_ms", 0.0) + n * cudnn_ms
+        log(f"modulate {name}: cuDNN's gamma|beta product alone (F.conv2d "
+            f"of relu(actv) with [wg; wb], not the same function) "
+            f"{cudnn_ms:.3f} ms; N tiles (CT, NTILES) {sf.gb_tiles(c)}")
+        del a, wgb, args
+    b, h, w, c = MODULATE_RAGGED
+    args = _unit_inputs(gen, dtype, h, w, c, 8, 1, False, batch=b)[0][:8]
+    _hold(f"modulate ragged {MODULATE_RAGGED}", sf.fused_spade_modulate,
+          lambda: sf.fused_spade_modulate(*args),
+          lambda: sf.modulate_ref(*args), False)
+    del args
+
+    for key, sites, run, fused_bias, kname in (
+            ("conv3x3_wide", WIDE_SITES, c3.conv3x3_wide, True,
+             "conv3x3_wide_kernel"),
+            ("conv3x3_small", SMALL_SITES, c3.conv3x3_small, False,
+             "conv3x3_small_kernel")):
+        tot = totals[key] = {}
+        for name, h, w, cin, cout, act, n in sites:
+            x = _randn(gen, B, h, w, cin).to(dtype)
+            wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
+            bias = _randn(gen, cout, scale=0.1)
+            # the library call: one F.conv2d on the activated input with
+            # the bias, channels_last, in the working dtype
+            xa = c3.activation(x, act).permute(0, 3, 1, 2)
+            wl = wt.to(dtype).contiguous(memory_format=torch.channels_last)
+            bl = bias.to(dtype)
             _check_site(
-                tot, f"unit {name}", dtype, 1, unit,
-                lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
-                None, ("spade_unit", "instance_stats"),
-                sb.unit_flops(B, h, w, c, cout, ks),
-                sb.unit_bytes(B, h, w, c, cout, ks, elem=elem,
-                              residual=residual), UNIT_KERNELS)
-            if dtype == torch.bfloat16:
-                parts = _device_split(unit, UNIT_PARTS, (1, 1, 2))
-                log(f"unit {name}: alone by part " + ", ".join(
-                    f"{k} {v:.3f} ms" for k, v in parts.items())
-                    + f" (gamma|beta tiles {sb.gb_tiles(c)}, consumer tiles "
-                    f"{sb.conv_tiles(cout)})")
-                for k, v in parts.items():
-                    split[k] = split.get(k, 0.0) + v
-                _check_stats(stats, f"instance_stats {name}", args[:3],
-                             (B, h, w, c))
-            del args, res
-        if dtype == torch.bfloat16:
-            tot["split"] = split
-            b, h, w, c, cout, ks, act, residual = UNIT_RAGGED
-            args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual,
-                                     batch=b)
-            _hold(f"unit ragged {UNIT_RAGGED}", sb.spade_conv_unit,
-                  lambda: sb.spade_conv_unit(act, *args, res),
-                  lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
+                tot, f"{key} {name} {cin}->{cout} {h}x{w}", n,
+                lambda: run(x, wt, bias, act),
+                lambda: c3.conv3x3_ref(x, wt, bias, act,
+                                       fused_bias=fused_bias),
+                lambda: F.conv2d(xa, wl, bl, 1, 1), kname,
+                _conv_ops(B, h, w, cin, cout),
+                _conv_bytes(B, h, w, cin, cout), 1)
+            if key == "conv3x3_wide":
+                log(f"{key} {name}: N tile {c3.wide_bn(x.shape, cout)}")
+            else:
+                _alone_events(tot, f"{key} {name}", n,
+                              c3.small_launcher(x, wt, bias, act)[0])
+                log(f"{key} {name}: N tiles {c3.small_tiles(cout)}, "
+                    + (f"narrow input, boxes of {c3.narrow_box(cin)} elements"
+                       if cin % 8 else "16-channel boxes"))
+            del x, xa
+        if key == "conv3x3_wide":
+            b, h, w, cin, cout, act = WIDE_RAGGED
+            x = _randn(gen, b, h, w, cin).to(dtype)
+            wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
+            bias = _randn(gen, cout, scale=0.1)
+            _hold(f"{key} ragged {WIDE_RAGGED}", run,
+                  lambda: run(x, wt, bias, act),
+                  lambda: c3.conv3x3_ref(x, wt, bias, act, fused_bias=True),
                   False)
-            del args, res
-
-        tot = totals["spade_modulate"][dtype] = {}
-        for name, h, w, c, n in MODULATE_SITES:
-            args, _ = _unit_inputs(gen, dtype, h, w, c, 8, 1, False)
-            args = args[:8]
-            if dtype == torch.bfloat16:
-                # the wrapper's plain-torch part beside the kernel: the stats
-                stats_ms = _events_ms(lambda: sf.norm_stats(*args[:3]), 3)
-                tot["stats_ms"] = tot.get("stats_ms", 0.0) + n * stats_ms
-                log(f"modulate {name}: the statistics (norm_stats) alone "
-                    f"{stats_ms:.3f} ms")
-            _check_site(
-                tot, f"modulate {name}", dtype, n,
-                lambda: sf.fused_spade_modulate(*args),
-                lambda: sf.modulate_ref(*args), None,
-                "spade_modulate_kernel" if dtype == torch.bfloat16
-                else "spade_modulate_f32_kernel",
-                sf.modulate_flops(B, h, w, c),
-                sf.modulate_bytes(B, h, w, c, elem=elem), 1)
-            if dtype == torch.bfloat16:
-                _alone_events(tot, f"modulate {name}", n,
-                              sf.modulate_launcher(*args)[0])
-                # cuDNN on the gamma|beta product alone: not the same function
-                # (no modulation, gamma and beta to device memory)
-                a = F.relu(args[3]).permute(0, 3, 1, 2)
-                wgb = torch.cat([args[4], args[6]]).to(dtype).contiguous(
-                    memory_format=torch.channels_last)
-                cudnn_ms = _events_ms(lambda: F.conv2d(a, wgb, None, 1, 1), 3)
-                tot["cudnn_gb_ms"] = tot.get("cudnn_gb_ms", 0.0) + n * cudnn_ms
-                log(f"modulate {name}: cuDNN's gamma|beta product alone (F.conv2d "
-                    f"of relu(actv) with [wg; wb], not the same function) "
-                    f"{cudnn_ms:.3f} ms; N tiles (CT, NTILES) {sf.gb_tiles(c)}")
-                del a, wgb
-            del args
-        if dtype == torch.bfloat16:
-            b, h, w, c = MODULATE_RAGGED
-            args = _unit_inputs(gen, dtype, h, w, c, 8, 1, False, batch=b)[0][:8]
-            _hold(f"modulate ragged {MODULATE_RAGGED}", sf.fused_spade_modulate,
-                  lambda: sf.fused_spade_modulate(*args),
-                  lambda: sf.modulate_ref(*args), False)
-            del args
-
-        for key, sites, run, fused_bias, kname in (
-                ("conv3x3_wide", WIDE_SITES, c3.conv3x3_wide, True,
-                 "conv3x3_wide_kernel"),
-                ("conv3x3_small", SMALL_SITES, c3.conv3x3_small, False,
-                 "conv3x3_small_kernel")):
-            tot = totals[key][dtype] = {}
-            for name, h, w, cin, cout, act, n in sites:
-                x = _randn(gen, B, h, w, cin).to(dtype)
-                wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
-                bias = _randn(gen, cout, scale=0.1)
-                # the library call: one F.conv2d on the activated input with
-                # the bias, channels_last, in the working dtype
-                xa = c3.activation(x, act).permute(0, 3, 1, 2)
-                wl = wt.to(dtype).contiguous(memory_format=torch.channels_last)
-                bl = bias.to(dtype)
-                _check_site(
-                    tot, f"{key} {name} {cin}->{cout} {h}x{w}", dtype, n,
-                    lambda: run(x, wt, bias, act),
-                    lambda: c3.conv3x3_ref(x, wt, bias, act,
-                                           fused_bias=fused_bias),
-                    lambda: F.conv2d(xa, wl, bl, 1, 1),
-                    kname if dtype == torch.bfloat16 else "conv3x3_f32_kernel",
-                    c3.conv_flops(B, h, w, cin, cout),
-                    c3.conv_bytes(B, h, w, cin, cout, elem=elem), 1)
-                if key == "conv3x3_wide" and dtype == torch.bfloat16:
-                    log(f"{key} {name}: N tile {c3.wide_bn(x.shape, cout)}")
-                if key == "conv3x3_small" and dtype == torch.bfloat16:
-                    _alone_events(tot, f"{key} {name}", n,
-                                  c3.small_launcher(x, wt, bias, act)[0])
-                    log(f"{key} {name}: N tiles {c3.small_tiles(cout)}, "
-                        + (f"narrow input, boxes of {c3.narrow_box(cin)} elements"
-                           if cin % 8 else "16-channel boxes"))
-                del x, xa
-            if key == "conv3x3_wide" and dtype == torch.bfloat16:
-                b, h, w, cin, cout, act = WIDE_RAGGED
+            del x
+        else:
+            for b, h, w, cin, cout, act in SMALL_RAGGED:
                 x = _randn(gen, b, h, w, cin).to(dtype)
                 wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
                 bias = _randn(gen, cout, scale=0.1)
-                _hold(f"{key} ragged {WIDE_RAGGED}", run,
+                _hold(f"{key} ragged {(b, h, w, cin, cout, act)}", run,
                       lambda: run(x, wt, bias, act),
-                      lambda: c3.conv3x3_ref(x, wt, bias, act, fused_bias=True),
-                      False)
+                      lambda: c3.conv3x3_ref(x, wt, bias, act), False)
                 del x
-            if key == "conv3x3_small" and dtype == torch.bfloat16:
-                for b, h, w, cin, cout, act in SMALL_RAGGED:
-                    x = _randn(gen, b, h, w, cin).to(dtype)
-                    wt = _randn(gen, cout, cin, 3, 3, scale=(1.0 / (9 * cin)) ** 0.5)
-                    bias = _randn(gen, cout, scale=0.1)
-                    _hold(f"{key} ragged {(b, h, w, cin, cout, act)}", run,
-                          lambda: run(x, wt, bias, act),
-                          lambda: c3.conv3x3_ref(x, wt, bias, act), False)
-                    del x
-        for key in totals:
-            t = totals[key][dtype]
-            if not t:
-                continue
-            fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
-            log(f"{key}, one request's launches, batch {B}, {str(dtype)[6:]}: "
-                f"wrapper {t['ms']:.3f} ms, kernel alone "
-                f"{fmt(t['kernel_alone_ms'])}, plain {t['plain_ms']:.3f} ms, "
-                f"library {fmt(t['library_ms'])}, bound {t['bound_ms']:.4f} ms"
-                + (f", of the wrapper: the statistics {t['stats_ms']:.3f} ms"
-                   if "stats_ms" in t else "")
-                + (f", alone by CUDA events around the bare entry point "
-                   f"{t['events_alone_ms']:.3f} ms" if "events_alone_ms" in t else "")
-                + (f", cuDNN's gamma|beta product alone {t['cudnn_gb_ms']:.3f} ms"
-                   if "cudnn_gb_ms" in t else "")
-                + (", alone by part " + ", ".join(
-                    f"{k} {v:.3f} ms" for k, v in t["split"].items())
-                   if "split" in t else ""))
-            if key in EARLIER_MODEL and dtype == torch.bfloat16:
-                was = EARLIER_MODEL[key]
-                log(f"{key}: on the TMA / wgmma engine wrapper {t['ms']:.3f} ms, "
-                    f"kernels alone {fmt(t['kernel_alone_ms'])}"
-                    + (f" (events {t['events_alone_ms']:.3f} ms)"
-                       if "events_alone_ms" in t else "")
-                    + f"; the earlier design {was[0]:.2f} ms, kernel alone "
-                    f"{was[1]:.2f} ms (PERF.md)")
-        torch.cuda.empty_cache()
+    for key, t in totals.items():
+        fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+        log(f"{key}, one request's launches, batch {B}, bfloat16: "
+            f"wrapper {t['ms']:.3f} ms, kernel alone "
+            f"{fmt(t['kernel_alone_ms'])}, plain {t['plain_ms']:.3f} ms, "
+            f"library {fmt(t['library_ms'])}, bound {t['bound_ms']:.4f} ms"
+            + (f", of the wrapper: the statistics {t['stats_ms']:.3f} ms"
+               if "stats_ms" in t else "")
+            + (f", alone by CUDA events around the bare entry point "
+               f"{t['events_alone_ms']:.3f} ms" if "events_alone_ms" in t else "")
+            + (f", cuDNN's gamma|beta product alone {t['cudnn_gb_ms']:.3f} ms"
+               if "cudnn_gb_ms" in t else "")
+            + (", alone by part " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in t["split"].items())
+               if "split" in t else ""))
+        if key in EARLIER_MODEL:
+            was = EARLIER_MODEL[key]
+            log(f"{key}: on the TMA / wgmma engine wrapper {t['ms']:.3f} ms, "
+                f"kernels alone {fmt(t['kernel_alone_ms'])}"
+                + (f" (events {t['events_alone_ms']:.3f} ms)"
+                   if "events_alone_ms" in t else "")
+                + f"; the earlier design {was[0]:.2f} ms, kernel alone "
+                f"{was[1]:.2f} ms (PERF.md)")
+    torch.cuda.empty_cache()
     return totals
+
+
+
 
 
 def _synthetic_batch(h, w, seed):
@@ -1434,45 +1452,37 @@ def _spread(ms):
 
 
 def _cli_units(gen):
-    """Kernel 1 at the CLI's batch 1, at the six unit shapes, in f32 (the
-    FMA kernel, off every path: the gate takes bf16 only, so this is a
-    direct call of the wrapper) and bf16 (the conv engine, on the CLI's
-    --bf16 path), each unit against spade_conv_ref on the same inputs, TF32
-    off. Returns {dtype: totals over one forward's six units}."""
+    """Kernel 1 at the CLI's batch 1, at the six unit shapes, in bf16 (the
+    conv engine, on the CLI's --bf16 path), each unit against
+    spade_conv_ref on the same inputs, TF32 off. Returns the totals over
+    one forward's six units."""
     from hrviton_tpu_torch.ops import spade_block as sb
-    totals = {}
+    tot = {}
     _tf32(False, False)
-    for dtype in (torch.float32, torch.bfloat16):
-        elem = torch.empty(0, dtype=dtype).element_size()
-        tot = totals[dtype] = {}
-        for name, h, w, c, cout, ks, act, residual in UNITS:
-            args, res = _unit_inputs(gen, dtype, h, w, c, cout, ks, residual,
-                                     batch=1)
-            _check_site(
-                tot, f"cli unit {name} batch 1", dtype, 1,
-                lambda: sb.spade_conv_unit(act, *args, res),
-                lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
-                None, ("spade_unit", "instance_stats"),
-                sb.unit_flops(1, h, w, c, cout, ks),
-                sb.unit_bytes(1, h, w, c, cout, ks, elem=elem,
-                              residual=residual), UNIT_KERNELS)
-            del args, res
-        fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
-        where = ("a direct call, off every path" if dtype == torch.float32
-                 else "the CLI's --bf16 path")
-        log(f"cli unit ({where}), one batch-1 forward's six units, "
-            f"{str(dtype)[6:]}: "
-            f"wrapper {tot['ms']:.3f} ms, kernel alone "
-            f"{fmt(tot['kernel_alone_ms'])}, plain {tot['plain_ms']:.3f} ms, "
-            f"bound {tot['bound_ms']:.4f} ms")
+    for name, h, w, c, cout, ks, act, residual in UNITS:
+        args, res = _unit_inputs(gen, torch.bfloat16, h, w, c, cout, ks,
+                                 residual, batch=1)
+        _check_site(
+            tot, f"cli unit {name} batch 1", 1,
+            lambda: sb.spade_conv_unit(act, *args, res),
+            lambda: sb.spade_conv_ref(*args, pre_act=act, residual=res),
+            None, ("spade_unit", "instance_stats"),
+            unit_flops(1, h, w, c, cout, ks),
+            unit_bytes(1, h, w, c, cout, ks, residual=residual), UNIT_KERNELS)
+        del args, res
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"
+    log(f"cli unit (the CLI's --bf16 path), one batch-1 forward's six units, "
+        f"bfloat16: wrapper {tot['ms']:.3f} ms, kernel alone "
+        f"{fmt(tot['kernel_alone_ms'])}, plain {tot['plain_ms']:.3f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms")
     torch.cuda.empty_cache()
-    return totals
+    return tot
 
 
 def cli_phase(card):
     """The inference CLI's path: its own configuration at full size, batch
     1, random weights from seed 0, f32 and --bf16 (module docstring, phase
-    6). Returns ({dtype: kernel 1's totals at batch 1}, {dtype: launches of
+    6). Returns (kernel 1's bf16 totals at batch 1, {dtype: launches of
     each kernel over the CLI's steps in that dtype})."""
     import warnings
     from hrviton_tpu_torch import TryOnPipeline
@@ -3147,7 +3157,7 @@ def tools_phase(card):
     xa = x.permute(0, 3, 1, 2)
     w_oihw = wt.permute(3, 2, 0, 1)
     wl = w_oihw.contiguous(memory_format=torch.channels_last)
-    flops = c3.conv_flops(B, h, w, c, c)
+    flops = _conv_ops(B, h, w, c, c)
     strip_cols = -(-w // 62) * 64       # product columns of the shift kernels
     nbytes = (2 * x.numel() + wt.numel()) * x.element_size()
     totals = {}
@@ -3156,7 +3166,7 @@ def tools_phase(card):
             run, plain = tools[key]
             for th in ths:
                 tot = {}
-                _check_site(tot, f"{key} TH={th} {c}->{c} {h}x{w}", dtype, 1,
+                _check_site(tot, f"{key} TH={th} {c}->{c} {h}x{w}", 1,
                             lambda: run(x, wt, th=th), lambda: plain(x, wt, th),
                             lambda: F.conv2d(xa, wl, None, 1, 1), kname, flops,
                             nbytes, 1)
@@ -3175,9 +3185,9 @@ def tools_phase(card):
                         f"bare entry point {ev:.3f} ms, by the profiler "
                         + ("not measured" if alone is None else
                            f"{alone:.3f} ms ({100 * (ev - alone) / alone:+.1f}%)")
-                        + f"; bound {flops / PEAK_OPS[dtype] * 1e3:.4f} ms"
+                        + f"; bound {flops / PEAK_OPS * 1e3:.4f} ms"
                         + (f", with the products of the strips' overlapping "
-                           f"columns {flops * strip_cols / w / PEAK_OPS[dtype] * 1e3:.4f} ms"
+                           f"columns {flops * strip_cols / w / PEAK_OPS * 1e3:.4f} ms"
                            if key in PRODUCT_SHIFT else ""))
                     del launch
                 if key in EARLIER:
@@ -3210,7 +3220,7 @@ def tools_phase(card):
         + ("not measured" if wide_alone is None else f"{wide_alone:.3f} ms"))
     out = torch.empty_like(x)
     tot = {}
-    _check_site(tot, f"copy_probe TH={PROBE_TH} {TOOLS_X}", dtype, 1,
+    _check_site(tot, f"copy_probe TH={PROBE_TH} {TOOLS_X}", 1,
                 lambda: probe(x, th=PROBE_TH), lambda: probe_ref(x, PROBE_TH),
                 lambda: out.copy_(x), "band_copy_probe_kernel", 0,
                 2 * x.numel() * x.element_size(), 1, exact=True)
@@ -3377,7 +3387,7 @@ def wgrad_phase(card):
             plain_ms=_events_ms(lambda: c3.wgrad3x3_ref(x, g, act, torch.bfloat16), 2),
             library_ms=_events_ms(lambda: torch.nn.grad.conv2d_weight(
                 a, (cout, cin, 3, 3), gn, padding=1), 3),
-            ops_ms=2 * n * h * w * 9 * cin * cout / PEAK_OPS[torch.bfloat16] * 1e3,
+            ops_ms=2 * n * h * w * 9 * cin * cout / PEAK_OPS * 1e3,
             bytes_ms=(2 * n * h * w * (cin + cout) + 2 * 9 * cin * cout)
             / PEAK_BYTES * 1e3)
         times["bound_ms"] = max(times["ops_ms"], times["bytes_ms"])
@@ -4074,8 +4084,7 @@ def _knock_bound(h, w, c, cout, ks, residual, knock):
     px = B * h * w
     gb_ops = 0 if "prod_dots" in knock else 2 * px * 2 * 9 * 128 * c
     cons_ops = 0 if ks == 3 and "cons_dots" in knock else 2 * px * ks * ks * c * cout
-    from hrviton_tpu_torch.ops import spade_block as sb
-    nbytes = sb.unit_bytes(B, h, w, c, cout, ks, residual=residual)
+    nbytes = unit_bytes(B, h, w, c, cout, ks, residual=residual)
     if {"actv_dma", "prod_dots"} & set(knock):
         nbytes -= px * 128 * 2
     return gb_ops + cons_ops, nbytes
@@ -4120,7 +4129,7 @@ def knockout_kernel_phase():
             if tuple(out.shape) != (B, h, w, cout):
                 raise RuntimeError(f"knock {key} {name}: shape {tuple(out.shape)}")
             ms, plain_ms = _events_ms(unit, 3), _events_ms(plain, 2)
-            t_ops, t_bytes = ops / PEAK_OPS[torch.bfloat16] * 1e3, nbytes / PEAK_BYTES * 1e3
+            t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
             msg = f"knock {key} {name}: wrapper {ms:.3f} ms, plain {plain_ms:.3f} ms, " \
                 f"bound {max(t_ops, t_bytes):.4f} ms"
             if tot["max_abs"] is not None:
@@ -4369,11 +4378,9 @@ def main():
     # times (the statistics' launches there are inside those rows' times)
     launches = {k: first.get(k, 0) + second.get(k, 0)
                 for k in set(first) | set(second)}
-    rows = {k: v[torch.bfloat16] for k, v in totals.items()}
-    # the f32 CLI launches no kernel (the gates take bf16 only, checked in
-    # phase 6): its unit check is a direct call, in the log only
+    rows = dict(totals)
     rows["wgrad3x3"] = wgrad_totals
-    rows["spade_unit_cli_bf16"] = cli_units[torch.bfloat16]
+    rows["spade_unit_cli_bf16"] = cli_units
     launches["spade_unit_cli_bf16"] = cli_launches[torch.bfloat16]["spade_unit"]
     torch.cuda.empty_cache()
     tool_totals, tool_launches = tools_phase(card)

@@ -1,6 +1,6 @@
 // Fused [pre-activation ->] 3x3 stride-1 pad-1 convolution [-> bias] for
 // Hopper (sm_90a): two kernels, both on the TMA / wgmma conv engine
-// (conv_engine.cuh) in bfloat16: the halo tile of the unpadded NHWC input
+// (conv_engine.cuh): the halo tile of the unpadded NHWC input
 // arrives by TMA with its zero border, the pre-activation is the engine's
 // transform on A, the nine taps are wgmma products m64nBNk16 with the
 // weights packed per stage on the host once per weight tensor
@@ -37,25 +37,17 @@
 // reads the input once per tile (1.3x with the halo, from L2) and writes the
 // output once.
 //
-// float32 inputs take one plain FMA kernel for both (exact in f32, slow).
+// The kernels run for bf16 on the card; everything else runs the plain
+// version (ops/_build.py:runs_kernel).
 //
 // Plain C interface for ctypes; the entry points return cudaGetLastError()
-// (the bfloat16 ones 1000 + a CUresult if a tensor map cannot be encoded).
+// (or 1000 + a CUresult if a tensor map cannot be encoded).
 
 #include "conv_engine.cuh"
-#include "conv_tile.cuh"
 
 using namespace hv;
 
 namespace {
-
-struct ConvParams {
-  const float* x;       // (B, H, W, CIN)
-  const float* wk;      // (9, KC, NP): taps, CIN padded to KC, COUT to NP
-  const float* bias;    // (NP), zeros past COUT
-  float* out;           // (B, H, W, COUT)
-  int B, H, W, CIN, COUT, KC, NP, pre_act;
-};
 
 // The wide kernel's epilogue: the bias (bf16-rounded, f32, zero-padded to the
 // N tiles) added to the f32 accumulator, one rounding, 16-byte stores.
@@ -100,28 +92,6 @@ __global__ void __launch_bounds__(engine::NT, 2)
     conv3x3_small_kernel(const __grid_constant__ CUtensorMap tmx, const unsigned char* wk,
                          const engine::BiasEpilogue epi, const engine::Geometry g) {
   engine::run<engine::Cfg<3, BN, NARROW, 2>>(&tmx, wk, epi, g);
-}
-
-// float32, any channel counts: warp = tile row, lane = output channel.
-__global__ void __launch_bounds__(CT_NT)
-conv3x3_f32_kernel(const ConvParams p) {
-  __shared__ __align__(16) float A[CF_SMEM_FLOATS];
-  const int nct = p.NP / 32;
-  const int ct = blockIdx.x % nct, tx = blockIdx.x / nct;
-  const int b = blockIdx.z, y0 = blockIdx.y * CF_TH, x0 = tx * CF_TW;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col[1] = {ct * 32 + lane};
-  float acc[1][CF_TW] = {};
-  conv_mainloop_f32<1>(acc, p.x, p.H, p.W, p.CIN, p.wk, p.KC, p.NP, col, p.pre_act, b, y0, x0,
-                       A);
-  const int co = col[0], gy = y0 + warp;
-  if (co >= p.COUT || gy >= p.H) return;
-  const float bco = p.bias[co];
-#pragma unroll
-  for (int j = 0; j < CF_TW; ++j) {
-    const int gx = x0 + j;
-    if (gx < p.W) p.out[((size_t)(b * p.H + gy) * p.W + gx) * p.COUT + co] = acc[0][j] + bco;
-  }
 }
 
 }  // namespace
@@ -183,19 +153,5 @@ int conv3x3_small_forward_bf16(const void* x, const void* wk, const void* bias, 
   return (int)cudaErrorInvalidValue;
 }
 #undef HV_SMALL
-
-// float32, any channel counts. wk: (9, CINP, NP) f32, CINP = CIN padded to
-// 32 and NP = COUT padded to 32 with zeros. bias: (NP) f32.
-int conv3x3_forward_f32(const void* x, const void* wk, const void* bias, void* out, int B,
-                        int H, int W, int CIN, int COUT, int CINP, int NP, int pre_act,
-                        void* stream) {
-  if (CINP % CF_KC || CINP < CIN || NP % 32 || NP < COUT) return (int)cudaErrorInvalidValue;
-  const ConvParams p{static_cast<const float*>(x), static_cast<const float*>(wk),
-                     static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, CIN,
-                     COUT, CINP, NP, pre_act};
-  dim3 grid((W + CF_TW - 1) / CF_TW * (NP / 32), (H + CF_TH - 1) / CF_TH, B);
-  conv3x3_f32_kernel<<<grid, CT_NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
 
 }  // extern "C"

@@ -1,6 +1,5 @@
 // Small device helpers shared by the package's kernels: conversions and
-// rounding through the compute dtype, the pre-activation, cp.async,
-// ldmatrix and the bf16 tensor-core product (mma.sync m16n8k16).
+// rounding through the compute dtype.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,77 +21,5 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 // round through the compute dtype
 template <typename T> __device__ __forceinline__ float rt(float v) { return to_f(from_f<T>(v)); }
-
-// The pre-activation of a value held in T. pre_act: 0 none, 1 relu, 2 leaky
-// 0.2 = max(v, slope * v) with the slope and the product rounded to T, as a
-// tensor of that dtype multiplied by 0.2 gives them.
-template <typename T>
-__device__ __forceinline__ float pre_activate(float v, int pre_act) {
-  if (pre_act == 1) return fmaxf(v, 0.f);
-  if (pre_act == 2) return fmaxf(v, rt<T>(rt<T>(0.2f) * v));
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-// the same copy, or 16 zero bytes where !valid (a source size of 0: nothing is
-// read, so gmem only has to be an address)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ldmatrix: four 8x8 b16 matrices; lane l addresses row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 8 consecutive values as floats (16/32-byte aligned), and 8 floats -> bf16
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  union { uint4 u; __nv_bfloat162 h[4]; } cv;
-  cv.u = *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(cv.h[i]);
-    v[2 * i] = f.x; v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
-  union { uint4 u; __nv_bfloat162 h[4]; } cv;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) cv.h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = cv.u;
-}
 
 }  // namespace hv

@@ -11,9 +11,8 @@
 //   mod  = act(norm * (1 + g) + b)               act: none | relu | leaky 0.2
 //   out  = conv(mod, Wc) + bc [+ residual]       3x3 pad 1, or 1x1
 //
-// bfloat16 (the main path) runs as two launches on the TMA / wgmma conv
-// engine (conv_engine.cuh), and the statistics come from the one-pass kernel
-// of spade_fused.cu:
+// It runs as two launches on the TMA / wgmma conv engine (conv_engine.cuh),
+// and the statistics come from the one-pass kernel of spade_fused.cu:
 //   (a) spade_unit_gb_kernel: the gamma|beta product with the modulation and
 //       the activation in its epilogue (spade_mod.cuh, shared with the fused
 //       modulation of spade_fused.cu), storing act(mod) in bf16. N tiles of
@@ -31,11 +30,8 @@
 // Writing act(mod) once and reading it back costs ~1 ms of bytes for the six
 // units, and both halves run on the one engine.
 //
-// float32 keeps the fused FMA kernel (spade_unit_kernel): each thread block
-// owns a TH x TW output tile with all cout channels, stages the relu(actv)
-// halo in shared memory, computes mod on the consumer's halo (recomputing
-// gamma/beta there: 1.56x at 8x8) and runs the consumer conv from shared
-// memory; exact in f32 and slow.
+// The kernels run for bf16 on the card; everything else runs the plain
+// version (ops/_build.py:runs_kernel).
 //
 // What bounds the unit on this card: at 1024x768 the six units of the
 // generator's up_3/up_4 blocks do ~1.12 TFLOP per image against ~1.5 GB of
@@ -47,184 +43,13 @@
 // the compute dtype is rounded through T here (rt<T>), accumulations are f32.
 //
 // Plain C interface for ctypes; the entry points return cudaGetLastError()
-// (the bf16 ones 1000 + a CUresult if a tensor map cannot be encoded).
+// (or 1000 + a CUresult if a tensor map cannot be encoded).
 
 #include "spade_mod.cuh"
 
 using namespace hv;
 
 namespace {
-
-constexpr int TH = 8;
-constexpr int TW = 8;
-constexpr int NT = 256;            // 8 warps
-constexpr int NWARP = NT / 32;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// ---------------------------------------------------------------------------
-// float32 version: plain FMA loops from shared memory.
-
-struct Params {
-  const float* x;       // (B, H, W, C)
-  const float* noise;   // (B, H, W)
-  const float* nscale;  // (C)
-  const float* mu;      // (B, C)
-  const float* rsig;    // (B, C)
-  const float* actv;    // (B, H, W, NH), pre-relu
-  const float* wgb;     // (9, NH/4, CP, 8): [g k0..k3 | b k0..k3]
-  const float* bgb;     // (2, CP)
-  const float* wc;      // (KS*KS, C, COUTP)
-  const float* bc;      // (COUTP) (zeros: no bias)
-  const float* res;     // (B, H, W, COUT) or null
-  float* out;           // (B, H, W, COUT)
-  int B, H, W, C, NH, COUT, CP, COUTP, pre_act;
-};
-
-template <int KS>
-__global__ void __launch_bounds__(NT)
-spade_unit_kernel(const Params p) {
-  constexpr int R = KS / 2;
-  constexpr int MH = TH + 2 * R, MW = TW + 2 * R;   // mod halo
-  constexpr int AH = MH + 2, AW = MW + 2;           // relu(actv) halo
-  constexpr int MP = MH * MW;
-  constexpr int PPW = (MP + NWARP - 1) / NWARP;     // halo pixels per warp
-  constexpr int OPW = TH * TW / NWARP;              // output pixels per warp
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* A = reinterpret_cast<float*>(smem_raw);
-  float* M = A + AH * AW * p.NH;
-
-  const int H = p.H, W = p.W, C = p.C, NH = p.NH;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nq = NH / 4;
-
-  // ---- 1. relu(actv) halo -> A (zeros outside the image) -----------------
-  for (int i = tid; i < AH * AW * nq; i += NT) {
-    const int q = i % nq, pix = i / nq;
-    const int gy = y0 - R - 1 + pix / AW, gx = x0 - R - 1 + pix % AW;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      v = load4(p.actv + ((size_t)(b * H + gy) * W + gx) * NH + q * 4);
-      v.x = fmaxf(v.x, 0.f); v.y = fmaxf(v.y, 0.f);
-      v.z = fmaxf(v.z, 0.f); v.w = fmaxf(v.w, 0.f);
-    }
-    *reinterpret_cast<float4*>(A + (size_t)pix * NH + q * 4) = v;
-  }
-  __syncthreads();
-
-  // ---- 2. gamma|beta on the mod halo, modulate, activate -> M ------------
-  // lanes own channels, warps own halo pixels; A reads are warp broadcasts.
-  int aoff[PPW];
-  const int p0 = warp * PPW;
-#pragma unroll
-  for (int j = 0; j < PPW; ++j) {
-    const int q = min(p0 + j, MP - 1);   // clamped slots are computed, not stored
-    aoff[j] = ((q / MW) * AW + (q % MW)) * NH;
-  }
-  for (int cb = 0; cb < p.CP; cb += 32) {
-    const int c = cb + lane;
-    float ag[PPW], ab[PPW];
-#pragma unroll
-    for (int j = 0; j < PPW; ++j) { ag[j] = 0.f; ab[j] = 0.f; }
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * AW + (tap % 3)) * NH;
-      const float* wrow = p.wgb + ((size_t)tap * nq * p.CP + c) * 8;
-      for (int kq = 0; kq < nq; ++kq) {
-        // 8 consecutive weights [g k0..k3 | b k0..k3] of this channel
-        const float4 wg = __ldg(reinterpret_cast<const float4*>(wrow + (size_t)kq * p.CP * 8));
-        const float4 wb = __ldg(reinterpret_cast<const float4*>(wrow + (size_t)kq * p.CP * 8) + 1);
-        const float* ak = A + toff + kq * 4;
-#pragma unroll
-        for (int j = 0; j < PPW; ++j) {
-          const float4 a = load4(ak + aoff[j]);
-          ag[j] = fmaf(a.x, wg.x, ag[j]); ag[j] = fmaf(a.y, wg.y, ag[j]);
-          ag[j] = fmaf(a.z, wg.z, ag[j]); ag[j] = fmaf(a.w, wg.w, ag[j]);
-          ab[j] = fmaf(a.x, wb.x, ab[j]); ab[j] = fmaf(a.y, wb.y, ab[j]);
-          ab[j] = fmaf(a.z, wb.z, ab[j]); ab[j] = fmaf(a.w, wb.w, ab[j]);
-        }
-      }
-    }
-    if (c < C) {
-      const float bgc = p.bgb[c], bbc = p.bgb[p.CP + c];
-      const float nsc = p.nscale[c];
-      const float muc = p.mu[b * C + c], rsc = p.rsig[b * C + c];
-#pragma unroll
-      for (int j = 0; j < PPW; ++j) {
-        const int q = p0 + j;
-        if (q >= MP) break;
-        const int gy = y0 - R + q / MW, gx = x0 - R + q % MW;
-        float m = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-          const size_t pix = (size_t)(b * H + gy) * W + gx;
-          const float xn = p.x[pix * C + c] + p.noise[pix] * nsc;
-          const float nrm = (xn - muc) * rsc;
-          m = pre_activate<float>(nrm * (1.f + (ag[j] + bgc)) + (ab[j] + bbc), p.pre_act);
-        }
-        M[q * C + c] = m;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 3. consumer conv from M, + bias [+ residual] -> out ---------------
-  int moff[OPW];
-#pragma unroll
-  for (int j = 0; j < OPW; ++j) {
-    const int o = warp * OPW + j;
-    moff[j] = ((o / TW) * MW + (o % TW)) * C;
-  }
-  for (int ob = 0; ob < p.COUTP; ob += 32) {
-    const int co = ob + lane;
-    float acc[OPW];
-#pragma unroll
-    for (int j = 0; j < OPW; ++j) acc[j] = 0.f;
-    for (int tap = 0; tap < KS * KS; ++tap) {
-      const float* mt = M + ((tap / KS) * MW + (tap % KS)) * C;
-      const float* wrow = p.wc + (size_t)tap * C * p.COUTP + co;
-      for (int ci = 0; ci < C; ++ci) {
-        const float w = wrow[(size_t)ci * p.COUTP];
-#pragma unroll
-        for (int j = 0; j < OPW; ++j) acc[j] = fmaf(mt[moff[j] + ci], w, acc[j]);
-      }
-    }
-    if (co < p.COUT) {
-      const float bco = p.bc[co];
-#pragma unroll
-      for (int j = 0; j < OPW; ++j) {
-        const int o = warp * OPW + j;
-        const int gy = y0 + o / TW, gx = x0 + o % TW;
-        if (gy < H && gx < W) {
-          const size_t idx = ((size_t)(b * H + gy) * W + gx) * p.COUT + co;
-          float v = acc[j] + bco;
-          if (p.res != nullptr) v += p.res[idx];
-          p.out[idx] = v;
-        }
-      }
-    }
-  }
-}
-
-template <int KS>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int R = KS / 2;
-  constexpr int MH = TH + 2 * R, MW = TW + 2 * R;
-  const size_t smem = ((size_t)(MH + 2) * (MW + 2) * p.NH + (size_t)MH * MW * p.C) * 4;
-  cudaError_t err = cudaFuncSetAttribute(spade_unit_kernel<KS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.W + TW - 1) / TW, (p.H + TH - 1) / TH, p.B);
-  spade_unit_kernel<KS><<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: the two stages on the conv engine.
 
 template <int BN>
 __global__ void __launch_bounds__(engine::NT, 1)
@@ -300,36 +125,5 @@ int spade_unit_conv_forward_bf16(const void* mod, const void* wk, const void* bi
   return (int)cudaErrorInvalidValue;
 }
 #undef HV_CONV
-
-// Shared memory of the float32 launch, so the wrapper can refuse a shape first.
-size_t spade_unit_smem_bytes(int ks, int nh, int c) {
-  const int r = ks / 2;
-  const int mh = TH + 2 * r, mw = TW + 2 * r;
-  return ((size_t)(mh + 2) * (mw + 2) * nh + (size_t)mh * mw * c) * 4;
-}
-
-// float32. ks: 1 or 3. pre_act: 0 none, 1 relu, 2 leaky 0.2. res may be
-// null. Returns a cudaError_t (0 on success).
-int spade_unit_forward(const void* x, const void* noise, const void* nscale,
-                       const void* mu, const void* rsig, const void* actv,
-                       const void* wgb, const void* bgb, const void* wc,
-                       const void* bc, const void* res, void* out,
-                       int B, int H, int W, int C, int NH, int COUT, int CP,
-                       int COUTP, int ks, int pre_act, void* stream) {
-  Params p;
-  p.x = static_cast<const float*>(x); p.noise = static_cast<const float*>(noise);
-  p.nscale = static_cast<const float*>(nscale);
-  p.mu = static_cast<const float*>(mu); p.rsig = static_cast<const float*>(rsig);
-  p.actv = static_cast<const float*>(actv); p.wgb = static_cast<const float*>(wgb);
-  p.bgb = static_cast<const float*>(bgb); p.wc = static_cast<const float*>(wc);
-  p.bc = static_cast<const float*>(bc); p.res = static_cast<const float*>(res);
-  p.out = static_cast<float*>(out);
-  p.B = B; p.H = H; p.W = W; p.C = C; p.NH = NH; p.COUT = COUT;
-  p.CP = CP; p.COUTP = COUTP; p.pre_act = pre_act;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ks == 3) return (int)launch<3>(p, s);
-  if (ks == 1) return (int)launch<1>(p, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 }  // extern "C"

@@ -13,7 +13,7 @@
 // gamma, beta and norm never touch device memory, and relu(actv) is never
 // written. The TPU kernel streams row bands of actv through a double buffer
 // and merges taps into the contraction to suit its matrix unit; none of
-// that is carried over. bfloat16 (spade_modulate_kernel) runs on the TMA /
+// that is carried over. The kernel (spade_modulate_kernel) runs on the TMA /
 // wgmma conv engine (conv_engine.cuh) as the fused unit's gamma|beta stage
 // does, with the same epilogue and no activation (spade_mod.cuh): the actv
 // halo arrives by TMA from the unpadded input, relu is the engine's
@@ -30,68 +30,28 @@
 //
 // Rounding follows the plain PyTorch version (modulate_ref in
 // ops/spade_fused.py): every intermediate it holds in the compute dtype is
-// rounded here too; accumulation and the normalisation are f32. float32
-// inputs take plain FMA loops (exact in f32, slow).
+// rounded here too; accumulation and the normalisation are f32.
+//
+// The kernels of this file run for bf16 on the card; everything else runs
+// the plain version (ops/_build.py:runs_kernel).
 //
 // Below the modulation kernels, the one-pass instance statistics (a helper of
 // both SPADE kernels).
 //
 // Plain C interface for ctypes; the entry points return cudaGetLastError()
-// (the bfloat16 one 1000 + a CUresult if its tensor map cannot be encoded).
+// (the modulation's 1000 + a CUresult if its tensor map cannot be encoded).
 
-#include "conv_tile.cuh"
 #include "spade_mod.cuh"
 
 using namespace hv;
 
 namespace {
 
-struct ModParams {
-  const float* x;       // (B, H, W, C)
-  const float* noise;   // (B, H, W)
-  const float* nscale;  // (C)
-  const float* mu;      // (B, C)
-  const float* rsig;    // (B, C)
-  const float* actv;    // (B, H, W, NH), pre-relu
-  const float* wk;      // (9, NH, 2 CP): gamma in columns [0, CP), beta in [CP, 2 CP)
-  const float* bgb;     // (2, CP)
-  float* out;           // (B, H, W, C)
-  int B, H, W, C, NH, CP;
-};
-
 template <int BN>
 __global__ void __launch_bounds__(engine::NT, 1)
     spade_modulate_kernel(const __grid_constant__ CUtensorMap tmx, const unsigned char* wk,
                           const ModEpilogue epi, const engine::Geometry g) {
   engine::run<engine::Cfg<3, BN>>(&tmx, wk, epi, g);
-}
-
-// float32: warp = tile row, lane = channel; gamma and beta columns side by side.
-__global__ void __launch_bounds__(CT_NT)
-spade_modulate_f32_kernel(const ModParams p) {
-  __shared__ __align__(16) float A[CF_SMEM_FLOATS];
-  const int nct = p.CP / 32;
-  const int ct = blockIdx.x % nct, tx = blockIdx.x / nct;
-  const int b = blockIdx.z, y0 = blockIdx.y * CF_TH, x0 = tx * CF_TW;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = ct * 32 + lane;
-  const int col[2] = {c, p.CP + c};
-  float acc[2][CF_TW] = {};
-  conv_mainloop_f32<2>(acc, p.actv, p.H, p.W, p.NH, p.wk, p.NH, 2 * p.CP, col, /*relu*/ 1, b,
-                       y0, x0, A);
-  const int gy = y0 + warp;
-  if (c >= p.C || gy >= p.H) return;
-  const float bg = p.bgb[c], bb = p.bgb[p.CP + c], nsc = p.nscale[c];
-  const float muc = p.mu[b * p.C + c], rsc = p.rsig[b * p.C + c];
-#pragma unroll
-  for (int j = 0; j < CF_TW; ++j) {
-    const int gx = x0 + j;
-    if (gx >= p.W) continue;
-    const size_t pix = (size_t)(b * p.H + gy) * p.W + gx;
-    const float xn = p.x[pix * p.C + c] + p.noise[pix] * nsc;
-    const float nrm = (xn - muc) * rsc;
-    p.out[pix * p.C + c] = nrm * (1.f + (acc[0][j] + bg)) + (acc[1][j] + bb);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -119,9 +79,6 @@ constexpr int ST_NT = 256;
 
 // xn as the plain version forms it in T (x is a value of T)
 template <typename T> __device__ __forceinline__ float xn_value(float x, float nz, float nsc);
-template <> __device__ __forceinline__ float xn_value<float>(float x, float nz, float nsc) {
-  return x + __fmul_rn(nz, nsc);
-}
 template <>
 __device__ __forceinline__ float xn_value<__nv_bfloat16>(float x, float nz, float nsc) {
   return rt<__nv_bfloat16>(x + rt<__nv_bfloat16>(nz * nsc));
@@ -251,30 +208,13 @@ int spade_modulate_forward_bf16(const void* actv, const void* wk, const void* x,
 }
 #undef HV_MOD
 
-// float32: NH % 32 == 0, CP = C padded to 32. wk: (9, NH, 2 * CP) f32, gamma
-// in columns [0, CP), beta in [CP, 2 CP). bgb: (2, CP) f32.
-int spade_modulate_forward_f32(const void* x, const void* noise, const void* nscale,
-                               const void* mu, const void* rsig, const void* actv,
-                               const void* wk, const void* bgb, void* out, int B, int H,
-                               int W, int C, int NH, int CP, void* stream) {
-  if (C <= 0 || NH <= 0 || NH % CF_KC || CP % 32 || CP < C) return (int)cudaErrorInvalidValue;
-  const ModParams p{static_cast<const float*>(x), static_cast<const float*>(noise),
-                    static_cast<const float*>(nscale), static_cast<const float*>(mu),
-                    static_cast<const float*>(rsig), static_cast<const float*>(actv),
-                    static_cast<const float*>(wk), static_cast<const float*>(bgb),
-                    static_cast<float*>(out), B, H, W, C, NH, CP};
-  dim3 grid((W + CF_TW - 1) / CF_TW * (CP / 32), (H + CF_TH - 1) / CF_TH, B);
-  spade_modulate_f32_kernel<<<grid, CT_NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// The instance statistics. x: (B, HW, C) bf16 (bf16 = 1) or f32, contiguous,
-// 16-byte aligned; noise: (B, HW) f32; nscale: (C) f32; ws: (B, S, C, 2) f64
-// scratch; mu, rsig: (B, C) f32. S: chunks of pixels per image (one block
-// each). C <= 2048.
+// The instance statistics. x: (B, HW, C) bf16, contiguous, 16-byte aligned;
+// noise: (B, HW) f32; nscale: (C) f32; ws: (B, S, C, 2) f64 scratch; mu,
+// rsig: (B, C) f32. S: chunks of pixels per image (one block each). C <=
+// 2048.
 int instance_stats_forward(const void* x, const void* noise, const void* nscale, void* ws,
-                           void* mu, void* rsig, int B, int HW, int C, int S, int bf16,
-                           float eps, void* stream) {
+                           void* mu, void* rsig, int B, int HW, int C, int S, float eps,
+                           void* stream) {
   if (B <= 0 || HW <= 0 || C <= 0 || (C + 7) / 8 > ST_NT || S <= 0 || S > HW)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -283,12 +223,8 @@ int instance_stats_forward(const void* x, const void* noise, const void* nscale,
   const float* nz = static_cast<const float*>(noise);
   const float* nsc = static_cast<const float*>(nscale);
   double* w = static_cast<double*>(ws);
-  if (bf16)
-    instance_stats_partial_kernel<__nv_bfloat16><<<grid, ST_NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), nz, nsc, w, HW, C, chunk);
-  else
-    instance_stats_partial_kernel<float><<<grid, ST_NT, 0, s>>>(static_cast<const float*>(x),
-                                                                  nz, nsc, w, HW, C, chunk);
+  instance_stats_partial_kernel<__nv_bfloat16><<<grid, ST_NT, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), nz, nsc, w, HW, C, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   instance_stats_finalize_kernel<<<B, ST_NT, 0, s>>>(w, static_cast<float*>(mu),

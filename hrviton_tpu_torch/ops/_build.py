@@ -9,10 +9,13 @@ library's name carries a hash of the source, of the headers it may include
 is rebuilt and an unchanged one is not. Nothing but the CUDA toolkit is needed.
 
 ``build_all`` compiles several sources at once, one ``nvcc`` process each.
-The argument checks that every kernel wrapper makes before it hands raw
-pointers to a kernel live here too, and ``ref_grads``, the backward that
-every wrapper's ``torch.autograd.Function`` shares: autograd of its plain
-version on the saved inputs.
+The one rule by which every model-path wrapper and its gate choose between
+the kernel and the plain version lives here (``runs_kernel``: bfloat16 on
+the card runs the kernel, everything else the plain version), with the
+argument checks that every kernel wrapper makes before it hands raw
+pointers to a kernel, and ``ref_grads``, the backward that every wrapper's
+``torch.autograd.Function`` shares: autograd of its plain version on the
+saved inputs.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import torch
 from hrviton_tpu_torch.utils import profiling
 
 __all__ = ["SOURCES", "build", "build_all", "load", "ACT_CODES",
-           "KERNEL_DTYPES", "check_tensor", "pad_to", "ref_grads"]
+           "runs_kernel", "wrapper_runs_kernel", "check_tensor", "pad_to",
+           "ref_grads"]
 
 # csrc/<name>.cu
 SOURCES = ("spade_block", "spade_fused", "conv3x3", "copy_probe", "conv_tma",
@@ -44,7 +48,6 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-cudart", "shared"]
 ACT_CODES = {None: 0, "relu": 1, "leaky0.2": 2}   # pre_act as the kernels take it
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -118,6 +121,26 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
                 declare(lib)
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def runs_kernel(dtype, device) -> bool:
+    """Whether a model-path op of ``dtype`` on ``device`` runs its
+    hand-written kernel: bfloat16 on a CUDA device, as the JAX gates take
+    bf16 only. Everything else runs the plain version (an f32 one on the
+    card with TF32 off). The wrappers and the gates ask this alone."""
+    return torch.device(device).type == "cuda" and dtype == torch.bfloat16
+
+
+def wrapper_runs_kernel(name: str, x: torch.Tensor) -> bool:
+    """``runs_kernel`` for the input ``x`` of the wrapper ``name``, which
+    first refuses what neither route takes: a device other than the CPU or
+    a CUDA device (ValueError), and on the card a dtype other than float32
+    or bfloat16 (TypeError)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.device.type == "cuda" and x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32/bfloat16 on the card, got {x.dtype}")
+    return runs_kernel(x.dtype, x.device)
 
 
 def pad_to(n: int, m: int) -> int:

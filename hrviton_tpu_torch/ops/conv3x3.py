@@ -5,28 +5,28 @@ kernels for sm_90a (``csrc/conv3x3.cu``) stand where the JAX package has two
 Pallas kernels:
 
   * ``conv3x3_wide``: wide channel counts (the JAX ``_conv3x3_pallas``). The
-    bias joins the f32 accumulator and the sum is rounded once. In bf16 it
-    runs on the TMA / wgmma conv engine (``csrc/conv_engine.cuh``), with its
-    weights packed once per weight tensor (``ops/conv_engine.py``).
+    bias joins the f32 accumulator and the sum is rounded once. It runs on
+    the TMA / wgmma conv engine (``csrc/conv_engine.cuh``), with its weights
+    packed once per weight tensor (``ops/conv_engine.py``).
   * ``conv3x3_small``: small channel counts, 3 * Cin <= 128 and 3 * Cout <=
     128 (the JAX ``_conv3x3_views_pallas``). The accumulator is rounded,
-    then the bias is added in the output dtype. In bf16 it runs on the same
-    engine, in N tiles of 8, 16 or 32 columns; a Cin below 15 that is no
-    multiple of 8 (9 channels: 18-byte pixels) is read as rows of W * Cin
-    elements (``narrow_box``), a larger one from a copy of x with its
-    channels zero-padded to a multiple of 8 (``small_channels``).
+    then the bias is added in the output dtype. It runs on the same engine,
+    in N tiles of 8, 16 or 32 columns; a Cin below 15 that is no multiple of
+    8 (9 channels: 18-byte pixels) is read as rows of W * Cin elements
+    (``narrow_box``), a larger one from a copy of x with its channels
+    zero-padded to a multiple of 8 (``small_channels``).
 
-Each wrapper launches its kernel for a CUDA tensor (or raises) and takes the
-plain version ``conv3x3_ref``, with its own rounding chain, only for a CPU
-tensor. ``conv3x3`` sends a call to the kernel its gate admits, as the JAX
+Each kernel runs for bf16 on the card, and the plain version ``conv3x3_ref``,
+with the kernel's own rounding chain, runs everywhere else
+(``_build.runs_kernel``). ``conv3x3`` sends a call to the kernel its gate admits, as the JAX
 ``conv3x3`` does: the small-channel gate (``_views_eligible``, under the
 module switch ``_VIEWS``) is asked first, then ``conv3x3_eligible`` (under
 ``fast_conv``). The layers ask the same gates through ``kernel_for`` and keep
 their library convolution where neither admits the call.
 
 Gradients, as the JAX custom VJPs give them: each wrapper is a
-``torch.autograd.Function`` whose forward launches the kernel (the plain
-version on the CPU) and whose backward is autograd of the plain version
+``torch.autograd.Function`` whose forward launches the kernel where it runs
+(the plain version elsewhere) and whose backward is autograd of the plain version
 ``conv3x3_ref`` (round, then add the bias, as the JAX ``_conv3x3_ref``) on
 the saved inputs (JAX ``_cvjp_bwd``, the backward of both Pallas kernels).
 Under the ``taps_wgrad`` switch (JAX ``_conv3x3_taps``), a library 3x3 conv
@@ -56,8 +56,9 @@ import torch.nn.functional as F
 
 from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
-from hrviton_tpu_torch.ops._build import (ACT_CODES, KERNEL_DTYPES,
-                                          check_tensor, pad_to, ref_grads)
+from hrviton_tpu_torch.ops._build import (ACT_CODES, check_tensor, pad_to,
+                                          ref_grads, runs_kernel,
+                                          wrapper_runs_kernel)
 from hrviton_tpu_torch.ops.conv_engine import (pack_kmajor, packed, pick_bn,
                                                sm_count)
 from hrviton_tpu_torch.utils import profiling
@@ -68,8 +69,7 @@ __all__ = ["conv3x3", "conv3x3_wide", "conv3x3_small", "conv3x3_ref",
            "small_tiles", "small_weights", "narrow_box", "small_channels",
            "small_launcher", "conv3x3_taps", "wgrad_taps", "taps_wgrad",
            "taps_wgrad_enabled", "wgrad3x3", "wgrad3x3_ref", "wgrad3x3_launcher",
-           "wgrad3x3_tiles", "wgrad3x3_splits", "wgrad3x3_plan", "wgrad_path",
-           "conv_flops", "conv_bytes"]
+           "wgrad3x3_tiles", "wgrad3x3_splits", "wgrad3x3_plan", "wgrad_path"]
 
 _TH = 8          # the JAX kernels' rows per grid step: their gates' row rule
 _WIDE_BN = (32, 64, 96, 128, 136)   # the N tiles conv3x3_wide is built for
@@ -142,41 +142,35 @@ def _is_3x3_s1_p1(w_shape, stride, padding) -> bool:
             and tuple(padding) == (1, 1))
 
 
-def _on_card(dtype, device) -> bool:
-    """A CUDA device and bfloat16: the JAX gates take bf16 only, so an f32
-    conv stays the library's and the f32 kernels are reached by a direct
-    call of their wrappers alone."""
-    return torch.device(device).type == "cuda" and dtype == torch.bfloat16
-
-
 def conv3x3_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
     """Gate of the wide kernel: ``fast_conv`` on, and the JAX gate's shape
     rules (h % 8 == 0, w % 8 == 0, h > 8, h >= 128, w >= 96, Cin % 128 == 0)
-    on a CUDA device in bfloat16. Always false on the CPU."""
+    where the kernel runs (``_build.runs_kernel``: bf16 on the card)."""
     if not _ENABLED or not _is_3x3_s1_p1(w_shape, stride, padding):
         return False
     _, h, w, cin = x_shape
     if not (h % _TH == 0 and w % 8 == 0 and h > _TH):
         return False
-    return (_on_card(dtype, device) and h >= 128 and w >= 96
+    return (runs_kernel(dtype, device) and h >= 128 and w >= 96
             and cin % 128 == 0)
 
 
 def _views_eligible(x_shape, w_shape, stride, padding, dtype, device) -> bool:
     """Gate of the small-channel kernel: ``_VIEWS`` on, and the JAX gate's
     shape rules (h % 8 == 0, w % 128 == 0, h > 8, h >= 512, 3 * Cin <= 128,
-    3 * Cout <= 128) on a CUDA device in bfloat16."""
+    3 * Cout <= 128) where the kernel runs (``_build.runs_kernel``)."""
     if not _VIEWS or not _is_3x3_s1_p1(w_shape, stride, padding):
         return False
     _, h, w, cin = x_shape
     if not (h % _TH == 0 and w % 128 == 0 and h > _TH):
         return False
-    return (_on_card(dtype, device) and w_shape[0] * 3 <= 128
+    return (runs_kernel(dtype, device) and w_shape[0] * 3 <= 128
             and cin * 3 <= 128 and h >= 512)
 
 
 def conv3x3_ref(x, w, bias=None, pre_act=None, fused_bias: bool = False):
-    """Plain PyTorch version (the CPU path and the gold of both kernels).
+    """Plain PyTorch version (the route of everything but bf16 on the card,
+    and the gold of both kernels).
 
     x: (N, H, W, Cin); w: (Cout, Cin, 3, 3); bias: (Cout,) or None. The conv
     accumulates in f32. ``fused_bias=False`` (the small-channel kernel's
@@ -204,16 +198,6 @@ def _declare(lib) -> None:
     lib.conv3x3_wide_forward_bf16.restype = ctypes.c_int
     lib.conv3x3_small_forward_bf16.argtypes = [vp] * 4 + [i] * 9 + [vp]
     lib.conv3x3_small_forward_bf16.restype = ctypes.c_int
-    lib.conv3x3_forward_f32.argtypes = [vp] * 4 + [i] * 8 + [vp]
-    lib.conv3x3_forward_f32.restype = ctypes.c_int
-
-
-def _taps(w, dtype, cinp: int, np_: int):
-    """(Cout, Cin, 3, 3) -> (9, cinp, np_) in ``dtype``, K x N per tap, zero
-    padded."""
-    cout, cin = w.shape[0], w.shape[1]
-    k = w.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout)
-    return F.pad(k, (0, np_ - cout, 0, cinp - cin))
 
 
 def wide_weights(w, bias, bn: int):
@@ -223,7 +207,7 @@ def wide_weights(w, bias, bn: int):
     def make():
         cout, cin = w.shape[0], w.shape[1]
         wk = pack_kmajor(w.permute(2, 3, 1, 0).reshape(9, cin, cout), bn)
-        return wk, _bias_f32(bias, torch.bfloat16, wk.shape[1] * bn, w.device)
+        return wk, _bias_f32(bias, wk.shape[1] * bn, w.device)
     return packed(f"conv3x3_wide/{bn}", (w, bias), make)
 
 
@@ -251,7 +235,7 @@ def small_weights(w, bias, bn: int):
     def make():
         cout, cin = w.shape[0], w.shape[1]
         wk = pack_kmajor(w.permute(2, 3, 1, 0).reshape(9, cin, cout), bn)
-        return wk, _bias_f32(bias, torch.bfloat16, wk.shape[1] * bn, w.device)
+        return wk, _bias_f32(bias, wk.shape[1] * bn, w.device)
     return packed(f"conv3x3_small/{bn}", (w, bias), make)
 
 
@@ -276,61 +260,52 @@ def small_channels(cin: int) -> int:
     return cin if cin % 8 == 0 or cin < 15 else pad_to(cin, 8)
 
 
-def _bias_f32(bias, dtype, np_: int, device):
-    """The bias as the kernels take it: rounded through ``dtype``, f32, zero
+def _bias_f32(bias, np_: int, device):
+    """The bias as the kernels take it: rounded through bf16, f32, zero
     padded to ``np_`` (zeros for no bias)."""
     if bias is None:
         return torch.zeros(np_, dtype=torch.float32, device=device)
-    return F.pad(bias.to(dtype).float(), (0, np_ - bias.shape[0])).contiguous()
+    return F.pad(bias.to(torch.bfloat16).float(),
+                 (0, np_ - bias.shape[0])).contiguous()
 
 
 def _launcher(kind: str, x, w, bias, pre_act):
     """Check the arguments, pack the weights and allocate the output; return
     (launch, out): ``launch()`` makes the one kernel launch into ``out`` and
-    nothing else, and raises if it fails. CUDA tensors only."""
+    nothing else, and raises if it fails. bf16 CUDA tensors only."""
     if pre_act not in ACT_CODES:
         raise ValueError(pre_act)
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"conv3x3 kernels take float32/bfloat16, got {x.dtype}")
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[-1], 3, 3):
         raise ValueError(f"conv3x3: x {tuple(x.shape)} (NHWC) does not go with "
                          f"w {tuple(w.shape)} (Cout, Cin, 3, 3)")
     n, h, ww, cin = x.shape
     cout = w.shape[0]
     dev = x.device
-    check_tensor("x", x, (n, h, ww, cin), x.dtype, dev)
+    check_tensor("x", x, (n, h, ww, cin), torch.bfloat16, dev)
     if bias is not None and tuple(bias.shape) != (cout,):
         raise ValueError(f"bias has shape {tuple(bias.shape)}, expected ({cout},)")
     if w.device != dev:
         raise ValueError(f"w on {w.device}, expected {dev}")
     small = kind == "small"
-    bf16 = x.dtype == torch.bfloat16
     if small and (cin * 3 > 128 or cout * 3 > 128):
         raise ValueError(f"conv3x3_small takes 3 * Cin <= 128 and 3 * Cout <= "
                          f"128, got {cin} -> {cout}")
     box, xk = 0, x
-    if bf16 and cin % 8:
+    if cin % 8:
         if not small:
-            raise ValueError(f"conv3x3_wide takes Cin % 8 == 0 in bfloat16, got {cin}")
+            raise ValueError(f"conv3x3_wide takes Cin % 8 == 0, got {cin}")
         if small_channels(cin) != cin:
             xk = F.pad(x, (0, small_channels(cin) - cin))
         elif ww * cin % 8:
-            raise ValueError(f"conv3x3_small takes, in bfloat16, a Cin below 15 "
-                             f"with W * Cin % 8 == 0; got Cin {cin}, W {ww}")
+            raise ValueError(f"conv3x3_small takes a Cin below 15 with W * Cin "
+                             f"% 8 == 0; got Cin {cin}, W {ww}")
         else:
             box = narrow_box(cin)
     lib = _build.load("conv3x3", _declare)
     out = torch.empty((n, h, ww, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     act = ACT_CODES[pre_act]
-    if not bf16:
-        cinp, np_ = pad_to(cin, 32), pad_to(cout, 32)
-        wk = _taps(w, x.dtype, cinp, np_).contiguous()
-        bk = _bias_f32(bias, x.dtype, np_, dev)
-        fn = lib.conv3x3_forward_f32
-        args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-                n, h, ww, cin, cout, cinp, np_, act, stream)
-    elif small:
+    if small:
         bn = small_tiles(cout)[0]
         wk, bk = small_weights(w, bias, bn)
         fn = lib.conv3x3_small_forward_bf16
@@ -354,15 +329,13 @@ def _launcher(kind: str, x, w, bias, pre_act):
 def small_launcher(x, w, bias=None, pre_act=None):
     """``conv3x3_small``'s launch prepared, as (launch, out): ``launch()``
     is the bare kernel launch, with the weights already packed (for timing
-    the kernel alone). CUDA tensors only."""
+    the kernel alone). bf16 CUDA tensors only."""
     return _launcher("small", x, w, bias, pre_act)
 
 
 def _run(wrapper, kind: str, fused_bias: bool, x, w, bias, pre_act):
-    if x.device.type == "cpu":
+    if not wrapper_runs_kernel(f"conv3x3_{kind}", x):
         return conv3x3_ref(x, w, bias, pre_act, fused_bias=fused_bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_{kind}: unsupported device {x.device}")
     launch, out = _launcher(kind, x, w, bias, pre_act)
     launch()
     wrapper.launches += 1
@@ -394,8 +367,8 @@ class _KernelConv(torch.autograd.Function):
 def conv3x3_wide(x, w, bias=None, pre_act=None):
     """The wide kernel: pre_act -> 3x3/s1/p1 conv -> + bias in f32 -> one
     round. x: (N, H, W, Cin) contiguous; w: (Cout, Cin, 3, 3); bias: (Cout,)
-    or None. CUDA tensors launch the kernel (or raise; bfloat16 needs Cin %
-    8 == 0); CPU tensors take ``conv3x3_ref`` with ``fused_bias=True``.
+    or None. bf16 CUDA tensors launch the kernel (or raise; it needs Cin % 8
+    == 0); everything else takes ``conv3x3_ref`` with ``fused_bias=True``.
     Differentiable (``_KernelConv``). ``conv3x3_wide.launches`` counts
     kernel launches."""
     return _KernelConv.apply("wide", x, w, bias, pre_act)
@@ -404,10 +377,10 @@ def conv3x3_wide(x, w, bias=None, pre_act=None):
 def conv3x3_small(x, w, bias=None, pre_act=None):
     """The small-channel kernel: pre_act -> 3x3/s1/p1 conv -> round -> + bias
     in the output dtype, for 3 * Cin <= 128 and 3 * Cout <= 128. Arguments as
-    ``conv3x3_wide``. CUDA tensors launch the kernel (or raise; in bfloat16
-    a Cin below 15 that is no multiple of 8 needs W * Cin % 8 == 0, and a
-    Cin from 15 to 42 that is none is read from a zero-padded copy of x);
-    CPU tensors take ``conv3x3_ref``. Differentiable (``_KernelConv``).
+    ``conv3x3_wide``. bf16 CUDA tensors launch the kernel (or raise; a Cin
+    below 15 that is no multiple of 8 needs W * Cin % 8 == 0, and a Cin from
+    15 to 42 that is none is read from a zero-padded copy of x); everything
+    else takes ``conv3x3_ref``. Differentiable (``_KernelConv``).
     ``conv3x3_small.launches`` counts kernel launches."""
     return _KernelConv.apply("small", x, w, bias, pre_act)
 
@@ -541,7 +514,7 @@ def wgrad3x3_launcher(x, g, pre_act=None, dtype=torch.bfloat16):
     3, 3) in ``dtype`` (bf16 or f32)."""
     if pre_act not in ACT_CODES:
         raise ValueError(pre_act)
-    if dtype not in KERNEL_DTYPES:
+    if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"wgrad3x3 writes float32/bfloat16, got {dtype}")
     if x.dim() != 4 or g.dim() != 4 or x.shape[:3] != g.shape[:3]:
         raise ValueError(f"wgrad3x3: x {tuple(x.shape)} and g {tuple(g.shape)} "
@@ -617,9 +590,9 @@ def wgrad_path(dtype, device) -> str:
     elsewhere: ``wgrad3x3_ref``) or "rows" (any other dtype: the f32 tap
     products over row chunks, ``_wgrad_rows``; tensor cores would need TF32
     there, which the port forbids)."""
-    if dtype != torch.bfloat16:
-        return "rows"
-    return "kernel" if torch.device(device).type == "cuda" else "plain"
+    if runs_kernel(dtype, device):
+        return "kernel"
+    return "plain" if dtype == torch.bfloat16 else "rows"
 
 
 def wgrad_taps(x, g, pre_act=None, dtype=torch.float32):
@@ -725,13 +698,3 @@ def conv3x3(x, w, bias=None, pre_act=None):
         f"{tuple(w.shape)} (fast_conv {'on' if _ENABLED else 'off'}, _VIEWS "
         f"{'on' if _VIEWS else 'off'})")
 
-
-def conv_flops(b, h, w, cin, cout) -> int:
-    """Operations of one 3x3 conv (2 per multiply-add)."""
-    return 2 * b * h * w * 9 * cin * cout
-
-
-def conv_bytes(b, h, w, cin, cout, elem=2) -> int:
-    """Bytes the conv must move: x read once, out written once, weights and
-    bias read once."""
-    return (b * h * w * (cin + cout) + 9 * cin * cout + cout) * elem

@@ -11,20 +11,18 @@ of a SPADEResBlock's three {SPADENorm, conv} pairs:
     mod        = normalized * (1 + conv_g(relu(actv))) + conv_b(relu(actv))
     out        = conv(act(mod), Wc) + bias [+ residual]
 
-The kernels are CUDA C++ for sm_90a (``csrc/spade_block.cu``), built with
+The kernel runs for bf16 on the card, and the plain version
+``spade_conv_ref`` runs everywhere else (``_build.runs_kernel``). The
+kernels are CUDA C++ for sm_90a (``csrc/spade_block.cu``), built with
 ``nvcc`` at first use into ``build/`` at the repository root and loaded with
-ctypes (``ops/_build.py``). bf16 runs in two launches on the TMA / wgmma conv
-engine: (a) gamma|beta with the modulation in its epilogue, storing act(mod)
-(plain version ``gamma_beta_stage_ref``), then (b) the consumer conv with
-the bias and the residual (``consumer_stage_ref``); their weights are packed
-once per weight tensor (``ops/conv_engine.py``). f32 runs one fused kernel
-on plain FMA loops; no path reaches it, since the gate takes bf16 only, as
-the JAX gate does: it serves direct calls. The statistics come from ``spade_fused.norm_stats`` (a
-one-pass kernel on the card). ``spade_conv_unit`` launches the kernels for
-CUDA tensors and takes the plain formulation ``spade_conv_ref`` only for CPU
-tensors; a CUDA tensor never reaches the plain version through its forward.
-Its gradient is autograd of ``spade_conv_ref`` on the saved inputs, the
-meaning of the JAX custom VJP.
+ctypes (``ops/_build.py``): two launches on the TMA / wgmma conv engine, (a)
+gamma|beta with the modulation in its epilogue, storing act(mod) (plain
+version ``gamma_beta_stage_ref``), then (b) the consumer conv with the bias
+and the residual (``consumer_stage_ref``); their weights are packed once
+per weight tensor (``ops/conv_engine.py``). The statistics come from
+``spade_fused.norm_stats`` (a one-pass kernel on the card). The gradient is
+autograd of ``spade_conv_ref`` on the saved inputs, the meaning of the JAX
+custom VJP.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout). ``noise`` is (B, H, W, 1) float32, as the JAX package draws it.
@@ -33,13 +31,13 @@ Knocks (timing only; the JAX ``fused_spade_conv(..., _knock=)``): the
 ``knock`` tags of ``spade_conv_unit`` each stub one stage of the unit, with
 the JAX kernel's semantics (``UNIT_KNOCKS``), so that the time a tool
 measures without it is the stage's. The empty set is the production unit;
-no CLI reaches a knock and a knocked result is never an image. On the card
-the knocked stages are variants of the two bf16 kernels compiled with a
-knock mask (``csrc/spade_knock.cu``; ``stats`` is the wrapper's: constant
-statistics, no ``norm_stats``); the f32 kernel has none and a knocked f32
-call on the card raises. A knocked call has no gradient and counts each
-kernel it launches: a variant in its counter (``knock_counters``), a stage
-it leaves unknocked in ``knock_production``; never in the unit's.
+no CLI reaches a knock and a knocked result is never an image. Where the
+kernel runs, the knocked stages are variants of its two kernels compiled
+with a knock mask (``csrc/spade_knock.cu``; ``stats`` is the wrapper's:
+constant statistics, no ``norm_stats``); elsewhere the plain version takes
+the knock. A knocked call has no gradient and counts each kernel it
+launches: a variant in its counter (``knock_counters``), a stage it leaves
+unknocked in ``knock_production``; never in the unit's.
 """
 
 from __future__ import annotations
@@ -53,9 +51,7 @@ import torch.nn.functional as F
 from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
 from hrviton_tpu_torch.ops._build import ACT_CODES as _ACTS
-from hrviton_tpu_torch.ops._build import KERNEL_DTYPES as _DTYPES
 from hrviton_tpu_torch.ops._build import check_tensor as _check
-from hrviton_tpu_torch.ops._build import pad_to as _pad_to
 from hrviton_tpu_torch.ops._build import ref_grads
 from hrviton_tpu_torch.ops.conv3x3 import activation
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
@@ -66,12 +62,10 @@ from hrviton_tpu_torch.ops.spade_fused import (gb_tiles, gb_weights,
 
 __all__ = ["spade_conv_unit", "spade_conv_ref", "gamma_beta_stage_ref",
            "consumer_stage_ref", "gb_tiles", "conv_tiles", "pack_gb",
-           "fused_spade_conv_eligible", "unit_flops", "unit_bytes",
-           "UNIT_KNOCKS", "GENERATOR_KNOCKS", "KNOCK_SETS", "knock_counters",
+           "fused_spade_conv_eligible", "UNIT_KNOCKS", "GENERATOR_KNOCKS", "KNOCK_SETS", "knock_counters",
            "knock_production", "knock_tags"]
 
 _MIN_H = 256          # the JAX gate's row floor: admits up_3 and up_4 only
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _CONV_BN = (32, 64, 128)    # the N tiles stage (b) is built for
 
 # The unit's knock tags (the JAX kernel's `knock`, hrviton_tpu/ops/
@@ -133,10 +127,6 @@ def knock_tags(tags) -> frozenset:
 
 def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.spade_unit_forward.argtypes = [vp] * 12 + [i] * 10 + [vp]
-    lib.spade_unit_forward.restype = ctypes.c_int
-    lib.spade_unit_smem_bytes.argtypes = [i, i, i]
-    lib.spade_unit_smem_bytes.restype = ctypes.c_size_t
     lib.spade_unit_gb_forward_bf16.argtypes = [vp] * 9 + [i] * 8 + [vp]
     lib.spade_unit_gb_forward_bf16.restype = ctypes.c_int
     lib.spade_unit_conv_forward_bf16.argtypes = [vp] * 5 + [i] * 8 + [vp]
@@ -153,15 +143,12 @@ def _declare_knock(lib) -> None:
 
 def fused_spade_conv_eligible(h: int, w: int, nh: int, dtype,
                               device) -> bool:
-    """Shape gate: the JAX gate's shape rules (h % 8 == 0, w % 128 == 0,
-    nh % 128 == 0, h >= 256), which admit up_3 and up_4 at 1024x768 and
-    nothing else, on a CUDA device, in bfloat16 only, as the JAX gate takes
-    bf16 only: an f32 forward runs the unfused plain path, and the f32
-    kernel is reached by a direct call of ``spade_conv_unit`` alone. Always
-    false on the CPU, where the unfused plain path runs."""
-    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
-            and h % 8 == 0 and w % 128 == 0 and nh % 128 == 0
-            and h >= _MIN_H)
+    """Shape gate: where the kernel runs (``_build.runs_kernel``: bf16 on
+    the card), the JAX gate's shape rules (h % 8 == 0, w % 128 == 0, nh %
+    128 == 0, h >= 256), which admit up_3 and up_4 at 1024x768 and nothing
+    else. Elsewhere false: the unfused plain path runs."""
+    return (_build.runs_kernel(dtype, device) and h % 8 == 0
+            and w % 128 == 0 and nh % 128 == 0 and h >= _MIN_H)
 
 
 def spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
@@ -274,30 +261,6 @@ def consumer_stage_ref(mod, wc, bc=None, residual=None, knock=()):
     return y
 
 
-def _pack_weights(wg, bg, wb, bb, wc, bc):
-    """float32 kernel layouts: wgb (9, NH/4, CP, 8) [gamma k0..3 | beta
-    k0..3]; bgb (2, CP); wck (k*k, C, COUTP); bck (COUTP,). Zero padding on
-    the channel axes (CP, COUTP: multiples of 32)."""
-    c, nh = wg.shape[0], wg.shape[1]
-    cout, ks = wc.shape[0], wc.shape[-1]
-    cp, coutp = _pad_to(c, 32), _pad_to(cout, 32)
-
-    def quads(w):   # (C, NH, 3, 3) -> (9, NH/4, C, 4)
-        return w.permute(2, 3, 1, 0).reshape(9, nh // 4, 4, c).permute(0, 1, 3, 2)
-
-    f32 = torch.float32
-    wgb = torch.cat([quads(wg), quads(wb)], dim=-1).to(f32)
-    wgb = F.pad(wgb, (0, 0, 0, cp - c)).contiguous()
-    bgb = F.pad(torch.stack([bg, bb]).to(f32), (0, cp - c)).contiguous()
-    wck = wc.permute(2, 3, 1, 0).reshape(ks * ks, c, cout).to(f32)
-    wck = F.pad(wck, (0, coutp - cout)).contiguous()
-    if bc is None:
-        bck = torch.zeros(coutp, dtype=f32, device=wc.device)
-    else:
-        bck = F.pad(bc.to(f32), (0, coutp - cout)).contiguous()
-    return wgb, bgb, wck, bck, cp, coutp
-
-
 def conv_tiles(cout: int):
     """(BN, NTILES) of stage (b): the narrowest of ``_CONV_BN`` that holds
     COUT, or tiles of 128."""
@@ -347,20 +310,18 @@ def _count_knocked(stage: str, mask: int) -> None:
 
 def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                 residual, knock=frozenset()):
-    if knock and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "a knocked unit on the card runs in bfloat16 only: the f32 kernel "
-            "has no knock variants")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"spade_conv_unit kernel takes float32/bfloat16, got {x.dtype}")
+    """The two launches of the unit on bf16 CUDA tensors (the kernel's
+    route, ``_build.runs_kernel``)."""
     n, h, w, c = x.shape
     nh = actv.shape[-1]
     cout, ks = wc.shape[0], wc.shape[-1]
-    if nh % 4 or ks not in (1, 3) or wc.shape[1] != c or tuple(wg.shape) != (c, nh, 3, 3):
+    if (ks not in (1, 3) or wc.shape[1] != c or tuple(wg.shape) != (c, nh, 3, 3)
+            or c % 8 or cout % 8 or nh % 8):
         raise ValueError(f"unsupported unit shapes: x {tuple(x.shape)}, actv "
-                         f"{tuple(actv.shape)}, wg {tuple(wg.shape)}, wc {tuple(wc.shape)}")
+                         f"{tuple(actv.shape)}, wg {tuple(wg.shape)}, wc "
+                         f"{tuple(wc.shape)} (C, COUT and NH multiples of 8)")
     dev = x.device
-    _check("x", x, (n, h, w, c), x.dtype, dev)
+    _check("x", x, (n, h, w, c), torch.bfloat16, dev)
     _check("actv", actv, (n, h, w, nh), x.dtype, dev)
     noise = noise.reshape(n, h, w)
     _check("noise", noise, (n, h, w), torch.float32, dev)
@@ -369,16 +330,6 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     if any(t.device != dev for t in (wg, wb, wc)):
         raise ValueError(f"unit weights must be on {dev}")
     lib = _build.load("spade_block", _declare)
-    tc = x.dtype == torch.bfloat16
-    if tc:
-        if c % 8 or cout % 8 or nh % 8:
-            raise ValueError(f"unsupported unit: c={c} cout={cout} nh={nh} k={ks} "
-                             f"{x.dtype} (bf16 takes multiples of 8)")
-    else:
-        smem = lib.spade_unit_smem_bytes(ks, nh, c)
-        if smem == 0 or smem > _SMEM_LIMIT:
-            raise ValueError(f"unsupported unit: c={c} cout={cout} nh={nh} k={ks} "
-                             f"{x.dtype} ({smem} B of shared memory)")
 
     gb_mask, conv_mask = _knock_masks(knock, ks)
     mu, rsig = (_no_stats(x) if "stats" in knock
@@ -387,38 +338,30 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = residual.data_ptr() if residual is not None else None
-    if tc:
-        (wk_gb, bgb, ct, ntg), (wk_c, bk, bn, ntc) = _stage_weights(
-            wg, bg, wb, bb, wc, bc, c, cout, ks)
-        mod = torch.empty_like(x)
-        gb_args = (actv.data_ptr(), wk_gb.data_ptr(), x.data_ptr(),
-                   noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
-                   rsig.data_ptr(), bgb.data_ptr(), mod.data_ptr(), n, h, w,
-                   nh, c, ct, ntg, _ACTS[pre_act])
-        knocked = _build.load("spade_knock", _declare_knock) if knock else None
-        if gb_mask:
-            err = knocked.spade_unit_gb_knock_forward_bf16(*gb_args, gb_mask,
-                                                          stream)
-        else:
-            err = lib.spade_unit_gb_forward_bf16(*gb_args, stream)
-        if err == 0 and knock:
-            _count_knocked("gb", gb_mask)
-        conv_args = (mod.data_ptr(), wk_c.data_ptr(), bk.data_ptr(), res,
-                     out.data_ptr(), n, h, w, c, cout, ks, bn, ntc)
-        if err == 0 and conv_mask:
-            err = knocked.spade_unit_conv_knock_forward_bf16(*conv_args,
-                                                            conv_mask, stream)
-        elif err == 0:
-            err = lib.spade_unit_conv_forward_bf16(*conv_args, stream)
-        if err == 0 and knock:
-            _count_knocked("conv", conv_mask)
+    (wk_gb, bgb, ct, ntg), (wk_c, bk, bn, ntc) = _stage_weights(
+        wg, bg, wb, bb, wc, bc, c, cout, ks)
+    mod = torch.empty_like(x)
+    gb_args = (actv.data_ptr(), wk_gb.data_ptr(), x.data_ptr(),
+               noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
+               rsig.data_ptr(), bgb.data_ptr(), mod.data_ptr(), n, h, w,
+               nh, c, ct, ntg, _ACTS[pre_act])
+    knocked = _build.load("spade_knock", _declare_knock) if knock else None
+    if gb_mask:
+        err = knocked.spade_unit_gb_knock_forward_bf16(*gb_args, gb_mask,
+                                                      stream)
     else:
-        wgb, bgb, wck, bck, cp, coutp = _pack_weights(wg, bg, wb, bb, wc, bc)
-        err = lib.spade_unit_forward(
-            x.data_ptr(), noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
-            rsig.data_ptr(), actv.data_ptr(), wgb.data_ptr(), bgb.data_ptr(),
-            wck.data_ptr(), bck.data_ptr(), res, out.data_ptr(),
-            n, h, w, c, nh, cout, cp, coutp, ks, _ACTS[pre_act], stream)
+        err = lib.spade_unit_gb_forward_bf16(*gb_args, stream)
+    if err == 0 and knock:
+        _count_knocked("gb", gb_mask)
+    conv_args = (mod.data_ptr(), wk_c.data_ptr(), bk.data_ptr(), res,
+                 out.data_ptr(), n, h, w, c, cout, ks, bn, ntc)
+    if err == 0 and conv_mask:
+        err = knocked.spade_unit_conv_knock_forward_bf16(*conv_args,
+                                                        conv_mask, stream)
+    elif err == 0:
+        err = lib.spade_unit_conv_forward_bf16(*conv_args, stream)
+    if err == 0 and knock:
+        _count_knocked("conv", conv_mask)
     if err != 0:
         raise RuntimeError(f"spade_unit launch failed: cudaError {err}")
     if not knock:
@@ -428,21 +371,20 @@ def _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
 
 class _Unit(torch.autograd.Function):
     """The fused unit as a differentiable op (JAX ``spade_conv_unit``'s
-    custom VJP, ``_unit_bwd``): the forward launches the kernels (the plain
-    version on the CPU), the backward is autograd of ``spade_conv_ref`` on
-    the saved inputs; ``bc`` and ``residual`` may be None."""
+    custom VJP, ``_unit_bwd``): the forward launches the kernels where
+    they run (``_build.runs_kernel``) and is the plain version elsewhere, the
+    backward is autograd of ``spade_conv_ref`` on the saved inputs; ``bc``
+    and ``residual`` may be None."""
 
     @staticmethod
     def forward(ctx, pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                 residual):
-        if x.device.type == "cpu":
-            out = spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc,
-                                 bc, pre_act=pre_act, residual=residual)
-        elif x.device.type != "cuda":
-            raise ValueError(f"spade_conv_unit: unsupported device {x.device}")
-        else:
+        if _build.wrapper_runs_kernel("spade_conv_unit", x):
             out = _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb,
                               wc, bc, residual)
+        else:
+            out = spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc,
+                                 bc, pre_act=pre_act, residual=residual)
         ctx.pre_act = pre_act
         ctx.save_for_backward(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                               residual)
@@ -463,8 +405,8 @@ def spade_conv_unit(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
                     residual: Optional[torch.Tensor] = None, knock=()):
     """Fused unit (argument order of the JAX ``spade_conv_unit``).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    formulation. Differentiable (``_Unit``). ``spade_conv_unit.launches``
+    bf16 CUDA tensors launch the kernel (or raise); everything else takes
+    the plain formulation. Differentiable (``_Unit``). ``spade_conv_unit.launches``
     counts kernel launches. ``knock``: timing-only tags (module docstring);
     the generator's pass through, an unknown one raises; a call with a
     unit tag is not differentiable.
@@ -476,31 +418,13 @@ def spade_conv_unit(pre_act, x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
         return _Unit.apply(pre_act, x, noise, nscale, actv, wg, bg, wb, bb,
                            wc, bc, residual)
     with torch.no_grad():
-        if x.device.type == "cpu":
-            return spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc,
-                                  bc, pre_act=pre_act, residual=residual,
-                                  knock=knock)
-        if x.device.type != "cuda":
-            raise ValueError(f"spade_conv_unit: unsupported device {x.device}")
-        return _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb, bb,
-                           wc, bc, residual, knock)
+        if _build.wrapper_runs_kernel("spade_conv_unit", x):
+            return _fused_cuda(pre_act, x, noise, nscale, actv, wg, bg, wb,
+                               bb, wc, bc, residual, knock)
+        return spade_conv_ref(x, noise, nscale, actv, wg, bg, wb, bb, wc, bc,
+                              pre_act=pre_act, residual=residual, knock=knock)
 
 
 spade_conv_unit.launches = 0
 graphs.register_counters(spade_conv_unit)   # counted in replays too
 
-
-def unit_flops(b, h, w, c, cout, ks, nh=128) -> int:
-    """Operations the unit needs (2 per multiply-add): gamma and beta 3x3
-    convs over nh channels plus the consumer conv. Elementwise work is
-    negligible beside them and is not counted."""
-    return 2 * b * h * w * (2 * 9 * nh * c + ks * ks * c * cout)
-
-
-def unit_bytes(b, h, w, c, cout, ks, nh=128, elem=2, residual=False) -> int:
-    """Bytes the unit must move: x, actv, noise (f32), residual read once,
-    out written once, weights read once."""
-    px = b * h * w
-    act = px * (c + nh + cout * (2 if residual else 1)) * elem + px * 4
-    weights = (2 * 9 * nh * c + ks * ks * c * cout) * elem
-    return act + weights

@@ -9,20 +9,18 @@ a SPADENorm from the pre-relu ``actv = conv_shared(seg)`` on:
     normalized = (xn - mu) * rsig
     out        = normalized * (1 + conv_g(relu(actv))) + conv_b(relu(actv))
 
-The kernel is CUDA C++ for sm_90a (``csrc/spade_fused.cu``): bf16 inputs run
-on the TMA / wgmma conv engine (``csrc/conv_engine.cuh``) as the fused
-unit's gamma|beta stage, with the modulation in the epilogue
-(``csrc/spade_mod.cuh``) and its weights packed once per weight tensor
-(``gb_weights``, shared with ``ops/spade_block.py``); f32 inputs run on plain
-FMA loops, reached by direct calls only (the gate takes bf16, as the JAX
-gate does). gamma, beta and ``normalized`` never reach device memory. Its
-gradient is autograd of the plain version on the saved inputs, as the JAX
-custom VJP's backward is XLA autodiff of its reference.
-``fused_spade_modulate`` launches it for CUDA tensors (or raises) and takes
-the plain version ``modulate_ref`` only for CPU tensors. The instance
-statistics are a pass of their own, as in the JAX package: ``norm_stats``, a
-one-pass CUDA kernel on the card (also the fused unit's) whose plain version
-is ``instance_stats``.
+The kernel runs for bf16 on the card, and the plain version ``modulate_ref``
+runs everywhere else (``_build.runs_kernel``). The kernel is CUDA C++ for
+sm_90a (``csrc/spade_fused.cu``) on the TMA / wgmma conv engine
+(``csrc/conv_engine.cuh``), as the fused unit's gamma|beta stage, with the
+modulation in the epilogue (``csrc/spade_mod.cuh``) and its weights packed
+once per weight tensor (``gb_weights``, shared with ``ops/spade_block.py``).
+gamma, beta and ``normalized`` never reach device memory. Its gradient is
+autograd of the plain version on the saved inputs, as the JAX custom VJP's
+backward is XLA autodiff of its reference. The instance statistics are a
+pass of their own, as in the JAX package: ``norm_stats``, a one-pass CUDA
+kernel under the same rule (also the fused unit's) whose plain version is
+``instance_stats``.
 
 Layouts: activations NHWC (contiguous), weights OIHW (the port's module
 layout). ``noise`` is (B, H, W, 1) float32, as the JAX package draws it.
@@ -38,15 +36,13 @@ import torch.nn.functional as F
 
 from hrviton_tpu_torch.core import graphs, precision
 from hrviton_tpu_torch.ops import _build
-from hrviton_tpu_torch.ops._build import (KERNEL_DTYPES, check_tensor, pad_to,
-                                          ref_grads)
+from hrviton_tpu_torch.ops._build import check_tensor, pad_to, ref_grads
 from hrviton_tpu_torch.ops.conv_engine import pack_kmajor, packed
 
 __all__ = ["fused_spade_modulate", "modulate_ref", "fused_spade_eligible",
            "enable_fast_spade", "fast_spade_enabled", "fast_spade",
            "instance_stats", "norm_stats", "gb_tiles", "pack_gb",
-           "gb_weights", "modulate_launcher", "modulate_flops",
-           "modulate_bytes", "stats_bytes"]
+           "gb_weights", "modulate_launcher"]
 
 _TH = 16         # the JAX kernel's rows per grid step: its gate's row rule
 _GB_BN = (64, 80, 96)   # the N tiles of the gamma|beta stage (both kernels)
@@ -78,9 +74,8 @@ def fast_spade(on: bool = True):
 def fused_spade_eligible(x_shape, nhidden: int, dtype, device) -> bool:
     """Gate of the kernel: ``fast_spade`` on, and the JAX gate's shape rules
     (h % 16 == 0, w % 8 == 0, h > 16, nhidden % 128 == 0, h >= 256, w >= 96)
-    on a CUDA device in bfloat16 only, as the JAX gate (the f32 kernel is
-    reached by a direct call alone). At 1024x768 they admit the norms of
-    up_2, up_3 and up_4. Always false on the CPU."""
+    where the kernel runs (``_build.runs_kernel``: bf16 on the card). At
+    1024x768 they admit the norms of up_2, up_3 and up_4."""
     if not _ENABLED:
         return False
     _, h, w, _ = x_shape
@@ -88,8 +83,7 @@ def fused_spade_eligible(x_shape, nhidden: int, dtype, device) -> bool:
         return False
     if nhidden % 128 != 0:
         return False
-    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
-            and h >= _MIN_H and w >= 96)
+    return _build.runs_kernel(dtype, device) and h >= _MIN_H and w >= 96
 
 
 def instance_stats(x, noise, nscale):
@@ -104,21 +98,16 @@ def norm_stats(x, noise, nscale):
     """The instance statistics as ``instance_stats`` gives them: mu and
     1/sqrt(var + eps) of x + noise*nscale per (image, channel), f32 (B, C).
 
-    x: (B, H, W, C) float32 or bfloat16; noise: (B, H, W, 1) f32; nscale:
-    (C,). A CUDA x launches the one-pass kernel of ``csrc/spade_fused.cu``
-    (or raises): x is read once, xn formed in x's dtype as the plain version
-    forms it, summed per thread in f32 about a shift and merged in f64. A
-    CPU x takes ``instance_stats``.
-    ``norm_stats.launches`` counts kernel launches."""
-    if x.device.type == "cpu":
+    x: (B, H, W, C); noise: (B, H, W, 1) f32; nscale: (C,). A bf16 CUDA x
+    launches the one-pass kernel of ``csrc/spade_fused.cu`` (or raises): x
+    is read once, xn formed in bf16 as the plain version forms it, summed
+    per thread in f32 about a shift and merged in f64. Any other x takes
+    ``instance_stats``. ``norm_stats.launches`` counts kernel launches."""
+    if not _build.wrapper_runs_kernel("norm_stats", x):
         return instance_stats(x, noise, nscale)
-    if x.device.type != "cuda":
-        raise ValueError(f"norm_stats: unsupported device {x.device}")
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"norm_stats kernel takes float32/bfloat16, got {x.dtype}")
     n, h, w, c = x.shape
     dev = x.device
-    check_tensor("x", x, (n, h, w, c), x.dtype, dev)
+    check_tensor("x", x, (n, h, w, c), torch.bfloat16, dev)
     noise = noise.reshape(n, h, w)
     check_tensor("noise", noise, (n, h, w), torch.float32, dev)
     if tuple(nscale.shape) != (c,) or c > 2048:
@@ -133,8 +122,7 @@ def norm_stats(x, noise, nscale):
     err = lib.instance_stats_forward(
         x.data_ptr(), noise.data_ptr(), nscale.float().contiguous().data_ptr(),
         ws.data_ptr(), mu.data_ptr(), rsig.data_ptr(), n, h * w, c, chunks,
-        int(x.dtype == torch.bfloat16), _EPS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _EPS, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"instance_stats_forward launch failed: cudaError {err}")
     norm_stats.launches += 1
@@ -146,7 +134,8 @@ graphs.register_counters(norm_stats)   # counted in replays too
 
 
 def modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb):
-    """Plain PyTorch formulation (the CPU path and the gold).
+    """Plain PyTorch formulation (the route of everything but bf16 on the
+    card, and the gold).
 
     x: (B, H, W, C); noise: (B, H, W, 1) f32; nscale: (C,); actv: (B, H, W,
     NH) pre-relu; wg/wb: (C, NH, 3, 3); bg/bb: (C,). NHWC out, x's dtype.
@@ -214,44 +203,24 @@ def _declare(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.spade_modulate_forward_bf16.argtypes = [vp] * 9 + [i] * 7 + [vp]
     lib.spade_modulate_forward_bf16.restype = ctypes.c_int
-    lib.spade_modulate_forward_f32.argtypes = [vp] * 9 + [i] * 6 + [vp]
-    lib.spade_modulate_forward_f32.restype = ctypes.c_int
-    lib.instance_stats_forward.argtypes = [vp] * 6 + [i] * 5 + [ctypes.c_float, vp]
+    lib.instance_stats_forward.argtypes = [vp] * 6 + [i] * 4 + [ctypes.c_float, vp]
     lib.instance_stats_forward.restype = ctypes.c_int
-
-
-def _pack_f32(wg, bg, wb, bb):
-    """The float32 kernel's layouts: wk (9, NH, 2 CP), gamma in columns [0,
-    CP) and beta in [CP, 2 CP), CP = C padded to 32 with zeros; bgb (2, CP)."""
-    c, nh = wg.shape[0], wg.shape[1]
-    cp = pad_to(c, 32)
-
-    def taps(w):
-        return F.pad(w.float().permute(2, 3, 1, 0).reshape(9, nh, c), (0, cp - c))
-    wk = torch.cat([taps(wg), taps(wb)], dim=-1).contiguous()
-    bgb = F.pad(torch.stack([bg, bb]).float(), (0, cp - c)).contiguous()
-    return wk, bgb, cp
 
 
 def modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb):
     """Check the arguments, compute the statistics, pack the weights and
     allocate the output; return (launch, out): ``launch()`` makes the one
     kernel launch into ``out`` and nothing else (so that the kernel can be
-    timed alone), and raises if the launch fails. CUDA tensors only."""
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"fused_spade_modulate kernel takes float32/bfloat16, "
-                        f"got {x.dtype}")
+    timed alone), and raises if the launch fails. bf16 CUDA tensors only."""
     n, h, w, c = x.shape
     nh = actv.shape[-1]
-    bf16 = x.dtype == torch.bfloat16
     if (tuple(wg.shape) != (c, nh, 3, 3) or tuple(wb.shape) != (c, nh, 3, 3)
-            or (nh % 8 or c % 8 if bf16 else nh % 32)):
+            or nh % 8 or c % 8):
         raise ValueError(f"unsupported modulate shapes: x {tuple(x.shape)}, actv "
                          f"{tuple(actv.shape)}, wg {tuple(wg.shape)}, wb "
-                         f"{tuple(wb.shape)} ({x.dtype}: "
-                         + ("C and NH multiples of 8)" if bf16 else "NH % 32 == 0)"))
+                         f"{tuple(wb.shape)} (C and NH multiples of 8)")
     dev = x.device
-    check_tensor("x", x, (n, h, w, c), x.dtype, dev)
+    check_tensor("x", x, (n, h, w, c), torch.bfloat16, dev)
     check_tensor("actv", actv, (n, h, w, nh), x.dtype, dev)
     noise = noise.reshape(n, h, w)
     check_tensor("noise", noise, (n, h, w), torch.float32, dev)
@@ -261,21 +230,14 @@ def modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb):
     mu, rsig = norm_stats(x, noise[..., None], nscale)
     nsc = nscale.float().contiguous()
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if bf16:
-        wk, bgb, ct, ntiles = gb_weights(wg, bg, wb, bb)
-        args = (actv.data_ptr(), wk.data_ptr(), x.data_ptr(), noise.data_ptr(),
-                nsc.data_ptr(), mu.data_ptr(), rsig.data_ptr(), bgb.data_ptr(),
-                out.data_ptr(), n, h, w, nh, c, ct, ntiles, stream)
-        fn = lib.spade_modulate_forward_bf16
-    else:
-        wk, bgb, cp = _pack_f32(wg, bg, wb, bb)
-        args = (x.data_ptr(), noise.data_ptr(), nsc.data_ptr(), mu.data_ptr(),
-                rsig.data_ptr(), actv.data_ptr(), wk.data_ptr(), bgb.data_ptr(),
-                out.data_ptr(), n, h, w, c, nh, cp, stream)
-        fn = lib.spade_modulate_forward_f32
+    wk, bgb, ct, ntiles = gb_weights(wg, bg, wb, bb)
+    args = (actv.data_ptr(), wk.data_ptr(), x.data_ptr(), noise.data_ptr(),
+            nsc.data_ptr(), mu.data_ptr(), rsig.data_ptr(), bgb.data_ptr(),
+            out.data_ptr(), n, h, w, nh, c, ct, ntiles,
+            torch.cuda.current_stream(dev).cuda_stream)
+
     def launch():
-        err = fn(*args)
+        err = lib.spade_modulate_forward_bf16(*args)
         if err != 0:
             raise RuntimeError(f"spade_modulate_forward launch failed: cudaError {err}")
     launch.args = args                                  # the entry point's arguments
@@ -285,20 +247,19 @@ def modulate_launcher(x, noise, nscale, actv, wg, bg, wb, bb):
 
 class _Modulate(torch.autograd.Function):
     """The kernel as a differentiable op (JAX ``fused_spade_modulate``'s
-    custom VJP): the forward launches it (the plain version on the CPU),
-    the backward is autograd of ``modulate_ref`` on the saved inputs."""
+    custom VJP): the forward launches it where it runs
+    (``_build.runs_kernel``) and is the plain version elsewhere, the
+    backward is autograd of ``modulate_ref`` on the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, noise, nscale, actv, wg, bg, wb, bb):
-        if x.device.type == "cpu":
-            out = modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb)
-        elif x.device.type != "cuda":
-            raise ValueError(f"fused_spade_modulate: unsupported device {x.device}")
-        else:
+        if _build.wrapper_runs_kernel("fused_spade_modulate", x):
             launch, out = modulate_launcher(x, noise, nscale, actv, wg, bg,
                                             wb, bb)
             launch()
             fused_spade_modulate.launches += 1
+        else:
+            out = modulate_ref(x, noise, nscale, actv, wg, bg, wb, bb)
         ctx.save_for_backward(x, noise, nscale, actv, wg, bg, wb, bb)
         return out
 
@@ -312,8 +273,8 @@ def fused_spade_modulate(x, noise, nscale, actv, wg, bg, wb, bb):
     """instance_norm(x + noise*nscale) * (1 + conv(relu(actv), wg) + bg)
     + conv(relu(actv), wb) + bb (argument order of the JAX function).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    formulation. Differentiable: the backward is autograd of
+    bf16 CUDA tensors launch the kernel (or raise); everything else takes
+    the plain formulation. Differentiable: the backward is autograd of
     ``modulate_ref`` (``_Modulate``). ``fused_spade_modulate.launches``
     counts kernel launches.
     """
@@ -324,22 +285,3 @@ fused_spade_modulate.launches = 0
 graphs.register_counters(fused_spade_modulate)
 graphs.register_state(fast_spade_enabled)   # a dispatch switch: in every graph's key
 
-
-def modulate_flops(b, h, w, c, nh=128) -> int:
-    """Operations of one call (2 per multiply-add): the gamma and beta 3x3
-    convs over nh channels. The elementwise chain is negligible beside them
-    and is not counted."""
-    return 2 * b * h * w * 2 * 9 * nh * c
-
-
-def modulate_bytes(b, h, w, c, nh=128, elem=2) -> int:
-    """Bytes one call must move: x, actv and the noise (f32) read once, out
-    written once, weights read once."""
-    px = b * h * w
-    return px * (2 * c + nh) * elem + px * 4 + 2 * 9 * nh * c * elem
-
-
-def stats_bytes(b, h, w, c, elem=2) -> int:
-    """Bytes the instance statistics must move: x and the noise (f32) read
-    once, mu and rsig (f32) written once."""
-    return b * h * w * (c * elem + 4) + 2 * b * c * 4

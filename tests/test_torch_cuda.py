@@ -4,6 +4,10 @@ Imports no JAX (the machine with the card has none), so it runs with
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda.py``; here,
 without a card, each test skips.
 
+The model-path kernels run for bf16 on the card only (``_build.runs_kernel``):
+an f32 call of their wrappers on the card is their plain version, bit for
+bit, and launches nothing.
+
 Tolerances: f32 with TF32 off, 1e-4 x max|ref| (f32 sums of up to 9*128
 products in another order); bf16, 2 bf16 ulps of max|ref| (each plain
 version rounds the same intermediates to bf16 as its kernel, and a sum in
@@ -73,6 +77,17 @@ def _tells_apart(prod, want):
     assert err > 2 * 2 ** -7 * scale, (err, scale)
 
 
+def _assert_plain(got, want, counters, before):
+    """An f32 call on the card: its plain version bit for bit, and no
+    launch counter moved."""
+    torch.cuda.synchronize()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert [f.launches for f in counters] == before
+
+
 def _assert_close(got, want, dtype):
     scale = want.float().abs().max().item()
     tol = 1e-4 * scale if dtype == torch.float32 else 2 * 2 ** -7 * scale
@@ -86,14 +101,19 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("ksize,residual,pre_act", [
     (3, True, "leaky0.2"), (1, False, None), (3, False, "relu")])
 def test_kernel_matches_plain(dtype, ksize, residual, pre_act):
+    """bf16: the kernels; f32: the plain version, bit for bit, no launch.
+    Ragged 37x45 exercises every edge mask of the engine's 8x32 tiling."""
     _need_card()
-    # ragged 37x45 tiles exercise every edge mask of the 8x8 tiling
     args, res = _inputs(dtype, 2, 37, 45, 40, 24, ksize, residual)
-    before = tsb.spade_conv_unit.launches
+    counters = (tsb.spade_conv_unit, tsf.norm_stats)
+    before = [f.launches for f in counters]
     got = tsb.spade_conv_unit(pre_act, *args, res)
-    torch.cuda.synchronize()
-    assert tsb.spade_conv_unit.launches == before + 1
     want = tsb.spade_conv_ref(*args, pre_act=pre_act, residual=res)
+    if dtype == torch.float32:
+        _assert_plain(got, want, counters, before)
+        return
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == [n + 1 for n in before]
     _assert_close(got, want, dtype)
 
 
@@ -143,7 +163,9 @@ def test_knock_variants_match_plain(knock, gb_bn, ks, cout, monkeypatch):
 def test_knock_stats_and_f32():
     """stats runs no statistics kernel and both production kernels, on x
     whose statistics are far from mu = 0, rsig = 1 (the production unit
-    fails the limit); a knocked f32 call raises."""
+    fails the limit); a knocked f32 call is the plain knocked unit, as on
+    the CPU, bit for bit, and launches nothing; two tags of one stage in
+    bf16 raise."""
     _need_card()
     from hrviton_tpu_torch.ops import spade_fused
     args, res = _knock_inputs(1, 16, 32, 32, 32, 3, True)
@@ -158,8 +180,14 @@ def test_knock_stats_and_f32():
     _assert_close(got, want, torch.bfloat16)
     _tells_apart(tsb.spade_conv_unit(None, *args, res), want)
     args32, res32 = _inputs(torch.float32, 1, 16, 32, 32, 32, 3, True)
-    with pytest.raises(NotImplementedError):
-        tsb.spade_conv_unit(None, *args32, res32, knock=("normalize",))
+    counters = (tsf.norm_stats, tsb.spade_conv_unit,
+                *tsb.knock_counters.values(), *tsb.knock_production.values())
+    before = [f.launches for f in counters]
+    for knock in (("normalize",), ("stats",)):
+        _assert_plain(
+            tsb.spade_conv_unit(None, *args32, res32, knock=knock),
+            tsb.spade_conv_ref(*args32, residual=res32, knock=knock),
+            counters, before)
     with pytest.raises(NotImplementedError):   # two tags of one stage
         tsb.spade_conv_unit(None, *args, res, knock=("normalize", "modulate"))
 
@@ -176,15 +204,20 @@ def test_kernel_rejects_bad_input():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [40, 128, 272])
 def test_modulate_kernel_matches_plain(dtype, c):
-    """Ragged 37x45 (every edge mask of the engine's 8x32 and the f32 8x8
-    tilings); in bf16 c = 40 is one N tile of 40 channels, c = 128 three of
-    48 (the last part padding), c = 272 six of 48."""
+    """Ragged 37x45 (every edge mask of the engine's 8x32 tiling); in bf16
+    c = 40 is one N tile of 40 channels, c = 128 three of 48 (the last part
+    padding), c = 272 six of 48. f32: the plain version, bit for bit, no
+    launch."""
     _need_card()
     args, _ = _inputs(dtype, 2, 37, 45, c, 8, 3, False)
-    before = tsf.fused_spade_modulate.launches
+    counters = (tsf.fused_spade_modulate, tsf.norm_stats)
+    before = [f.launches for f in counters]
     got = tsf.fused_spade_modulate(*args[:8])
+    if dtype == torch.float32:
+        _assert_plain(got, tsf.modulate_ref(*args[:8]), counters, before)
+        return
     torch.cuda.synchronize()
-    assert tsf.fused_spade_modulate.launches == before + 1
+    assert [f.launches for f in counters] == [n + 1 for n in before]
     _assert_close(got, tsf.modulate_ref(*args[:8]), dtype)
 
 
@@ -212,13 +245,18 @@ def _conv_inputs(dtype, b, h, w, cin, cout, bias=True):
     (128, 528, "relu", True), (256, 72, "leaky0.2", True),
     (64, 33, None, False)])
 def test_wide_conv_kernel_matches_plain(dtype, cin, cout, pre_act, bias):
+    """bf16: the kernel; f32: the plain version, bit for bit, no launch."""
     _need_card()
     x, w, b = _conv_inputs(dtype, 2, 37, 45, cin, cout, bias)
     before = tc3.conv3x3_wide.launches
     got = tc3.conv3x3_wide(x, w, b, pre_act)
+    want = tc3.conv3x3_ref(x, w, b, pre_act, fused_bias=True)
+    if dtype == torch.float32:
+        _assert_plain(got, want, (tc3.conv3x3_wide,), [before])
+        return
     torch.cuda.synchronize()
     assert tc3.conv3x3_wide.launches == before + 1
-    _assert_close(got, tc3.conv3x3_ref(x, w, b, pre_act, fused_bias=True), dtype)
+    _assert_close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -231,15 +269,20 @@ def test_small_conv_kernel_matches_plain(dtype, cin, cout, pre_act, bias):
     bf16 the engine's narrow input), 20 channels are read from a copy padded
     to 24, 3 output channels are one N tile of 8, 42 two of 32; ragged 37
     rows and W = 45 (partly filled 8-column tiles), but W = 40 for a narrow
-    bf16 input, which needs W * Cin % 8 == 0."""
+    bf16 input, which needs W * Cin % 8 == 0. f32: the plain version, bit
+    for bit, no launch."""
     _need_card()
     narrow = dtype == torch.bfloat16 and cin % 8 and cin < 15
     x, w, b = _conv_inputs(dtype, 2, 37, 40 if narrow else 45, cin, cout, bias)
     before = tc3.conv3x3_small.launches
     got = tc3.conv3x3_small(x, w, b, pre_act)
+    want = tc3.conv3x3_ref(x, w, b, pre_act)
+    if dtype == torch.float32:
+        _assert_plain(got, want, (tc3.conv3x3_small,), [before])
+        return
     torch.cuda.synchronize()
     assert tc3.conv3x3_small.launches == before + 1
-    _assert_close(got, tc3.conv3x3_ref(x, w, b, pre_act), dtype)
+    _assert_close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -708,8 +751,9 @@ def test_unit_weights_follow_in_place_updates():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 37, 45, 40), (1, 9, 11, 13), (2, 64, 48, 144)])
 def test_norm_stats_matches_instance_stats(dtype, shape):
-    """mu within 1e-4 of the channel's std, rsig within 1e-4 relative; C =
-    13 takes the unvectorised loads."""
+    """bf16: the kernel, mu within 1e-4 of the channel's std, rsig within
+    1e-4 relative; C = 13 takes the unvectorised loads. f32: the plain
+    version, bit for bit, no launch."""
     _need_card()
     rng = np.random.default_rng(4)
     b, h, w, c = shape
@@ -717,9 +761,12 @@ def test_norm_stats_matches_instance_stats(dtype, shape):
     noise, nscale = _a(rng, (b, h, w, 1)), _a(rng, (c,), 0.1)
     before = tsf.norm_stats.launches
     mu, rsig = tsf.norm_stats(x, noise, nscale)
+    mu0, rsig0 = tsf.instance_stats(x, noise, nscale)
+    if dtype == torch.float32:
+        _assert_plain((mu, rsig), (mu0, rsig0), (tsf.norm_stats,), [before])
+        return
     torch.cuda.synchronize()
     assert tsf.norm_stats.launches == before + 1
-    mu0, rsig0 = tsf.instance_stats(x, noise, nscale)
     assert ((mu - mu0).abs() * rsig0).max().item() <= 1e-4
     assert ((rsig - rsig0).abs() / rsig0).max().item() <= 1e-4
 
