@@ -181,7 +181,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      step's regeneration), wgrad3x3 once a wgrad_taps call, the counts set
      to 0 just before and read just after; those launches of the unit and
      the statistics join the record's rows; (e) stage 2 with --no_taps_wgrad, 4 steps: ms/step beside
-     (c)'s, the tap-product weight gradient's cost against cuDNN's (the CLIs'
+     (c)'s, each beside the taps op's backward calls and layout copies a
+     step (conv3x3_taps.backwards, .layout_copies; none without the taps),
+     the tap-product weight gradient's cost against cuDNN's (the CLIs'
      steps, eval calls and expand replay CUDA graphs, as a user's run does,
      with the allocator's expandable segments the CLIs turn on); (b), (c)
      and (d) each also run eagerly under graphs.disabled() (its launches
@@ -292,16 +294,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      benchmark/drivers/train_closed_loop.py builds it): 94 launches, as
      many as wgrad_taps, the operands the wrapper copied, and each call's x
      and g as the step hands them to the wrapper (shape, strides, storage
-     offset: g contiguous NHWC, the NHWC view of an NCHW tensor, or of a
+     offset: g contiguous NHWC, a concatenation's NHWC slice (copied by
+     the wrapper), the NHWC view of an NCHW tensor, or of a
      concatenation's NCHW slice), the calls' shapes those of
      tests/test_torch_wgrad3x3.py:cell_sites; then at each distinct call,
-     on operands drawn with those strides and offsets, the kernel against
-     wgrad3x3_ref within one bf16 ulp an element (2^-12 of max|ref| near
-     zero: tests/test_torch_wgrad3x3.py), finite, two launches bit for
-     bit; the kernel alone (CUDA events around the bare launch), the
-     wrapper (with the copies it makes), the plain version and cuDNN's bf16
-     weight gradient (torch.nn.grad.conv2d_weight, a yardstick the port
-     never calls), each at up_4's largest call and summed over the 94. In
+     on operands drawn with those strides and offsets, and again with g
+     the NHWC view of a contiguous NCHW tensor and of a concatenation's
+     NCHW slice (the kernel's 5-D read of g, which the step no longer
+     reaches), the kernel against wgrad3x3_ref within one bf16 ulp an
+     element (2^-12 of max|ref| near zero: tests/test_torch_wgrad3x3.py),
+     finite, two launches bit for bit; the kernel alone (CUDA events
+     around the bare launch) and the wrapper (with the copies it makes) in
+     each of those layouts, the plain version and cuDNN's bf16 weight
+     gradient (torch.nn.grad.conv2d_weight, a yardstick the port never
+     calls) as the step hands g, each at up_4's largest call and summed
+     over the 94. In
      the full run phase 9 (c) holds the stage-2 CLI's launches of the kernel
      to wgrad_taps' (the record's launches).
 
@@ -2188,6 +2195,10 @@ def training_phase(card, tmp, r1, r2):
         from hrviton_tpu_torch.ops import conv3x3 as c3
         taps0 = (c3.wgrad3x3.launches, c3.wgrad_taps.launches)
         taps_mid = c3.wgrad_taps.launches
+        # the taps op's backward calls and layout copies a step (registered
+        # counters: the recorded steps count as the eager ones)
+        taps_op = (c3.conv3x3_taps.backwards, c3.conv3x3_taps.layout_copies)
+        op0 = [c.launches for c in taps_op]
         rec2 = _run_cli(
             f"stage 2 (SPADE ngf=64 'most' {h2}x{w2}, batch "
             f"{STAGE2['batch']}, bf16, fused unit off, remat, d_remat, taps "
@@ -2195,6 +2206,7 @@ def training_phase(card, tmp, r1, r2):
             f"stage 1)", t2.main, argv2, generator_trainer, "gan_loss", card)
         wgrad = [a - b for a, b in zip((c3.wgrad3x3.launches,
                                         c3.wgrad_taps.launches), taps0)]
+        op2 = [(c.launches - b) / n2 for c, b in zip(taps_op, op0)]
         log(f"training: stage 2's bf16 weight gradients: wgrad3x3 {wgrad[0]} "
             f"launches, wgrad_taps {wgrad[1]} calls")
         if wgrad[0] != wgrad[1] or wgrad[0] <= 0:
@@ -2259,6 +2271,7 @@ def training_phase(card, tmp, r1, r2):
 
         # part 5: stage 2 with the library's weight gradient in place of
         # the tap products (--no_taps_wgrad), for the taps' cost
+        op0 = [c.launches for c in taps_op]
         rec5 = _run_cli(
             f"stage 2 --no_taps_wgrad ({n4} steps)", t2.main,
             ["--name", "s2n", "--keep_step", str(n4), "--tensorboard_count",
@@ -2270,11 +2283,14 @@ def training_phase(card, tmp, r1, r2):
                 f"{k} {g['peak_gib'][0]:.2f} / {g['peak_gib'][1]:.2f} against "
                 f"{e['peak_gib'][0]:.2f} / {e['peak_gib'][1]:.2f}"
                 for k, (g, e) in peaks.items()) + f" | {card}")
+        op5 = [(c.launches - b) / n4 for c, b in zip(taps_op, op0)]
         taps = statistics.median(rec2["step_ms"][1:])
         lib = statistics.median(rec5["step_ms"][1:])
         log(f"training: stage 2 median ms/step with the taps weight gradient "
-            f"{taps:.2f} against cuDNN's {lib:.2f} ({taps - lib:+.2f} ms) | "
-            f"{card}")
+            f"{taps:.2f} (taps backwards {op2[0]:g}, layout copies "
+            f"{op2[1]:g} a step) against cuDNN's {lib:.2f} (taps backwards "
+            f"{op5[0]:g}, layout copies {op5[1]:g} a step) "
+            f"({taps - lib:+.2f} ms) | {card}")
         torch.cuda.empty_cache()
 
         # part 6: the recorded steps against eager, in turns; part 7: the
@@ -3312,6 +3328,7 @@ KERNELS = [
 
 # phase 13: the bf16 weight gradient of the training cell's 3x3 convs
 WGRAD_LARGEST = (2, 1024, 768, 128, 80, "relu")   # up_4's gamma / beta convs
+WGRAD_NCHW = ("nchw", "slice")    # the NCHW g's each call is also timed with
 
 
 def _view_of(t):
@@ -3331,15 +3348,43 @@ def _strided_like(view, gen, scale=1.0):
 
 
 def _g_layout(view):
-    """How g arrives: "nhwc" (contiguous), "nchw" (the NHWC view of a
-    contiguous NCHW tensor), "slice" (of a wider NCHW tensor, a
-    concatenation's gradient) or "other"."""
+    """How g arrives: "nhwc" (contiguous), "nhwc slice" (of a wider NHWC
+    tensor, a concatenation's gradient), "nchw" (the NHWC view of a
+    contiguous NCHW tensor), "slice" (of a wider NCHW tensor) or "other"."""
     (n, h, w, c), (sn, sh, sw, sc), offset = view
     if (sn, sh, sw, sc) == (h * w * c, w * c, c, 1) and offset == 0:
         return "nhwc"
+    if sc == 1 and sw > c and (sn, sh) == (h * sh, w * sw):
+        return "nhwc slice"
     if (sc, sh, sw) == (h * w, w, 1):
         return "nchw" if sn == c * h * w and offset == 0 else "slice"
     return "other"
+
+
+def _g_nchw_view(n, h, w, c, layout):
+    """The NHWC view (shape, strides, storage offset) of an NCHW g:
+    "nchw" of a contiguous tensor, "slice" of the second half of a
+    concatenation's gradient of 2c channels."""
+    wide = 1 if layout == "nchw" else 2
+    return (n, h, w, c), (wide * c * h * w, w, 1, h * w), (wide - 1) * c * h * w
+
+
+def _wgrad_checked(c3, x, g, act, what):
+    """The kernel's launcher for one call, after its checks: finite, within
+    one bf16 ulp an element of wgrad3x3_ref, two launches bit for bit.
+    Returns (launch, out, ref)."""
+    from test_torch_wgrad3x3 import assert_within_one_ulp
+    launch, out = c3.wgrad3x3_launcher(x, g, act, torch.bfloat16)
+    launch()
+    first = out.clone()
+    launch()
+    ref = c3.wgrad3x3_ref(x, g, act, torch.bfloat16)
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"wgrad3x3 {what}: not finite")
+    assert_within_one_ulp(out, ref, floor=2.0 ** -12)
+    if not torch.equal(out, first):
+        raise RuntimeError(f"wgrad3x3 {what}: two launches differ")
+    return launch, out, ref
 
 
 def wgrad_phase(card):
@@ -3347,7 +3392,7 @@ def wgrad_phase(card):
     calls, the launches of one eager step)."""
     import collections
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_wgrad3x3 import assert_within_one_ulp, cell_sites
+    from test_torch_wgrad3x3 import cell_sites
     from hrviton_tpu_torch.ops import conv3x3 as c3
     calls, n_step = _wgrad_step_calls(card)
     sites = collections.Counter()
@@ -3360,6 +3405,10 @@ def wgrad_phase(card):
     torch.backends.cuda.matmul.allow_tf32 = False
     tot = dict(ms=0.0, kernel_alone_ms=0.0, plain_ms=0.0, library_ms=0.0,
                ops_ms=0.0, bytes_ms=0.0, bound_ms=0.0, max_abs=0.0)
+    # each call also with g NCHW, contiguous and a concatenation's slice
+    # (the kernel's 5-D read of g, which the step no longer hands it)
+    for lay in WGRAD_NCHW:
+        tot.update({f"g_{lay}_ms": 0.0, f"g_{lay}_kernel_alone_ms": 0.0})
     by_layout = collections.Counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (xv, gv, act), k in sorted(calls.items(),
@@ -3369,16 +3418,7 @@ def wgrad_phase(card):
         by_layout[layout] += k
         x, xbuf = _strided_like(xv, gen)
         g, gbuf = _strided_like(gv, gen, 0.1)
-        launch, out = c3.wgrad3x3_launcher(x, g, act, torch.bfloat16)
-        launch()
-        first = out.clone()
-        launch()
-        ref = c3.wgrad3x3_ref(x, g, act, torch.bfloat16)
-        if not torch.isfinite(out.float()).all():
-            raise RuntimeError(f"wgrad3x3 {site} g {layout}: not finite")
-        assert_within_one_ulp(out, ref, floor=2.0 ** -12)
-        if not torch.equal(out, first):
-            raise RuntimeError(f"wgrad3x3 {site} g {layout}: two launches differ")
+        launch, out, ref = _wgrad_checked(c3, x, g, act, f"{site} g {layout}")
         a = c3.activation(x, act).permute(0, 3, 1, 2)
         gn = g.permute(0, 3, 1, 2)
         times = dict(
@@ -3397,17 +3437,39 @@ def wgrad_phase(card):
             f"{ref.float().abs().max().item():.3e}, within one bf16 ulp an "
             f"element, two launches equal | " + ", ".join(
                 f"{key} {v:.4f}" for key, v in times.items()))
+        tot["max_abs"] = max(tot["max_abs"], err)
+        del g, gbuf, out, ref, a, gn, launch
+        nchw = {}
+        for lay in WGRAD_NCHW:
+            nv = _g_nchw_view(n, h, w, cout, lay)
+            g, gbuf = _strided_like(nv, gen, 0.1)
+            launch, out, ref = _wgrad_checked(c3, x, g, act, f"{site} g {lay}")
+            err = (out.float() - ref.float()).abs().max().item()
+            nchw[lay] = (_events_ms(lambda: c3.wgrad3x3(x, g, act, torch.bfloat16), 5),
+                         _events_ms(launch, 5))
+            log(f"wgrad3x3 {site} g {lay} (strides {nv[1]}, offset {nv[2]}) "
+                f"{launch.plan}: max_abs {err:.3e} of max|ref| "
+                f"{ref.float().abs().max().item():.3e}, within one bf16 ulp an "
+                f"element, two launches equal | ms {nchw[lay][0]:.4f}, "
+                f"kernel_alone_ms {nchw[lay][1]:.4f}")
+            tot[f"g_{lay}_ms"] += k * nchw[lay][0]
+            tot[f"g_{lay}_kernel_alone_ms"] += k * nchw[lay][1]
+            tot["max_abs"] = max(tot["max_abs"], err)
+            del g, gbuf, out, ref, launch
         if site == WGRAD_LARGEST:
             log(f"wgrad3x3 up_4's largest call {site}, g {layout}, x{k}: kernel "
                 f"alone {times['kernel_alone_ms']:.4f} ms, wrapper "
-                f"{times['ms']:.4f}, bound {times['bound_ms']:.4f}, plain "
+                f"{times['ms']:.4f}; " + "; ".join(
+                    f"g {lay}: kernel alone {alone:.4f} ms, wrapper {m:.4f}"
+                    for lay, (m, alone) in nchw.items()) +
+                f"; bound {times['bound_ms']:.4f}, plain "
                 f"{times['plain_ms']:.4f}, cuDNN {times['library_ms']:.4f} | {card}")
         for key, v in times.items():
             tot[key] += k * v
-        tot["max_abs"] = max(tot["max_abs"], err)
-        del x, g, xbuf, gbuf, out, ref, a, gn, first, launch
+        del x, xbuf
     log(f"wgrad3x3 over the cell's {sum(calls.values())} calls a step, each "
-        f"with x and g as the step hands them (g: {dict(by_layout)}): " +
+        f"with x and g as the step hands them (g: {dict(by_layout)}; "
+        f"g_<layout>_*: the same calls with g NCHW): " +
         ", ".join(f"{key} {v:.3f}" for key, v in tot.items()) + f" | {card}")
     torch.cuda.empty_cache()
     return tot, n_step

@@ -103,7 +103,7 @@ import torch
 
 from hrviton_tpu_torch.utils import profiling
 
-__all__ = ["captured", "Captured", "Pool", "disabled", "enabled",
+__all__ = ["captured", "Captured", "Pool", "disabled", "enabled", "Count",
            "register_counters", "register_state", "hold", "module_tensors",
            "constant"]
 
@@ -133,8 +133,15 @@ def enabled() -> bool:
     return _OFF == 0
 
 
+class Count:
+    """A count that no wrapper holds (a kernel variant's launches, an op's
+    calls), read and replayed as a wrapper's ``launches``."""
+    launches = 0
+
+
 def register_counters(*wrappers) -> None:
-    """Kernel wrappers whose ``launches`` count a replay adds to."""
+    """Kernel wrappers (or ``Count``s) whose ``launches`` count a replay
+    adds to."""
     for w in wrappers:
         if not any(w is c for c in _COUNTERS):
             _COUNTERS.append(w)

@@ -31,7 +31,8 @@ Gradients, as the JAX custom VJPs give them: each wrapper is a
 the saved inputs (JAX ``_cvjp_bwd``, the backward of both Pallas kernels).
 Under the ``taps_wgrad`` switch (JAX ``_conv3x3_taps``), a library 3x3 conv
 that needs a gradient runs ``conv3x3_taps``: the library forward, the input
-gradient as the library's transposed conv, and the weight gradient as nine
+gradient as the library's transposed conv in x's memory format (the
+activations' channels_last), and the weight gradient as nine
 tap products with no im2col buffer (``wgrad_taps``), by dtype: bf16 on the
 card the hand-written kernel ``wgrad3x3`` (``csrc/wgrad3x3.cu``: TMA boxes
 of x and g, bf16 products on wgmma summed in f32, one rounding to w's
@@ -623,7 +624,14 @@ graphs.register_counters(wgrad_taps, wgrad3x3)
 class _Taps(torch.autograd.Function):
     """The library 3x3 conv with the tap-product weight gradient (JAX
     ``_conv3x3_taps``). x NCHW (channels_last); w OIHW in x's dtype; b in
-    x's dtype or None."""
+    x's dtype or None. The backward returns the input gradient in x's
+    memory format: in bf16 the library's dgrad issued with the saved x as
+    its input, so a channels_last x gets cuDNN's NHWC dgrad (a g in another
+    layout than x's is copied by the library once); in f32 the NCHW dgrad,
+    its sums as before (a g that is not NCHW is copied to it), copied to a
+    channels_last x's layout. ``conv3x3_taps.layout_copies`` counts those
+    copies. The pre-activation's derivative and the bias gradient are one
+    pass each."""
 
     @staticmethod
     def forward(ctx, x, w, b, pre_act):
@@ -637,14 +645,37 @@ class _Taps(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         pre_act = ctx.pre_act
+        _TAPS_BACKWARDS.launches += 1
         gx = gw = gb = None
         if ctx.needs_input_grad[0]:
+            cl = torch.channels_last
+            x_cl = x.is_contiguous(memory_format=cl)
             with precision.exact(g.dtype):
-                da = torch.nn.grad.conv2d_input(x.shape, w, g, padding=1)
-            if pre_act == "relu":
-                da = da * (x > 0).to(da.dtype)
-            elif pre_act == "leaky0.2":
-                da = da * torch.where(x > 0, 1.0, leaky_slope(da.dtype)).to(da.dtype)
+                if x.dtype == torch.float32:
+                    # f32, the exact path, keeps the NCHW dgrad's order of
+                    # sums (an NHWC one sums otherwise, and the f32 steps
+                    # are held to their references at rounding level): g
+                    # goes to NCHW, the result to x's layout
+                    _TAPS_LAYOUT_COPIES.launches += (
+                        (not g.is_contiguous()) + x_cl)
+                    da = torch.nn.grad.conv2d_input(x.shape, w, g, padding=1)
+                    if x_cl:
+                        da = da.contiguous(memory_format=cl)
+                else:
+                    # the saved x as the input: the library's dgrad runs
+                    # and returns in x's layout, with g copied to it first
+                    # where g is laid out otherwise
+                    _TAPS_LAYOUT_COPIES.launches += not g.is_contiguous(
+                        memory_format=cl if x_cl else torch.contiguous_format)
+                    da = torch.ops.aten.convolution_backward(
+                        g, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                        1, (True, False, False))[0]
+            # da where x > 0, else da times the slope in da's dtype (0 for
+            # relu, so a negative da gives -0): the product with the
+            # rounded mask (JAX ``_taps_bwd``) in one pass
+            if pre_act in ("relu", "leaky0.2"):
+                slope = 0.0 if pre_act == "relu" else leaky_slope(da.dtype)
+                da = torch.ops.aten.leaky_relu_backward(da, x, slope, False)
             elif pre_act is not None:
                 raise ValueError(pre_act)
             gx = da.to(x.dtype)
@@ -652,15 +683,26 @@ class _Taps(torch.autograd.Function):
             gw = wgrad_taps(x.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1),
                             pre_act, w.dtype)
         if ctx.needs_input_grad[2]:
-            gb = g.float().sum(dim=(0, 2, 3)).to(w.dtype)
+            gb = g.sum(dim=(0, 2, 3), dtype=torch.float32).to(w.dtype)
         return gx, gw, gb, None
 
 
 def conv3x3_taps(x, w, b=None, pre_act=None):
     """pre_act -> 3x3/s1/p1 library conv (+ b) on NCHW x, whose weight
     gradient is ``wgrad_taps`` and input gradient the library's transposed
-    conv (JAX ``_conv3x3_taps``). w and b in x's dtype."""
+    conv in x's memory format (JAX ``_conv3x3_taps``). w and b in x's
+    dtype. ``conv3x3_taps.backwards`` counts its backward calls and
+    ``conv3x3_taps.layout_copies`` the copies their input gradients make to
+    change a tensor's layout: bf16 one where g is laid out otherwise than x,
+    f32 one where g is not NCHW and one where x is channels_last (counters
+    that a replay adds to)."""
     return _Taps.apply(x, w, b, pre_act)
+
+
+_TAPS_BACKWARDS, _TAPS_LAYOUT_COPIES = graphs.Count(), graphs.Count()
+conv3x3_taps.backwards = _TAPS_BACKWARDS
+conv3x3_taps.layout_copies = _TAPS_LAYOUT_COPIES
+graphs.register_counters(_TAPS_BACKWARDS, _TAPS_LAYOUT_COPIES)
 
 
 def kernel_for(x_shape, w_shape, stride, padding, dtype,

@@ -98,19 +98,14 @@ _GB_BITS = {"actv_dma": 1, "prod_dots": 2, "prod_rolls": 4, "normalize": 8,
 _CONV_BITS = {"cons_dots": 2, "cons_rolls": 4}
 
 
-class _Launches:
-    """The launch count of one knock variant of a kernel, read and replayed
-    as a wrapper's ``launches`` (core/graphs.register_counters)."""
-    launches = 0
-
-
-# "gb/<tag>": stage (a)'s variant, "conv/<tag>": stage (b)'s
-knock_counters = {f"{stage}/{tag}": _Launches()
+# the launches of each knock variant of a kernel: "gb/<tag>": stage (a)'s
+# variant, "conv/<tag>": stage (b)'s
+knock_counters = {f"{stage}/{tag}": graphs.Count()
                   for stage, bits in (("gb", _GB_BITS), ("conv", _CONV_BITS))
                   for tag in bits}
 # "gb" / "conv": a stage's production kernel (mask 0) launched by a knocked
 # call, which knocks only the other stage (or only the statistics)
-knock_production = {stage: _Launches() for stage in ("gb", "conv")}
+knock_production = {stage: graphs.Count() for stage in ("gb", "conv")}
 graphs.register_counters(*knock_counters.values(), *knock_production.values())
 
 

@@ -1909,7 +1909,10 @@ def test_wgrad3x3_in_the_recorded_stage2_step():
     64 'most' at 1024x768, batch 2, bf16): an eager step takes the kernel 94 times, at
     the cell's 47 shapes as often as the generator has them; then the step
     is recorded, and a replay adds 94 to ``wgrad3x3.launches`` and to
-    ``wgrad_taps.launches`` alike, its losses finite."""
+    ``wgrad_taps.launches`` alike, its losses finite. The taps op's
+    backward runs 107 times a step (G's 94 convs and VGG19's 13 on G's
+    output), eager and replayed, and no input gradient finds g in a layout
+    other than x's (``conv3x3_taps.layout_copies`` adds 0)."""
     _need_card()
     import collections
     import json
@@ -1941,7 +1944,9 @@ def test_wgrad3x3_in_the_recorded_stage2_step():
         torch.cuda.synchronize()
         assert all(torch.isfinite(v).all() for v in out.metrics.values())
         return out.state
-    counts = lambda: (tc3.wgrad3x3.launches, tc3.wgrad_taps.launches)
+    counts = lambda: (tc3.wgrad3x3.launches, tc3.wgrad_taps.launches,
+                      tc3.conv3x3_taps.backwards.launches,
+                      tc3.conv3x3_taps.layout_copies.launches)
     tc3.wgrad3x3_launcher = spy
     try:
         with graphs.disabled():
@@ -1950,9 +1955,59 @@ def test_wgrad3x3_in_the_recorded_stage2_step():
             eager = tuple(a - b for a, b in zip(counts(), before))
     finally:
         tc3.wgrad3x3_launcher = real
-    assert eager == (94, 94)
+    assert eager == (94, 94, 107, 0)
     assert collections.Counter(seen) == collections.Counter(cell_sites())
     state = step(pool[1])                 # records the step's graph
     before = counts()
     state = step(pool[0])                 # a replay
-    assert tuple(a - b for a, b in zip(counts(), before)) == (94, 94)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (94, 94, 107, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_layout", [torch.channels_last, torch.contiguous_format])
+@pytest.mark.parametrize("pre_act", [None, "relu", "leaky0.2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_taps_backward_on_the_card_follows_x_layout(dtype, pre_act, g_layout):
+    """On the card, x channels_last (128 -> 80 channels, as up_4's gamma
+    conv): the taps op's input gradient is channels_last. bf16: the
+    derivative applied to cuDNN's NHWC dgrad is the product with the
+    rounded mask bit for bit, and against the NCHW formula the op used
+    before (cuDNN's NCHW dgrad; the bias from an f32 copy of g) the input
+    and bias gradients lie within one bf16 ulp (two f32 sums in another
+    order, each rounded once). f32 (TF32 off): that formula's gradients
+    bit for bit, the input gradient laid out as x. Layout copies: bf16 one
+    for a g in the other layout; f32 one for a g that is not NCHW and one
+    for the result laid out as x."""
+    _need_card()
+    from hrviton_tpu_torch.core import precision
+    from test_torch_wgrad3x3 import _bits, _parent_grads, assert_within_one_ulp
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    draw = lambda *shape, scale=1.0: (torch.randn(
+        shape, generator=gen, device="cuda") * scale).to(dtype)
+    cl = torch.channels_last
+    x = draw(2, 128, 64, 48).contiguous(memory_format=cl).requires_grad_()
+    w = draw(80, 128, 3, 3, scale=0.03).requires_grad_()
+    b = draw(80, scale=0.1).requires_grad_()
+    g = draw(2, 80, 64, 48).contiguous(memory_format=g_layout)
+    before = (tc3.conv3x3_taps.backwards.launches,
+              tc3.conv3x3_taps.layout_copies.launches)
+    gx, gb = torch.autograd.grad(tc3.conv3x3_taps(x, w, b, pre_act), (x, b), g)
+    assert (tc3.conv3x3_taps.backwards.launches - before[0],
+            tc3.conv3x3_taps.layout_copies.launches - before[1]) == (
+                1, (g_layout != cl) if dtype == torch.bfloat16
+                else (g_layout != torch.contiguous_format) + 1)
+    assert gx.dtype == dtype and gx.is_contiguous(memory_format=cl)
+    xd, wd = x.detach(), w.detach()
+    with precision.exact(dtype):
+        parent_x, parent_b = _parent_grads(xd, wd, g, pre_act)
+        nhwc = torch.ops.aten.convolution_backward(
+            g, xd, wd, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            (True, False, False))[0]
+    if dtype == torch.float32:
+        assert torch.equal(_bits(gx), _bits(parent_x))
+        assert torch.equal(_bits(gb), _bits(parent_b))
+        return
+    want_x, _ = _parent_grads(xd, wd, g, pre_act, nhwc)
+    assert torch.equal(_bits(gx), _bits(want_x))
+    assert_within_one_ulp(gx, parent_x, 2.0 ** -12)
+    assert_within_one_ulp(gb, parent_b, 2.0 ** -12)

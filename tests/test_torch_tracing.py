@@ -469,6 +469,30 @@ def test_wgrad_taps_counter_is_the_models_count():
     assert wgrad_taps.launches - before == taps_per_step(gen)
 
 
+def test_taps_backward_counters_are_registered(monkeypatch):
+    """``conv3x3_taps.backwards`` and ``conv3x3_taps.layout_copies`` are
+    counters that replays add to; in a step of the CLI's f32 training the
+    first moves by G's 3x3 convs with weight gradients and VGG19's 13 on
+    G's output, the second by two for each call that takes an input
+    gradient (x and g arrive channels_last; the f32 dgrad copies g to
+    NCHW and its result back)."""
+    from benchmark.drivers.train_closed_loop import taps_per_step
+    from hrviton_tpu_torch.ops.conv3x3 import conv3x3_taps
+    from test_torch_wgrad3x3 import spy_taps_backward
+    counters = (conv3x3_taps.backwards, conv3x3_taps.layout_copies)
+    assert all(any(c is k for k in graphs._COUNTERS) for c in counters)
+    t2, built = _training()
+    seen = spy_taps_backward(monkeypatch)
+    before = [c.launches for c in counters]
+    t2.train_step(built.trainer, built.state, _raw(), built.noise,
+                  built.frozen, built.put)
+    dgrads = [s for s in seen if s[0]]
+    assert dgrads and all(x_cl and g_cl for _, x_cl, g_cl in dgrads)
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        taps_per_step(built.state.g.module) + 13, 2 * len(dgrads)]
+    assert len(seen) == taps_per_step(built.state.g.module) + 13
+
+
 class _TimedGraph:
     """A recorded graph whose replays are timed by CUDA events around them."""
 

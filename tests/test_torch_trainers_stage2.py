@@ -17,6 +17,10 @@ rounding noise (the JAX side again on the batch and the noise in reverse
 sample order), losses within 1e-5 relative, the spectral u/v after the
 step within 1e-4 x max|ref|; bf16 losses within 4 bf16 ulps of |ref|.
 
+The taps op's backward in the step: every g that reaches it with an input
+gradient to take arrives channels_last, as its x, so the bf16 dgrad copies
+none (the f32 one copies g to NCHW and its result back, two a call).
+
 Equivalences, port only, f32: remat on / off and d_remat on / off give
 the same step bit for bit (losses, gradients, u/v); split_d_batch gives
 the concatenated batch's within 1e-5 x max|ref| (other conv batchings).
@@ -47,6 +51,7 @@ from hrviton_tpu_torch.config import (GeneratorTrainConfig, PipelineConfig,
                                       SPADEDiscriminatorConfig, SPADEGenConfig)
 from hrviton_tpu_torch.convert import export_jax_variables, load_jax_variables
 from hrviton_tpu_torch.models.backbones import Vgg19Features
+from hrviton_tpu_torch.ops import conv3x3 as tc3
 from hrviton_tpu_torch.train.generator_trainer import GeneratorTrainer
 from test_torch_support import (close_per_tensor, grad_tree, random_variables,
                                 reverse_batch, tree_diff)
@@ -292,3 +297,36 @@ def test_split_d_batch_equals_concat(setup):
         for k in b:
             lim = 1e-5 * max(float(b[k].abs().max()), 1e-30)
             assert float((a[k] - b[k]).abs().max()) <= lim, k
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_taps_backward_layout_copies_in_the_step(setup, bf16, monkeypatch):
+    """Under the trainer's ``taps_wgrad`` the step's backward runs the taps
+    op once for each of G's 3x3 convs with a weight gradient (the benchmark
+    driver's count) and each of VGG19's 13 on G's output (an input gradient
+    alone: VGG is frozen). Each call that takes an input gradient finds x
+    and g channels_last, so ``conv3x3_taps.layout_copies`` adds 0 in bf16,
+    and in f32 two a call (g to the NCHW dgrad, its result to x's layout).
+    (The input pyramid's convs take a channel slice of a concatenation's
+    gradient, which is not channels_last; they take no input gradient, so
+    no dgrad copies it.)"""
+    from benchmark.drivers.train_closed_loop import taps_per_step
+    from test_torch_wgrad3x3 import spy_taps_backward
+    pt, state = _port(setup, bf16=bf16)
+    batch, noise_g, noise_d = _inputs(setup, pt, state)
+    vgg = setup[3]
+    counts = lambda: (tc3.conv3x3_taps.backwards.launches,
+                      tc3.conv3x3_taps.layout_copies.launches)
+    seen = spy_taps_backward(monkeypatch)
+    before = counts()
+    pt.train_step(state, _torch_batch(batch), _t(noise_g), _t(noise_d),
+                  {"vgg": vgg, "tocg": None})
+    vgg_convs = sum(1 for p in vgg.parameters()
+                    if p.dim() == 4 and tuple(p.shape[-2:]) == (3, 3))
+    assert vgg_convs == 13
+    dgrads = [s for s in seen if s[0]]
+    assert dgrads and all(x_cl and g_cl for _, x_cl, g_cl in dgrads)
+    got = tuple(a - b for a, b in zip(counts(), before))
+    assert got == (taps_per_step(state.g.module) + vgg_convs,
+                   0 if bf16 else 2 * len(dgrads))
+    assert len(seen) == got[0]

@@ -7,7 +7,8 @@ to the f32 tap products over row chunks (``_wgrad_rows``), as before. Here:
 the plain version against that f32 path rounded to bf16 (the same exact
 bf16 products; only the order of the f32 sum differs), the dispatch (a
 stand-in launcher for the card), the tile roles and splits the kernel takes
-at the benchmark cell's 94 calls, and the wrapper's refusals. The kernel
+at the benchmark cell's 94 calls, the wrapper's refusals, and the taps
+op's backward in x's memory format against its earlier formulas. The kernel
 itself is held to ``wgrad3x3_ref`` on the card (``tests/test_torch_cuda.py``,
 ``-m gpu``). Imports no JAX.
 
@@ -177,6 +178,86 @@ def test_taps_backward_writes_w_dtype_once():
     want = tc3.wgrad3x3_ref(x.detach().permute(0, 2, 3, 1),
                             g.permute(0, 2, 3, 1), "relu", BF16)
     assert w.grad.dtype == BF16 and torch.equal(w.grad, want)
+
+
+CL = torch.channels_last
+
+
+def _parent_grads(x, w, g, pre_act, dgrad=None):
+    """The taps op's input and bias gradients by the formulas it used
+    before its backward followed x's layout: the library's dgrad with a
+    placeholder input (NCHW; or ``dgrad`` given), the pre-activation's
+    derivative as a product with the mask rounded to the dgrad's dtype, and
+    the bias gradient from an f32 copy of g."""
+    da = (torch.nn.grad.conv2d_input(x.shape, w, g, padding=1)
+          if dgrad is None else dgrad)
+    if pre_act == "relu":
+        da = da * (x > 0).to(da.dtype)
+    elif pre_act == "leaky0.2":
+        da = da * torch.where(x > 0, 1.0, tc3.leaky_slope(da.dtype)).to(da.dtype)
+    return da.to(x.dtype), g.float().sum(dim=(0, 2, 3)).to(w.dtype)
+
+
+def spy_taps_backward(monkeypatch):
+    """Wraps the taps op's backward; returns the list it fills, a tuple a
+    call: (an input gradient taken, x channels_last, g channels_last)."""
+    seen, real = [], (tc3._Taps.forward, tc3._Taps.backward)
+
+    def forward(ctx, x, *args):
+        # x's layout noted here: under remat the saved tensors unpack once
+        ctx.spy_x_cl = x.is_contiguous(memory_format=CL)
+        return real[0](ctx, x, *args)
+
+    def backward(ctx, g):
+        seen.append((ctx.needs_input_grad[0], ctx.spy_x_cl,
+                     g.is_contiguous(memory_format=CL)))
+        return real[1](ctx, g)
+    monkeypatch.setattr(tc3._Taps, "forward", staticmethod(forward))
+    monkeypatch.setattr(tc3._Taps, "backward", staticmethod(backward))
+    return seen
+
+
+def _bits(t):
+    """t's bit patterns (a -0 is not a 0 here), in a contiguous copy."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+@pytest.mark.parametrize("g_layout", [CL, torch.contiguous_format])
+@pytest.mark.parametrize("x_layout", [CL, torch.contiguous_format])
+@pytest.mark.parametrize("pre_act", [None, "relu", "leaky0.2"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_taps_backward_follows_x_layout(dtype, pre_act, x_layout, g_layout):
+    """The taps op's input gradient comes out in x's memory format, and
+    its three gradients are the parent's formulas' bit for bit (bf16: the
+    library's dgrad in x's layout sums as the NCHW one does on the CPU;
+    f32: the NCHW dgrad laid out as x). The backward counts one call, and
+    the layout copies its input gradient makes: bf16 one where g is laid
+    out otherwise than x; f32 one where g is not NCHW (the dgrad's input)
+    and one where x is channels_last (the dgrad's result)."""
+    gen = torch.Generator().manual_seed(13)
+    draw = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen)
+                                      * scale).to(dtype)
+    x = draw(2, 8, 12, 10).contiguous(memory_format=x_layout).requires_grad_()
+    w = draw(6, 8, 3, 3, scale=0.1).requires_grad_()
+    b = draw(6, scale=0.1).requires_grad_()
+    g = draw(2, 6, 12, 10).contiguous(memory_format=g_layout)
+    before = (tc3.conv3x3_taps.backwards.launches,
+              tc3.conv3x3_taps.layout_copies.launches)
+    y = tc3.conv3x3_taps(x, w, b, pre_act)
+    gx, gw, gb = torch.autograd.grad(y, (x, w, b), g)
+    copied = ((g_layout != x_layout) if dtype == BF16
+              else (g_layout != torch.contiguous_format) + (x_layout == CL))
+    assert (tc3.conv3x3_taps.backwards.launches - before[0],
+            tc3.conv3x3_taps.layout_copies.launches - before[1]) == (1, copied)
+    assert gx.is_contiguous(memory_format=x_layout) and gx.dtype == dtype
+    xd, wd = x.detach(), w.detach()
+    want_x, want_b = _parent_grads(xd, wd, g, pre_act)
+    assert torch.equal(_bits(gx), _bits(want_x))
+    assert torch.equal(_bits(gb), _bits(want_b))
+    want_w = tc3.wgrad_taps(xd.permute(0, 2, 3, 1),
+                            g.contiguous().permute(0, 2, 3, 1), pre_act, dtype)
+    assert torch.equal(_bits(gw), _bits(want_w))
 
 
 def test_cell_sites_are_the_steps_94():
